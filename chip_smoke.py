@@ -1,0 +1,612 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (smolvision_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a host with one CUDA card (Hopper: the
+kernels are built for sm_90a).  Phases, each fatal on failure:
+
+  1. device   - the card's name, count, and nvidia-smi's name / power limit;
+  2. build    - nvcc builds the three attention kernels from
+                smolvision_tpu_torch/kernels/csrc (seconds, ptxas report);
+  3. kernels  - each kernel against its plain torch version at the 0.6B
+                main-path shapes plus edge cases (all-pad windows, empty
+                cache, kv_min > 0, stale +-999 cache rows), then timed
+                against the plain version and one PyTorch library call;
+  4. main path- a seeded Qwen3-ASR-0.6B checkpoint (full width, random
+                weights) transcribes a 20 s synthetic clip through
+                `smolvision_tpu_torch.cli`; every kernel's launch count must
+                rise by the expected amount; then the card's kernel path is
+                held against the card's plain path (encoder output, prefill
+                logits, greedy tokens).
+
+Prints a `{"kernels": [...]}` line, the nvidia-smi line, and as its last
+line `{"ok": true, "device": {...}}`.  Without a card, or outside a
+checkout, it exits non-zero and prints no result.  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import os
+import shutil
+import struct
+import subprocess
+import sys
+import time
+from unittest import mock
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+DEV = "cuda"  # where the checks run; a CPU rehearsal of phases 3-4 sets "cpu"
+SEED = 0
+CLIP_SEC = 20.0
+MAX_TOKENS = 64
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+PEAK_OPS = {"float32": 67e12,      # f32 outside the tensor cores
+            "bfloat16": 989e12}    # bf16 dense tensor-core rate
+# Kernel vs plain: both compute in f32 from the same inputs and differ only in
+# summation order (online softmax over tiles vs one reduction), ~1e-6
+# relative on outputs of magnitude <~ 3; 1e-4 absolute leaves two orders of
+# headroom and still catches any masking or indexing fault (those move
+# outputs by O(0.1) or give NaN).
+KERNEL_ATOL = 1e-4
+# Kernel path vs plain path end to end, relative to the largest magnitude of
+# the compared tensor (a wrong kernel gives O(1) differences):
+#  * f32 weights and cache: the paths differ only in attention summation
+#    order (~1e-6), which 18 + 28 layers of a random net amplify by far less
+#    than 1000x;
+#  * bf16 weights (the CLI's default): every matmul input is rounded to bf16
+#    (2^-8 relative), so a 1e-6 attention difference flips single roundings
+#    that the random net then amplifies (1.05% on prefill logits measured on
+#    an H100, seed 0); 5% bounds that noise.
+PATH_RTOL = {"float32": 1e-3, "bfloat16": 5e-2}
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# timing and bounds
+# ---------------------------------------------------------------------------
+
+def eager_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """CUDA-event time per call of `iters` calls issued from Python.  For a
+    call shorter than its host-side launch cost this measures the host."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_ms(fn, iters: int = 50, warmup: int = 3) -> float:
+    """CUDA-event time per call of one CUDA-graph replay of `iters` calls:
+    the device's time for back-to-back calls, without the Python launch
+    gaps that dominate `eager_ms` for calls of a few microseconds."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as torch asks
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()  # the first replay uploads the graph
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, flops: float, op_dtype: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_OPS[op_dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels vs plain versions
+# ---------------------------------------------------------------------------
+
+def check_close(name: str, got, want, atol: float = KERNEL_ATOL) -> float:
+    import torch
+
+    if not torch.isfinite(got).all():
+        fail(f"{name}: non-finite kernel output")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if err > atol:
+        fail(f"{name}: max_abs_err {err:.3g} > {atol:g}")
+    return err
+
+
+def window_case(W, lens, S=104, H=14, D=64, garbage=False):
+    import torch
+
+    g = torch.Generator(device=DEV).manual_seed(W * 1000 + sum(lens))
+    q, k, v = (torch.randn(W, S, H, D, device=DEV, generator=g) for _ in range(3))
+    if garbage:  # pad keys hold junk that must not leak in
+        for w, n in enumerate(lens):
+            k[w, n:] = 999.0
+            v[w, n:] = -999.0
+    return q, k, v, torch.tensor(lens, dtype=torch.int32, device=DEV)
+
+
+def cache_case(T, K, start, kv_valid, H=16, KH=8, D=128, seed=0):
+    """q block at rows start+t; a bf16 cache holding it, with +-999 in every
+    row at or past kv_valid (the pad rows prefill writes, and stale rows)."""
+    import torch
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    q = torch.randn(T, H, D, device=DEV, generator=g)
+    k = torch.randn(K, KH, D, device=DEV, generator=g).to(torch.bfloat16)
+    v = torch.randn(K, KH, D, device=DEV, generator=g).to(torch.bfloat16)
+    k[kv_valid:] = 999.0
+    v[kv_valid:] = -999.0
+    return q, k, v
+
+
+def decode_case(K, start, H=16, KH=8, D=128, seed=0):
+    import torch
+
+    g = torch.Generator(device=DEV).manual_seed(seed + K + start)
+    q = torch.randn(H, D, device=DEV, generator=g)
+    k_new = torch.randn(KH, D, device=DEV, generator=g)
+    v_new = torch.randn(KH, D, device=DEV, generator=g)
+    k = torch.randn(K, KH, D, device=DEV, generator=g).to(torch.bfloat16)
+    v = torch.randn(K, KH, D, device=DEV, generator=g).to(torch.bfloat16)
+    k[start:] = 999.0
+    v[start:] = -999.0
+    return q, k_new, v_new, k, v
+
+
+def phase_kernels(shapes):
+    """Correctness sweep, then timings at the main-path shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from smolvision_tpu_torch.kernels import flash_attention as fa
+
+    errs = {"window_attention": 0.0, "causal_cache_attention": 0.0, "decode_attention": 0.0}
+
+    # B1: W in {2, 4}, one all-pad window each
+    for W, lens, garbage in ((2, [104, 0], False), (4, shapes["window_lens"], False),
+                             (4, [104, 77, 1, 0], True)):
+        q, k, v, lens_t = window_case(W, lens, garbage=garbage)
+        got = fa.window_flash_attention(q, k, v, lens_t)
+        err = check_close(f"B1 W={W} lens={lens}", got, fa.window_attention_plain(q, k, v, lens_t))
+        for w in (w for w, n in enumerate(lens) if n == 0):
+            if float(got[w].abs().max()) != 0.0:
+                fail(f"B1 W={W}: all-pad window {w} is not exactly 0")
+        errs["window_attention"] = max(errs["window_attention"], err)
+
+    # B2: T 256 / 512, K 1024, start 0 and > 0, kv_min 0 and > 0, stale rows
+    # (T, start, kv_valid, kv_min); kv_valid < start + T leaves pad rows
+    for T, start, kv_valid, kv_min in ((256, 0, 200, 0), (512, 0, shapes["prompt_len"], 0),
+                                       (512, 300, 700, 0), (256, 100, 330, 37)):
+        q, k, v = cache_case(T, 1024, start, kv_valid)
+        got = fa.causal_cache_flash_attention(q, k, v, start, kv_valid, kv_min=kv_min)
+        want = fa.causal_cache_attention_plain(q, k, v, start, kv_valid, kv_min)
+        err = check_close(f"B2 T={T} start={start} valid={kv_valid} kv_min={kv_min}", got, want)
+        errs["causal_cache_attention"] = max(errs["causal_cache_attention"], err)
+
+    # B3: K 1024 / 4096, start in {0, 1, 300, K-1}, kv_min 0 and > 0
+    for K in (1024, 4096):
+        for start in (0, 1, 300, K - 1):
+            for kv_min in {0, min(17, start)}:
+                q, kn, vn, k, v = decode_case(K, start)
+                got = fa.decode_flash_attention(q, kn, vn, k, v, start, kv_min)
+                want = fa.decode_attention_plain(q, kn, vn, k, v, start, kv_min)
+                err = check_close(f"B3 K={K} start={start} kv_min={kv_min}", got, want)
+                errs["decode_attention"] = max(errs["decode_attention"], err)
+    log(f"kernels vs plain: max_abs_err {json.dumps(errs)} (tolerance {KERNEL_ATOL:g})")
+
+    rows = []
+    # --- B1 at the main-path shape
+    W, lens = len(shapes["window_lens"]), shapes["window_lens"]
+    q, k, v, lens_t = window_case(W, lens)
+    S, H, D = q.shape[1:]
+    mask = (torch.arange(S, device=DEV)[None, :] < lens_t[:, None])[:, None, None, :]
+    qh, kh, vh = (x.permute(0, 2, 1, 3) for x in (q, k, v))
+    nbytes = 4 * (2 * q.numel() + 2 * sum(lens) * H * D)
+    flops = 4 * S * sum(lens) * H * D
+    rows.append(("window_attention", "smolvision_tpu_torch/kernels/csrc/window_attention.cu",
+                 "smolvision_tpu/kernels/flash_attention.py:60",
+                 lambda: fa.window_flash_attention(q, k, v, lens_t),
+                 lambda: fa.window_attention_plain(q, k, v, lens_t),
+                 lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
+                 bound(nbytes, flops, "float32")))
+
+    # --- B2 at the main-path shape (prefill from an empty cache)
+    T, K, valid = shapes["prefill_T"], shapes["kv_cap"], shapes["prompt_len"]
+    q2, k2, v2 = cache_case(T, K, 0, valid)
+    H2, D2 = q2.shape[1:]
+    KH2 = k2.shape[1]
+    attended = sum(min(t + 1, valid) for t in range(T))
+    nbytes = 4 * 2 * q2.numel() + 2 * 2 * valid * KH2 * D2
+    flops = 4 * H2 * D2 * attended
+    q2b = q2.to(torch.bfloat16).permute(1, 0, 2)[None]
+    k2b, v2b = (x[:valid].permute(1, 0, 2)[None] for x in (k2, v2))
+    rows2 = torch.arange(T, device=DEV)[:, None]
+    mask2 = torch.arange(valid, device=DEV)[None, :] <= rows2
+    rows.append(("causal_cache_attention",
+                 "smolvision_tpu_torch/kernels/csrc/causal_cache_attention.cu",
+                 "smolvision_tpu/kernels/flash_attention.py:491",
+                 lambda: fa.causal_cache_flash_attention(q2, k2, v2, 0, valid),
+                 lambda: fa.causal_cache_attention_plain(q2, k2, v2, 0, valid),
+                 lambda: F.scaled_dot_product_attention(q2b, k2b, v2b, attn_mask=mask2,
+                                                        enable_gqa=True),
+                 bound(nbytes, flops, "bfloat16")))
+
+    # --- B3 at a mid-decode shape of the main path
+    start = shapes["decode_pos"]
+    q3, kn, vn, k3, v3 = decode_case(K, start)
+    H3, D3 = q3.shape
+    KH3 = kn.shape[0]
+    nbytes = 4 * (2 * q3.numel() + 2 * kn.numel()) + 2 * 2 * start * KH3 * D3
+    flops = 4 * H3 * D3 * (start + 1)
+    k3[start] = kn.to(torch.bfloat16)
+    v3[start] = vn.to(torch.bfloat16)
+    q3b = q3.to(torch.bfloat16)[None, :, None, :]
+    k3b, v3b = (x[: start + 1].permute(1, 0, 2)[None] for x in (k3, v3))
+    rows.append(("decode_attention", "smolvision_tpu_torch/kernels/csrc/decode_attention.cu",
+                 "smolvision_tpu/kernels/flash_attention.py:184",
+                 lambda: fa.decode_flash_attention(q3, kn, vn, k3, v3, start, 0),
+                 lambda: fa.decode_attention_plain(q3, kn, vn, k3, v3, start, 0),
+                 lambda: F.scaled_dot_product_attention(q3b, k3b, v3b, enable_gqa=True),
+                 bound(nbytes, flops, "bfloat16")))
+
+    table = []
+    for name, source, replaces, kern, plain, lib, (bound_ms, bound_by) in rows:
+        # turns: plain, kernel, kernel, plain (noise shows as disagreement)
+        p1, k1, k2_, p2 = (time_ms(f) for f in (plain, kern, kern, plain))
+        table.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "max_abs_err": errs[name], "ms": min(k1, k2_), "plain_ms": min(p1, p2),
+            "library_ms": time_ms(lib), "bound_ms": bound_ms, "bound_by": bound_by,
+        })
+        log(f"  {name}: kernel {k1:.4f}/{k2_:.4f} ms (eager {eager_ms(kern):.4f} ms), "
+            f"plain {p1:.4f}/{p2:.4f} ms, library {table[-1]['library_ms']:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
+    return table
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path
+# ---------------------------------------------------------------------------
+
+def speech_like(seconds: float, seed: int):
+    """AM-modulated tones with pauses and a little noise (the tests'
+    speech_like_audio fixture, stretched to `seconds`)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sr = 16000
+    t = np.arange(int(sr * seconds)) / sr
+    sig = (0.30 * np.sin(2 * np.pi * 220 * t) * (0.5 + 0.5 * np.sin(2 * np.pi * 3 * t))
+           + 0.15 * np.sin(2 * np.pi * 880 * t) * (t % 1.0 < 0.4)
+           + 0.01 * rng.standard_normal(len(t)))
+    for s0 in np.arange(1.4, seconds, 3.0):  # a pause every 3 s
+        sig[int(s0 * sr): int((s0 + 0.3) * sr)] *= 0.02
+    return sig.astype(np.float32)
+
+
+def write_wav(path: str, samples, sr: int = 16000) -> None:
+    import numpy as np
+
+    pcm = (np.clip(samples, -1, 1) * 32767).astype("<i2").tobytes()
+    fmt = struct.pack("<HHIIHH", 1, 1, sr, sr * 2, 2, 16)
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 36 + len(pcm)) + b"WAVE"
+                + b"fmt " + struct.pack("<I", len(fmt)) + fmt
+                + b"data" + struct.pack("<I", len(pcm)) + pcm)
+
+
+def main_path_shapes(model_dir: str, samples):
+    """The attention shapes the main path will run on this clip."""
+    from smolvision_tpu_torch.config import detect_config
+    from smolvision_tpu_torch.models.qwen3_encoder import total_encoder_tokens
+    from smolvision_tpu_torch.ops.mel import num_frames
+    from smolvision_tpu_torch.runtime.buckets import bucket, window_bucket
+    from smolvision_tpu_torch.runtime.engine import KV_HEADROOM
+    from smolvision_tpu_torch.runtime.prompt import build_asr_prompt
+    from smolvision_tpu_torch.text.tokenizer import load_tokenizer
+
+    cfg = detect_config(model_dir)
+    n_tok = total_encoder_tokens(num_frames(len(samples)), cfg)
+    wts = cfg.window_token_size()
+    W = window_bucket(n_tok, wts) // wts
+    force = load_tokenizer(model_dir).encode("language English") + [151704]
+    ids, _ = build_asr_prompt(cfg, n_tok, (), force)
+    T = bucket(len(ids), 64)
+    return {
+        "window_lens": [min(max(n_tok - w * wts, 0), wts) for w in range(W)],
+        "prompt_len": len(ids), "prefill_T": T,
+        "kv_cap": bucket(T + KV_HEADROOM, 256),
+        "decode_pos": len(ids) + MAX_TOKENS // 2,
+    }
+
+
+def path_trace(eng, samples, steps: int, forced=None):
+    """Encoder output, prefill logits and `steps` greedy choices with their
+    top-2 logit gaps, through the engine's own primitives.  With `forced`,
+    step i feeds forced[i] to the next step instead of its own choice (so
+    two paths can be compared step by step on one token sequence)."""
+    import torch
+
+    from smolvision_tpu_torch.ops.mel import log_mel
+    from smolvision_tpu_torch.runtime.prompt import build_asr_prompt
+
+    with torch.inference_mode():
+        enc, n_audio = eng.encode_mel(log_mel(samples))
+        ids, a0 = build_asr_prompt(eng.cfg, n_audio, eng._prompt_tokens, eng._force_tokens)
+        eng.reset_kv()
+        logits, pos = eng.prefill_ids(ids, enc, a0, n_audio, greedy=False)
+        prefill_logits = logits.float().clone()
+        toks, gaps = [], []
+        for i in range(steps):
+            top = torch.topk(logits, 2).values
+            gaps.append(float(top[0] - top[1]))
+            toks.append(int(torch.argmax(logits)))
+            logits = eng.decode_step(toks[-1] if forced is None else forced[i], pos,
+                                     greedy=False)
+            pos += 1
+        return enc[:n_audio].float().clone(), prefill_logits, toks, gaps
+
+
+def compare_paths(eng, samples, steps: int) -> dict:
+    """The card's kernel path vs the card's plain path on the same engine."""
+    import torch
+
+    from smolvision_tpu_torch.kernels import flash_attention as fa
+
+    rtol = PATH_RTOL[str(eng.param_dtype).replace("torch.", "")]
+
+    kern = path_trace(eng, samples, steps)
+    # the plain path is fed the kernel path's tokens: every step compares
+    # the two choices after the same prefix
+    with mock.patch.object(fa, "window_flash_attention", fa.window_attention_plain), \
+            mock.patch.object(fa, "causal_cache_flash_attention",
+                              lambda q, k, v, s, n, kv_min=0:
+                              fa.causal_cache_attention_plain(q, k, v, s, n, kv_min)), \
+            mock.patch.object(fa, "decode_flash_attention", fa.decode_attention_plain):
+        plain = path_trace(eng, samples, steps, forced=kern[2])
+    out = {}
+    for i, name in ((0, "encoder"), (1, "prefill_logits")):
+        if not (torch.isfinite(kern[i]).all() and torch.isfinite(plain[i]).all()):
+            fail(f"{name}: non-finite values")
+        err = float((kern[i] - plain[i]).abs().max())
+        tol = rtol * float(plain[i].abs().max())
+        out[name] = {"max_abs_err": err, "tolerance": tol}
+        if not err <= tol:
+            fail(f"kernel vs plain path: {name} max_abs_err {err:.4g} > {tol:.4g}")
+    tol = out["prefill_logits"]["tolerance"]
+    near_ties = []
+    for i, (a, b, ga, gb) in enumerate(zip(kern[2], plain[2], kern[3], plain[3])):
+        if min(ga, gb) < tol:
+            near_ties.append(i)  # either token is a legitimate greedy choice
+        elif a != b:
+            fail(f"kernel vs plain path: greedy token {i} differs ({a} vs {b}) "
+                 f"with top-2 gap {min(ga, gb):.4g} >= {tol:.4g}")
+    out["greedy_steps"] = steps
+    out["greedy_tokens_compared"] = steps - len(near_ties)
+    out["first_near_tie"] = near_ties[0] if near_ties else None
+    out["rtol"] = rtol
+    return out
+
+
+def profile_decode(eng, samples, steps: int = 16) -> dict:
+    """Device busy time and the top kernels over `steps` decode steps of the
+    main path (torch.profiler), against the host wall clock."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from smolvision_tpu_torch.ops.mel import log_mel
+    from smolvision_tpu_torch.runtime.prompt import build_asr_prompt
+
+    with torch.inference_mode():
+        enc, n_audio = eng.encode_mel(log_mel(samples))
+        ids, a0 = build_asr_prompt(eng.cfg, n_audio, eng._prompt_tokens, eng._force_tokens)
+        eng.reset_kv()
+        tok, pos = eng.prefill_ids(ids, enc, a0, n_audio)
+        tok = int(tok)
+        for _ in range(4):  # warm-up steps outside the window
+            tok, pos = int(eng.decode_step(tok, pos)), pos + 1
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            for _ in range(steps):
+                tok, pos = int(eng.decode_step(tok, pos)), pos + 1
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t0) * 1e3
+    # device-side entries only (kernels, memcpy/memset): the CPU ops that
+    # launched them report the same time again
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:6]
+    return {
+        "steps": steps, "wall_ms_per_step": wall_ms / steps,
+        "device_busy_ms_per_step": busy_ms / steps,
+        "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
+        "kernels_per_step": sum(e.count for e in events) / steps,
+        "top_kernels_ms_per_step": {e.key[:60]: e.self_device_time_total / 1e3 / steps
+                                    for e in top},
+    }
+
+
+def phase_main_path(model_dir: str, wav: str, n_enc_layers: int, n_dec_layers: int):
+    import torch
+
+    from smolvision_tpu_torch import cli
+    from smolvision_tpu_torch.kernels import flash_attention as fa
+
+    argv = ["-d", model_dir, "-i", wav, "--silent", "--language", "English",
+            "--max-tokens", str(MAX_TOKENS)]
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    fa.reset_launch_counts()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        rc, eng = cli.run(argv)
+    wall_s = time.monotonic() - t0
+    launches = dict(fa.launch_counts)
+    if rc != 0 or eng is None:
+        fail(f"cli exited {rc}")
+    transcript = out.getvalue().strip()
+    if not transcript:
+        fail("empty transcript")
+    perf = eng.perf
+    expected = {"window_attention": n_enc_layers, "causal_cache_attention": n_dec_layers,
+                "decode_attention": n_dec_layers * perf.decode_steps}
+    log(f"main path: cli rc {rc}, {wall_s:.2f} s wall incl. load; launches {launches}, "
+        f"expected {expected} ({perf.decode_steps} decode steps)")
+    if launches != expected:
+        fail(f"launch counts {launches} != expected {expected}")
+    if perf.decode_steps == 0:
+        fail("no decode step ran")
+    log(f"  transcript ({perf.text_tokens} text tokens): {transcript[:120]}")
+    log(f"  first run in the process: {perf_line(perf)}, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30 if DEV == 'cuda' else 0:.3f} GiB")
+    return eng, launches
+
+
+def perf_line(perf) -> str:
+    enc_ms = perf.encode_ms - perf.mel_ms
+    dec_ms = perf.decode_ms - perf.prefill_ms
+    return (f"mel {perf.mel_ms:.2f} ms, encode {enc_ms:.2f} ms, "
+            f"prefill {perf.prefill_ms:.2f} ms, decode {dec_ms:.2f} ms "
+            f"({perf.decode_steps} steps, "
+            f"{1000.0 * perf.decode_steps / max(dec_ms, 1e-9):.2f} steps/s), "
+            f"total {perf.total_ms:.2f} ms, "
+            f"{1000.0 * perf.text_tokens / perf.total_ms:.2f} tok/s, "
+            f"realtime factor {perf.audio_ms / perf.total_ms:.2f}x")
+
+
+def warm_run(eng, samples) -> str:
+    """The same transcription again on the warm engine (no first-call
+    library set-up): the steady-state cost of one request."""
+    from smolvision_tpu_torch.config import SAMPLE_RATE
+
+    eng.perf.reset()
+    eng.perf.audio_ms = 1000.0 * len(samples) / SAMPLE_RATE
+    eng.transcribe_segment(samples)
+    return perf_line(eng.perf)
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(ROOT, "smolvision_tpu_torch")):
+        fail(f"no smolvision_tpu_torch/ beside {__file__}: run it from a checkout")
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    sys.path.insert(0, ROOT)
+
+    # phase 1: device
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    smi_line = smi.stdout.strip().splitlines()[0]
+    log(f"device: {kind} (count {count}); torch {torch.__version__}, CUDA {torch.version.cuda}; "
+        f"nvidia-smi: {smi_line}")
+
+    # phase 2: build
+    from smolvision_tpu_torch.kernels import build
+
+    t0 = time.monotonic()
+    logs = build.build_all()
+    log(f"build: {time.monotonic() - t0:.2f} s")
+    for entry in logs:
+        for line in entry.ptxas.splitlines():
+            if "Used" in line or "spill" in line or "Compiling entry" in line:
+                log(f"  [{entry.name}] {line.strip()}")
+
+    from smolvision_tpu_torch.models.synthetic import build as build_checkpoint
+
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        model_dir = os.path.join(work, "qwen3-asr-0.6b")
+        t0 = time.monotonic()
+        build_checkpoint("0.6b", model_dir, seed=SEED, dtype="bf16", full_vocab=True)
+        samples = speech_like(CLIP_SEC, SEED)
+        wav = os.path.join(work, "clip.wav")
+        write_wav(wav, samples)
+        log(f"checkpoint: 0.6b preset, seed {SEED}, bf16, written in "
+            f"{time.monotonic() - t0:.2f} s; clip {CLIP_SEC:.0f} s")
+        shapes = main_path_shapes(model_dir, samples)
+        log(f"main-path attention shapes: {json.dumps(shapes)}")
+
+        # phase 3: kernels vs plain versions
+        table = phase_kernels(shapes)
+
+        # phase 4: the main path through the CLI, then kernel vs plain path
+        from smolvision_tpu_torch.config import detect_config
+
+        cfg = detect_config(model_dir)
+        eng, launches = phase_main_path(model_dir, wav, cfg.enc_layers, cfg.dec_layers)
+        from smolvision_tpu_torch.io.wav import load_wav
+
+        clip = load_wav(wav)
+        log(f"  warm second run: {warm_run(eng, clip)}")
+        log(f"decode profile (bf16 main path): {json.dumps(profile_decode(eng, clip))}")
+        cmp = compare_paths(eng, clip, steps=MAX_TOKENS // 2)
+        log(f"kernel path vs plain path on the card, bf16 weights: {json.dumps(cmp)}")
+        del eng
+        from smolvision_tpu_torch.runtime.engine import Engine
+
+        eng = Engine(model_dir, param_dtype=torch.float32, kv_dtype=torch.float32,
+                     device=DEV)
+        eng.set_force_language("English")
+        eng.prepare_prompt()
+        cmp = compare_paths(eng, clip, steps=MAX_TOKENS // 2)
+        log(f"kernel path vs plain path on the card, f32 weights: {json.dumps(cmp)}")
+        del eng
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    for row in table:
+        row["launches"] = launches[row["name"]]
+        row["kernel_ms"] = row["ms"]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in table]}))
+    print(smi_line)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,232 @@
+"""CLI — the JAX package's parser and stdout/stderr contract, on the port.
+
+Port of smolvision_tpu/cli.py for the single-file offline path: `-i x.wav`
+(or --stdin), `-S` absent or 0, with --silent / --language / --prompt /
+--max-tokens / --f32.  The transcript goes to STDOUT
+(tokens streamed as decoded in normal mode; one final line in --silent);
+status/perf lines go to STDERR:
+  Inference: ... ms, N text tokens (X tok/s, encoding: ...ms, decoding: ...ms)
+  Audio: X s processed in Y s (Zx realtime)
+Every mode not ported yet exits 1 with one `smolvision: ...` line.
+
+Runs on the card; SMOLVISION_PLATFORM=cpu selects the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+from typing import TYPE_CHECKING, Optional, Tuple
+
+import numpy as np
+
+if TYPE_CHECKING:
+    from smolvision_tpu_torch.runtime.engine import Engine
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="smolvision",
+        description="smolvision_tpu_torch — Qwen3-ASR speech-to-text (PyTorch/CUDA)")
+    p.add_argument("-d", dest="model_dir", required=True, help="model directory")
+    p.add_argument("-i", dest="input_wav", nargs="+", metavar="WAV",
+                   help="input WAV file(s); several files are transcribed as "
+                        "one device batch (serving mode), one line each")
+    p.add_argument("--stdin", action="store_true", help="read audio from stdin")
+    p.add_argument("-t", dest="threads", type=int, default=0,
+                   help="host threads (accepted for compatibility)")
+    p.add_argument("-S", dest="segment_sec", type=float, default=-1,
+                   help="segment target seconds (0 = full-audio decode)")
+    p.add_argument("-W", dest="search_sec", type=float, default=-1,
+                   help="segment-cut silence search window +/- seconds")
+    p.add_argument("--stream", action="store_true", help="streaming mode")
+    p.add_argument("--stream-max-new-tokens", type=int, default=-1)
+    p.add_argument("--enc-window-sec", type=float, default=-1)
+    p.add_argument("--past-text", choices=["yes", "no", "auto"], default="auto")
+    p.add_argument("--skip-silence", action="store_true")
+    p.add_argument("--prompt", default=None)
+    p.add_argument("--language", default=None)
+    p.add_argument("--thinker", action="store_true")
+    p.add_argument("--text", dest="thinker_text", default=None)
+    p.add_argument("--max-tokens", type=int, default=-1)
+    p.add_argument("--temperature", "--temp", dest="temperature", type=float, default=-1.0)
+    p.add_argument("--repeat-penalty", type=float, default=-1.0)
+    p.add_argument("--top-k", type=int, default=-1)
+    p.add_argument("--seed", type=int, default=0, help="sampling seed (thinker)")
+    p.add_argument("--sampler", choices=["device", "cref"], default="device",
+                   help="thinker sampling arm: device = sampled chunks on "
+                        "device (fast, np-seeded); cref = per-token host "
+                        "loop replaying the reference C engine's exact "
+                        "drand48 sampler (cross-engine sampled parity)")
+    p.add_argument("--moe-preload", action="store_true",
+                   help="accepted for compatibility (weights are device-resident; "
+                        "with --moe-offload: touch all expert pages up front)")
+    p.add_argument("--moe-offload", action="store_true",
+                   help="MoE experts stay on HOST and stream per layer "
+                        "(runs checkpoints whose experts exceed device HBM, "
+                        "e.g. 30B on one chip; docs/MOE_30B_PLAN.md Plan B)")
+    p.add_argument("--monitor", action="store_true")
+    p.add_argument("--debug", action="store_true")
+    p.add_argument("--silent", action="store_true")
+    p.add_argument("--q8", action="store_true",
+                   help="int8 decoder weights: ~1.7x decode speed, small "
+                        "accuracy trade (outside the bf16 parity contract); "
+                        "also SMOLVISION_Q8=1")
+    p.add_argument("--spec", action="store_true",
+                   help="speculative int8-draft decoding: draft tokens with "
+                        "an int8 decoder copy, verify in one bf16 forward — "
+                        "output stays BIT-EXACT bf16 greedy at near-int8 "
+                        "decode speed; also SMOLVISION_SPEC=1")
+    p.add_argument("--kv8", action="store_true",
+                   help="int8 KV cache on the batched decode paths (serving/"
+                        "multistream/batched segments): halves the dominant "
+                        "KV-read bytes at B>=8 for a small accuracy trade; "
+                        "also SMOLVISION_KV8=1")
+    p.add_argument("--f32", action="store_true",
+                   help="float32 weights AND KV cache (the C engine's exact "
+                        "arithmetic family — its kv_cache_k/v are float*, "
+                        "qwen_asr_decoder.c:171-172; parity runs, slower)")
+    p.add_argument("--no-batch-segments", action="store_true",
+                   help="decode -S segments sequentially like the reference")
+    p.add_argument("--serve", type=int, metavar="SLOTS", default=0,
+                   help="with several -i files: continuous-batching scheduler "
+                        "(runtime/serving.py) with SLOTS rolling decode rows "
+                        "instead of one static batch — rows admit as others "
+                        "finish; best for many or mixed-length clips")
+    p.add_argument("--serve-admit", type=int, metavar="N", default=0,
+                   help="latency knob for --serve: admit at most N clips per "
+                        "wave so the first clips start decoding without "
+                        "waiting for the full SLOTS-wide prefill (measured: "
+                        "admit->first-token p50 ~100 ms at N=16 vs ~1.2 s "
+                        "full-wave, at ~47%% throughput cost)")
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="write a profiler trace of the transcription to DIR")
+    return p
+
+
+def _unported(args) -> Optional[str]:
+    """The first requested mode this port does not run yet, or None."""
+    if args.input_wav and len(args.input_wav) > 1:
+        return "several -i files (batched serving)"
+    checks = [
+        (args.thinker, "--thinker"), (args.stream, "--stream"),
+        (args.segment_sec > 0, "-S > 0 (segmented decode)"),
+        (args.skip_silence, "--skip-silence"), (args.q8, "--q8"),
+        (args.spec, "--spec"), (args.kv8, "--kv8"),
+        (args.moe_offload, "--moe-offload"), (args.moe_preload, "--moe-preload"),
+        (args.serve > 0, "--serve"), (args.profile, "--profile"),
+        (args.enc_window_sec >= 0, "--enc-window-sec"),
+        (os.environ.get("SMOLVISION_Q8", "") == "1", "SMOLVISION_Q8=1"),
+        (os.environ.get("SMOLVISION_KV8", "") == "1", "SMOLVISION_KV8=1"),
+        (os.environ.get("SMOLVISION_SPEC", "") == "1", "SMOLVISION_SPEC=1"),
+    ]
+    for on, what in checks:
+        if on:
+            return what
+    return None
+
+
+def run(argv=None) -> Tuple[int, Optional["Engine"]]:
+    """`main`, also returning the Engine it ran (None when none was built)."""
+    args = build_parser().parse_args(argv)
+
+    if not args.thinker and not args.input_wav and not args.stdin:
+        print("Error: need -i, --stdin, or --thinker --text", file=sys.stderr)
+        return 1, None
+    if args.input_wav and args.stdin:
+        print("Error: -i and --stdin are mutually exclusive", file=sys.stderr)
+        return 1, None
+    missing = _unported(args)
+    if missing:
+        print(f"smolvision: {missing} is not yet ported to smolvision_tpu_torch",
+              file=sys.stderr)
+        return 1, None
+
+    verbosity = 0 if args.silent else (2 if args.debug else 1)
+
+    import torch
+
+    from smolvision_tpu_torch.io.wav import load_wav, read_pcm_stdin
+    from smolvision_tpu_torch.runtime.engine import Engine
+
+    platform = os.environ.get("SMOLVISION_PLATFORM", "").strip().lower()
+    try:
+        eng = Engine(
+            args.model_dir,
+            param_dtype=torch.float32 if args.f32 else torch.bfloat16,
+            # --f32 is f32 weights AND f32 KV, the C engine's arithmetic
+            # family end to end (its kv_cache_k/v are float*)
+            kv_dtype=torch.float32 if args.f32 else torch.bfloat16,
+            verbose=verbosity,
+            device="cpu" if platform == "cpu" else None,
+        )
+    except Exception as e:
+        # mirror the reference's one-line load failure (main.c:292-296)
+        print(f"smolvision: failed to load model from {args.model_dir}: "
+              f"{type(e).__name__}: {e}", file=sys.stderr)
+        return 1, None
+
+    if args.max_tokens > 0:
+        eng.max_tokens = args.max_tokens
+    if args.prompt:
+        eng.set_prompt(args.prompt)
+    if args.language:
+        if not eng.set_force_language(args.language):
+            from smolvision_tpu_torch.config import SUPPORTED_LANGUAGES
+
+            print(f"Unsupported language for --language: {args.language}", file=sys.stderr)
+            print("Supported languages: " + ",".join(SUPPORTED_LANGUAGES), file=sys.stderr)
+            return 1, eng
+
+    emit_tokens = verbosity > 0
+
+    def stream_token(piece: bytes):
+        sys.stdout.buffer.write(piece)
+        sys.stdout.flush()
+
+    eng.token_cb = stream_token if emit_tokens else None
+
+    try:
+        samples = load_wav(args.input_wav[0]) if args.input_wav else read_pcm_stdin()
+    except (OSError, ValueError) as e:
+        print(f"smolvision: cannot load audio: {e}", file=sys.stderr)
+        return 1, eng
+
+    from smolvision_tpu_torch.config import SAMPLE_RATE
+
+    try:
+        # the unsegmented path of runtime/segment.transcribe_audio
+        eng.perf.reset()
+        eng.perf.audio_ms = 1000.0 * len(samples) / SAMPLE_RATE
+        eng.prepare_prompt()
+        text, _ = eng.transcribe_segment(np.asarray(samples, dtype=np.float32))
+    except ValueError as e:
+        print(f"smolvision: {e}", file=sys.stderr)
+        return 1, eng
+
+    if emit_tokens:
+        sys.stdout.write("\n")
+    else:
+        sys.stdout.write(text + "\n")
+    sys.stdout.flush()
+
+    if verbosity >= 1:
+        perf = eng.perf
+        tok_s = (1000.0 * perf.text_tokens / perf.total_ms) if perf.total_ms > 0 else 0.0
+        print(f"Inference: {perf.total_ms:.0f} ms, {perf.text_tokens} text tokens "
+              f"({tok_s:.2f} tok/s, encoding: {perf.encode_ms:.0f}ms, "
+              f"decoding: {perf.decode_ms:.0f}ms)", file=sys.stderr)
+        if perf.audio_ms > 0 and perf.total_ms > 0:
+            audio_s = perf.audio_ms / 1000.0
+            infer_s = perf.total_ms / 1000.0
+            print(f"Audio: {audio_s:.1f} s processed in {infer_s:.1f} s "
+                  f"({audio_s / infer_s:.2f}x realtime)", file=sys.stderr)
+    return 0, eng
+
+
+def main(argv=None) -> int:
+    return run(argv)[0]
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,199 @@
+// The f32 register-tiled attention core of kernels B1 (window_attention.cu)
+// and B2 (causal_cache_attention.cu).
+//
+// One block of 256 threads (16 x 16) computes BQ = 64 query rows of one
+// head against the key columns [kv_min, hi), where query row r attends the
+// columns c with kv_min <= c < min(row_start + r + 1, kv_valid): causal for
+// B2 (row_start = its start_pos); a bidirectional caller passes row_start =
+// kv_valid.  The keys are walked in BK = 64-row tiles; the [rows, keys]
+// scores never leave the SM.
+//
+// On the card this work is bounded by bytes at the main-path shapes, but in
+// f32 on the CUDA cores the products take the time, so the core is shaped
+// like a register-tiled matrix product.  Q (scaled), the K/V tile (widened
+// to f32) and the tile's probabilities sit in shared memory, rows padded by
+// 4 floats so that the 16-byte loads below are free of bank conflicts.
+// Each thread computes a 4 x 4 block of scores (rows ty + 16i, keys
+// tx + 16j: 64 FMAs per 8 shared loads), takes one online-softmax step per
+// row and tile (max and sum over the 16 threads of a row by shuffles), and
+// accumulates a 4 x D/16 block of the output (columns 64f + 4tx + 0..3).
+// Tiles wholly outside the key range are never read; tile rows past it are
+// zero-filled instead of loaded, and masked probabilities are exactly 0,
+// so stale rows (pad rows a caller wrote past kv_valid) contribute nothing.
+#pragma once
+
+#include "common.cuh"
+
+namespace sv {
+
+constexpr int kTileRows = 64;   // BQ: query rows per block
+constexpr int kTileKeys = 64;   // BK: keys per tile
+constexpr int kTileThreads = 256;
+constexpr int kTilePad = 4;
+
+// dynamic shared memory of one block, in bytes
+constexpr size_t tiled_smem_bytes(int D) {
+    return sizeof(float) *
+           (size_t)((kTileRows + 2 * kTileKeys) * (D + kTilePad) + kTileRows * (kTileKeys + kTilePad));
+}
+
+__device__ __forceinline__ float half_warp_max(float x) {
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+    return x;
+}
+
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+    return x;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int i) {
+    return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// q: row 0 of this head's queries (row t at q + t * q_stride), T rows, of
+// which this block takes [t0, t0 + 64); k / v: column 0 of this head's keys
+// (key c at k + c * kv_stride); out: like q, with out_stride.  Every stride
+// is in elements; each row's D elements are contiguous.  smem holds
+// tiled_smem_bytes(D), 16-byte aligned.
+template <int D, typename KV>
+__device__ __forceinline__ void tiled_attention(
+    float* smem, const float* __restrict__ q, long long q_stride, const KV* __restrict__ k,
+    const KV* __restrict__ v, long long kv_stride, float* __restrict__ out,
+    long long out_stride, int T, int t0, int row_start, int kv_valid, int kv_min,
+    float scale) {
+    static_assert(D % 64 == 0, "the thread layout covers 64 output columns per group");
+    constexpr int LD = D + kTilePad;        // row length of the Q / K / V tiles
+    constexpr int LDP = kTileKeys + kTilePad;  // row length of the probability tile
+    constexpr int DG = D / 64;               // float4 groups of output columns per thread
+    float* qs = smem;                        // [kTileRows][LD]
+    float* ks = qs + kTileRows * LD;         // [kTileKeys][LD]
+    float* vs = ks + kTileKeys * LD;         // [kTileKeys][LD]
+    float* ps = vs + kTileKeys * LD;         // [kTileRows][LDP]
+    const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+
+    for (int i = tid; i < kTileRows * D; i += kTileThreads) {
+        const int r = i / D, c = i % D;
+        const int t = t0 + r;
+        qs[r * LD + c] = t < T ? q[t * q_stride + c] * scale : 0.f;
+    }
+
+    // this thread's rows are ty + 16 i; their last attended column + 1
+    int row_hi[4];
+    float m[4], l[4], o[4][4 * DG];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int t = t0 + ty + 16 * i;
+        row_hi[i] = t < T ? min(row_start + t + 1, kv_valid) : kv_min;
+        m[i] = kNegInf;
+        l[i] = 0.f;
+#pragma unroll
+        for (int e = 0; e < 4 * DG; ++e) o[i][e] = 0.f;
+    }
+
+    const int t_last = min(t0 + kTileRows, T) - 1;
+    const int hi = min(row_start + t_last + 1, kv_valid);
+    for (int k0 = kv_min; k0 < hi; k0 += kTileKeys) {
+        __syncthreads();  // the previous tile (and the Q tile on entry) is done
+        for (int i = tid; i < kTileKeys * D; i += kTileThreads) {
+            const int r = i / D, c = i % D;
+            const int col = k0 + r;
+            const long long off = (long long)col * kv_stride + c;
+            ks[r * LD + c] = col < hi ? to_float(k[off]) : 0.f;
+            vs[r * LD + c] = col < hi ? to_float(v[off]) : 0.f;
+        }
+        __syncthreads();
+
+        // scores of rows ty + 16 i against keys tx + 16 j
+        float s[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+        for (int d = 0; d < D; d += 4) {
+            float4 a[4], b[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) a[i] = ld4(qs + (ty + 16 * i) * LD + d);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) b[j] = ld4(ks + (tx + 16 * j) * LD + d);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
+                    s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
+                    s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
+                    s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
+                }
+        }
+
+        // one online-softmax step per row for this tile
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            float mx = kNegInf;
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                if (k0 + tx + 16 * j < row_hi[i]) mx = fmaxf(mx, s[i][j]);
+            const float m_new = fmaxf(m[i], half_warp_max(mx));
+            const float alpha = expf(m[i] - m_new);
+            float sum = 0.f;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const float p = k0 + tx + 16 * j < row_hi[i] ? expf(s[i][j] - m_new) : 0.f;
+                ps[(ty + 16 * i) * LDP + tx + 16 * j] = p;
+                sum += p;
+            }
+            l[i] = l[i] * alpha + half_warp_sum(sum);
+            m[i] = m_new;
+#pragma unroll
+            for (int e = 0; e < 4 * DG; ++e) o[i][e] *= alpha;
+        }
+        __syncthreads();
+
+        // o[i] += P[row i] V over the tile
+#pragma unroll 2
+        for (int c = 0; c < kTileKeys; c += 4) {
+            float4 p4[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) p4[i] = ld4(ps + (ty + 16 * i) * LDP + c);
+#pragma unroll
+            for (int cc = 0; cc < 4; ++cc) {
+#pragma unroll
+                for (int f = 0; f < DG; ++f) {
+                    const float4 vv = ld4(vs + (c + cc) * LD + 64 * f + 4 * tx);
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) {
+                        const float p = lane_of(p4[i], cc);
+                        o[i][4 * f + 0] = fmaf(p, vv.x, o[i][4 * f + 0]);
+                        o[i][4 * f + 1] = fmaf(p, vv.y, o[i][4 * f + 1]);
+                        o[i][4 * f + 2] = fmaf(p, vv.z, o[i][4 * f + 2]);
+                        o[i][4 * f + 3] = fmaf(p, vv.w, o[i][4 * f + 3]);
+                    }
+                }
+            }
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int t = t0 + ty + 16 * i;
+        if (t < T) {
+            const float inv = 1.f / fmaxf(l[i], kDenomFloor);
+            float* op = out + t * out_stride + 4 * tx;
+#pragma unroll
+            for (int f = 0; f < DG; ++f)
+                *reinterpret_cast<float4*>(op + 64 * f) =
+                    make_float4(o[i][4 * f] * inv, o[i][4 * f + 1] * inv, o[i][4 * f + 2] * inv,
+                                o[i][4 * f + 3] * inv);
+        }
+    }
+}
+
+}  // namespace sv

@@ -1,0 +1,258 @@
+"""Attention kernels of the main path: CUDA wrappers and their plain versions.
+
+Port of the three Pallas kernels of smolvision_tpu/kernels/flash_attention.py
+that offline transcription runs:
+
+  * `window_flash_attention`       (B1, encoder)  -> csrc/window_attention.cu
+  * `causal_cache_flash_attention` (B2, prefill)  -> csrc/causal_cache_attention.cu
+  * `decode_flash_attention`       (B3, decode)   -> csrc/decode_attention.cu
+
+Each wrapper launches its hand-written sm_90a kernel for CUDA tensors and
+adds one to `launch_counts[name]` per launch; for CPU tensors it calls the
+plain torch version beside it (same contract: masks, kv_min / start_pos
+semantics, zero output for a row with no key).  There is no fallback: a
+CUDA tensor either goes through the kernel or the wrapper raises.
+
+All math is f32 with scale 1/sqrt(D) applied to q before the product.
+Shapes keep the JAX package's layouts ([W, S, H, D] windows, [K, KH, D]
+cache) so the tests compare like with like.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Dict
+
+import torch
+
+NEG_INF = -1e30
+DENOM_FLOOR = 1e-30
+# live cache rows per split of the decode kernel (B3 phase 1)
+DECODE_ROWS_PER_SPLIT = 64
+DECODE_MAX_SPLITS = 64
+
+launch_counts: Dict[str, int] = {
+    "window_attention": 0,
+    "causal_cache_attention": 0,
+    "decode_attention": 0,
+}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_SIGNATURES = {
+    "sv_window_attention": ("window_attention",
+                            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
+    "sv_causal_cache_attention": ("causal_cache_attention",
+                                  [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _I,
+                                   _I, _I, _F, _P]),
+    "sv_decode_attention": ("decode_attention",
+                            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I,
+                             _I, _I, _I, _I, _F, _P]),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _cfn(symbol: str):
+    from smolvision_tpu_torch.kernels import build
+
+    lib_name, argtypes = _SIGNATURES[symbol]
+    fn = getattr(build.load(lib_name), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _call(symbol: str, *args) -> None:
+    rc = _cfn(symbol)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{symbol}: CUDA error {rc}")
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _check_cuda(*tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    _require(all(t.is_cuda and t.device == dev for t in tensors),
+             "all operands must be CUDA tensors on one device")
+
+
+def _kv_flag(k_cache: torch.Tensor, v_cache: torch.Tensor) -> int:
+    _require(k_cache.dtype == v_cache.dtype
+             and k_cache.dtype in (torch.bfloat16, torch.float32),
+             f"cache must be bf16 or f32, got {k_cache.dtype}/{v_cache.dtype}")
+    _require(k_cache.shape == v_cache.shape and k_cache.stride() == v_cache.stride(),
+             "k/v caches must share shape and strides")
+    _, KH, D = k_cache.shape
+    _require(k_cache.stride(2) == 1 and k_cache.stride(1) == D,
+             "cache rows must be [KH, D] contiguous")
+    return int(k_cache.dtype == torch.bfloat16)
+
+
+def _masked_probs(s, mask):
+    """Softmax over the last axis in which masked entries are exactly 0, as
+    in the Pallas kernels: NEG_INF before the max, a zero after the exp, and
+    the 1e-30 floor under the sum (a row with no key gives all zeros)."""
+    s = torch.where(mask, s, NEG_INF)
+    m = torch.amax(s, dim=-1, keepdim=True) if s.shape[-1] else s[..., :1]
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    return p / torch.clamp(p.sum(-1, keepdim=True), min=DENOM_FLOOR)
+
+
+# ---------------------------------------------------------------------------
+# B1: encoder window attention
+# ---------------------------------------------------------------------------
+
+def window_attention_plain(q, k, v, kv_valid_lens):
+    """q,k,v: [W, S, H, D]; kv_valid_lens: [W] int.  Returns [W, S, H, D] f32;
+    keys >= kv_valid_lens[w] are masked, a window with no valid key gives 0,
+    pad query rows attend the valid keys (finite garbage)."""
+    W, S, H, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    s = torch.einsum("wthd,wshd->whts", q.float() * scale, k.float())
+    lens = kv_valid_lens.to(device=q.device, dtype=torch.int64)
+    valid = (torch.arange(S, device=q.device)[None, :] < lens[:, None])[:, None, None, :]
+    return torch.einsum("whts,wshd->wthd", _masked_probs(s, valid), v.float())
+
+
+def window_flash_attention(q, k, v, kv_valid_lens):
+    """Bidirectional attention inside hard windows (kernel B1 on CUDA)."""
+    if not q.is_cuda:
+        return window_attention_plain(q, k, v, kv_valid_lens)
+    W, S, H, D = q.shape
+    lens = kv_valid_lens.to(device=q.device, dtype=torch.int32).contiguous()
+    _check_cuda(q, k, v, lens)
+    _require(q.dtype == k.dtype == v.dtype == torch.float32, "q/k/v must be f32")
+    _require(k.shape == q.shape and v.shape == q.shape and lens.shape == (W,),
+             "q/k/v must be [W, S, H, D] and kv_valid_lens [W]")
+    _require(q.is_contiguous() and k.is_contiguous() and v.is_contiguous(),
+             "q/k/v must be contiguous")
+    _require(D == 64, f"head dim {D} not built (64)")
+    out = torch.empty_like(q)
+    _call("sv_window_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+          lens.data_ptr(), out.data_ptr(), W, S, H, D, 1.0 / math.sqrt(D), _stream())
+    launch_counts["window_attention"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B2: prefill causal attention against the cache
+# ---------------------------------------------------------------------------
+
+def causal_cache_attention_plain(q, k_cache, v_cache, start_pos: int,
+                                 kv_valid_len: int, kv_min: int = 0):
+    """q: [T, H, D] at cache rows start_pos + t; k/v_cache: [K, KH, D] already
+    holding the block.  Column c is attended by row r iff kv_min <= c <= r and
+    c < kv_valid_len.  Only rows [kv_min, min(start_pos + T, kv_valid_len))
+    are read.  Returns [T, H, D] f32."""
+    T, H, D = q.shape
+    KH = k_cache.shape[1]
+    G = H // KH
+    lo = kv_min
+    hi = max(min(start_pos + T, kv_valid_len), lo)
+    kf = k_cache[lo:hi].float()
+    vf = v_cache[lo:hi].float()
+    qc = (q.float() * (1.0 / math.sqrt(D))).reshape(T, KH, G, D)
+    s = torch.einsum("tkgd,skd->kgts", qc, kf)
+    rows = start_pos + torch.arange(T, device=q.device)
+    cols = lo + torch.arange(hi - lo, device=q.device)
+    mask = (cols[None, :] <= rows[:, None]) & (cols[None, :] < kv_valid_len)
+    return torch.einsum("kgts,skd->tkgd", _masked_probs(s, mask), vf).reshape(T, H, D)
+
+
+def causal_cache_flash_attention(q, k_cache, v_cache, start_pos: int,
+                                 kv_valid_len: int, *, kv_min: int = 0):
+    """Causal GQA attention of a query block against the cache (kernel B2 on
+    CUDA).  start_pos / kv_valid_len / kv_min are host ints."""
+    if not q.is_cuda:
+        return causal_cache_attention_plain(q, k_cache, v_cache, start_pos,
+                                            kv_valid_len, kv_min)
+    T, H, D = q.shape
+    K, KH, _ = k_cache.shape
+    _check_cuda(q, k_cache, v_cache)
+    _require(q.dtype == torch.float32 and q.is_contiguous(), "q must be contiguous f32")
+    kv_bf16 = _kv_flag(k_cache, v_cache)
+    _require(k_cache.shape[2] == D and H % KH == 0, "GQA shapes disagree")
+    _require(D in (64, 128), f"head dim {D} not built (64, 128)")
+    _require(0 <= kv_min and start_pos >= 0 and start_pos + T <= K
+             and 0 <= kv_valid_len <= K, "positions out of the cache")
+    out = torch.empty_like(q)
+    _call("sv_causal_cache_attention", q.data_ptr(), k_cache.data_ptr(),
+          v_cache.data_ptr(), out.data_ptr(), T, H, KH, D, k_cache.stride(0),
+          start_pos, kv_valid_len, kv_min, kv_bf16, 1.0 / math.sqrt(D), _stream())
+    launch_counts["causal_cache_attention"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B3: single-token decode attention
+# ---------------------------------------------------------------------------
+
+def decode_attention_plain(q, k_new, v_new, k_cache, v_cache, start_pos: int,
+                           kv_min: int = 0):
+    """q: [H, D] at cache row start_pos; k_new/v_new: [KH, D] (not yet in the
+    cache, always attended); cache rows [kv_min, start_pos) are attended.
+    Returns [H, D] f32."""
+    H, D = q.shape
+    KH = k_new.shape[0]
+    G = H // KH
+    lo = min(kv_min, start_pos)
+    keys = torch.cat([k_cache[lo:start_pos].float(), k_new.float()[None]])
+    vals = torch.cat([v_cache[lo:start_pos].float(), v_new.float()[None]])
+    qc = (q.float() * (1.0 / math.sqrt(D))).reshape(KH, G, D)
+    s = torch.einsum("kgd,skd->kgs", qc, keys)
+    p = _masked_probs(s, torch.ones_like(s, dtype=torch.bool))
+    return torch.einsum("kgs,skd->kgd", p, vals).reshape(H, D)
+
+
+def decode_splits(start_pos: int, kv_min: int):
+    """(n_splits, rows per split) of the decode kernel for this live range."""
+    live = max(start_pos - kv_min, 0)
+    if live == 0:
+        return 0, 0
+    n = min(-(-live // DECODE_ROWS_PER_SPLIT), DECODE_MAX_SPLITS)
+    return n, -(-live // n)
+
+
+def decode_flash_attention(q, k_new, v_new, k_cache, v_cache, start_pos: int,
+                           kv_min: int = 0):
+    """One position's GQA attention over cache rows [kv_min, start_pos) plus
+    the fresh row (kernel B3 on CUDA).  start_pos / kv_min are host ints."""
+    if not q.is_cuda:
+        return decode_attention_plain(q, k_new, v_new, k_cache, v_cache,
+                                      start_pos, kv_min)
+    H, D = q.shape
+    K, KH, _ = k_cache.shape
+    _check_cuda(q, k_new, v_new, k_cache, v_cache)
+    _require(q.dtype == k_new.dtype == v_new.dtype == torch.float32,
+             "q/k_new/v_new must be f32")
+    _require(q.is_contiguous() and k_new.is_contiguous() and v_new.is_contiguous(),
+             "q/k_new/v_new must be contiguous")
+    _require(k_new.shape == (KH, D) and v_new.shape == (KH, D) and H % KH == 0
+             and H // KH <= 8, "GQA shapes disagree (or G > 8)")
+    kv_bf16 = _kv_flag(k_cache, v_cache)
+    _require(D in (64, 128), f"head dim {D} not built (64, 128)")
+    _require(0 <= kv_min and 0 <= start_pos <= K, "positions out of the cache")
+    n_splits, chunk = decode_splits(start_pos, kv_min)
+    part = torch.empty((KH, n_splits, H // KH, D + 2), dtype=torch.float32,
+                       device=q.device)
+    out = torch.empty_like(q)
+    _call("sv_decode_attention", q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+          k_cache.data_ptr(), v_cache.data_ptr(), part.data_ptr(), out.data_ptr(),
+          H, KH, D, k_cache.stride(0), start_pos, kv_min, n_splits, chunk,
+          kv_bf16, 1.0 / math.sqrt(D), _stream())
+    launch_counts["decode_attention"] += 1
+    return out

@@ -1,0 +1,346 @@
+"""Engine: model loading, encode / prefill / decode primitives, one-segment ASR.
+
+Port of the dense offline path of smolvision_tpu/runtime/engine.py (the
+qwen_ctx_t + transcribe entry points of qwen_asr.c).  The engine owns:
+  * the parameter dictionaries on its device (bf16 weights by default),
+  * the KV cache (grow-by-copy to pow2 buckets, as in the JAX engine),
+  * host-side text logic (prompt tokens, <asr_text> gating, callbacks),
+  * perf counters matching the reference's stderr contract.
+
+PyTorch runs eagerly, so there are no jitted programs: decode is a plain
+per-token host loop (one device->host token read per step).  Phases are
+synchronised at their ends on the card so the per-phase times are the
+device's, not the enqueue's.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from typing import Callable, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from smolvision_tpu_torch.config import (
+    EOS_TOKEN_IDS,
+    SUPPORTED_LANGUAGES,
+    TOKEN_ASR_TEXT,
+    detect_config,
+)
+from smolvision_tpu_torch.device import resolve_device
+from smolvision_tpu_torch.io.safetensors import MultiSafetensors
+from smolvision_tpu_torch.models import params as params_mod
+from smolvision_tpu_torch.models import qwen3_decoder as dec_mod
+from smolvision_tpu_torch.models import qwen3_encoder as enc_mod
+from smolvision_tpu_torch.ops.mel import log_mel
+from smolvision_tpu_torch.runtime import prompt as prompt_mod
+from smolvision_tpu_torch.runtime.buckets import bucket, window_bucket
+from smolvision_tpu_torch.text.tokenizer import Tokenizer, load_tokenizer
+
+KV_HEADROOM = 256
+
+TokenCallback = Callable[[bytes], None]
+
+
+class PerfStats:
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.total_ms = 0.0
+        self.text_tokens = 0
+        self.audio_ms = 0.0
+        self.encode_ms = 0.0   # mel + encoder (the reference's "encoding")
+        self.decode_ms = 0.0   # prefill + decode loop (its "decoding")
+        self.mel_ms = 0.0
+        self.prefill_ms = 0.0
+        self.decode_steps = 0  # decode_step calls (one kernel-B3 launch per layer each)
+
+
+def _now_ms() -> float:
+    return time.monotonic() * 1000.0
+
+
+class Engine:
+    """One loaded checkpoint on one device + generation settings."""
+
+    def __init__(self, model_dir: str, param_dtype=torch.bfloat16, kv_dtype=torch.bfloat16,
+                 verbose: int = 0, device: Optional[Union[str, torch.device]] = None):
+        self.device = resolve_device(device)
+        self.model_dir = model_dir
+        self.verbose = verbose
+        self.reader = MultiSafetensors(model_dir)
+        cfg = detect_config(model_dir, self.reader)
+        if cfg.family != "qwen3" or cfg.is_moe:
+            raise ValueError(f"{cfg.name}: Qwen2.5-Omni and MoE checkpoints are not yet "
+                             "ported to smolvision_tpu_torch")
+        self.cfg = cfg
+        self.param_dtype = param_dtype
+        self.kv_dtype = kv_dtype
+
+        if verbose >= 1:
+            print(f"Detected: {cfg.name} ({cfg.family})", file=sys.stderr, flush=True)
+
+        self.enc_params = params_mod.load_qwen3_encoder(self.reader, cfg, param_dtype,
+                                                        self.device)
+        self.dec_params = params_mod.load_decoder(self.reader, cfg, param_dtype, self.device)
+
+        # ---- generation settings (defaults mirror qwen_asr.c:257-272) ----
+        self.max_tokens = 2048
+
+        self.prompt_text: Optional[str] = None
+        self.force_language: Optional[str] = None
+        self._prompt_tokens: List[int] = []
+        self._force_tokens: List[int] = []
+        self._prompt_ready = False
+
+        self.token_cb: Optional[TokenCallback] = None
+        self.perf = PerfStats()
+        self._tokenizer: Optional[Tokenizer] = None
+
+        self._kv: Optional[torch.Tensor] = None
+        self._kv_cap = 0
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------
+    # tokenizer / prompt settings
+    # ------------------------------------------------------------------
+
+    @property
+    def tokenizer(self) -> Tokenizer:
+        if self._tokenizer is None:
+            self._tokenizer = load_tokenizer(self.model_dir)
+        return self._tokenizer
+
+    def set_prompt(self, text: Optional[str]):
+        self.prompt_text = text or None
+        self._prompt_ready = False
+
+    def set_force_language(self, language: Optional[str]) -> bool:
+        """Normalize + validate like qwen_set_force_language (qwen_asr.c:98-120):
+        byte-level per the C locale (C isspace trim, ASCII case-fold, 64-byte
+        buffer cap), not Python's Unicode-semantic str methods."""
+        if not language:
+            self.force_language = None
+            self._prompt_ready = False
+            return True
+        raw = language.encode("utf-8", errors="surrogateescape")
+        b = raw.strip(b" \t\n\r\x0b\x0c")
+        if not b or len(b) + 1 > 64:
+            return False
+
+        def up(c):  # ASCII-only, as C-locale toupper/tolower
+            return c - 32 if 0x61 <= c <= 0x7A else c
+
+        def lo(c):
+            return c + 32 if 0x41 <= c <= 0x5A else c
+
+        norm_b = bytes([up(b[0])]) + bytes(lo(c) for c in b[1:])
+        for cand in SUPPORTED_LANGUAGES:
+            if norm_b == cand.encode("ascii"):
+                self.force_language = cand
+                self._prompt_ready = False
+                return True
+        return False
+
+    def prepare_prompt(self):
+        """Tokenize --prompt / --language once (qwen_asr.c:563-607)."""
+        if self._prompt_ready:
+            return
+        tok = self.tokenizer
+        self._prompt_tokens = tok.encode(self.prompt_text) if self.prompt_text else []
+        if self.force_language:
+            self._force_tokens = tok.encode(f"language {self.force_language}") + [TOKEN_ASR_TEXT]
+        else:
+            self._force_tokens = []
+        self._prompt_ready = True
+
+    # ------------------------------------------------------------------
+    # KV cache
+    # ------------------------------------------------------------------
+
+    def reset_kv(self):
+        self._kv = None
+        self._kv_cap = 0
+
+    def _ensure_kv(self, needed: int) -> torch.Tensor:
+        """Cache sized to a pow2 bucket; grows by copy when exceeded."""
+        cap = bucket(needed, 256)
+        if self._kv is None:
+            self._kv = dec_mod.make_kv_cache(self.cfg, cap, self.kv_dtype, self.device)
+            self._kv_cap = cap
+        elif cap > self._kv_cap:
+            new = dec_mod.make_kv_cache(self.cfg, cap, self.kv_dtype, self.device)
+            new[:, :, : self._kv_cap] = self._kv
+            self._kv = new
+            self._kv_cap = cap
+        return self._kv
+
+    # ------------------------------------------------------------------
+    # encoder
+    # ------------------------------------------------------------------
+
+    def encode(self, samples: np.ndarray) -> Tuple[torch.Tensor, int]:
+        """Audio samples -> (audio embeddings [Acap, dec_hidden], n_tokens)."""
+        return self.encode_mel(log_mel(samples))
+
+    def encode_mel(self, mel: np.ndarray) -> Tuple[torch.Tensor, int]:
+        return self._encode_mel_qwen3(mel)
+
+    @torch.inference_mode()
+    def _encode_mel_qwen3(self, mel: np.ndarray) -> Tuple[torch.Tensor, int]:
+        """Same bucketing as the JAX engine: full chunks padded to a pow2
+        count (>= 4) in one stem call, the partial tail chunk at its true
+        width, tokens padded to a pow2 number of attention windows."""
+        cfg = self.cfg
+        chunk = cfg.enc_chunk_size
+        frames = mel.shape[1]
+        n_full = frames // chunk
+        rem = frames % chunk
+
+        parts = []
+        if n_full:
+            ncap = bucket(n_full, 4)
+            chunks = np.zeros((ncap, mel.shape[0], chunk), np.float32)
+            chunks[:n_full] = mel[:, : n_full * chunk].reshape(
+                mel.shape[0], n_full, chunk).transpose(1, 0, 2)
+            full_tok = enc_mod.conv_stem(self.enc_params,
+                                         torch.from_numpy(chunks).to(self.device), cfg)
+            parts.append(full_tok[:n_full].reshape(n_full * cfg.tokens_per_chunk, -1))
+        if rem:
+            partial = np.ascontiguousarray(mel[:, n_full * chunk :], dtype=np.float32)[None]
+            parts.append(enc_mod.conv_stem(self.enc_params,
+                                           torch.from_numpy(partial).to(self.device), cfg)[0])
+
+        x = torch.cat(parts, dim=0)
+        n_tokens = x.shape[0]
+        wts = cfg.window_token_size()
+        tcap = window_bucket(n_tokens, wts)
+        if tcap > n_tokens:
+            x = torch.cat([x, x.new_zeros((tcap - n_tokens, x.shape[1]))])
+        enc = enc_mod.encoder_transformer(self.enc_params, x, n_tokens, cfg, wts)
+        return enc, n_tokens
+
+    # ------------------------------------------------------------------
+    # decoder primitives
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def prefill_ids(self, ids: Sequence[int], audio: Optional[torch.Tensor],
+                    audio_start: int, n_audio: int, greedy: bool = True):
+        """Embed + splice + prefill into a fresh cache position 0.  Returns
+        (token_or_logits, total_pos)."""
+        total = len(ids)
+        tcap = bucket(total, 64)
+        ids_arr = np.zeros(tcap, dtype=np.int64)
+        ids_arr[:total] = np.asarray(ids, dtype=np.int64)
+        if audio is None:
+            audio = torch.zeros((16, self.cfg.dec_hidden), device=self.device)
+            audio_start, n_audio = -1_000_000, 0
+        embeds = dec_mod.build_embeds(self.dec_params, torch.from_numpy(ids_arr).to(self.device),
+                                      audio, audio_start, n_audio)
+        kv = self._ensure_kv(tcap + KV_HEADROOM)
+        out, self._kv = dec_mod.prefill(self.dec_params, self.cfg, embeds, 0, total, kv,
+                                        greedy=greedy)
+        return out, total
+
+    @torch.inference_mode()
+    def decode_step(self, token: int, pos: int, greedy: bool = True):
+        """One decode step at cache row `pos` (grows the cache first if needed)."""
+        kv = self._ensure_kv(pos + 1)
+        out, self._kv = dec_mod.decode_step(self.dec_params, self.cfg, token, pos, kv,
+                                            greedy=greedy)
+        self.perf.decode_steps += 1
+        return out
+
+    def decode_greedy(self, first_token, start_pos: int, max_tokens: int,
+                      on_token: Callable[[int], bool]) -> int:
+        """Per-token greedy loop.
+
+        `on_token(tid) -> keep_going` sees every token in order (the prefill
+        token first); EOS tokens end the loop before the callback, like the C
+        loop (qwen_asr.c:788-818).  Returns the iteration count (C's
+        n_generated).  No step runs past the last token the caller can see.
+        """
+        pos = start_pos
+        cur = int(first_token)
+        n = 0
+        while n < max_tokens:
+            n += 1
+            if cur in EOS_TOKEN_IDS or not on_token(cur) or n >= max_tokens:
+                break
+            cur = int(self.decode_step(cur, pos))
+            pos += 1
+        return n
+
+    # ------------------------------------------------------------------
+    # segment transcription (the core ASR path)
+    # ------------------------------------------------------------------
+
+    def transcribe_segment(self, samples: np.ndarray,
+                           past_tokens: Optional[Sequence[int]] = None) -> Tuple[str, int]:
+        """One segment: mel -> encode -> prompt -> prefill -> greedy decode.
+        Mirrors transcribe_segment (qwen_asr.c:649-842).  Returns
+        (text, n_text_tokens); streams pieces via self.token_cb."""
+        cfg = self.cfg
+        seg_t0 = _now_ms()
+        self.prepare_prompt()
+        tok = self.tokenizer
+
+        t0 = _now_ms()
+        mel = log_mel(samples)
+        mel_ms = _now_ms() - t0
+
+        t0 = _now_ms()
+        audio, n_audio = self.encode_mel(mel)
+        self._sync()
+        enc_ms = _now_ms() - t0
+
+        ids, audio_start = prompt_mod.build_asr_prompt(
+            cfg, n_audio, self._prompt_tokens, self._force_tokens, past_tokens)
+
+        t0 = _now_ms()
+        self.reset_kv()
+        first, pos = self.prefill_ids(ids, audio, audio_start, n_audio)
+        first = int(first)
+        prefill_ms = _now_ms() - t0
+
+        t0 = _now_ms()
+        state = {
+            "past_asr_text": bool(self._force_tokens) or bool(past_tokens),
+            "pieces": [],
+            "n_text": 0,
+        }
+
+        def on_token(tid: int) -> bool:
+            if tid == TOKEN_ASR_TEXT:
+                state["past_asr_text"] = True
+            elif state["past_asr_text"]:
+                piece = tok.decode_piece(tid)
+                state["pieces"].append(piece)
+                state["n_text"] += 1
+                if self.token_cb:
+                    self.token_cb(piece)
+            return True
+
+        self.decode_greedy(first, pos, self.max_tokens, on_token)
+        decode_ms = _now_ms() - t0
+
+        text = b"".join(state["pieces"]).decode("utf-8", errors="replace").strip()
+        self.perf.total_ms += _now_ms() - seg_t0
+        self.perf.text_tokens += state["n_text"]
+        self.perf.mel_ms += mel_ms
+        self.perf.encode_ms += mel_ms + enc_ms
+        self.perf.prefill_ms += prefill_ms
+        self.perf.decode_ms += prefill_ms + decode_ms
+        if self.verbose >= 2:
+            print(f"  Mel: {mel.shape[1]} frames ({mel_ms:.0f} ms); "
+                  f"Encoder: {n_audio} tokens ({enc_ms:.0f} ms); "
+                  f"Prefill: {len(ids)} tokens ({prefill_ms:.0f} ms); "
+                  f"Decode: {state['n_text']} text tokens ({decode_ms:.0f} ms)",
+                  file=sys.stderr, flush=True)
+        return text, state["n_text"]

@@ -1,0 +1,85 @@
+"""The port's hand-written CUDA kernels against their plain versions, on the card.
+
+Imports neither jax nor smolvision_tpu, so it runs on a card host without
+the JAX package's test dependencies:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Skips (inside the test, never at collection) where there is no card.
+Both sides compute in f32 from the same inputs and differ only in summation
+order: 1e-4 absolute at outputs of magnitude <~ 3, as chip_smoke.py.
+"""
+
+import pytest
+import torch
+
+from smolvision_tpu_torch.kernels import flash_attention as tfa
+
+ATOL = 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain_versions():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels are built with nvcc for sm_90a)")
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, device="cuda", generator=g).to(dtype)
+
+    def close(got, want):
+        torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+
+    before = dict(tfa.launch_counts)
+    calls = {name: 0 for name in before}
+
+    # B1: windows shorter and longer than one 64-row tile; a whole pad
+    # window gives exactly 0; +-999 junk in pad keys must not leak in
+    for S, lens in ((104, [104, 104, 52, 0]), (13, [13, 0]), (208, [208, 130])):
+        q, k, v = (randn(len(lens), S, 14, 64) for _ in range(3))
+        for w, n in enumerate(lens):
+            k[w, n:], v[w, n:] = 999.0, -999.0
+        lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        got = tfa.window_flash_attention(q, k, v, lens_t)
+        close(got, tfa.window_attention_plain(q, k, v, lens_t))
+        for w, n in enumerate(lens):
+            assert n or not got[w].any()
+        calls["window_attention"] += 1
+
+    # B2 / B3: both head dims, bf16 and f32 caches, G = 1, 2 and 4, +-999 junk
+    # in every row the call must not read
+    for D, H, KH in ((128, 16, 8), (64, 16, 4), (128, 8, 8)):
+        for dtype in (torch.bfloat16, torch.float32):
+            qc = randn(300, H, D)
+            kc, vc = randn(1024, KH, D, dtype=dtype), randn(1024, KH, D, dtype=dtype)
+            kc[330:], vc[330:] = 999.0, -999.0   # block rows 50..349, 330 valid
+            close(tfa.causal_cache_flash_attention(qc, kc, vc, 50, 330, kv_min=7),
+                  tfa.causal_cache_attention_plain(qc, kc, vc, 50, 330, 7))
+            calls["causal_cache_attention"] += 1
+            qd, kn, vn = randn(H, D), randn(KH, D), randn(KH, D)
+            for start in (0, 1, 300, 1023):
+                kd, vd = randn(1024, KH, D, dtype=dtype), randn(1024, KH, D, dtype=dtype)
+                kd[start:], vd[start:] = 999.0, -999.0
+                close(tfa.decode_flash_attention(qd, kn, vn, kd, vd, start, min(start, 5)),
+                      tfa.decode_attention_plain(qd, kn, vn, kd, vd, start, min(start, 5)))
+                calls["decode_attention"] += 1
+    torch.cuda.synchronize()
+    assert {k: tfa.launch_counts[k] - before[k] for k in before} == calls
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q = torch.zeros(2, 8, 2, 48, device="cuda")       # head dim 48 is not built
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.window_flash_attention(q, q, q, torch.tensor([8, 8]))
+    q = torch.zeros(16, 4, 64, device="cuda")
+    k = torch.zeros(64, 2, 64, device="cuda", dtype=torch.float16)  # no fp16 cache
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        tfa.causal_cache_flash_attention(q, k, k, 0, 16)
+    k = torch.zeros(64, 2, 64, device="cuda")
+    with pytest.raises(ValueError, match="out of the cache"):
+        tfa.causal_cache_flash_attention(q, k, k, 60, 64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tfa.causal_cache_flash_attention(q, k.cpu(), k.cpu(), 0, 16)
