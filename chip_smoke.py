@@ -7,18 +7,28 @@ Run from the root of a checkout on a host with one CUDA card (Hopper: the
 kernels are built for sm_90a).  Phases, each fatal on failure:
 
   1. device   - the card's name, count, and nvidia-smi's name / power limit;
-  2. build    - nvcc builds the three attention kernels from
+  2. build    - nvcc builds the five attention kernels from
                 smolvision_tpu_torch/kernels/csrc (seconds, ptxas report);
   3. kernels  - each kernel against its plain torch version at the 0.6B
-                main-path shapes plus edge cases (all-pad windows, empty
-                cache, kv_min > 0, stale +-999 cache rows), then timed
-                against the plain version and one PyTorch library call;
+                shapes of the paths below plus edge cases (all-pad windows
+                and rows, empty cache, kv_min > 0, B5 at start 0 and > 0
+                with per-row prompt_max / region_start, stale +-999 cache
+                rows), then timed against the plain version and one
+                PyTorch library call;
   4. main path- a seeded Qwen3-ASR-0.6B checkpoint (full width, random
                 weights) transcribes a 20 s synthetic clip through
                 `smolvision_tpu_torch.cli`; every kernel's launch count must
                 rise by the expected amount; then the card's kernel path is
                 held against the card's plain path (encoder output, prefill
-                logits, greedy tokens).
+                logits, greedy tokens);
+  5. segments - `-S 20` on a 120 s clip through the CLI: batched encode
+                (B1), batched fresh prefill (B4) and batched decode; then
+                batched fresh- and delta-prefill logits, kernel path vs
+                plain path, in bf16 and f32;
+  6. serving  - 8 clips of 4-24 s through `--serve 4`: admission waves
+                prefilled by kernel B5, slot reuse, TTFT percentiles.
+Each path runs with the launch counts set to 0 just before it, and its
+counts must equal what its own bookkeeping (engine.perf) says.
 
 Prints a `{"kernels": [...]}` line, the nvidia-smi line, and as its last
 line `{"ok": true, "device": {...}}`.  Without a card, or outside a
@@ -43,6 +53,11 @@ DEV = "cuda"  # where the checks run; a CPU rehearsal of phases 3-4 sets "cpu"
 SEED = 0
 CLIP_SEC = 20.0
 MAX_TOKENS = 64
+SEGMENT_CLIP_SEC = 120.0     # phase 5: -S 20 on this clip
+SEGMENT_SEC = 20
+SERVE_CLIP_SEC = (24, 4, 16, 8, 20, 12, 6, 10)   # phase 6: --serve 4
+SERVE_SLOTS = 4
+SERVE_MAX_TOKENS = 32
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12,      # f32 outside the tensor cores
             "bfloat16": 989e12}    # bf16 dense tensor-core rate
@@ -183,6 +198,35 @@ def decode_case(K, start, H=16, KH=8, D=128, seed=0):
     return q, k_new, v_new, k, v
 
 
+def batched_case(B, T, H=16, KH=8, D=128, seed=0):
+    """q [B, T, H, D] and fresh k / v [B, T, KH, D], f32."""
+    import torch
+
+    g = torch.Generator(device=DEV).manual_seed(seed + B * 1000 + T)
+    return (torch.randn(B, T, H, D, device=DEV, generator=g),
+            torch.randn(B, T, KH, D, device=DEV, generator=g),
+            torch.randn(B, T, KH, D, device=DEV, generator=g))
+
+
+def batched_cache(B, K, start, kv_min, prompt_max=None, region_start=None, KH=8, D=128,
+                  dtype="bfloat16", seed=0):
+    """k / v [B, KH, K, D] views of an [L=1, 2, B, KH, K, D] batched cache,
+    with +-999 in every column the window of row b leaves out."""
+    import torch
+
+    g = torch.Generator(device=DEV).manual_seed(seed + K + start)
+    kv = torch.randn(1, 2, B, KH, K, D, device=DEV, generator=g).to(getattr(torch, dtype))
+    cols = torch.arange(K, device=DEV)
+    for b in range(B):
+        live = (cols >= kv_min[b]) & (cols < start)
+        if prompt_max is not None:
+            rs = region_start if isinstance(region_start, int) else region_start[b]
+            live &= (cols < prompt_max[b]) | (cols >= rs)
+        kv[0, 0, b][:, ~live] = 999.0
+        kv[0, 1, b][:, ~live] = -999.0
+    return kv[0, 0], kv[0, 1]
+
+
 def phase_kernels(shapes):
     """Correctness sweep, then timings at the main-path shapes."""
     import torch
@@ -190,7 +234,10 @@ def phase_kernels(shapes):
 
     from smolvision_tpu_torch.kernels import flash_attention as fa
 
-    errs = {"window_attention": 0.0, "causal_cache_attention": 0.0, "decode_attention": 0.0}
+    def ints(values):
+        return torch.tensor(values, dtype=torch.int32, device=DEV)
+
+    errs = {name: 0.0 for name in fa.launch_counts}
 
     # B1: W in {2, 4}, one all-pad window each
     for W, lens, garbage in ((2, [104, 0], False), (4, shapes["window_lens"], False),
@@ -222,6 +269,39 @@ def phase_kernels(shapes):
                 want = fa.decode_attention_plain(q, kn, vn, k, v, start, kv_min)
                 err = check_close(f"B3 K={K} start={start} kv_min={kv_min}", got, want)
                 errs["decode_attention"] = max(errs["decode_attention"], err)
+
+    # B4: the -S run's batch and left pads; an all-pad row, kv_min > 0 in
+    # every row, and a T that is not a multiple of the 64-row tile
+    B4, T4, pads4 = shapes["seg_B"], shapes["seg_T"], shapes["seg_pads"]
+    for B, T, kv_min in ((B4, T4, pads4), (3, T4, [T4, 1, 200]), (2, 100, [7, 99])):
+        q, k, v = batched_case(B, T)
+        got = fa.batched_causal_flash_attention(q, k, v, ints(kv_min))
+        err = check_close(f"B4 B={B} T={T} kv_min={kv_min}", got,
+                          fa.batched_causal_attention_plain(q, k, v, ints(kv_min)))
+        for b, lo in enumerate(kv_min):
+            if lo and float(got[b, :lo].abs().max()) != 0.0:
+                fail(f"B4 B={B} T={T}: left-pad rows of row {b} are not exactly 0")
+        errs["batched_causal_attention"] = max(errs["batched_causal_attention"], err)
+
+    # B5: serving's group prefill (start 0, per-row prompt lengths), then
+    # the cache half at start > 0 with per-row prompt_max / region_start,
+    # kv_min > 0, a row whose cache window is empty, bf16 and f32 caches
+    G5, T5, lens5 = shapes["serve_G"], shapes["serve_T"], shapes["serve_lens"]
+    cases = [(G5, T5, T5, 0, [0] * G5, lens5, 1 << 30, "bfloat16")]
+    for dtype in ("bfloat16", "float32"):
+        cases += [(4, 64, 1024, 448, [0, 17, 0, 500], [300, 120, 448, 200],
+                   [400, 300, 0, 64], dtype),
+                  (3, 128, 768, 320, [5, 0, 0], [100, 7, 320], 256, dtype),
+                  (2, 64, 512, 200, [0, 9], None, None, dtype)]
+    for B, T, K, start, kv_min, pm, rs, dtype in cases:
+        q, kn, vn = batched_case(B, T)
+        kc, vc = batched_cache(B, K, start, kv_min, pm, rs, dtype=dtype)
+        args = (q, kn, vn, kc, vc, start, ints(kv_min), None if pm is None else ints(pm),
+                rs if rs is None or isinstance(rs, int) else ints(rs))
+        err = check_close(f"B5 B={B} T={T} K={K} start={start} {dtype}",
+                          fa.batched_cache_flash_attention(*args),
+                          fa.batched_cache_attention_plain(*args))
+        errs["batched_cache_attention"] = max(errs["batched_cache_attention"], err)
     log(f"kernels vs plain: max_abs_err {json.dumps(errs)} (tolerance {KERNEL_ATOL:g})")
 
     rows = []
@@ -278,6 +358,46 @@ def phase_kernels(shapes):
                  lambda: fa.decode_attention_plain(q3, kn, vn, k3, v3, start, 0),
                  lambda: F.scaled_dot_product_attention(q3b, k3b, v3b, enable_gqa=True),
                  bound(nbytes, flops, "bfloat16")))
+
+    # --- B4 at the -S run's shape (fresh prefill of one length group)
+    q4, k4, v4 = batched_case(B4, T4)
+    km4 = ints(pads4)
+    H4, D4 = q4.shape[2:]
+    KH4 = k4.shape[2]
+    attended = sum(max(t + 1 - lo, 0) for lo in pads4 for t in range(T4))
+    nbytes = 4 * (2 * q4.numel() + 2 * k4.numel())
+    flops = 4 * H4 * D4 * attended
+    ar = torch.arange(T4, device=DEV)
+    mask4 = ((ar[None, :] <= ar[:, None])[None] & (ar[None, None, :] >= km4[:, None, None]))
+    q4h, k4h, v4h = (x.transpose(1, 2) for x in (q4, k4, v4))
+    rows.append(("batched_causal_attention",
+                 "smolvision_tpu_torch/kernels/csrc/batched_causal_attention.cu",
+                 "smolvision_tpu/kernels/flash_attention.py:286",
+                 lambda: fa.batched_causal_flash_attention(q4, k4, v4, km4),
+                 lambda: fa.batched_causal_attention_plain(q4, k4, v4, km4),
+                 lambda: F.scaled_dot_product_attention(q4h, k4h, v4h, attn_mask=mask4[:, None],
+                                                        enable_gqa=True),
+                 bound(nbytes, flops, "float32")))
+
+    # --- B5 at serving's group prefill (start 0: the cache is not read)
+    q5, kn5, vn5 = batched_case(G5, T5)
+    kc5, vc5 = batched_cache(G5, T5, 0, [0] * G5)
+    km5, pm5 = ints([0] * G5), ints(lens5)
+    attended = G5 * T5 * (T5 + 1) // 2
+    nbytes = 4 * (2 * q5.numel() + 2 * kn5.numel())
+    flops = 4 * q5.shape[2] * q5.shape[3] * attended
+    mask5 = (torch.arange(T5, device=DEV)[None, :] <= torch.arange(T5, device=DEV)[:, None])
+    q5h, k5h, v5h = (x.transpose(1, 2) for x in (q5, kn5, vn5))
+    rows.append(("batched_cache_attention",
+                 "smolvision_tpu_torch/kernels/csrc/batched_cache_attention.cu",
+                 "smolvision_tpu/kernels/flash_attention.py:412",
+                 lambda: fa.batched_cache_flash_attention(q5, kn5, vn5, kc5, vc5, 0, km5, pm5,
+                                                          1 << 30),
+                 lambda: fa.batched_cache_attention_plain(q5, kn5, vn5, kc5, vc5, 0, km5, pm5,
+                                                          1 << 30),
+                 lambda: F.scaled_dot_product_attention(q5h, k5h, v5h, attn_mask=mask5,
+                                                        enable_gqa=True),
+                 bound(nbytes, flops, "float32")))
 
     table = []
     for name, source, replaces, kern, plain, lib, (bound_ms, bound_by) in rows:
@@ -348,6 +468,35 @@ def main_path_shapes(model_dir: str, samples):
         "kv_cap": bucket(T + KV_HEADROOM, 256),
         "decode_pos": len(ids) + MAX_TOKENS // 2,
     }
+
+
+def batched_path_shapes(model_dir: str, long_clip, serve_clips):
+    """The B4 shape of the -S run (all segments as one group: B, T, left
+    pads) and the B5 shape of serving's first wave (Gcap, pcap, prompt
+    lengths), from host arithmetic only."""
+    from smolvision_tpu_torch.config import SAMPLE_RATE, TOKEN_ASR_TEXT, detect_config
+    from smolvision_tpu_torch.models.qwen3_encoder import total_encoder_tokens
+    from smolvision_tpu_torch.ops.mel import num_frames
+    from smolvision_tpu_torch.runtime.buckets import bucket64
+    from smolvision_tpu_torch.runtime.prompt import build_asr_prompt
+    from smolvision_tpu_torch.runtime.segment import split_points
+    from smolvision_tpu_torch.text.tokenizer import load_tokenizer
+
+    cfg = detect_config(model_dir)
+    force = load_tokenizer(model_dir).encode("language English") + [TOKEN_ASR_TEXT]
+
+    def prompt_len(n_samples):
+        n_tok = total_encoder_tokens(num_frames(n_samples), cfg)
+        return len(build_asr_prompt(cfg, n_tok, (), force)[0])
+
+    splits = split_points(long_clip, SEGMENT_SEC, 3.0)
+    seg = [prompt_len(max(b - a, SAMPLE_RATE // 2)) for a, b in zip(splits, splits[1:])]
+    T = bucket64(max(seg))
+    served = sorted((prompt_len(len(c)) for c in serve_clips), reverse=True)
+    G = min(SERVE_SLOTS, len(served))
+    return {"seg_B": len(seg), "seg_T": T, "seg_pads": [T - n for n in seg],
+            "serve_G": 1 << (G - 1).bit_length(), "serve_T": bucket64(max(served)),
+            "serve_lens": served[:G] + [served[G - 1]] * ((1 << (G - 1).bit_length()) - G)}
 
 
 def path_trace(eng, samples, steps: int, forced=None):
@@ -422,8 +571,6 @@ def profile_decode(eng, samples, steps: int = 16) -> dict:
     """Device busy time and the top kernels over `steps` decode steps of the
     main path (torch.profiler), against the host wall clock."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from smolvision_tpu_torch.ops.mel import log_mel
     from smolvision_tpu_torch.runtime.prompt import build_asr_prompt
@@ -433,16 +580,103 @@ def profile_decode(eng, samples, steps: int = 16) -> dict:
         ids, a0 = build_asr_prompt(eng.cfg, n_audio, eng._prompt_tokens, eng._force_tokens)
         eng.reset_kv()
         tok, pos = eng.prefill_ids(ids, enc, a0, n_audio)
-        tok = int(tok)
+        state = {"tok": int(tok), "pos": pos}
+
+        def step():
+            state["tok"] = int(eng.decode_step(state["tok"], state["pos"]))
+            state["pos"] += 1
+
         for _ in range(4):  # warm-up steps outside the window
-            tok, pos = int(eng.decode_step(tok, pos)), pos + 1
+            step()
+        return profile_window(step, steps)
+
+
+def phase_main_path(model_dir: str, wav: str, cfg):
+    import torch
+
+    argv = ["-d", model_dir, "-i", wav, "--silent", "--language", "English",
+            "--max-tokens", str(MAX_TOKENS)]
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    eng, launches, lines, wall_s = run_cli(argv, "main path")
+    transcript = "\n".join(lines).strip()
+    if not transcript:
+        fail("empty transcript")
+    perf = eng.perf
+    log(f"main path: {wall_s:.2f} s wall incl. load ({perf.decode_steps} decode steps)")
+    check_launches("main path", launches, perf, cfg)
+    if (perf.encodes, perf.prefills) != (1, 1) or perf.decode_steps == 0:
+        fail(f"main path: {perf.encodes} encodes, {perf.prefills} prefills, "
+             f"{perf.decode_steps} decode steps (expected 1, 1, > 0)")
+    log(f"  transcript ({perf.text_tokens} text tokens): {transcript[:120]}")
+    log(f"  first run in the process: {perf_line(perf)}, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30 if DEV == 'cuda' else 0:.3f} GiB")
+    return eng, launches
+
+
+def run_cli(argv, name: str):
+    """One CLI run with the launch counts set to 0 just before it; returns
+    (engine, launches, stdout lines, wall seconds)."""
+    import torch
+
+    from smolvision_tpu_torch import cli
+    from smolvision_tpu_torch.kernels import flash_attention as fa
+
+    if DEV == "cuda":
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.monotonic()
-            for _ in range(steps):
-                tok, pos = int(eng.decode_step(tok, pos)), pos + 1
-            torch.cuda.synchronize()
-            wall_ms = (time.monotonic() - t0) * 1e3
+    out = io.StringIO()
+    fa.reset_launch_counts()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        rc, eng = cli.run(argv)
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    wall_s = time.monotonic() - t0
+    launches = dict(fa.launch_counts)
+    if rc != 0 or eng is None:
+        fail(f"{name}: cli exited {rc}")
+    return eng, launches, out.getvalue().splitlines(), wall_s
+
+
+def check_launches(name: str, launches: dict, perf, cfg) -> None:
+    """Every kernel's launches equal the path's own bookkeeping: one per
+    layer per encoder call, single prefill, decode step, batched fresh
+    prefill and batched delta prefill."""
+    expected = {"window_attention": cfg.enc_layers * perf.encodes,
+                "causal_cache_attention": cfg.dec_layers * perf.prefills,
+                "decode_attention": cfg.dec_layers * perf.decode_steps,
+                "batched_causal_attention": cfg.dec_layers * perf.fresh_prefills,
+                "batched_cache_attention": cfg.dec_layers * perf.delta_prefills}
+    log(f"{name}: launches {json.dumps(launches)}, expected {json.dumps(expected)}")
+    if launches != expected:
+        fail(f"{name}: launch counts {launches} != expected {expected}")
+
+
+def batch_perf_line(perf, batch: int) -> str:
+    dec_ms = perf.batch_decode_ms
+    steps = perf.batch_decode_steps
+    return (f"realtime factor {perf.audio_ms / perf.total_ms:.2f}x "
+            f"({perf.audio_ms / 1000:.1f} s audio in {perf.total_ms:.2f} ms), "
+            f"encode {perf.encode_ms:.2f} ms ({perf.encodes} calls), "
+            f"prefill {perf.prefill_ms:.2f} ms, batched decode {dec_ms:.2f} ms "
+            f"({steps} steps at B {batch}: {dec_ms / max(steps, 1):.2f} ms/step), "
+            f"{perf.text_tokens} text tokens")
+
+
+def profile_window(step, steps: int) -> dict:
+    """Device busy time, idle share and the top kernels over `steps` calls
+    of `step()` (torch.profiler), against the host wall clock."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
     # device-side entries only (kernels, memcpy/memset): the CPU ops that
     # launched them report the same time again
     events = [e for e in prof.key_averages()
@@ -459,40 +693,132 @@ def profile_decode(eng, samples, steps: int = 16) -> dict:
     }
 
 
-def phase_main_path(model_dir: str, wav: str, n_enc_layers: int, n_dec_layers: int):
+def batched_inputs(eng, B: int, T: int, seed: int):
+    """Embeddings of random token ids [B, T, H] (through the embedding
+    table, so their scale is the model's) and random left pads."""
     import torch
 
-    from smolvision_tpu_torch import cli
-    from smolvision_tpu_torch.kernels import flash_attention as fa
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    ids = torch.randint(0, eng.cfg.vocab_size, (B, T), generator=g).to(eng.device)
+    pads = torch.randint(0, T // 2, (B,), generator=g).to(torch.int32).to(eng.device)
+    pads[0] = 0
+    return eng.dec_params["embed"][ids].float(), pads
 
-    argv = ["-d", model_dir, "-i", wav, "--silent", "--language", "English",
-            "--max-tokens", str(MAX_TOKENS)]
-    if DEV == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    out = io.StringIO()
-    fa.reset_launch_counts()
-    t0 = time.monotonic()
-    with contextlib.redirect_stdout(out):
-        rc, eng = cli.run(argv)
-    wall_s = time.monotonic() - t0
-    launches = dict(fa.launch_counts)
-    if rc != 0 or eng is None:
-        fail(f"cli exited {rc}")
-    transcript = out.getvalue().strip()
-    if not transcript:
-        fail("empty transcript")
+
+def profile_batched_decode(eng, B: int, T: int, steps: int = 8) -> dict:
+    """The batched decode loop at batch B after a fresh prefill of T rows."""
+    import torch
+
+    from smolvision_tpu_torch.models import qwen3_decoder as dec_mod
+    from smolvision_tpu_torch.parallel import batch as pbatch
+
+    with torch.inference_mode():
+        emb, pads = batched_inputs(eng, B, T, 3)
+        kv = pbatch.make_batched_kv(eng.cfg, B, T + 64, eng.batched_kv_dtype, eng.device)
+        tok, kv = dec_mod.batched_prefill(eng.dec_params, eng.cfg, emb, kv, -pads, pads)
+        state = {"tok": tok, "pos": T}
+
+        def step():
+            _, _, state["tok"], _ = pbatch.batched_decode_chunk(
+                eng.dec_params, eng.cfg, state["tok"], state["pos"], kv, 1, rope_offset=pads,
+                kv_min=pads)
+            state["pos"] += 1
+
+        for _ in range(4):  # warm-up steps outside the window
+            step()
+        return profile_window(step, steps)
+
+
+def compare_batched_paths(eng, B: int, T: int) -> dict:
+    """Kernel path vs plain path on the card: batched fresh-prefill logits
+    (B4) and delta-prefill logits at start 0 with per-row prompt lengths
+    (B5, serving) and at start > 0 with per-row prompt_max / region_start
+    (B5's cache half)."""
+    import torch
+
+    from smolvision_tpu_torch.kernels import flash_attention as fa
+    from smolvision_tpu_torch.models import qwen3_decoder as dec_mod
+    from smolvision_tpu_torch.parallel import batch as pbatch
+
+    rtol = PATH_RTOL[str(eng.param_dtype).replace("torch.", "")]
+    cfg, p, dev = eng.cfg, eng.dec_params, eng.device
+
+    def run():
+        with torch.inference_mode():
+            emb, pads = batched_inputs(eng, B, T, 5)
+            tail, _ = batched_inputs(eng, B, 64, 6)
+            kv = pbatch.make_batched_kv(cfg, B, T + 64, eng.batched_kv_dtype, dev)
+            fresh, kv = dec_mod.batched_prefill(p, cfg, emb, kv, -pads, pads, greedy=False)
+            lens = T - pads
+            small = pbatch.make_batched_kv(cfg, B, T, eng.batched_kv_dtype, dev)
+            z = torch.zeros_like(pads)
+            served, _ = dec_mod.batched_prefill_delta(p, cfg, emb, 0, small, z, z, greedy=False,
+                                                      last_rows=lens - 1, prompt_max=lens,
+                                                      region_start=1 << 30)
+            rs = torch.full_like(pads, T) - 32
+            delta, _ = dec_mod.batched_prefill_delta(p, cfg, tail, T, kv, T - pads, pads,
+                                                     greedy=False, prompt_max=rs - 16,
+                                                     region_start=rs)
+            return {"fresh_prefill_logits": fresh.float(), "served_prefill_logits": served.float(),
+                    "delta_prefill_logits": delta.float()}
+
+    kern = run()
+    with mock.patch.object(fa, "batched_causal_flash_attention",
+                           fa.batched_causal_attention_plain), \
+            mock.patch.object(fa, "batched_cache_flash_attention",
+                              fa.batched_cache_attention_plain):
+        plain = run()
+    out = {"rtol": rtol}
+    for name in kern:
+        a, b = kern[name], plain[name]
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            fail(f"batched {name}: non-finite values")
+        err = float((a - b).abs().max())
+        tol = rtol * float(b.abs().max())
+        out[name] = {"max_abs_err": err, "tolerance": tol,
+                     "argmax_equal": int((a.argmax(-1) == b.argmax(-1)).sum()), "rows": B}
+        if not err <= tol:
+            fail(f"batched kernel vs plain path: {name} max_abs_err {err:.4g} > {tol:.4g}")
+    return out
+
+
+def phase_segments(model_dir: str, wav: str, cfg, batch: int):
+    """-S 20 on the long clip through the CLI: batched encode, one B4 launch
+    per layer per length group, batched decode."""
+    argv = ["-d", model_dir, "-i", wav, "-S", str(SEGMENT_SEC), "--silent", "--language",
+            "English", "--max-tokens", str(MAX_TOKENS)]
+    eng, launches, lines, wall_s = run_cli(argv, "-S run")
     perf = eng.perf
-    expected = {"window_attention": n_enc_layers, "causal_cache_attention": n_dec_layers,
-                "decode_attention": n_dec_layers * perf.decode_steps}
-    log(f"main path: cli rc {rc}, {wall_s:.2f} s wall incl. load; launches {launches}, "
-        f"expected {expected} ({perf.decode_steps} decode steps)")
-    if launches != expected:
-        fail(f"launch counts {launches} != expected {expected}")
-    if perf.decode_steps == 0:
-        fail("no decode step ran")
-    log(f"  transcript ({perf.text_tokens} text tokens): {transcript[:120]}")
-    log(f"  first run in the process: {perf_line(perf)}, max_memory_allocated "
-        f"{torch.cuda.max_memory_allocated() / 2**30 if DEV == 'cuda' else 0:.3f} GiB")
+    log(f"-S {SEGMENT_SEC} run: {wall_s:.2f} s wall incl. load; {perf.fresh_prefills} length "
+        f"group(s), {perf.encodes} batched encode(s)")
+    check_launches(f"-S {SEGMENT_SEC} run", launches, perf, cfg)
+    if perf.fresh_prefills == 0 or perf.batch_decode_steps == 0:
+        fail("-S run: no batched prefill or decode step ran")
+    if perf.prefills or perf.decode_steps:
+        fail("-S run: segments went through the single-stream path")
+    if len(lines) != 1 or not lines[0].strip():
+        fail(f"-S run: expected one transcript line, got {lines!r}")
+    log(f"  transcript ({perf.text_tokens} text tokens): {lines[0][:120]}")
+    log(f"  -S run perf: {batch_perf_line(perf, batch)}")
+    return eng, launches
+
+
+def phase_serving(model_dir: str, wavs, cfg):
+    """--serve 4 over the mixed clips: admission waves prefilled by B5."""
+    argv = ["-d", model_dir, "-i", *wavs, "--serve", str(SERVE_SLOTS), "--silent",
+            "--language", "English", "--max-tokens", str(SERVE_MAX_TOKENS)]
+    eng, launches, lines, wall_s = run_cli(argv, "--serve run")
+    perf = eng.perf
+    log(f"--serve {SERVE_SLOTS} run: {wall_s:.2f} s wall incl. load; {len(wavs)} clips, "
+        f"{perf.delta_prefills} admission waves")
+    check_launches(f"--serve {SERVE_SLOTS} run", launches, perf, cfg)
+    if perf.delta_prefills < 2:
+        fail(f"--serve run: {perf.delta_prefills} admission wave(s), expected at least 2")
+    if len(lines) != len(wavs):
+        fail(f"--serve run: {len(lines)} transcript lines for {len(wavs)} clips")
+    lat = perf.serving_latency
+    log(f"  --serve run perf: {batch_perf_line(perf, SERVE_SLOTS)}")
+    log(f"  serving latency (ms): {json.dumps(lat)}")
     return eng, launches
 
 
@@ -564,10 +890,18 @@ def main() -> int:
         samples = speech_like(CLIP_SEC, SEED)
         wav = os.path.join(work, "clip.wav")
         write_wav(wav, samples)
+        long_clip = speech_like(SEGMENT_CLIP_SEC, SEED + 1)
+        long_wav = os.path.join(work, "long.wav")
+        write_wav(long_wav, long_clip)
+        serve_clips = [speech_like(sec, SEED + 2 + i) for i, sec in enumerate(SERVE_CLIP_SEC)]
+        serve_wavs = [os.path.join(work, f"serve{i}.wav") for i in range(len(serve_clips))]
+        for path, c in zip(serve_wavs, serve_clips):
+            write_wav(path, c)
         log(f"checkpoint: 0.6b preset, seed {SEED}, bf16, written in "
             f"{time.monotonic() - t0:.2f} s; clip {CLIP_SEC:.0f} s")
         shapes = main_path_shapes(model_dir, samples)
-        log(f"main-path attention shapes: {json.dumps(shapes)}")
+        shapes.update(batched_path_shapes(model_dir, long_clip, serve_clips))
+        log(f"attention shapes of the paths: {json.dumps(shapes)}")
 
         # phase 3: kernels vs plain versions
         table = phase_kernels(shapes)
@@ -576,7 +910,7 @@ def main() -> int:
         from smolvision_tpu_torch.config import detect_config
 
         cfg = detect_config(model_dir)
-        eng, launches = phase_main_path(model_dir, wav, cfg.enc_layers, cfg.dec_layers)
+        eng, launches = phase_main_path(model_dir, wav, cfg)
         from smolvision_tpu_torch.io.wav import load_wav
 
         clip = load_wav(wav)
@@ -593,10 +927,27 @@ def main() -> int:
         eng.prepare_prompt()
         cmp = compare_paths(eng, clip, steps=MAX_TOKENS // 2)
         log(f"kernel path vs plain path on the card, f32 weights: {json.dumps(cmp)}")
+        cmp = compare_batched_paths(eng, shapes["seg_B"], shapes["seg_T"])
+        log(f"batched kernel path vs plain path on the card, f32 weights: {json.dumps(cmp)}")
+        del eng
+
+        # phase 5: -S 20 on the long clip (batched segments: B1, B4)
+        eng, seg_launches = phase_segments(model_dir, long_wav, cfg, shapes["seg_B"])
+        log(f"batched decode profile (bf16, B {shapes['seg_B']}): "
+            f"{json.dumps(profile_batched_decode(eng, shapes['seg_B'], shapes['seg_T']))}")
+        cmp = compare_batched_paths(eng, shapes["seg_B"], shapes["seg_T"])
+        log(f"batched kernel path vs plain path on the card, bf16 weights: {json.dumps(cmp)}")
+        del eng
+
+        # phase 6: --serve over the mixed clips (admission waves: B5)
+        eng, serve_launches = phase_serving(model_dir, serve_wavs, cfg)
         del eng
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    # launches: each kernel's count from the path that carries it
+    launches.update(batched_causal_attention=seg_launches["batched_causal_attention"],
+                    batched_cache_attention=serve_launches["batched_cache_attention"])
     for row in table:
         row["launches"] = launches[row["name"]]
         row["kernel_ms"] = row["ms"]

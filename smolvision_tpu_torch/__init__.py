@@ -8,8 +8,10 @@ Hopper card:
   embeddings spliced into a chat-template prompt -> Qwen3 decoder prefill
   -> greedy decode over a KV cache -> BPE detokenize.
 
-The attention kernels are hand-written CUDA C++ for sm_90a
-(kernels/csrc/), built at first use; every other op is plain torch.
+Drivers: one clip (runtime.engine), segmented (runtime.segment), a static
+batch of segments or files (runtime.batch_segments) and continuous batching
+(runtime.serving).  The attention kernels are hand-written CUDA C++ for
+sm_90a (kernels/csrc/), built at first use; every other op is plain torch.
 Entry points (`runtime.engine.Engine`, `cli.main`) run on the card unless
 the caller asks for the CPU (`device="cpu"`, or SMOLVISION_PLATFORM=cpu for
 the CLI); without a card they raise.

@@ -1,12 +1,16 @@
 """CLI — the JAX package's parser and stdout/stderr contract, on the port.
 
-Port of smolvision_tpu/cli.py for the single-file offline path: `-i x.wav`
-(or --stdin), `-S` absent or 0, with --silent / --language / --prompt /
---max-tokens / --f32.  The transcript goes to STDOUT
-(tokens streamed as decoded in normal mode; one final line in --silent);
-status/perf lines go to STDERR:
+Port of smolvision_tpu/cli.py for the offline paths: one file (`-i x.wav`
+or --stdin), whole or segmented (-S / -W / --past-text / --skip-silence /
+--no-batch-segments), and several -i files as one static batch or through
+the continuous scheduler (--serve SLOTS [--serve-admit N]); with --silent /
+--language / --prompt / --max-tokens / --f32.  The transcript goes to STDOUT
+(tokens streamed as decoded in normal mode; one final line in --silent; one
+line per file for several files); status/perf lines go to STDERR:
   Inference: ... ms, N text tokens (X tok/s, encoding: ...ms, decoding: ...ms)
   Audio: X s processed in Y s (Zx realtime)
+  Batch: N files, X s audio in Y s (Zx realtime)      (several files)
+  Serve: ttft p50 ... / p99 ..., completion ...       (--serve)
 Every mode not ported yet exits 1 with one `smolvision: ...` line.
 
 Runs on the card; SMOLVISION_PLATFORM=cpu selects the CPU.
@@ -106,15 +110,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _unported(args) -> Optional[str]:
     """The first requested mode this port does not run yet, or None."""
-    if args.input_wav and len(args.input_wav) > 1:
-        return "several -i files (batched serving)"
+    several = bool(args.input_wav) and len(args.input_wav) > 1
     checks = [
-        (args.thinker, "--thinker"), (args.stream, "--stream"),
-        (args.segment_sec > 0, "-S > 0 (segmented decode)"),
-        (args.skip_silence, "--skip-silence"), (args.q8, "--q8"),
+        (args.thinker, "--thinker"),
+        (args.stream and several, "--stream with several -i files (multistream)"),
+        (args.stream, "--stream"), (args.q8, "--q8"),
         (args.spec, "--spec"), (args.kv8, "--kv8"),
         (args.moe_offload, "--moe-offload"), (args.moe_preload, "--moe-preload"),
-        (args.serve > 0, "--serve"), (args.profile, "--profile"),
+        (args.profile, "--profile"),
         (args.enc_window_sec >= 0, "--enc-window-sec"),
         (os.environ.get("SMOLVISION_Q8", "") == "1", "SMOLVISION_Q8=1"),
         (os.environ.get("SMOLVISION_KV8", "") == "1", "SMOLVISION_KV8=1"),
@@ -166,8 +169,18 @@ def run(argv=None) -> Tuple[int, Optional["Engine"]]:
               f"{type(e).__name__}: {e}", file=sys.stderr)
         return 1, None
 
+    if args.segment_sec >= 0:
+        eng.segment_sec = args.segment_sec
+    if args.search_sec >= 0:
+        eng.search_sec = args.search_sec
+    if args.past_text in ("yes", "no"):
+        eng.past_text_conditioning = args.past_text == "yes"
+    if args.skip_silence:
+        eng.skip_silence = True
     if args.max_tokens > 0:
         eng.max_tokens = args.max_tokens
+    if args.no_batch_segments:
+        eng.batch_segments = False
     if args.prompt:
         eng.set_prompt(args.prompt)
     if args.language:
@@ -186,20 +199,19 @@ def run(argv=None) -> Tuple[int, Optional["Engine"]]:
 
     eng.token_cb = stream_token if emit_tokens else None
 
+    if args.input_wav and len(args.input_wav) > 1:
+        return _run_several(args, eng, verbosity), eng
+
     try:
         samples = load_wav(args.input_wav[0]) if args.input_wav else read_pcm_stdin()
     except (OSError, ValueError) as e:
         print(f"smolvision: cannot load audio: {e}", file=sys.stderr)
         return 1, eng
 
-    from smolvision_tpu_torch.config import SAMPLE_RATE
+    from smolvision_tpu_torch.runtime import segment as segment_mod
 
     try:
-        # the unsegmented path of runtime/segment.transcribe_audio
-        eng.perf.reset()
-        eng.perf.audio_ms = 1000.0 * len(samples) / SAMPLE_RATE
-        eng.prepare_prompt()
-        text, _ = eng.transcribe_segment(np.asarray(samples, dtype=np.float32))
+        text = segment_mod.transcribe_audio(eng, np.asarray(samples, dtype=np.float32))
     except ValueError as e:
         print(f"smolvision: {e}", file=sys.stderr)
         return 1, eng
@@ -222,6 +234,56 @@ def run(argv=None) -> Tuple[int, Optional["Engine"]]:
             print(f"Audio: {audio_s:.1f} s processed in {infer_s:.1f} s "
                   f"({audio_s / infer_s:.2f}x realtime)", file=sys.stderr)
     return 0, eng
+
+
+def _run_several(args, eng: "Engine", verbosity: int) -> int:
+    """Several -i files: one static batch (runtime/batch_segments.py), or the
+    continuous scheduler under --serve (runtime/serving.py); one line per
+    file on stdout, in file order."""
+    import time
+
+    from smolvision_tpu_torch.config import SAMPLE_RATE
+    from smolvision_tpu_torch.io.wav import load_wav
+
+    try:
+        clips = [load_wav(f) for f in args.input_wav]
+    except (OSError, ValueError) as e:
+        print(f"smolvision: cannot load audio: {e}", file=sys.stderr)
+        return 1
+    # a clip shorter than one mel frame would fail inside the batch encode
+    for f, c in zip(args.input_wav, clips):
+        if len(c) < 160:
+            print(f"smolvision: cannot load audio: {f}: too short ({len(c)} samples; "
+                  "need at least one 10 ms mel frame)", file=sys.stderr)
+            return 1
+    perf = eng.perf
+    perf.reset()
+    perf.audio_ms = sum(1000.0 * len(c) / SAMPLE_RATE for c in clips)
+    t0 = time.monotonic()
+    if args.serve > 0:
+        from smolvision_tpu_torch.runtime.serving import serve_continuous
+
+        texts = serve_continuous(eng, clips, slots=args.serve, admit_cap=args.serve_admit)
+    else:
+        from smolvision_tpu_torch.runtime.batch_segments import transcribe_segments_batched
+
+        texts = transcribe_segments_batched(eng, clips)
+    perf.total_ms = (time.monotonic() - t0) * 1000.0
+    for text in texts:
+        sys.stdout.write(text + "\n")
+    sys.stdout.flush()
+    if verbosity >= 1:
+        print(f"Batch: {len(clips)} files, {perf.audio_ms / 1000:.1f} s audio "
+              f"in {perf.total_ms / 1000:.1f} s "
+              f"({perf.audio_ms / max(perf.total_ms, 1):.2f}x realtime)", file=sys.stderr)
+        if args.serve > 0 and perf.serving_latency:
+            lat = perf.serving_latency
+            print(f"Serve: ttft p50 {lat['ttft_p50_ms']:.0f} ms / "
+                  f"p99 {lat['ttft_p99_ms']:.0f} ms (admit->first p50 "
+                  f"{lat['admit_ttft_p50_ms']:.0f} ms), completion p50 "
+                  f"{lat['done_p50_ms']:.0f} ms / p99 {lat['done_p99_ms']:.0f} ms",
+                  file=sys.stderr)
+    return 0
 
 
 def main(argv=None) -> int:

@@ -27,7 +27,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "smolvision_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-LIBS = ("window_attention", "causal_cache_attention", "decode_attention")
+LIBS = ("window_attention", "causal_cache_attention", "decode_attention",
+        "batched_causal_attention", "batched_cache_attention")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -1,26 +1,33 @@
-// The f32 register-tiled attention core of kernels B1 (window_attention.cu)
-// and B2 (causal_cache_attention.cu).
+// The f32 register-tiled attention core of kernels B1 (window_attention.cu),
+// B2 (causal_cache_attention.cu), B4 (batched_causal_attention.cu) and B5
+// (batched_cache_attention.cu).
 //
-// One block of 256 threads (16 x 16) computes BQ = 64 query rows of one
-// head against the key columns [kv_min, hi), where query row r attends the
-// columns c with kv_min <= c < min(row_start + r + 1, kv_valid): causal for
-// B2 (row_start = its start_pos); a bidirectional caller passes row_start =
-// kv_valid.  The keys are walked in BK = 64-row tiles; the [rows, keys]
-// scores never leave the SM.
+// One block of 256 threads (16 x 16) holds a tile of 64 query rows.  Tile
+// row r is query t0 + r % rows_per_head of head r / rows_per_head: B1 and
+// B2 give a block one head (rows_per_head 64); B4 and B5 give it all G query
+// heads of one KV head (rows_per_head 64 / G), so each K/V row a block
+// loads serves every query head of its group.  The keys of a range
+// [lo, hi) are walked in BK = 64-row tiles (`attend_tiles`, called once per
+// key range: B5 walks up to two cache ranges and then the fresh block); the
+// [rows, keys] scores never leave the SM, and each row carries its online
+// softmax (m, l, acc) in registers across ranges.
 //
-// On the card this work is bounded by bytes at the main-path shapes, but in
-// f32 on the CUDA cores the products take the time, so the core is shaped
-// like a register-tiled matrix product.  Q (scaled), the K/V tile (widened
-// to f32) and the tile's probabilities sit in shared memory, rows padded by
-// 4 floats so that the 16-byte loads below are free of bank conflicts.
-// Each thread computes a 4 x 4 block of scores (rows ty + 16i, keys
-// tx + 16j: 64 FMAs per 8 shared loads), takes one online-softmax step per
-// row and tile (max and sum over the 16 threads of a row by shuffles), and
-// accumulates a 4 x D/16 block of the output (columns 64f + 4tx + 0..3).
-// Tiles wholly outside the key range are never read; tile rows past it are
-// zero-filled instead of loaded, and masked probabilities are exactly 0,
-// so stale rows (pad rows a caller wrote past kv_valid) contribute nothing.
+// On the card this work is bounded by bytes at the path's shapes, but in f32
+// on the CUDA cores the products take the time, so the core is shaped like a
+// register-tiled matrix product.  Q (scaled), the K/V tile (widened to f32)
+// and the tile's probabilities sit in shared memory, rows padded by 4 floats
+// so that the 16-byte loads below are free of bank conflicts.  Each thread
+// computes a 4 x 4 block of scores (rows ty + 16i, keys tx + 16j: 64 FMAs per
+// 8 shared loads), takes one online-softmax step per row and tile (max and
+// sum over the 16 threads of a row by shuffles), and accumulates a 4 x D/16
+// block of the output (columns 64f + 4tx + 0..3).  Tiles wholly outside a
+// key range are never read; tile rows past it are zero-filled instead of
+// loaded, and masked probabilities are exactly 0, so stale rows (pad rows a
+// caller wrote past kv_valid, junk outside a cache window) contribute
+// nothing.  A row that attends no key ends with l == 0 and stores 0.
 #pragma once
+
+#include <climits>
 
 #include "common.cuh"
 
@@ -57,49 +64,66 @@ __device__ __forceinline__ float lane_of(const float4& v, int i) {
     return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-// q: row 0 of this head's queries (row t at q + t * q_stride), T rows, of
-// which this block takes [t0, t0 + 64); k / v: column 0 of this head's keys
-// (key c at k + c * kv_stride); out: like q, with out_stride.  Every stride
-// is in elements; each row's D elements are contiguous.  smem holds
-// tiled_smem_bytes(D), 16-byte aligned.
-template <int D, typename KV>
-__device__ __forceinline__ void tiled_attention(
-    float* smem, const float* __restrict__ q, long long q_stride, const KV* __restrict__ k,
-    const KV* __restrict__ v, long long kv_stride, float* __restrict__ out,
-    long long out_stride, int T, int t0, int row_start, int kv_valid, int kv_min,
-    float scale) {
-    static_assert(D % 64 == 0, "the thread layout covers 64 output columns per group");
-    constexpr int LD = D + kTilePad;        // row length of the Q / K / V tiles
-    constexpr int LDP = kTileKeys + kTilePad;  // row length of the probability tile
-    constexpr int DG = D / 64;               // float4 groups of output columns per thread
-    float* qs = smem;                        // [kTileRows][LD]
-    float* ks = qs + kTileRows * LD;         // [kTileKeys][LD]
-    float* vs = ks + kTileKeys * LD;         // [kTileKeys][LD]
-    float* ps = vs + kTileKeys * LD;         // [kTileRows][LDP]
-    const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+// Which query a tile row holds: head r / rows_per_head (of `heads`), query
+// t0 + r % rows_per_head (of T).  `valid` is false for rows past either.
+struct TileRows {
+    int T, t0, rows_per_head, heads;
+    __device__ __forceinline__ int head(int r) const { return r / rows_per_head; }
+    __device__ __forceinline__ int t(int r) const { return t0 + r % rows_per_head; }
+    __device__ __forceinline__ bool valid(int r) const { return head(r) < heads && t(r) < T; }
+    // the thread's i-th row (of 4)
+    __device__ __forceinline__ int mine(int i) const { return threadIdx.x / 16 + 16 * i; }
+};
 
-    for (int i = tid; i < kTileRows * D; i += kTileThreads) {
+// The online-softmax state of a thread's 4 rows.
+template <int D>
+struct RowState {
+    float m[4], l[4], o[4][D / 16];
+};
+
+// Load the block's 64 query rows, scaled, into shared memory and clear the
+// row state.  Row (head h, query t) is at q + h * q_head_stride + t * q_stride.
+template <int D>
+__device__ __forceinline__ void begin_rows(float* smem, RowState<D>& st, const TileRows& rows,
+                                           const float* __restrict__ q, long long q_stride,
+                                           long long q_head_stride, float scale) {
+    constexpr int LD = D + kTilePad;
+    for (int i = threadIdx.x; i < kTileRows * D; i += kTileThreads) {
         const int r = i / D, c = i % D;
-        const int t = t0 + r;
-        qs[r * LD + c] = t < T ? q[t * q_stride + c] * scale : 0.f;
+        smem[r * LD + c] = rows.valid(r)
+            ? q[rows.head(r) * q_head_stride + (long long)rows.t(r) * q_stride + c] * scale
+            : 0.f;
     }
-
-    // this thread's rows are ty + 16 i; their last attended column + 1
-    int row_hi[4];
-    float m[4], l[4], o[4][4 * DG];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-        const int t = t0 + ty + 16 * i;
-        row_hi[i] = t < T ? min(row_start + t + 1, kv_valid) : kv_min;
-        m[i] = kNegInf;
-        l[i] = 0.f;
+        st.m[i] = kNegInf;
+        st.l[i] = 0.f;
 #pragma unroll
-        for (int e = 0; e < 4 * DG; ++e) o[i][e] = 0.f;
+        for (int e = 0; e < D / 16; ++e) st.o[i][e] = 0.f;
     }
+}
 
-    const int t_last = min(t0 + kTileRows, T) - 1;
-    const int hi = min(row_start + t_last + 1, kv_valid);
-    for (int k0 = kv_min; k0 < hi; k0 += kTileKeys) {
+// Attend the keys [lo, hi): key c at k + c * kv_stride (D contiguous
+// elements).  The thread's row i attends key c iff c < row_hi[i].
+template <int D, typename KV>
+__device__ __forceinline__ void attend_tiles(float* smem, RowState<D>& st,
+                                             const KV* __restrict__ k, const KV* __restrict__ v,
+                                             long long kv_stride, int lo, int hi,
+                                             const int (&row_hi)[4]) {
+    static_assert(D % 64 == 0, "the thread layout covers 64 output columns per group");
+    constexpr int LD = D + kTilePad;           // row length of the Q / K / V tiles
+    constexpr int LDP = kTileKeys + kTilePad;  // row length of the probability tile
+    constexpr int DG = D / 64;                 // float4 groups of output columns per thread
+    const float* qs = smem;                    // [kTileRows][LD]
+    float* ks = smem + kTileRows * LD;         // [kTileKeys][LD]
+    float* vs = ks + kTileKeys * LD;           // [kTileKeys][LD]
+    float* ps = vs + kTileKeys * LD;           // [kTileRows][LDP]
+    const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+    int lim[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) lim[i] = min(row_hi[i], hi);
+
+    for (int k0 = lo; k0 < hi; k0 += kTileKeys) {
         __syncthreads();  // the previous tile (and the Q tile on entry) is done
         for (int i = tid; i < kTileKeys * D; i += kTileThreads) {
             const int r = i / D, c = i % D;
@@ -140,20 +164,20 @@ __device__ __forceinline__ void tiled_attention(
             float mx = kNegInf;
 #pragma unroll
             for (int j = 0; j < 4; ++j)
-                if (k0 + tx + 16 * j < row_hi[i]) mx = fmaxf(mx, s[i][j]);
-            const float m_new = fmaxf(m[i], half_warp_max(mx));
-            const float alpha = expf(m[i] - m_new);
+                if (k0 + tx + 16 * j < lim[i]) mx = fmaxf(mx, s[i][j]);
+            const float m_new = fmaxf(st.m[i], half_warp_max(mx));
+            const float alpha = expf(st.m[i] - m_new);
             float sum = 0.f;
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
-                const float p = k0 + tx + 16 * j < row_hi[i] ? expf(s[i][j] - m_new) : 0.f;
+                const float p = k0 + tx + 16 * j < lim[i] ? expf(s[i][j] - m_new) : 0.f;
                 ps[(ty + 16 * i) * LDP + tx + 16 * j] = p;
                 sum += p;
             }
-            l[i] = l[i] * alpha + half_warp_sum(sum);
-            m[i] = m_new;
+            st.l[i] = st.l[i] * alpha + half_warp_sum(sum);
+            st.m[i] = m_new;
 #pragma unroll
-            for (int e = 0; e < 4 * DG; ++e) o[i][e] *= alpha;
+            for (int e = 0; e < 4 * DG; ++e) st.o[i][e] *= alpha;
         }
         __syncthreads();
 
@@ -171,29 +195,66 @@ __device__ __forceinline__ void tiled_attention(
 #pragma unroll
                     for (int i = 0; i < 4; ++i) {
                         const float p = lane_of(p4[i], cc);
-                        o[i][4 * f + 0] = fmaf(p, vv.x, o[i][4 * f + 0]);
-                        o[i][4 * f + 1] = fmaf(p, vv.y, o[i][4 * f + 1]);
-                        o[i][4 * f + 2] = fmaf(p, vv.z, o[i][4 * f + 2]);
-                        o[i][4 * f + 3] = fmaf(p, vv.w, o[i][4 * f + 3]);
+                        st.o[i][4 * f + 0] = fmaf(p, vv.x, st.o[i][4 * f + 0]);
+                        st.o[i][4 * f + 1] = fmaf(p, vv.y, st.o[i][4 * f + 1]);
+                        st.o[i][4 * f + 2] = fmaf(p, vv.z, st.o[i][4 * f + 2]);
+                        st.o[i][4 * f + 3] = fmaf(p, vv.w, st.o[i][4 * f + 3]);
                     }
                 }
             }
         }
     }
+}
 
+// Store the thread's valid rows, normalised: out like q in begin_rows.
+template <int D>
+__device__ __forceinline__ void end_rows(const RowState<D>& st, const TileRows& rows,
+                                         float* __restrict__ out, long long out_stride,
+                                         long long out_head_stride) {
+    constexpr int DG = D / 64;
+    const int tx = threadIdx.x % 16;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-        const int t = t0 + ty + 16 * i;
-        if (t < T) {
-            const float inv = 1.f / fmaxf(l[i], kDenomFloor);
-            float* op = out + t * out_stride + 4 * tx;
+        const int r = rows.mine(i);
+        if (rows.valid(r)) {
+            const float inv = 1.f / fmaxf(st.l[i], kDenomFloor);
+            float* op = out + rows.head(r) * out_head_stride + (long long)rows.t(r) * out_stride +
+                        4 * tx;
 #pragma unroll
             for (int f = 0; f < DG; ++f)
                 *reinterpret_cast<float4*>(op + 64 * f) =
-                    make_float4(o[i][4 * f] * inv, o[i][4 * f + 1] * inv, o[i][4 * f + 2] * inv,
-                                o[i][4 * f + 3] * inv);
+                    make_float4(st.o[i][4 * f] * inv, st.o[i][4 * f + 1] * inv,
+                                st.o[i][4 * f + 2] * inv, st.o[i][4 * f + 3] * inv);
         }
     }
+}
+
+// One head's 64 query rows [t0, t0 + 64) of T against the key columns
+// [kv_min, hi): row t attends the columns c with kv_min <= c <
+// min(row_start + t + 1, kv_valid) -- causal for B2 (row_start = its
+// start_pos); a bidirectional caller passes row_start = kv_valid.  q: row 0
+// of this head's queries (row t at q + t * q_stride); k / v: column 0 of
+// this head's keys (key c at k + c * kv_stride); out: like q, with
+// out_stride.  smem holds tiled_smem_bytes(D), 16-byte aligned.
+template <int D, typename KV>
+__device__ __forceinline__ void tiled_attention(
+    float* smem, const float* __restrict__ q, long long q_stride, const KV* __restrict__ k,
+    const KV* __restrict__ v, long long kv_stride, float* __restrict__ out,
+    long long out_stride, int T, int t0, int row_start, int kv_valid, int kv_min,
+    float scale) {
+    const TileRows rows{T, t0, kTileRows, 1};
+    RowState<D> st;
+    begin_rows<D>(smem, st, rows, q, q_stride, 0, scale);
+    int row_hi[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int t = rows.t(rows.mine(i));
+        row_hi[i] = t < T ? min(row_start + t + 1, kv_valid) : kv_min;
+    }
+    const int t_last = min(t0 + kTileRows, T) - 1;
+    attend_tiles<D, KV>(smem, st, k, v, kv_stride, kv_min,
+                        min(row_start + t_last + 1, kv_valid), row_hi);
+    end_rows<D>(st, rows, out, out_stride, 0);
 }
 
 }  // namespace sv

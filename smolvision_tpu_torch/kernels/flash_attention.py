@@ -1,11 +1,14 @@
-"""Attention kernels of the main path: CUDA wrappers and their plain versions.
+"""Attention kernels: CUDA wrappers and their plain versions.
 
-Port of the three Pallas kernels of smolvision_tpu/kernels/flash_attention.py
-that offline transcription runs:
+Port of the five Pallas kernels of smolvision_tpu/kernels/flash_attention.py:
 
-  * `window_flash_attention`       (B1, encoder)  -> csrc/window_attention.cu
-  * `causal_cache_flash_attention` (B2, prefill)  -> csrc/causal_cache_attention.cu
-  * `decode_flash_attention`       (B3, decode)   -> csrc/decode_attention.cu
+  * `window_flash_attention`         (B1, encoder)  -> csrc/window_attention.cu
+  * `causal_cache_flash_attention`   (B2, prefill)  -> csrc/causal_cache_attention.cu
+  * `decode_flash_attention`         (B3, decode)   -> csrc/decode_attention.cu
+  * `batched_causal_flash_attention` (B4, batched fresh prefill)
+                                                    -> csrc/batched_causal_attention.cu
+  * `batched_cache_flash_attention`  (B5, batched delta prefill)
+                                                    -> csrc/batched_cache_attention.cu
 
 Each wrapper launches its hand-written sm_90a kernel for CUDA tensors and
 adds one to `launch_counts[name]` per launch; for CPU tensors it calls the
@@ -15,7 +18,7 @@ CUDA tensor either goes through the kernel or the wrapper raises.
 
 All math is f32 with scale 1/sqrt(D) applied to q before the product.
 Shapes keep the JAX package's layouts ([W, S, H, D] windows, [K, KH, D]
-cache) so the tests compare like with like.
+cache, [B, KH, K, D] batched cache) so the tests compare like with like.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ launch_counts: Dict[str, int] = {
     "window_attention": 0,
     "causal_cache_attention": 0,
     "decode_attention": 0,
+    "batched_causal_attention": 0,
+    "batched_cache_attention": 0,
 }
 
 
@@ -55,6 +60,11 @@ _SIGNATURES = {
     "sv_decode_attention": ("decode_attention",
                             [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I,
                              _I, _I, _I, _I, _F, _P]),
+    "sv_batched_causal_attention": ("batched_causal_attention",
+                                    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "sv_batched_cache_attention": ("batched_cache_attention",
+                                   [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
+                                    _I, _I, _LL, _LL, _LL, _I, _I, _F, _P]),
 }
 
 
@@ -255,4 +265,148 @@ def decode_flash_attention(q, k_new, v_new, k_cache, v_cache, start_pos: int,
           H, KH, D, k_cache.stride(0), start_pos, kv_min, n_splits, chunk,
           kv_bf16, 1.0 / math.sqrt(D), _stream())
     launch_counts["decode_attention"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B4: batched fresh-prefill causal attention
+# ---------------------------------------------------------------------------
+
+def _grouped_scores(q, keys):
+    """q [B, T, H, D] (scaled here) against keys [B, S, KH, D] -> f32 scores
+    [B, KH, G, T, S]."""
+    B, T, H, D = q.shape
+    KH = keys.shape[2]
+    qc = (q.float() * (1.0 / math.sqrt(D))).reshape(B, T, KH, H // KH, D)
+    return torch.einsum("btkgd,bskd->bkgts", qc, keys.float())
+
+
+def batched_causal_attention_plain(q, k, v, kv_min):
+    """q: [B, T, H, D]; k/v: [B, T, KH, D]; kv_min: [B] int.  In batch row b,
+    query row r attends key column c iff kv_min[b] <= c <= r; the left-pad
+    rows r < kv_min[b] give 0.  Returns [B, T, H, D] f32."""
+    B, T, H, D = q.shape
+    s = _grouped_scores(q, k)
+    ar = torch.arange(T, device=q.device)
+    km = kv_min.to(device=q.device, dtype=torch.int64)
+    mask = (ar[None, :] <= ar[:, None])[None] & (ar[None, None, :] >= km[:, None, None])
+    p = _masked_probs(s, mask[:, None, None])
+    return torch.einsum("bkgts,bskd->btkgd", p, v.float()).reshape(B, T, H, D)
+
+
+def _check_batched_qkv(q, k_new, v_new, KH: int) -> None:
+    B, T, H, D = q.shape
+    _require(q.dtype == k_new.dtype == v_new.dtype == torch.float32, "q/k/v must be f32")
+    _require(q.is_contiguous() and k_new.is_contiguous() and v_new.is_contiguous(),
+             "q/k/v must be contiguous")
+    _require(k_new.shape == (B, T, KH, D) and v_new.shape == (B, T, KH, D)
+             and H % KH == 0 and 64 % (H // KH) == 0,
+             "GQA shapes disagree (or G does not divide 64)")
+    _require(D in (64, 128), f"head dim {D} not built (64, 128)")
+
+
+def _rows_i32(x, B: int, device) -> torch.Tensor:
+    """A per-row int vector [B] as contiguous int32 on `device` (a host int
+    or a 0-dim tensor is broadcast; a host int is filled on the device, so
+    no host copy is needed)."""
+    if not isinstance(x, torch.Tensor):
+        return torch.full((B,), int(x), dtype=torch.int32, device=device)
+    t = x.to(device=device, dtype=torch.int32)
+    return (t.expand(B) if t.dim() == 0 else t.reshape(B)).contiguous()
+
+
+def batched_causal_flash_attention(q, k, v, kv_min):
+    """Batched fresh-block causal GQA self-attention with a left-pad mask
+    (kernel B4 on CUDA, one launch for the whole batch)."""
+    if not q.is_cuda:
+        return batched_causal_attention_plain(q, k, v, kv_min)
+    B, T, H, D = q.shape
+    KH = k.shape[2]
+    km = _rows_i32(kv_min, B, q.device)
+    _check_cuda(q, k, v, km)
+    _check_batched_qkv(q, k, v, KH)
+    out = torch.empty_like(q)
+    _call("sv_batched_causal_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+          km.data_ptr(), out.data_ptr(), B, T, H, KH, D, 1.0 / math.sqrt(D), _stream())
+    launch_counts["batched_causal_attention"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B5: batched delta prefill (block vs cache + itself)
+# ---------------------------------------------------------------------------
+
+def batched_cache_attention_plain(q, k_new, v_new, k_cache, v_cache, start_pos: int,
+                                  kv_min, prompt_max=None, region_start=None):
+    """q: [B, T, H, D] at cache rows start_pos + t; k_new/v_new: [B, T, KH, D]
+    (not yet in the cache); k/v_cache: [B, KH, K, D].  Row b attends the cache
+    columns [kv_min[b], start_pos) ∩ ([0, prompt_max[b]) ∪ [region_start[b],
+    K)) (every column of [kv_min[b], start_pos) without prompt_max) and the
+    fresh columns c <= t with start_pos + c >= kv_min[b].  Cache columns
+    outside the window are zeroed before any product.  A row with no key
+    gives 0.  Returns [B, T, H, D] f32."""
+    B, T, H, D = q.shape
+    KH = k_new.shape[2]
+    dev = q.device
+    km = kv_min.to(device=dev, dtype=torch.int64)
+    cols = torch.arange(start_pos, device=dev)
+    live = (cols[None, :] >= km[:, None])                                  # [B, start]
+    if prompt_max is not None:
+        pm = _rows_i32(prompt_max, B, dev).long()
+        rs = _rows_i32(region_start, B, dev).long()
+        live = live & ((cols[None, :] < pm[:, None]) | (cols[None, :] >= rs[:, None]))
+    keep = live[:, None, :, None]
+    kc = torch.where(keep, k_cache[:, :, :start_pos].float(), 0.0)        # [B, KH, S, D]
+    vc = torch.where(keep, v_cache[:, :, :start_pos].float(), 0.0)
+    s = torch.cat([_grouped_scores(q, kc.transpose(1, 2)),
+                   _grouped_scores(q, k_new)], dim=-1)                    # [B, KH, G, T, S+T]
+    ar = torch.arange(T, device=dev)
+    fresh = ((ar[None, :] <= ar[:, None])[None]
+             & (start_pos + ar[None, None, :] >= km[:, None, None]))      # [B, T, T]
+    mask = torch.cat([live[:, None, :].expand(B, T, start_pos), fresh], dim=-1)
+    p = _masked_probs(s, mask[:, None, None])
+    out = (torch.einsum("bkgts,bksd->btkgd", p[..., :start_pos], vc)
+           + torch.einsum("bkgts,bskd->btkgd", p[..., start_pos:], v_new.float()))
+    return out.reshape(B, T, H, D)
+
+
+def batched_cache_flash_attention(q, k_new, v_new, k_cache, v_cache, start_pos: int,
+                                  kv_min, prompt_max=None, region_start=None):
+    """Batched GQA attention of a fresh query block against the cache plus
+    its own K/V, causal within the block (kernel B5 on CUDA).  start_pos is
+    a host int shared by the batch; kv_min / prompt_max are [B];
+    region_start is an int or [B] (used only with prompt_max)."""
+    if not q.is_cuda:
+        return batched_cache_attention_plain(q, k_new, v_new, k_cache, v_cache, start_pos,
+                                             kv_min, prompt_max, region_start)
+    B, T, H, D = q.shape
+    _, KH, K, _ = k_cache.shape
+    km = _rows_i32(kv_min, B, q.device)
+    _check_cuda(q, k_new, v_new, k_cache, v_cache, km)
+    _check_batched_qkv(q, k_new, v_new, KH)
+    _require(k_cache.dtype == v_cache.dtype
+             and k_cache.dtype in (torch.bfloat16, torch.float32),
+             f"cache must be bf16 or f32, got {k_cache.dtype}/{v_cache.dtype}")
+    _require(k_cache.shape == (B, KH, K, D) and v_cache.shape == k_cache.shape
+             and k_cache.stride() == v_cache.stride() and k_cache.stride(3) == 1,
+             "caches must be [B, KH, K, D] views with unit element stride")
+    _require(0 <= start_pos <= K, "positions out of the cache")
+    pm_ptr = rs_ptr = None
+    rs_all = 0
+    if prompt_max is not None:
+        pm = _rows_i32(prompt_max, B, q.device)
+        pm_ptr = pm.data_ptr()
+        if isinstance(region_start, torch.Tensor) and region_start.dim() > 0:
+            rs = _rows_i32(region_start, B, q.device)
+            _check_cuda(q, pm, rs)
+            rs_ptr = rs.data_ptr()
+        else:
+            rs_all = int(region_start)
+    out = torch.empty_like(q)
+    _call("sv_batched_cache_attention", q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+          k_cache.data_ptr(), v_cache.data_ptr(), km.data_ptr(), pm_ptr, rs_ptr, rs_all,
+          out.data_ptr(), B, T, H, KH, D, k_cache.stride(0), k_cache.stride(1),
+          k_cache.stride(2), start_pos, int(k_cache.dtype == torch.bfloat16),
+          1.0 / math.sqrt(D), _stream())
+    launch_counts["batched_cache_attention"] += 1
     return out

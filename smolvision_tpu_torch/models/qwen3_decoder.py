@@ -1,6 +1,6 @@
-"""Dense Qwen3 LLM decoder in torch: prefill + decode step.
+"""Dense Qwen3 LLM decoder in torch: prefill + decode step, single and batched.
 
-Port of the dense single-stream path of smolvision_tpu/models/qwen3_decoder.py
+Port of the dense paths of smolvision_tpu/models/qwen3_decoder.py
 (reference semantics: qwen_asr_decoder.c, MODEL.md:156-227).
 
   * one KV cache [L, 2, Kcap, KH, D] (bf16, or f32 under --f32), updated in
@@ -12,6 +12,11 @@ Port of the dense single-stream path of smolvision_tpu/models/qwen3_decoder.py
     the fresh row, then writes that row into the cache; there is no
     cache-size crossover (the JAX package's FLASH_DECODE_MIN_KCAP is a TPU
     measurement and does not apply here),
+  * the batched decoder (segments, serving) keeps a [L, 2, B, KH, K, D]
+    cache: fresh prefill runs kernel B4, delta prefill of a block of T > 1
+    rows kernel B5, at every size (the JAX package's BATCHED_FLASH_MIN_T /
+    BATCHED_DELTA_FLASH_MIN_T are TPU crossovers and do not apply here); a
+    batched decode step is plain torch, as in the JAX package,
   * activations: residual stream f32, matmul inputs cast to the weight
     dtype, f32 accumulation (ops/common.linear).
 """
@@ -20,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from smolvision_tpu_torch.config import ModelConfig
+from smolvision_tpu_torch.config import EOS_TOKEN_IDS, ModelConfig
 from smolvision_tpu_torch.kernels import flash_attention as fa
 from smolvision_tpu_torch.ops.common import apply_rope_neox, linear, rms_norm, rope_tables, silu
 
@@ -136,3 +141,162 @@ def decode_step(params, cfg: ModelConfig, token, pos: int, kv, greedy: bool = Tr
     if greedy:
         return torch.argmax(logits).to(torch.int32), kv
     return logits, kv
+
+
+# ---------------------------------------------------------------------------
+# Batched decoder (segments / serving): the batch dimension is written into
+# the products, the cache is [L, 2, B, KH, K, D], and every row writes at the
+# same cache position (the left-padded and natural layouts make it
+# batch-uniform), so each layer's cache write is one plain slice write.
+# ---------------------------------------------------------------------------
+
+
+def make_batched_kv(cfg: ModelConfig, batch: int, kv_cap: int, dtype=torch.bfloat16,
+                    device="cpu"):
+    """Batched KV cache [L, 2, B, KH, K, D] (bf16 or f32)."""
+    return torch.zeros((cfg.dec_layers, 2, batch, cfg.dec_kv_heads, kv_cap, cfg.dec_head_dim),
+                       dtype=dtype, device=device)
+
+
+def kv_grow_k(kv: torch.Tensor, kcap_new: int) -> torch.Tensor:
+    """Zero-grow the K (cache position) axis of a batched cache to kcap_new."""
+    new = kv.new_zeros(kv.shape[:4] + (kcap_new,) + kv.shape[5:])
+    new[:, :, :, :, : kv.shape[4]] = kv
+    return new
+
+
+def build_embeds_batched(params, ids: torch.Tensor, audio: torch.Tensor,
+                         audio_start: torch.Tensor, audio_len: torch.Tensor) -> torch.Tensor:
+    """`build_embeds` per row: ids [B, T], audio [B, A, H], audio_start /
+    audio_len [B] -> [B, T, H] f32."""
+    emb = params["embed"][ids].float()
+    rel = torch.arange(ids.shape[1], device=ids.device)[None, :] - audio_start[:, None]
+    in_audio = (rel >= 0) & (rel < audio_len[:, None])
+    rows = torch.arange(ids.shape[0], device=ids.device)[:, None]
+    audio_rows = audio[rows, rel.clamp(0, audio.shape[1] - 1)].float()
+    return torch.where(in_audio[..., None], audio_rows, emb)
+
+
+def batched_decoder_forward(params, cfg: ModelConfig, embeds: torch.Tensor, start_pos: int,
+                            kv: torch.Tensor, rope_start: torch.Tensor, kv_min: torch.Tensor,
+                            fresh_prefill: bool = False, prompt_max=None, region_start=None):
+    """Run the layer stack over `embeds` [B, T, H] written into cache rows
+    start_pos..start_pos+T-1 of every batch row.
+
+    rope_start [B]: logical position of block row 0 per row (negative for
+    left-pad rows).  kv_min [B]: cache rows below it are left-pad garbage.
+    fresh_prefill: start_pos == 0 and the whole context is this block ->
+    kernel B4.  Otherwise a block of T > 1 runs kernel B5 against the cache
+    (with the natural-layout mask prompt_max / region_start when given), and
+    a decode step (T == 1) the plain two-part attention.  There is no size
+    crossover.  Returns (hidden [B, T, H] f32, kv) -- kv updated in place.
+    """
+    B, T, _ = embeds.shape
+    H, KH, D = cfg.dec_heads, cfg.dec_kv_heads, cfg.dec_head_dim
+    eps = cfg.rms_norm_eps
+    if start_pos + T > kv.shape[4]:
+        raise ValueError(f"cache rows {start_pos}..{start_pos + T} past its {kv.shape[4]}")
+    positions = rope_start[:, None] + torch.arange(T, device=embeds.device)[None, :]
+    cos, sin = rope_tables(positions, D, cfg.rope_theta)       # [B, T, D]
+    layers = params["layers"]
+    h = embeds.float()
+    for i in range(layers["wqkv"].shape[0]):
+        lp = {key: val[i] for key, val in layers.items()}
+        xn = rms_norm(h, lp["input_ln"], eps)
+        qkv = linear(xn, lp["wqkv"])
+        q = qkv[..., : H * D].reshape(B, T, H, D)
+        k = qkv[..., H * D : (H + KH) * D].reshape(B, T, KH, D)
+        v = qkv[..., (H + KH) * D :].reshape(B, T, KH, D)
+        q = apply_rope_neox(rms_norm(q, lp["q_norm"], eps), cos, sin).contiguous()
+        k = apply_rope_neox(rms_norm(k, lp["k_norm"], eps), cos, sin).contiguous()
+        v = v.contiguous()
+        k_cache, v_cache = kv[i, 0], kv[i, 1]                  # [B, KH, K, D]
+        if fresh_prefill:
+            attn = fa.batched_causal_flash_attention(q, k, v, kv_min)
+        elif T > 1:
+            attn = fa.batched_cache_flash_attention(q, k, v, k_cache, v_cache, start_pos, kv_min,
+                                                    prompt_max, region_start)
+        else:
+            # a decode step: the JAX package's two-part attention, which it
+            # computes outside any kernel -- the same function as B5's
+            # plain version
+            attn = fa.batched_cache_attention_plain(q, k, v, k_cache, v_cache, start_pos,
+                                                    kv_min, prompt_max, region_start)
+        h = h + linear(attn.reshape(B, T, H * D), lp["wo"])
+        h = h + _dense_ffn(rms_norm(h, lp["post_ln"], eps), lp)
+        k_cache[:, :, start_pos : start_pos + T] = k.transpose(1, 2).to(kv.dtype)
+        v_cache[:, :, start_pos : start_pos + T] = v.transpose(1, 2).to(kv.dtype)
+    return h, kv
+
+
+def batched_logits(params, cfg: ModelConfig, hidden_rows: torch.Tensor) -> torch.Tensor:
+    """Final RMSNorm + lm_head for one row per batch element [B, H] -> [B, V] f32."""
+    return linear(rms_norm(hidden_rows, params["final_norm"], cfg.rms_norm_eps),
+                  params["lm_head"])
+
+
+def _greedy_or_logits(logits: torch.Tensor, greedy: bool):
+    return torch.argmax(logits, dim=-1).to(torch.int32) if greedy else logits
+
+
+def batched_prefill(params, cfg: ModelConfig, embeds, kv, rope_start, kv_min,
+                    greedy: bool = True):
+    """Fresh prefill at start_pos 0 (kernel B4): the left-padded layout puts
+    each row's last prompt token at T-1.  Returns (tokens | logits [B, ...], kv)."""
+    T = embeds.shape[1]
+    hidden, kv = batched_decoder_forward(params, cfg, embeds, 0, kv, rope_start, kv_min,
+                                         fresh_prefill=True)
+    return _greedy_or_logits(batched_logits(params, cfg, hidden[:, T - 1]), greedy), kv
+
+
+def batched_prefill_delta(params, cfg: ModelConfig, embeds, start_pos: int, kv, rope_start,
+                          kv_min, greedy: bool = True, last_rows=None, prompt_max=None,
+                          region_start=None):
+    """Delta prefill (kernel B5): the block writes cache rows [start_pos,
+    start_pos + T) of every row and attends each row's frozen context
+    [kv_min[b], start_pos).  Row b's last prompt token is at T - 1
+    (left-padded) or at last_rows[b] (natural layout).
+    Returns (tokens | logits, kv)."""
+    T = embeds.shape[1]
+    hidden, kv = batched_decoder_forward(params, cfg, embeds, start_pos, kv, rope_start, kv_min,
+                                         prompt_max=prompt_max, region_start=region_start)
+    if last_rows is None:
+        h_last = hidden[:, T - 1]
+    else:
+        h_last = hidden[torch.arange(hidden.shape[0], device=hidden.device), last_rows.long()]
+    return _greedy_or_logits(batched_logits(params, cfg, h_last), greedy), kv
+
+
+def batched_decode_chunk(params, cfg: ModelConfig, tokens: torch.Tensor, pos: int, kv,
+                         n_steps_cap: int, rope_offset, kv_min, n_steps=None, prompt_max=None,
+                         region_start=None, row_active=None):
+    """Greedy-decode up to n_steps (default n_steps_cap) tokens for every
+    row, stopping once every row has emitted an EOS (rows that finish first
+    keep decoding garbage into the buffer; the host truncates at EOS).
+
+    tokens [B]; pos is the batch-uniform cache row; the rope position of row
+    b is pos - rope_offset[b].  row_active [B] bool marks pad / duplicate
+    rows as done from the start, so the exit waits only on real rows.  A
+    host loop with the contract of the JAX package's device while_loop:
+    returns (buf [B, n_steps_cap] int32, count, last_tokens [B], kv).
+    """
+    B = tokens.shape[0]
+    dev = tokens.device
+    eos = torch.tensor(sorted(EOS_TOKEN_IDS), dtype=torch.int32, device=dev)
+    n_steps = n_steps_cap if n_steps is None else min(int(n_steps), n_steps_cap)
+    buf = torch.zeros((B, n_steps_cap), dtype=torch.int32, device=dev)
+    done = torch.isin(tokens, eos)
+    if row_active is not None:
+        done = done | ~row_active
+    toks = tokens.to(torch.int32)
+    i = 0
+    while i < n_steps and not bool(done.all()):
+        p = pos + i
+        embeds = params["embed"][toks.long()].float()[:, None, :]
+        hidden, kv = batched_decoder_forward(params, cfg, embeds, p, kv, p - rope_offset, kv_min,
+                                             prompt_max=prompt_max, region_start=region_start)
+        toks = torch.argmax(batched_logits(params, cfg, hidden[:, 0]), dim=-1).to(torch.int32)
+        buf[:, i] = toks
+        done = done | torch.isin(toks, eos)
+        i += 1
+    return buf, i, toks, kv

@@ -11,13 +11,17 @@ Reference semantics: qwen_asr_encoder.c:171-372, MODEL.md:85-152.
   * windowed bidirectional attention reshapes the padded token sequence to
     [n_windows, window_tokens, heads, head_dim]; the hard windows make the
     block-diagonal mask a reshape, and kernel B1 masks the pad keys of the
-    last windows (kernels/flash_attention.window_flash_attention).
+    last windows (kernels/flash_attention.window_flash_attention).  A batch
+    of clips [B, Tcap, d] is B * n_windows windows in one B1 launch per
+    layer, never one launch per clip.
 
 Callers bucket `x` to a multiple of the window token size and pass
 `valid_len`; rows >= valid_len are garbage and sliced off.
 """
 
 from __future__ import annotations
+
+from typing import List, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -46,40 +50,54 @@ def conv_stem(params, mel_chunks: torch.Tensor, cfg: ModelConfig) -> torch.Tenso
     return x + pe[None, :, :]
 
 
-def transformer_stack(layers, x: torch.Tensor, valid_len: int, window_tokens: int,
+def window_lens(valid_lens: Sequence[int], n_windows: int, window_tokens: int) -> List[int]:
+    """Valid keys of each window when clip b holds windows [b * n_windows,
+    (b + 1) * n_windows) and its first valid_lens[b] tokens are real."""
+    S = window_tokens
+    return [min(max(n - w * S, 0), S) for n in valid_lens for w in range(n_windows)]
+
+
+def transformer_stack(layers, x: torch.Tensor, valid_len, window_tokens: int,
                       n_heads: int, head_dim: int) -> torch.Tensor:
     """Windowed-attention transformer stack.
 
-    x: [Tcap, d_model] f32 with Tcap % window_tokens == 0; layers: stacked
-    [L, ...] tensors.  Returns [Tcap, d_model] f32 pre-ln_post states.
+    x: [Tcap, d_model] f32 with Tcap % window_tokens == 0, valid_len an int;
+    or [B, Tcap, d_model] with one valid length per clip.  Every window of
+    every clip goes through one kernel-B1 launch per layer.  layers: stacked
+    [L, ...] tensors.  Returns x's shape, pre-ln_post states (f32).
     """
-    Tcap, d = x.shape
+    shape = x.shape
+    Tcap, d = shape[-2:]
     assert Tcap % window_tokens == 0, (Tcap, window_tokens)
+    lens = [valid_len] if x.dim() == 2 else list(valid_len)
     W = Tcap // window_tokens
     S, H, D = window_tokens, n_heads, head_dim
-    window_lens = torch.tensor([min(max(valid_len - w * S, 0), S) for w in range(W)],
-                               dtype=torch.int32, device=x.device)
-    h = x.float()
+    wl = torch.tensor(window_lens(lens, W, S), dtype=torch.int32, device=x.device)
+    n = len(lens) * W
+    h = x.float().reshape(n * S, d)
     for i in range(layers["wq"].shape[0]):
         lp = {key: val[i] for key, val in layers.items()}
         xn = layer_norm(h, lp["attn_ln_w"], lp["attn_ln_b"], eps=1e-5)
-        q = linear(xn, lp["wq"], lp["bq"]).reshape(W, S, H, D)
-        k = linear(xn, lp["wk"], lp["bk"]).reshape(W, S, H, D)
-        v = linear(xn, lp["wv"], lp["bv"]).reshape(W, S, H, D)
-        attn = fa.window_flash_attention(q, k, v, window_lens).reshape(Tcap, H * D)
+        q = linear(xn, lp["wq"], lp["bq"]).reshape(n, S, H, D)
+        k = linear(xn, lp["wk"], lp["bk"]).reshape(n, S, H, D)
+        v = linear(xn, lp["wv"], lp["bv"]).reshape(n, S, H, D)
+        attn = fa.window_flash_attention(q, k, v, wl).reshape(n * S, H * D)
         h = h + linear(attn, lp["wo"], lp["bo"])
         xn = layer_norm(h, lp["ffn_ln_w"], lp["ffn_ln_b"], eps=1e-5)
         mid = gelu_tanh(linear(xn, lp["fc1"], lp["fc1_b"]))
         h = h + linear(mid, lp["fc2"], lp["fc2_b"])
-    return h
+    return h.reshape(shape)
 
 
-def encoder_transformer(params, x: torch.Tensor, valid_len: int, cfg: ModelConfig,
+def encoder_transformer(params, x: torch.Tensor, valid_len, cfg: ModelConfig,
                         window_tokens: int) -> torch.Tensor:
     """Transformer stack + ln_post + proj1/proj2.
 
-    x: [Tcap, d_model] f32 with Tcap % window_tokens == 0.  Returns
-    [Tcap, enc_output_dim] f32 (rows >= valid_len are garbage).
+    x: [Tcap, d_model] f32 with Tcap % window_tokens == 0 and an int
+    valid_len, or a batch of clips [B, Tcap, d_model] with their valid
+    lengths (the JAX package vmaps this function over clips).  Returns
+    [(B,) Tcap, enc_output_dim] f32 (rows >= a clip's valid length are
+    garbage).
     """
     h = transformer_stack(params["layers"], x, valid_len, window_tokens,
                           cfg.enc_heads, cfg.enc_head_dim)

@@ -1,0 +1,71 @@
+"""Batched model entry points (port of smolvision_tpu/parallel/batch.py).
+
+Segments (-S mode) and independent clips are each an independent prompt
+with its own KV rows; the batch dimension is written into the decoder's
+products (models/qwen3_decoder.py batched_*).  The port runs on one card:
+there is no mesh, so the JAX package's tensor- and expert-parallel options
+(`tp`, `ep`) are not taken.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from smolvision_tpu_torch.config import EOS_TOKEN_IDS, ModelConfig
+from smolvision_tpu_torch.models import qwen3_decoder as dec_mod
+
+# KV cache layout [L, 2, B, KH, K, D] -- see models/qwen3_decoder.py
+make_batched_kv = dec_mod.make_batched_kv
+kv_grow_k = dec_mod.kv_grow_k
+
+
+def batched_prefill(params, cfg: ModelConfig, embeds, kv, rope_start=None, kv_min=None,
+                    greedy: bool = True):
+    """Fresh prefill at start_pos 0: embeds [B, Tcap, H] (left-padded: each
+    row's last prompt token at Tcap-1), kv [L, 2, B, KH, K, D]; rope_start /
+    kv_min [B] default to zeros (no left padding).
+    Returns (tokens_or_logits [B, ...], kv)."""
+    B = embeds.shape[0]
+    zeros = torch.zeros((B,), dtype=torch.int32, device=embeds.device)
+    return dec_mod.batched_prefill(params, cfg, embeds, kv,
+                                   zeros if rope_start is None else rope_start,
+                                   zeros if kv_min is None else kv_min, greedy=greedy)
+
+
+def batched_decode_chunk(params, cfg: ModelConfig, tokens, pos: int, kv, n_steps_cap: int,
+                         rope_offset=None, kv_min=None, n_steps=None, prompt_max=None,
+                         region_start=None, row_active=None):
+    """Greedy-decode up to n_steps (<= n_steps_cap) tokens for every row,
+    stopping once every active row has emitted an EOS.  pos is the cache row
+    shared by all rows; the rope position of row b is pos - rope_offset[b].
+    Returns (buf [B, n_steps_cap] int32, count, last_tokens [B], kv)."""
+    zeros = torch.zeros_like(tokens, dtype=torch.int32)
+    return dec_mod.batched_decode_chunk(
+        params, cfg, tokens, pos, kv, n_steps_cap,
+        zeros if rope_offset is None else rope_offset,
+        zeros if kv_min is None else kv_min, n_steps=n_steps, prompt_max=prompt_max,
+        region_start=region_start, row_active=row_active)
+
+
+def admit_rows(big: torch.Tensor, small: torch.Tensor, rows, G: int, src=None) -> torch.Tensor:
+    """Copy `G` batch rows of `small` into `big` at row indices `rows[g]` (row
+    axis 2 of the [L, 2, B, KH, K, D] batched cache), in place: one
+    scalar-indexed block copy per row, never a scatter.  `small`'s K axis
+    may be shorter than `big`'s (prompt-region admit).  `src[g]` (default g)
+    selects which small row feeds rows[g]."""
+    K = small.shape[4]
+    for g in range(G):
+        sg = g if src is None else int(src[g])
+        big[:, :, int(rows[g]), :, :K] = small[:, :, sg].to(big.dtype)
+    return big
+
+
+def trim_eos(row) -> list:
+    """Cut a decoded row at the first EOS (host helper)."""
+    out = []
+    for t in row:
+        t = int(t)
+        if t in EOS_TOKEN_IDS:
+            break
+        out.append(t)
+    return out

@@ -28,3 +28,10 @@ def window_bucket(n_tokens: int, window_tokens: int, min_windows: int = 1) -> in
     """Encoder token cap: pow2 number of attention windows."""
     n_windows = max((n_tokens + window_tokens - 1) // window_tokens, min_windows)
     return next_pow2(n_windows) * window_tokens
+
+
+def bucket64(n: int, minimum: int = 64) -> int:
+    """Round up to a multiple of 64 (the batched prompt and KV caps: capacity
+    scales every batched decode step's KV read, so it grows in 64-row steps
+    instead of pow2 jumps)."""
+    return max((n + 63) // 64 * 64, minimum)

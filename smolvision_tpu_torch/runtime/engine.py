@@ -1,7 +1,9 @@
 """Engine: model loading, encode / prefill / decode primitives, one-segment ASR.
 
 Port of the dense offline path of smolvision_tpu/runtime/engine.py (the
-qwen_ctx_t + transcribe entry points of qwen_asr.c).  The engine owns:
+qwen_ctx_t + transcribe entry points of qwen_asr.c) and of the settings the
+segmented, batched and serving drivers read (runtime/segment.py,
+runtime/batch_segments.py, runtime/serving.py).  The engine owns:
   * the parameter dictionaries on its device (bf16 weights by default),
   * the KV cache (grow-by-copy to pow2 buckets, as in the JAX engine),
   * host-side text logic (prompt tokens, <asr_text> gating, callbacks),
@@ -56,6 +58,16 @@ class PerfStats:
         self.mel_ms = 0.0
         self.prefill_ms = 0.0
         self.decode_steps = 0  # decode_step calls (one kernel-B3 launch per layer each)
+        # launches of the other kernels follow these counts, one per layer each:
+        self.encodes = 0          # encoder stack calls (B1), single clips or batches
+        self.prefills = 0         # single-stream prefills (B2)
+        self.fresh_prefills = 0   # batched fresh prefills (B4): one per length group
+        self.delta_prefills = 0   # batched delta prefills (B5): one per admission wave
+        self.batch_decode_steps = 0   # batched decode steps (plain attention)
+        self.batch_decode_ms = 0.0    # wall ms of the batched decode chunks
+        # continuous-serving per-clip latency (runtime/serving.py): ttft /
+        # completion p50/p99 dict over the last queue, or None
+        self.serving_latency = None
 
 
 def _now_ms() -> float:
@@ -87,7 +99,13 @@ class Engine:
         self.dec_params = params_mod.load_decoder(self.reader, cfg, param_dtype, self.device)
 
         # ---- generation settings (defaults mirror qwen_asr.c:257-272) ----
+        self.segment_sec = 0.0
+        self.search_sec = 3.0
+        self.past_text_conditioning = False
+        self.skip_silence = False
         self.max_tokens = 2048
+        # decode independent -S segments as one batch (runtime/batch_segments.py)
+        self.batch_segments = True
 
         self.prompt_text: Optional[str] = None
         self.force_language: Optional[str] = None
@@ -101,6 +119,12 @@ class Engine:
 
         self._kv: Optional[torch.Tensor] = None
         self._kv_cap = 0
+
+    @property
+    def batched_kv_dtype(self) -> torch.dtype:
+        """Cache dtype of the batched paths (segments, serving): kv_dtype
+        (the JAX package's int8 --kv8 cache is not ported)."""
+        return self.kv_dtype
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -223,6 +247,7 @@ class Engine:
         if tcap > n_tokens:
             x = torch.cat([x, x.new_zeros((tcap - n_tokens, x.shape[1]))])
         enc = enc_mod.encoder_transformer(self.enc_params, x, n_tokens, cfg, wts)
+        self.perf.encodes += 1
         return enc, n_tokens
 
     # ------------------------------------------------------------------
@@ -246,6 +271,7 @@ class Engine:
         kv = self._ensure_kv(tcap + KV_HEADROOM)
         out, self._kv = dec_mod.prefill(self.dec_params, self.cfg, embeds, 0, total, kv,
                                         greedy=greedy)
+        self.perf.prefills += 1
         return out, total
 
     @torch.inference_mode()

@@ -68,6 +68,65 @@ def test_cuda_kernels_match_plain_versions():
 
 
 @pytest.mark.cuda
+def test_cuda_batched_kernels_match_plain_versions():
+    """B4 and B5 at G 1 / 2 / 8, D 64 / 128, T not a multiple of the tile,
+    all-pad rows, kv_min > 0, B5 at start 0 and > 0 with per-row and scalar
+    region_start, bf16 and f32 caches holding +-999 outside every window."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels are built with nvcc for sm_90a)")
+    g = torch.Generator(device="cuda").manual_seed(1)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, device="cuda", generator=g).to(dtype)
+
+    def ints(values):
+        return torch.tensor(values, dtype=torch.int32, device="cuda")
+
+    def close(got, want):
+        torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+
+    before = dict(tfa.launch_counts)
+    calls = {name: 0 for name in before}
+    for D, H, KH in ((128, 16, 8), (64, 8, 8), (64, 16, 2)):
+        for T, kv_min in ((320, [0, 37, 320]), (100, [0, 5, 99])):
+            q, k, v = randn(3, T, H, D), randn(3, T, KH, D), randn(3, T, KH, D)
+            got = tfa.batched_causal_flash_attention(q, k, v, ints(kv_min))
+            close(got, tfa.batched_causal_attention_plain(q, k, v, ints(kv_min)))
+            for b, lo in enumerate(kv_min):
+                assert not got[b, :lo].any()
+            calls["batched_causal_attention"] += 1
+        for dtype in (torch.bfloat16, torch.float32):
+            K, T = 512, 64
+            q, kn, vn = randn(3, T, H, D), randn(3, T, KH, D), randn(3, T, KH, D)
+            for start, kv_min, pm, rs in (
+                    (0, [0, 0, 0], [64, 40, 1], 1 << 30),
+                    (200, [0, 9, 250], None, None),
+                    (200, [0, 9, 30], [120, 64, 200], [150, 200, 100]),
+                    (448, [3, 0, 0], [100, 7, 300], 320)):
+                kv = randn(2, 2, 3, KH, K, D, dtype=dtype)
+                kc, vc = kv[1, 0], kv[1, 1]         # strided views of the batched cache
+                dead = torch.ones(3, K, dtype=torch.bool, device="cuda")
+                for b in range(3):
+                    lo = kv_min[b]
+                    dead[b, lo:start] = False
+                    if pm is not None:
+                        r = rs if isinstance(rs, int) else rs[b]
+                        c = torch.arange(lo, start, device="cuda") if start > lo else None
+                        if c is not None:
+                            dead[b, lo:start] = ~((c < pm[b]) | (c >= r))
+                kc[dead[:, None, :].expand(3, KH, K)] = 999.0
+                vc[dead[:, None, :].expand(3, KH, K)] = -999.0
+                pm_t = None if pm is None else ints(pm)
+                rs_t = rs if rs is None or isinstance(rs, int) else ints(rs)
+                args = (q, kn, vn, kc, vc, start, ints(kv_min), pm_t, rs_t)
+                close(tfa.batched_cache_flash_attention(*args),
+                      tfa.batched_cache_attention_plain(*args))
+                calls["batched_cache_attention"] += 1
+    torch.cuda.synchronize()
+    assert {k: tfa.launch_counts[k] - before[k] for k in before} == calls
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -83,3 +142,7 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
         tfa.causal_cache_flash_attention(q, k, k, 60, 64)
     with pytest.raises(ValueError, match="CUDA tensors"):
         tfa.causal_cache_flash_attention(q, k.cpu(), k.cpu(), 0, 16)
+    qb = torch.zeros(2, 64, 12, 64, device="cuda")   # G 3 does not divide 64
+    kb = torch.zeros(2, 64, 4, 64, device="cuda")
+    with pytest.raises(ValueError, match="G does not divide 64"):
+        tfa.batched_causal_flash_attention(qb, kb, kb, torch.zeros(2, dtype=torch.int32))

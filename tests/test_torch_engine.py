@@ -142,7 +142,7 @@ def test_cli_stdout_byte_equal(visible_model, silent):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["-S", "5"], "-S > 0"), (["--stream"], "--stream"), (["--q8"], "--q8"),
+    (["--kv8"], "--kv8"), (["--stream"], "--stream"), (["--q8"], "--q8"),
     (["--thinker"], "--thinker"),
 ])
 def test_cli_unported_modes_exit_1(visible_model, extra, what):

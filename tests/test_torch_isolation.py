@@ -36,9 +36,12 @@ def test_port_imports_no_jax():
         "import smolvision_tpu_torch, smolvision_tpu_torch.cli\n"
         "import smolvision_tpu_torch.runtime.engine, smolvision_tpu_torch.kernels.flash_attention\n"
         "import smolvision_tpu_torch.kernels.build, smolvision_tpu_torch.models.synthetic\n"
+        "import smolvision_tpu_torch.runtime.segment, smolvision_tpu_torch.runtime.batch_segments\n"
+        "import smolvision_tpu_torch.runtime.serving, smolvision_tpu_torch.parallel.batch\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'smolvision_tpu')\n"
         "       or m.startswith(('jax.', 'jaxlib.', 'smolvision_tpu.'))]\n"
         "assert 'smolvision_tpu_torch.runtime.engine' in sys.modules\n"
+        "assert 'smolvision_tpu_torch.runtime.serving' in sys.modules\n"
         "print('BAD', bad)\n")
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout

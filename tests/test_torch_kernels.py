@@ -131,3 +131,119 @@ def test_decode_splits_cover_the_live_rows(start, kv_min, expect):
     n, chunk = tfa.decode_splits(start, kv_min)
     assert (n, chunk) == expect
     assert n * chunk >= start - kv_min and (n == 0 or (n - 1) * chunk < start - kv_min)
+
+
+@pytest.mark.parametrize("B,T,H,KH,D,kvmins,block", [
+    (2, 128, 4, 2, 64, (0, 5), 128),
+    (3, 256, 16, 8, 128, (0, 17, 130), 128),
+    (2, 320, 16, 8, 64, (0, 320), 64),     # -S 20 prompt cap, G 2, an all-pad row
+])
+def test_batched_causal_plain_matches_pallas(B, T, H, KH, D, kvmins, block):
+    rng = np.random.default_rng(11)
+    q = _rand(rng, B, T, H, D)
+    k = _rand(rng, B, T, KH, D)
+    v = _rand(rng, B, T, KH, D)
+    kv_min = np.asarray(kvmins, np.int32)
+    got = tfa.batched_causal_flash_attention(*map(torch.from_numpy, (q, k, v, kv_min))).numpy()
+    want = jfa.batched_causal_flash_attention(*map(jnp.asarray, (q, k, v, kv_min)),
+                                              gqa_groups=H // KH, block_q=block, block_k=block)
+    # the left-pad rows are 0 on both sides: compare every row
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    for b, lo in enumerate(kvmins):
+        assert not got[b, :lo].any(), "left-pad rows must give exactly 0"
+
+
+def _cache_case(rng, B, T, K, H, KH, D):
+    return (_rand(rng, B, T, H, D), _rand(rng, B, T, KH, D), _rand(rng, B, T, KH, D),
+            _rand(rng, B, KH, K, D), _rand(rng, B, KH, K, D))
+
+
+def _both_batched_cache(q, kn, vn, kc, vc, start, kv_min, pm, rs, G, block_q=256):
+    got = tfa.batched_cache_flash_attention(
+        *map(torch.from_numpy, (q, kn, vn, kc, vc)), start, torch.from_numpy(kv_min),
+        None if pm is None else torch.from_numpy(pm),
+        rs if rs is None or np.ndim(rs) == 0 else torch.from_numpy(rs)).numpy()
+    want = jfa.batched_cache_flash_attention(
+        *map(jnp.asarray, (q, kn, vn, kc, vc)), jnp.int32(start), jnp.asarray(kv_min),
+        prompt_max=None if pm is None else jnp.asarray(pm),
+        region_start=None if rs is None else jnp.asarray(rs, jnp.int32),
+        gqa_groups=G, block_q=block_q)
+    return got, np.asarray(want)
+
+
+@pytest.mark.parametrize("B,T,K,H,KH,D,start", [
+    (2, 128, 256, 4, 2, 64, 192),    # cache part [0,192) + block
+    (3, 64, 128, 4, 2, 64, 0),       # no cache (start 0): pure causal block
+    (2, 192, 320, 4, 4, 64, 256),    # MHA (G=1), 64-granular sizes
+    (4, 64, 384, 16, 8, 128, 0),     # serving group prefill: Gcap 4, G 2, D 128
+])
+def test_batched_cache_plain_matches_pallas(B, T, K, H, KH, D, start):
+    rng = np.random.default_rng(13)
+    q, kn, vn, kc, vc = _cache_case(rng, B, T, K, H, KH, D)
+    kv_min = np.asarray(([0, 3, 7] * 2)[:B], np.int32)
+    cases = [(None, None)]
+    if start > 0:
+        cases += [
+            (rng.integers(start // 2, start + 1, B).astype(np.int32), np.int32(K)),
+            (rng.integers(1, start + 1, B).astype(np.int32),
+             rng.integers(start // 2, K, B).astype(np.int32)),   # per-row region_start
+        ]
+    else:   # serving: per-row prompt lengths, no decode region yet
+        cases += [(np.asarray(([40, 64, 17, 1] * 2)[:B], np.int32), np.int32(1 << 30))]
+    for pm, rs in cases:
+        got, want = _both_batched_cache(q, kn, vn, kc, vc, start, kv_min, pm, rs, H // KH)
+        np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_batched_cache_plain_random_shape_sweep():
+    """The seeded sweep of tests/test_kernels.py: random (B, T, K, H, KH, D,
+    start) with random per-row kv_min / prompt_max / region_start."""
+    rng = np.random.default_rng(29)
+    for trial in range(6):
+        B = int(rng.integers(1, 4))
+        T = 64 * int(rng.integers(1, 9))
+        block_q = int(rng.choice([64, 128, 256]))
+        KH = int(rng.choice([1, 2, 4]))
+        G = int(rng.choice([1, 2, 4]))
+        H = KH * G
+        D = int(rng.choice([32, 64]))
+        start = 64 * int(rng.integers(0, 4))
+        K = start + T + 64 * int(rng.integers(0, 3))
+        q, kn, vn, kc, vc = _cache_case(rng, B, T, K, H, KH, D)
+        kv_min = rng.integers(0, max(start, 1), B).astype(np.int32)
+        if start > 0:
+            pm = rng.integers(1, start + 1, B).astype(np.int32)
+            rs = rng.integers(start // 2, K + 1, B).astype(np.int32)
+        else:
+            pm, rs = None, None
+        got, want = _both_batched_cache(q, kn, vn, kc, vc, start, kv_min, pm, rs, G, block_q)
+        np.testing.assert_allclose(got, want, **TOL,
+                                   err_msg=f"trial {trial}: B={B} T={T} K={K} H={H} "
+                                           f"KH={KH} D={D} start={start}")
+
+
+def test_batched_cache_plain_ignores_junk_outside_the_window():
+    """+-999 in every cache column outside the window (end pad, stale decode
+    rows, rows at or past start_pos), and a row whose cache window is empty
+    (kv_min >= start_pos): exactly the output of a clean cache."""
+    rng = np.random.default_rng(31)
+    B, T, K, H, KH, D, start = 3, 64, 256, 4, 2, 32, 128
+    q, kn, vn, kc, vc = _cache_case(rng, B, T, K, H, KH, D)
+    kv_min = np.asarray([0, 9, 130], np.int32)
+    pm = np.asarray([50, 100, 128], np.int32)
+    rs = np.asarray([96, 128, 120], np.int32)
+    kc2, vc2 = kc.copy(), vc.copy()
+    for b in range(B):
+        dead = np.ones(K, bool)
+        dead[kv_min[b]:start] = False
+        dead[kv_min[b]:start] |= ~((np.arange(kv_min[b], start) < pm[b])
+                                   | (np.arange(kv_min[b], start) >= rs[b]))
+        kc2[b, :, dead] = 999.0
+        vc2[b, :, dead] = -999.0
+    args = (torch.from_numpy(kv_min), torch.from_numpy(pm), torch.from_numpy(rs))
+    a = tfa.batched_cache_flash_attention(*map(torch.from_numpy, (q, kn, vn, kc, vc)),
+                                          start, *args)
+    b_ = tfa.batched_cache_flash_attention(*map(torch.from_numpy, (q, kn, vn, kc2, vc2)),
+                                           start, *args)
+    assert torch.equal(a, b_)
+    assert torch.isfinite(a).all()
