@@ -7,14 +7,22 @@ Run from the root of a checkout on a host with one CUDA card (Hopper: the
 kernels are built for sm_90a).  Phases, each fatal on failure:
 
   1. device   - the card's name, count, and nvidia-smi's name / power limit;
-  2. build    - nvcc builds the five attention kernels from
+  2. build    - nvcc builds the seven kernel libraries from
                 smolvision_tpu_torch/kernels/csrc (seconds, ptxas report);
+                then a fresh process runs the build again with nvcc made
+                unavailable: every library must come from the source-hash
+                cache, and kernel K9 (probe_mm) launched from it must match
+                torch.matmul;
   3. kernels  - each kernel against its plain torch version at the 0.6B
                 shapes of the paths below plus edge cases (all-pad windows
                 and rows, empty cache, kv_min > 0, B5 at start 0 and > 0
                 with per-row prompt_max / region_start, stale +-999 cache
-                rows), then timed against the plain version and one
-                PyTorch library call;
+                rows; the greedy heads K6 / K7 at R 1, 5, 6, 11 and 64 (a
+                serving batch wider than one pass of the kernel), an exact
+                tie across blocks, V not a multiple of the block), then
+                timed against the plain version and one PyTorch library
+                call; K8 (read_all) over the lm_head gives the card's read
+                bandwidth, against which each head kernel's time is set;
   4. main path- a seeded Qwen3-ASR-0.6B checkpoint (full width, random
                 weights) transcribes a 20 s synthetic clip through
                 `smolvision_tpu_torch.cli`; every kernel's launch count must
@@ -26,7 +34,15 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
                 batched fresh- and delta-prefill logits, kernel path vs
                 plain path, in bf16 and f32;
   6. serving  - 8 clips of 4-24 s through `--serve 4`: admission waves
-                prefilled by kernel B5, slot reuse, TTFT percentiles.
+                prefilled by kernel B5, slot reuse, TTFT percentiles;
+  7. int8     - `--q8` (int8 decoder weights: head K7) and `--spec`
+                (int8 draft steps, one verify forward through B2 and K6)
+                on the 20 s clip, `-S 20 --q8 --kv8` on the 120 s clip and
+                `--serve 4 --kv8` on the 8 clips (int8 batched cache: the
+                two-part attention, no B5); then the q8 kernel path against
+                the plain path, and --spec tokens against plain greedy
+                tokens on f32 weights (equal over the whole run) and on
+                bf16 weights (equal up to the first near tie).
 Each path runs with the launch counts set to 0 just before it, and its
 counts must equal what its own bookkeeping (engine.perf) says.
 
@@ -60,7 +76,8 @@ SERVE_SLOTS = 4
 SERVE_MAX_TOKENS = 32
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12,      # f32 outside the tensor cores
-            "bfloat16": 989e12}    # bf16 dense tensor-core rate
+            "bfloat16": 989e12,    # bf16 dense tensor-core rate
+            "int8": 1979e12}       # int8 dense tensor-core rate
 # Kernel vs plain: both compute in f32 from the same inputs and differ only in
 # summation order (online softmax over tiles vs one reduction), ~1e-6
 # relative on outputs of magnitude <~ 3; 1e-4 absolute leaves two orders of
@@ -77,6 +94,15 @@ KERNEL_ATOL = 1e-4
 #    that the random net then amplifies (1.05% on prefill logits measured on
 #    an H100, seed 0); 5% bounds that noise.
 PATH_RTOL = {"float32": 1e-3, "bfloat16": 5e-2}
+# Greedy heads (K6 / K7) on random inputs: the kernel's choice may differ
+# from torch.argmax only where two logits lie closer than the f32 summation
+# order can move them (~1e-6 relative for 1024-term sums); the plain logit at
+# the kernel's index must be within this share of the row's largest |logit|
+# of the maximum.  On inputs with a planted winner the indices must be equal.
+HEAD_RTOL = 1e-5
+# probe_mm (K9) against torch.matmul: 256-term f32 sums of magnitude ~1 in
+# another order
+PROBE_MM_ATOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -232,12 +258,13 @@ def phase_kernels(shapes):
     import torch
     import torch.nn.functional as F
 
+    from smolvision_tpu_torch.kernels import ffi
     from smolvision_tpu_torch.kernels import flash_attention as fa
 
     def ints(values):
         return torch.tensor(values, dtype=torch.int32, device=DEV)
 
-    errs = {name: 0.0 for name in fa.launch_counts}
+    errs = {name: 0.0 for name in ffi.launch_counts}
 
     # B1: W in {2, 4}, one all-pad window each
     for W, lens, garbage in ((2, [104, 0], False), (4, shapes["window_lens"], False),
@@ -412,6 +439,212 @@ def phase_kernels(shapes):
             f"plain {p1:.4f}/{p2:.4f} ms, library {table[-1]['library_ms']:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by})")
     return table
+
+
+# ---------------------------------------------------------------------------
+# phase 3, continued: the greedy heads (K6 / K7) and the probes (K8 / K9)
+# ---------------------------------------------------------------------------
+
+def head_case(V: int, H: int, R: int, kind: str, seed: int, planted: bool = False):
+    """h [R, H] f32 and an lm_head [V, H] of `kind` (bfloat16 / float32 /
+    int8 with per-row scales, quantized as ops/quant.quantize_weight does).
+    With `planted`, row r of h has a clear winner at (7919 r + 11) % V (a
+    weight row aligned with h_r); returns (h, w, scale, winners or None)."""
+    import torch
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    w = torch.randn(V, H, device=DEV, generator=g) * 0.05
+    h = torch.randn(R, H, device=DEV, generator=g)
+    winners = None
+    if planted:
+        winners = [(7919 * r + 11) % V for r in range(R)]
+        for r, v in enumerate(winners):
+            w[v] = torch.sign(h[r]) * 0.5
+    scale = None
+    if kind == "int8":
+        scale = torch.clamp(w.abs().amax(-1) / 127.0, min=1e-12)
+        w = torch.clamp(torch.round(w / scale[:, None]), -127, 127).to(torch.int8)
+    else:
+        w = w.to(getattr(torch, kind))
+    return h, w, scale, winners
+
+
+def check_head(name: str, h, w, scale=None, winners=None) -> float:
+    """K6 / K7 against the plain version: equal indices where a winner is
+    planted; elsewhere the plain logit at the kernel's index within
+    HEAD_RTOL of the row's largest |logit| of the maximum.  Returns the
+    largest shortfall (plain max logit - plain logit at the kernel's index)."""
+    import torch
+
+    from smolvision_tpu_torch.kernels import argmax_matvec as am
+
+    got = am.argmax_matvec(h, w, scale)
+    logits = am.logits_plain(h, w, scale)
+    want = torch.argmax(logits, dim=-1)
+    if winners is not None and not (got.tolist() == winners == want.tolist()):
+        fail(f"{name}: kernel {got.tolist()} / plain {want.tolist()} != planted {winners}")
+    short = logits.amax(-1) - logits.gather(1, got.long()[:, None])[:, 0]
+    tol = HEAD_RTOL * logits.abs().amax(-1)
+    if not bool((short <= tol).all()):
+        fail(f"{name}: the kernel's choice is {short.tolist()} below the maximum "
+             f"(tolerance {tol.tolist()})")
+    return float(short.max())
+
+
+def phase_heads(cfg, seg_B: int) -> list:
+    """K6 (bf16 at R 1, 5, 6, 11 and 64; f32 at R 1), K7 (R 1, 5, 6, 11,
+    64) and K8 at the 0.6B lm_head shape, plus an exact tie across blocks
+    and V not a multiple of the block; then timings: K6 at the
+    single-stream head (R 1) and at the -S run's batch (R seg_B), K7 at R
+    1, K8 over the lm_head, which sets the read bandwidth each head kernel
+    is held against, and K6 at R 64 (two passes of rows) beside cuBLAS."""
+    import torch
+
+    from smolvision_tpu_torch.kernels import argmax_matvec as am
+    from smolvision_tpu_torch.kernels import ffi, probes
+
+    V, H = cfg.vocab_size, cfg.dec_hidden
+    errs = {"argmax_matvec": 0.0, "argmax_matvec_q8": 0.0}
+    cases = [(R, kind, planted) for R in (1, 5, 6, 11, 64) for kind in ("bfloat16", "int8")
+             for planted in (True, False)] + [(1, "float32", True), (1, "float32", False)]
+    for i, (R, kind, planted) in enumerate(cases):
+        h, w, scale, winners = head_case(V, H, R, kind, 100 + i, planted)
+        key = "argmax_matvec_q8" if kind == "int8" else "argmax_matvec"
+        err = check_head(f"{key} {kind} R={R} planted={planted}", h, w, scale, winners)
+        errs[key] = max(errs[key], err)
+        del h, w, scale
+    # an exact tie across blocks (rows 7 and V - 2): the first index wins
+    for kind in ("bfloat16", "int8"):
+        h, w, scale, _ = head_case(V, H, 1, kind, 200)
+        w[V - 2] = w[7] = (torch.sign(h[0]) * (127 if kind == "int8" else 0.5)).to(w.dtype)
+        if scale is not None:
+            scale[V - 2] = scale[7]
+        check_head(f"tie {kind}", h, w, scale, [7])
+    # V not a multiple of any block, and R > 8 (two row groups)
+    h, w, scale, winners = head_case(50_013, H, 11, "bfloat16", 201, planted=True)
+    check_head("ragged V=50013 R=11", h, w, scale, winners)
+    log(f"greedy heads vs plain: shortfall {json.dumps(errs)} (tolerance {HEAD_RTOL:g} of "
+        f"max |logit|; planted winners, ties and ragged V equal)")
+
+    rows = []
+    for name, R, kind, replaces in (
+            ("argmax_matvec", 1, "bfloat16", "tools/profile_decode2.py:127"),
+            ("argmax_matvec_batched", seg_B, "bfloat16", "tools/profile_decode3.py:145"),
+            ("argmax_matvec_q8", 1, "int8", "tools/probe_int8.py:110")):
+        h, w, scale, _ = head_case(V, H, R, kind, 300 + R)
+        err = check_head(f"{name} timing inputs", h, w, scale)
+        key = "argmax_matvec_q8" if kind == "int8" else "argmax_matvec"
+        nbytes = w.numel() * w.element_size() + (0 if scale is None else 4 * V) + 4 * R * (H + 1)
+        lib = None
+        if kind == "bfloat16":
+            hb = h.to(torch.bfloat16)
+            lib = (lambda hb=hb, w=w: torch.argmax(torch.mm(hb, w.t(), out_dtype=torch.float32),
+                                                    dim=-1))
+        rows.append({"name": name, "source": "smolvision_tpu_torch/kernels/csrc/argmax_matvec.cu",
+                     "replaces": replaces, "err": max(errs[key], err),
+                     "kern": lambda h=h, w=w, s=scale: am.argmax_matvec(h, w, s),
+                     "plain": lambda h=h, w=w, s=scale: am.argmax_matvec_plain(h, w, s),
+                     "lib": lib, "bound": bound(nbytes, 2.0 * R * V * H, kind), "nbytes": nbytes})
+
+    g = torch.Generator(device=DEV).manual_seed(400)
+    x = (torch.randn(V, H, device=DEV, generator=g) * 0.05).to(torch.bfloat16)
+    err = abs(float(probes.read_all(x, 0.25)) - float(probes.read_all_plain(x, 0.25)))
+    if err != 0.0:
+        fail(f"read_all: kernel and plain version differ by {err:g} (max is exact)")
+    rows.append({"name": "read_all", "source": "smolvision_tpu_torch/kernels/csrc/probes.cu",
+                 "replaces": "tools/profile_decode3.py:98", "err": err,
+                 "kern": lambda: probes.read_all(x, 0.25),
+                 "plain": lambda: probes.read_all_plain(x, 0.25),
+                 "lib": lambda: torch.amax(x), "nbytes": x.numel() * 2,
+                 "bound": bound(x.numel() * 2 + 4, float(x.numel()), "bfloat16")})
+
+    gm = torch.Generator(device=DEV).manual_seed(401)
+    a, b = (torch.randn(256, 256, device=DEV, generator=gm) / 4 for _ in range(2))
+    err = check_close("probe_mm", probes.probe_mm(a, b), probes.probe_mm_plain(a, b),
+                      PROBE_MM_ATOL)
+    rows.append({"name": "probe_mm", "source": "smolvision_tpu_torch/kernels/csrc/probes.cu",
+                 "replaces": "tools/probe_compile_cache.py:35", "err": err,
+                 "kern": lambda: probes.probe_mm(a, b), "plain": lambda: probes.probe_mm_plain(a, b),
+                 "lib": lambda: torch.matmul(a, b), "nbytes": 3 * 256 * 256 * 4,
+                 "bound": bound(3 * 256 * 256 * 4, 2.0 * 256 ** 3, "float32")})
+
+    table = []
+    for r in rows:
+        p1, k1, k2, p2 = (time_ms(f) for f in (r["plain"], r["kern"], r["kern"], r["plain"]))
+        lib_ms = time_ms(r["lib"]) if r["lib"] is not None else None
+        bound_ms, bound_by = r["bound"]
+        table.append({"name": r["name"], "route": "cuda", "source": r["source"],
+                      "replaces": r["replaces"], "max_abs_err": r["err"], "ms": min(k1, k2),
+                      "plain_ms": min(p1, p2), "library_ms": lib_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "nbytes": r["nbytes"]})
+        log(f"  {r['name']}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, library "
+            + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none (no one PyTorch call)")
+            + f", bound {bound_ms:.4f} ms ({bound_by})")
+    read = next(t for t in table if t["name"] == "read_all")
+    # the roofline's own read of the lm_head, counted as its path's launches
+    ffi.reset_launch_counts()
+    probes.read_all(x, 0.25)
+    read["launches"] = ffi.launch_counts["read_all"]
+    bw = read["nbytes"] / (read["ms"] * 1e-3)
+    log(f"read roofline (K8 over the {read['nbytes'] / 1e6:.2f} MB lm_head): {bw / 1e12:.3f} TB/s "
+        f"measured, {HBM_BYTES_PER_S / 1e12:.2f} TB/s data sheet")
+    for t in table:
+        if t["name"].startswith("argmax_matvec"):
+            at_bw = t["nbytes"] / bw * 1e3
+            log(f"  {t['name']}: {t['ms']:.4f} ms = {at_bw / t['ms']:.1%} of the measured read "
+                f"rate ({at_bw:.4f} ms), {t['bound_ms'] / t['ms']:.1%} of the data-sheet bound")
+    # a serving-width batch: more rows than one pass holds
+    h, w, _, _ = head_case(V, H, 64, "bfloat16", 364)
+    hb = h.to(torch.bfloat16)
+    k_ms = min(time_ms(lambda: am.argmax_matvec(h, w)) for _ in range(2))
+    lib_ms = time_ms(lambda: torch.argmax(torch.mm(hb, w.t(), out_dtype=torch.float32), dim=-1))
+    b_ms, b_by = bound(w.numel() * 2 + 4 * 64 * (H + 1), 2.0 * 64 * V * H, "bfloat16")
+    log(f"  argmax_matvec at R 64: kernel {k_ms:.4f} ms, library {lib_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    return table
+
+
+def build_cache_check() -> dict:
+    """A fresh process builds again with nvcc unavailable: every library must
+    come from kernels/build.py's source-hash cache; then K9 (probe_mm)
+    launched from the cached library is held against torch.matmul."""
+    code = f"""
+import json, sys
+sys.path.insert(0, {ROOT!r})
+from unittest import mock
+import torch
+from smolvision_tpu_torch.kernels import build, ffi, probes
+
+def no_nvcc():
+    raise RuntimeError("nvcc was called: a library was not in the build cache")
+
+with mock.patch.object(build, "_nvcc", no_nvcc):
+    logs = build.build_all()
+torch.backends.cuda.matmul.allow_tf32 = False
+g = torch.Generator(device="cuda").manual_seed(7)
+a, b = (torch.randn(256, 256, device="cuda", generator=g) / 4 for _ in range(2))
+ffi.reset_launch_counts()
+got = probes.probe_mm(a, b)
+launches = ffi.launch_counts["probe_mm"]
+err = float((got - torch.matmul(a, b)).abs().max())
+print(json.dumps({{"built": [l.name for l in logs if l.seconds > 0],
+                  "cached": [l.name for l in logs if l.seconds == 0],
+                  "probe_mm_max_abs_err": err, "probe_mm_launches": launches}}))
+"""
+    t0 = time.monotonic()
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=300, cwd=ROOT)
+    if r.returncode != 0:
+        fail(f"build-cache check exited {r.returncode}: {r.stderr.strip()[-2000:]}")
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    out["seconds"] = time.monotonic() - t0
+    from smolvision_tpu_torch.kernels import build
+
+    if out["built"] or sorted(out["cached"]) != sorted(build.LIBS):
+        fail(f"build-cache check: not every library came from the cache: {out}")
+    if not out["probe_mm_max_abs_err"] <= PROBE_MM_ATOL or out["probe_mm_launches"] != 1:
+        fail(f"build-cache check: probe_mm from the cached library: {out}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -604,7 +837,7 @@ def phase_main_path(model_dir: str, wav: str, cfg):
         fail("empty transcript")
     perf = eng.perf
     log(f"main path: {wall_s:.2f} s wall incl. load ({perf.decode_steps} decode steps)")
-    check_launches("main path", launches, perf, cfg)
+    check_launches("main path", launches, eng, cfg)
     if (perf.encodes, perf.prefills) != (1, 1) or perf.decode_steps == 0:
         fail(f"main path: {perf.encodes} encodes, {perf.prefills} prefills, "
              f"{perf.decode_steps} decode steps (expected 1, 1, > 0)")
@@ -620,33 +853,43 @@ def run_cli(argv, name: str):
     import torch
 
     from smolvision_tpu_torch import cli
-    from smolvision_tpu_torch.kernels import flash_attention as fa
+    from smolvision_tpu_torch.kernels import ffi
 
     if DEV == "cuda":
         torch.cuda.synchronize()
     out = io.StringIO()
-    fa.reset_launch_counts()
+    ffi.reset_launch_counts()
     t0 = time.monotonic()
     with contextlib.redirect_stdout(out):
         rc, eng = cli.run(argv)
     if DEV == "cuda":
         torch.cuda.synchronize()
     wall_s = time.monotonic() - t0
-    launches = dict(fa.launch_counts)
+    launches = dict(ffi.launch_counts)
     if rc != 0 or eng is None:
         fail(f"{name}: cli exited {rc}")
     return eng, launches, out.getvalue().splitlines(), wall_s
 
 
-def check_launches(name: str, launches: dict, perf, cfg) -> None:
+def check_launches(name: str, launches: dict, eng, cfg) -> None:
     """Every kernel's launches equal the path's own bookkeeping: one per
-    layer per encoder call, single prefill, decode step, batched fresh
-    prefill and batched delta prefill."""
+    layer per encoder call, single prefill, --spec verify, decode step,
+    batched fresh prefill and batched delta prefill (none on an int8
+    cache, which runs the two-part attention), and one greedy head per
+    prefill, decode step, verify and batched step -- int8 (K7) under --q8
+    and for the --spec draft steps, else K6."""
+    perf = eng.perf
+    L = cfg.dec_layers
+    heads = (perf.prefills + perf.decode_steps + perf.spec_iters + perf.fresh_prefills
+             + perf.delta_prefills + perf.batch_decode_steps)
+    q8_heads = heads if eng.q8 else (perf.decode_steps if eng.spec else 0)
     expected = {"window_attention": cfg.enc_layers * perf.encodes,
-                "causal_cache_attention": cfg.dec_layers * perf.prefills,
-                "decode_attention": cfg.dec_layers * perf.decode_steps,
-                "batched_causal_attention": cfg.dec_layers * perf.fresh_prefills,
-                "batched_cache_attention": cfg.dec_layers * perf.delta_prefills}
+                "causal_cache_attention": L * (perf.prefills + perf.spec_iters),
+                "decode_attention": L * perf.decode_steps,
+                "batched_causal_attention": L * perf.fresh_prefills,
+                "batched_cache_attention": 0 if eng.kv8 else L * perf.delta_prefills,
+                "argmax_matvec": heads - q8_heads, "argmax_matvec_q8": q8_heads,
+                "read_all": 0, "probe_mm": 0}
     log(f"{name}: launches {json.dumps(launches)}, expected {json.dumps(expected)}")
     if launches != expected:
         fail(f"{name}: launch counts {launches} != expected {expected}")
@@ -782,16 +1025,17 @@ def compare_batched_paths(eng, B: int, T: int) -> dict:
     return out
 
 
-def phase_segments(model_dir: str, wav: str, cfg, batch: int):
+def phase_segments(model_dir: str, wav: str, cfg, batch: int, extra=()):
     """-S 20 on the long clip through the CLI: batched encode, one B4 launch
     per layer per length group, batched decode."""
     argv = ["-d", model_dir, "-i", wav, "-S", str(SEGMENT_SEC), "--silent", "--language",
-            "English", "--max-tokens", str(MAX_TOKENS)]
-    eng, launches, lines, wall_s = run_cli(argv, "-S run")
+            "English", "--max-tokens", str(MAX_TOKENS), *extra]
+    name = " ".join([f"-S {SEGMENT_SEC}", *extra]) + " run"
+    eng, launches, lines, wall_s = run_cli(argv, name)
     perf = eng.perf
-    log(f"-S {SEGMENT_SEC} run: {wall_s:.2f} s wall incl. load; {perf.fresh_prefills} length "
+    log(f"{name}: {wall_s:.2f} s wall incl. load; {perf.fresh_prefills} length "
         f"group(s), {perf.encodes} batched encode(s)")
-    check_launches(f"-S {SEGMENT_SEC} run", launches, perf, cfg)
+    check_launches(name, launches, eng, cfg)
     if perf.fresh_prefills == 0 or perf.batch_decode_steps == 0:
         fail("-S run: no batched prefill or decode step ran")
     if perf.prefills or perf.decode_steps:
@@ -799,27 +1043,125 @@ def phase_segments(model_dir: str, wav: str, cfg, batch: int):
     if len(lines) != 1 or not lines[0].strip():
         fail(f"-S run: expected one transcript line, got {lines!r}")
     log(f"  transcript ({perf.text_tokens} text tokens): {lines[0][:120]}")
-    log(f"  -S run perf: {batch_perf_line(perf, batch)}")
+    log(f"  {name} perf: {batch_perf_line(perf, batch)}")
     return eng, launches
 
 
-def phase_serving(model_dir: str, wavs, cfg):
-    """--serve 4 over the mixed clips: admission waves prefilled by B5."""
+def phase_serving(model_dir: str, wavs, cfg, extra=()):
+    """--serve 4 over the mixed clips: admission waves prefilled by B5 (by
+    the two-part attention under --kv8)."""
     argv = ["-d", model_dir, "-i", *wavs, "--serve", str(SERVE_SLOTS), "--silent",
-            "--language", "English", "--max-tokens", str(SERVE_MAX_TOKENS)]
-    eng, launches, lines, wall_s = run_cli(argv, "--serve run")
+            "--language", "English", "--max-tokens", str(SERVE_MAX_TOKENS), *extra]
+    name = " ".join([f"--serve {SERVE_SLOTS}", *extra]) + " run"
+    eng, launches, lines, wall_s = run_cli(argv, name)
     perf = eng.perf
-    log(f"--serve {SERVE_SLOTS} run: {wall_s:.2f} s wall incl. load; {len(wavs)} clips, "
+    log(f"{name}: {wall_s:.2f} s wall incl. load; {len(wavs)} clips, "
         f"{perf.delta_prefills} admission waves")
-    check_launches(f"--serve {SERVE_SLOTS} run", launches, perf, cfg)
+    check_launches(name, launches, eng, cfg)
     if perf.delta_prefills < 2:
         fail(f"--serve run: {perf.delta_prefills} admission wave(s), expected at least 2")
     if len(lines) != len(wavs):
         fail(f"--serve run: {len(lines)} transcript lines for {len(wavs)} clips")
     lat = perf.serving_latency
-    log(f"  --serve run perf: {batch_perf_line(perf, SERVE_SLOTS)}")
+    log(f"  {name} perf: {batch_perf_line(perf, SERVE_SLOTS)}")
     log(f"  serving latency (ms): {json.dumps(lat)}")
     return eng, launches
+
+
+def greedy_run(eng, samples, max_tokens: int, spec: bool) -> list:
+    """The tokens decode_greedy shows its caller (prefill token first, up
+    to the first EOS), with the engine's --spec switch set to `spec`."""
+    import torch
+
+    from smolvision_tpu_torch.ops.mel import log_mel
+    from smolvision_tpu_torch.runtime.prompt import build_asr_prompt
+
+    eng.spec = spec
+    with torch.inference_mode():
+        enc, n_audio = eng.encode_mel(log_mel(samples))
+        ids, a0 = build_asr_prompt(eng.cfg, n_audio, eng._prompt_tokens, eng._force_tokens)
+        eng.reset_kv()
+        first, pos = eng.prefill_ids(ids, enc, a0, n_audio)
+        out = []
+        eng.decode_greedy(first, pos, max_tokens, lambda t: out.append(t) or True)
+    return out
+
+
+def spec_vs_plain(eng, samples, max_tokens: int, exact: bool) -> dict:
+    """--spec tokens against the same engine's plain greedy tokens.  exact:
+    equal over the whole run (f32 weights).  Otherwise (bf16) equal up to
+    the first position where the plain path's top-2 logit gap is below
+    PATH_RTOL of the largest prefill logit; the gap there is reported."""
+    from smolvision_tpu_torch.runtime import engine as eng_mod
+
+    eng.perf.reset()
+    spec = greedy_run(eng, samples, max_tokens, spec=True)
+    iters, produced = eng.perf.spec_iters, eng.perf.spec_tokens
+    plain = greedy_run(eng, samples, max_tokens, spec=False)
+    eng.spec = True
+    n = min(len(spec), len(plain))
+    part = next((i for i in range(n) if spec[i] != plain[i]),
+                None if len(spec) == len(plain) else n)
+    out = {"tokens": len(spec), "plain_tokens": len(plain), "equal_prefix": n if part is None
+           else part, "spec_iters": iters, "spec_draft": eng_mod.SPEC_DRAFT,
+           "tokens_per_verify": produced / max(iters, 1)}
+    if part is not None:
+        if exact:
+            fail(f"--spec tokens part from plain greedy at position {part}: "
+                 f"{spec[part:part + 4]} vs {plain[part:part + 4]}")
+        _, logits0, _, gaps = path_trace(eng, samples, part + 1, forced=plain + [0])
+        tol = PATH_RTOL[str(eng.param_dtype).replace("torch.", "")] * float(logits0.abs().max())
+        out.update(parting_gap=gaps[part], gap_bound=tol)
+        log(f"  --spec parts from plain greedy at token {part}: plain top-2 gap there "
+            f"{gaps[part]:.4g} (bound {tol:.4g})")
+        if not gaps[part] < tol:
+            fail(f"--spec tokens part from plain greedy at position {part} where the plain "
+                 f"top-2 gap {gaps[part]:.4g} >= {tol:.4g}")
+    return out
+
+
+def phase_int8(model_dir: str, wav: str, long_wav: str, serve_wavs, cfg, seg_B: int) -> dict:
+    """--q8 and --spec on the 20 s clip, -S 20 --q8 --kv8 on the 120 s clip
+    and --serve 4 --kv8 on the 8 clips, each checked against engine.perf;
+    then the q8 kernel path against its plain path and --spec against plain
+    greedy on bf16 weights.  Returns the launches of each run."""
+    from smolvision_tpu_torch.io.wav import load_wav
+    from smolvision_tpu_torch.runtime import engine as eng_mod
+
+    clip = load_wav(wav)
+    runs = {}
+    base = ["-d", model_dir, "-i", wav, "--silent", "--language", "English", "--max-tokens",
+            str(MAX_TOKENS)]
+    for flag in ("--q8", "--spec"):
+        eng, launches, lines, wall_s = run_cli(base + [flag], f"{flag} run")
+        perf = eng.perf
+        log(f"{flag} run: {wall_s:.2f} s wall incl. load ({perf.decode_steps} decode steps, "
+            f"{perf.spec_iters} verify iterations)")
+        check_launches(f"{flag} run", launches, eng, cfg)
+        if perf.prefills != 1 or (flag == "--q8") != eng.q8 or (flag == "--spec") != eng.spec:
+            fail(f"{flag} run: {perf.prefills} prefills, q8 {eng.q8}, spec {eng.spec}")
+        if flag == "--spec" and (perf.spec_iters == 0
+                                 or perf.decode_steps != eng_mod.SPEC_DRAFT * perf.spec_iters):
+            fail(f"--spec run: {perf.spec_iters} verifies, {perf.decode_steps} draft steps")
+        log(f"  transcript ({perf.text_tokens} text tokens): {' '.join(lines)[:120]}")
+        log(f"  {flag} run perf: {perf_line(perf)}")
+        if flag == "--q8":
+            cmp = compare_paths(eng, clip, steps=MAX_TOKENS // 2)
+            log(f"kernel path vs plain path on the card, --q8 weights: {json.dumps(cmp)}")
+        else:
+            log(f"  accepted tokens per verify: {perf.spec_tokens / perf.spec_iters:.3f} "
+                f"({perf.spec_tokens} tokens / {perf.spec_iters} verifies, draft "
+                f"{eng_mod.SPEC_DRAFT})")
+            cmp = spec_vs_plain(eng, clip, MAX_TOKENS, exact=False)
+            log(f"--spec vs plain greedy on the card, bf16 weights: {json.dumps(cmp)}")
+        runs[flag] = launches
+        del eng
+    eng, runs["-S q8 kv8"] = phase_segments(model_dir, long_wav, cfg, seg_B,
+                                            extra=("--q8", "--kv8"))
+    del eng
+    eng, runs["--serve kv8"] = phase_serving(model_dir, serve_wavs, cfg, extra=("--kv8",))
+    del eng
+    return runs
 
 
 def perf_line(perf) -> str:
@@ -872,11 +1214,15 @@ def main() -> int:
 
     t0 = time.monotonic()
     logs = build.build_all()
-    log(f"build: {time.monotonic() - t0:.2f} s")
+    log(f"build: {time.monotonic() - t0:.2f} s ({len(logs)} libraries)")
     for entry in logs:
         for line in entry.ptxas.splitlines():
             if "Used" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  [{entry.name}] {line.strip()}")
+    cache = build_cache_check()
+    log(f"build cache: a fresh process loaded {len(cache['cached'])} libraries without nvcc in "
+        f"{cache['seconds']:.2f} s; probe_mm from the cache vs torch.matmul: max_abs_err "
+        f"{cache['probe_mm_max_abs_err']:.3g} (tolerance {PROBE_MM_ATOL:g})")
 
     from smolvision_tpu_torch.models.synthetic import build as build_checkpoint
 
@@ -904,12 +1250,12 @@ def main() -> int:
         log(f"attention shapes of the paths: {json.dumps(shapes)}")
 
         # phase 3: kernels vs plain versions
-        table = phase_kernels(shapes)
-
-        # phase 4: the main path through the CLI, then kernel vs plain path
         from smolvision_tpu_torch.config import detect_config
 
         cfg = detect_config(model_dir)
+        table = phase_kernels(shapes) + phase_heads(cfg, shapes["seg_B"])
+
+        # phase 4: the main path through the CLI, then kernel vs plain path
         eng, launches = phase_main_path(model_dir, wav, cfg)
         from smolvision_tpu_torch.io.wav import load_wav
 
@@ -922,13 +1268,16 @@ def main() -> int:
         from smolvision_tpu_torch.runtime.engine import Engine
 
         eng = Engine(model_dir, param_dtype=torch.float32, kv_dtype=torch.float32,
-                     device=DEV)
+                     device=DEV, spec=True)
         eng.set_force_language("English")
         eng.prepare_prompt()
         cmp = compare_paths(eng, clip, steps=MAX_TOKENS // 2)
         log(f"kernel path vs plain path on the card, f32 weights: {json.dumps(cmp)}")
         cmp = compare_batched_paths(eng, shapes["seg_B"], shapes["seg_T"])
         log(f"batched kernel path vs plain path on the card, f32 weights: {json.dumps(cmp)}")
+        cmp = spec_vs_plain(eng, clip, MAX_TOKENS, exact=True)
+        log(f"--spec vs plain greedy on the card, f32 weights (equal over the whole run): "
+            f"{json.dumps(cmp)}")
         del eng
 
         # phase 5: -S 20 on the long clip (batched segments: B1, B4)
@@ -942,14 +1291,21 @@ def main() -> int:
         # phase 6: --serve over the mixed clips (admission waves: B5)
         eng, serve_launches = phase_serving(model_dir, serve_wavs, cfg)
         del eng
+
+        # phase 7: --q8, --spec, -S 20 --q8 --kv8, --serve 4 --kv8
+        int8_runs = phase_int8(model_dir, wav, long_wav, serve_wavs, cfg, shapes["seg_B"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # launches: each kernel's count from the path that carries it
+    # launches: each kernel's count from the path that carries it at the
+    # shape its row was timed at
     launches.update(batched_causal_attention=seg_launches["batched_causal_attention"],
-                    batched_cache_attention=serve_launches["batched_cache_attention"])
+                    batched_cache_attention=serve_launches["batched_cache_attention"],
+                    argmax_matvec_batched=seg_launches["argmax_matvec"],
+                    argmax_matvec_q8=int8_runs["--q8"]["argmax_matvec_q8"],
+                    probe_mm=cache["probe_mm_launches"])
     for row in table:
-        row["launches"] = launches[row["name"]]
+        row.setdefault("launches", launches.get(row["name"]))
         row["kernel_ms"] = row["ms"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

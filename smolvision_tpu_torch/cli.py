@@ -4,7 +4,9 @@ Port of smolvision_tpu/cli.py for the offline paths: one file (`-i x.wav`
 or --stdin), whole or segmented (-S / -W / --past-text / --skip-silence /
 --no-batch-segments), and several -i files as one static batch or through
 the continuous scheduler (--serve SLOTS [--serve-admit N]); with --silent /
---language / --prompt / --max-tokens / --f32.  The transcript goes to STDOUT
+--language / --prompt / --max-tokens / --f32, and the decoder options
+--q8 / --kv8 / --spec (or SMOLVISION_Q8=1 / SMOLVISION_KV8=1 /
+SMOLVISION_SPEC=1, as the JAX CLI reads them).  The transcript goes to STDOUT
 (tokens streamed as decoded in normal mode; one final line in --silent; one
 line per file for several files); status/perf lines go to STDERR:
   Inference: ... ms, N text tokens (X tok/s, encoding: ...ms, decoding: ...ms)
@@ -114,14 +116,10 @@ def _unported(args) -> Optional[str]:
     checks = [
         (args.thinker, "--thinker"),
         (args.stream and several, "--stream with several -i files (multistream)"),
-        (args.stream, "--stream"), (args.q8, "--q8"),
-        (args.spec, "--spec"), (args.kv8, "--kv8"),
+        (args.stream, "--stream"),
         (args.moe_offload, "--moe-offload"), (args.moe_preload, "--moe-preload"),
         (args.profile, "--profile"),
         (args.enc_window_sec >= 0, "--enc-window-sec"),
-        (os.environ.get("SMOLVISION_Q8", "") == "1", "SMOLVISION_Q8=1"),
-        (os.environ.get("SMOLVISION_KV8", "") == "1", "SMOLVISION_KV8=1"),
-        (os.environ.get("SMOLVISION_SPEC", "") == "1", "SMOLVISION_SPEC=1"),
     ]
     for on, what in checks:
         if on:
@@ -162,6 +160,9 @@ def run(argv=None) -> Tuple[int, Optional["Engine"]]:
             kv_dtype=torch.float32 if args.f32 else torch.bfloat16,
             verbose=verbosity,
             device="cpu" if platform == "cpu" else None,
+            q8=args.q8 or os.environ.get("SMOLVISION_Q8", "") == "1",
+            kv8=args.kv8 or os.environ.get("SMOLVISION_KV8", "") == "1",
+            spec=args.spec or os.environ.get("SMOLVISION_SPEC", "") == "1",
         )
     except Exception as e:
         # mirror the reference's one-line load failure (main.c:292-296)

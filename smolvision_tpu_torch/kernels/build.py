@@ -28,7 +28,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "smolvision_tpu_tor
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIBS = ("window_attention", "causal_cache_attention", "decode_attention",
-        "batched_causal_attention", "batched_cache_attention")
+        "batched_causal_attention", "batched_cache_attention", "argmax_matvec", "probes")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -11,10 +11,11 @@ Port of the five Pallas kernels of smolvision_tpu/kernels/flash_attention.py:
                                                     -> csrc/batched_cache_attention.cu
 
 Each wrapper launches its hand-written sm_90a kernel for CUDA tensors and
-adds one to `launch_counts[name]` per launch; for CPU tensors it calls the
-plain torch version beside it (same contract: masks, kv_min / start_pos
-semantics, zero output for a row with no key).  There is no fallback: a
-CUDA tensor either goes through the kernel or the wrapper raises.
+adds one to `ffi.launch_counts[name]` (kernels/ffi.py) per launch; for CPU
+tensors it calls the plain torch version beside it (same contract: masks,
+kv_min / start_pos semantics, zero output for a row with no key).  There
+is no fallback: a CUDA tensor either goes through the kernel or the
+wrapper raises.
 
 All math is f32 with scale 1/sqrt(D) applied to q before the product.
 Shapes keep the JAX package's layouts ([W, S, H, D] windows, [K, KH, D]
@@ -23,12 +24,11 @@ cache, [B, KH, K, D] batched cache) so the tests compare like with like.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
-from typing import Dict
 
 import torch
+
+from smolvision_tpu_torch.kernels import ffi
 
 NEG_INF = -1e30
 DENOM_FLOOR = 1e-30
@@ -36,79 +36,30 @@ DENOM_FLOOR = 1e-30
 DECODE_ROWS_PER_SPLIT = 64
 DECODE_MAX_SPLITS = 64
 
-launch_counts: Dict[str, int] = {
-    "window_attention": 0,
-    "causal_cache_attention": 0,
-    "decode_attention": 0,
-    "batched_causal_attention": 0,
-    "batched_cache_attention": 0,
-}
-
-
-def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
-
-
-_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# C argument types, one letter each (kernels/ffi.py)
 _SIGNATURES = {
-    "sv_window_attention": ("window_attention",
-                            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
-    "sv_causal_cache_attention": ("causal_cache_attention",
-                                  [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _I,
-                                   _I, _I, _F, _P]),
-    "sv_decode_attention": ("decode_attention",
-                            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I,
-                             _I, _I, _I, _I, _F, _P]),
-    "sv_batched_causal_attention": ("batched_causal_attention",
-                                    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
-    "sv_batched_cache_attention": ("batched_cache_attention",
-                                   [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
-                                    _I, _I, _LL, _LL, _LL, _I, _I, _F, _P]),
+    "sv_window_attention": ("window_attention", "pppppiiiifp"),
+    "sv_causal_cache_attention": ("causal_cache_attention", "ppppiiiiliiiifp"),
+    "sv_decode_attention": ("decode_attention", "pppppppiiiliiiiifp"),
+    "sv_batched_causal_attention": ("batched_causal_attention", "pppppiiiiifp"),
+    "sv_batched_cache_attention": ("batched_cache_attention", "ppppppppipiiiiillliifp"),
 }
-
-
-@functools.lru_cache(maxsize=None)
-def _cfn(symbol: str):
-    from smolvision_tpu_torch.kernels import build
-
-    lib_name, argtypes = _SIGNATURES[symbol]
-    fn = getattr(build.load(lib_name), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def _call(symbol: str, *args) -> None:
-    rc = _cfn(symbol)(*args)
-    if rc != 0:
-        raise RuntimeError(f"{symbol}: CUDA error {rc}")
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
-def _require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(msg)
-
-
-def _check_cuda(*tensors: torch.Tensor) -> None:
-    dev = tensors[0].device
-    _require(all(t.is_cuda and t.device == dev for t in tensors),
-             "all operands must be CUDA tensors on one device")
+    lib_name, signature = _SIGNATURES[symbol]
+    ffi.call(lib_name, symbol, signature, *args)
 
 
 def _kv_flag(k_cache: torch.Tensor, v_cache: torch.Tensor) -> int:
-    _require(k_cache.dtype == v_cache.dtype
-             and k_cache.dtype in (torch.bfloat16, torch.float32),
-             f"cache must be bf16 or f32, got {k_cache.dtype}/{v_cache.dtype}")
-    _require(k_cache.shape == v_cache.shape and k_cache.stride() == v_cache.stride(),
-             "k/v caches must share shape and strides")
+    ffi.require(k_cache.dtype == v_cache.dtype
+                and k_cache.dtype in (torch.bfloat16, torch.float32),
+                f"cache must be bf16 or f32, got {k_cache.dtype}/{v_cache.dtype}")
+    ffi.require(k_cache.shape == v_cache.shape and k_cache.stride() == v_cache.stride(),
+                "k/v caches must share shape and strides")
     _, KH, D = k_cache.shape
-    _require(k_cache.stride(2) == 1 and k_cache.stride(1) == D,
-             "cache rows must be [KH, D] contiguous")
+    ffi.require(k_cache.stride(2) == 1 and k_cache.stride(1) == D,
+                "cache rows must be [KH, D] contiguous")
     return int(k_cache.dtype == torch.bfloat16)
 
 
@@ -144,17 +95,17 @@ def window_flash_attention(q, k, v, kv_valid_lens):
         return window_attention_plain(q, k, v, kv_valid_lens)
     W, S, H, D = q.shape
     lens = kv_valid_lens.to(device=q.device, dtype=torch.int32).contiguous()
-    _check_cuda(q, k, v, lens)
-    _require(q.dtype == k.dtype == v.dtype == torch.float32, "q/k/v must be f32")
-    _require(k.shape == q.shape and v.shape == q.shape and lens.shape == (W,),
-             "q/k/v must be [W, S, H, D] and kv_valid_lens [W]")
-    _require(q.is_contiguous() and k.is_contiguous() and v.is_contiguous(),
-             "q/k/v must be contiguous")
-    _require(D == 64, f"head dim {D} not built (64)")
+    ffi.check_cuda(q, k, v, lens)
+    ffi.require(q.dtype == k.dtype == v.dtype == torch.float32, "q/k/v must be f32")
+    ffi.require(k.shape == q.shape and v.shape == q.shape and lens.shape == (W,),
+                "q/k/v must be [W, S, H, D] and kv_valid_lens [W]")
+    ffi.require(q.is_contiguous() and k.is_contiguous() and v.is_contiguous(),
+                "q/k/v must be contiguous")
+    ffi.require(D == 64, f"head dim {D} not built (64)")
     out = torch.empty_like(q)
     _call("sv_window_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-          lens.data_ptr(), out.data_ptr(), W, S, H, D, 1.0 / math.sqrt(D), _stream())
-    launch_counts["window_attention"] += 1
+          lens.data_ptr(), out.data_ptr(), W, S, H, D, 1.0 / math.sqrt(D), ffi.stream())
+    ffi.launch_counts["window_attention"] += 1
     return out
 
 
@@ -192,18 +143,18 @@ def causal_cache_flash_attention(q, k_cache, v_cache, start_pos: int,
                                             kv_valid_len, kv_min)
     T, H, D = q.shape
     K, KH, _ = k_cache.shape
-    _check_cuda(q, k_cache, v_cache)
-    _require(q.dtype == torch.float32 and q.is_contiguous(), "q must be contiguous f32")
+    ffi.check_cuda(q, k_cache, v_cache)
+    ffi.require(q.dtype == torch.float32 and q.is_contiguous(), "q must be contiguous f32")
     kv_bf16 = _kv_flag(k_cache, v_cache)
-    _require(k_cache.shape[2] == D and H % KH == 0, "GQA shapes disagree")
-    _require(D in (64, 128), f"head dim {D} not built (64, 128)")
-    _require(0 <= kv_min and start_pos >= 0 and start_pos + T <= K
-             and 0 <= kv_valid_len <= K, "positions out of the cache")
+    ffi.require(k_cache.shape[2] == D and H % KH == 0, "GQA shapes disagree")
+    ffi.require(D in (64, 128), f"head dim {D} not built (64, 128)")
+    ffi.require(0 <= kv_min and start_pos >= 0 and start_pos + T <= K
+                and 0 <= kv_valid_len <= K, "positions out of the cache")
     out = torch.empty_like(q)
     _call("sv_causal_cache_attention", q.data_ptr(), k_cache.data_ptr(),
           v_cache.data_ptr(), out.data_ptr(), T, H, KH, D, k_cache.stride(0),
-          start_pos, kv_valid_len, kv_min, kv_bf16, 1.0 / math.sqrt(D), _stream())
-    launch_counts["causal_cache_attention"] += 1
+          start_pos, kv_valid_len, kv_min, kv_bf16, 1.0 / math.sqrt(D), ffi.stream())
+    ffi.launch_counts["causal_cache_attention"] += 1
     return out
 
 
@@ -246,16 +197,16 @@ def decode_flash_attention(q, k_new, v_new, k_cache, v_cache, start_pos: int,
                                       start_pos, kv_min)
     H, D = q.shape
     K, KH, _ = k_cache.shape
-    _check_cuda(q, k_new, v_new, k_cache, v_cache)
-    _require(q.dtype == k_new.dtype == v_new.dtype == torch.float32,
-             "q/k_new/v_new must be f32")
-    _require(q.is_contiguous() and k_new.is_contiguous() and v_new.is_contiguous(),
-             "q/k_new/v_new must be contiguous")
-    _require(k_new.shape == (KH, D) and v_new.shape == (KH, D) and H % KH == 0
-             and H // KH <= 8, "GQA shapes disagree (or G > 8)")
+    ffi.check_cuda(q, k_new, v_new, k_cache, v_cache)
+    ffi.require(q.dtype == k_new.dtype == v_new.dtype == torch.float32,
+                "q/k_new/v_new must be f32")
+    ffi.require(q.is_contiguous() and k_new.is_contiguous() and v_new.is_contiguous(),
+                "q/k_new/v_new must be contiguous")
+    ffi.require(k_new.shape == (KH, D) and v_new.shape == (KH, D) and H % KH == 0
+                and H // KH <= 8, "GQA shapes disagree (or G > 8)")
     kv_bf16 = _kv_flag(k_cache, v_cache)
-    _require(D in (64, 128), f"head dim {D} not built (64, 128)")
-    _require(0 <= kv_min and 0 <= start_pos <= K, "positions out of the cache")
+    ffi.require(D in (64, 128), f"head dim {D} not built (64, 128)")
+    ffi.require(0 <= kv_min and 0 <= start_pos <= K, "positions out of the cache")
     n_splits, chunk = decode_splits(start_pos, kv_min)
     part = torch.empty((KH, n_splits, H // KH, D + 2), dtype=torch.float32,
                        device=q.device)
@@ -263,8 +214,8 @@ def decode_flash_attention(q, k_new, v_new, k_cache, v_cache, start_pos: int,
     _call("sv_decode_attention", q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
           k_cache.data_ptr(), v_cache.data_ptr(), part.data_ptr(), out.data_ptr(),
           H, KH, D, k_cache.stride(0), start_pos, kv_min, n_splits, chunk,
-          kv_bf16, 1.0 / math.sqrt(D), _stream())
-    launch_counts["decode_attention"] += 1
+          kv_bf16, 1.0 / math.sqrt(D), ffi.stream())
+    ffi.launch_counts["decode_attention"] += 1
     return out
 
 
@@ -296,13 +247,13 @@ def batched_causal_attention_plain(q, k, v, kv_min):
 
 def _check_batched_qkv(q, k_new, v_new, KH: int) -> None:
     B, T, H, D = q.shape
-    _require(q.dtype == k_new.dtype == v_new.dtype == torch.float32, "q/k/v must be f32")
-    _require(q.is_contiguous() and k_new.is_contiguous() and v_new.is_contiguous(),
-             "q/k/v must be contiguous")
-    _require(k_new.shape == (B, T, KH, D) and v_new.shape == (B, T, KH, D)
-             and H % KH == 0 and 64 % (H // KH) == 0,
-             "GQA shapes disagree (or G does not divide 64)")
-    _require(D in (64, 128), f"head dim {D} not built (64, 128)")
+    ffi.require(q.dtype == k_new.dtype == v_new.dtype == torch.float32, "q/k/v must be f32")
+    ffi.require(q.is_contiguous() and k_new.is_contiguous() and v_new.is_contiguous(),
+                "q/k/v must be contiguous")
+    ffi.require(k_new.shape == (B, T, KH, D) and v_new.shape == (B, T, KH, D)
+                and H % KH == 0 and 64 % (H // KH) == 0,
+                "GQA shapes disagree (or G does not divide 64)")
+    ffi.require(D in (64, 128), f"head dim {D} not built (64, 128)")
 
 
 def _rows_i32(x, B: int, device) -> torch.Tensor:
@@ -323,12 +274,12 @@ def batched_causal_flash_attention(q, k, v, kv_min):
     B, T, H, D = q.shape
     KH = k.shape[2]
     km = _rows_i32(kv_min, B, q.device)
-    _check_cuda(q, k, v, km)
+    ffi.check_cuda(q, k, v, km)
     _check_batched_qkv(q, k, v, KH)
     out = torch.empty_like(q)
     _call("sv_batched_causal_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-          km.data_ptr(), out.data_ptr(), B, T, H, KH, D, 1.0 / math.sqrt(D), _stream())
-    launch_counts["batched_causal_attention"] += 1
+          km.data_ptr(), out.data_ptr(), B, T, H, KH, D, 1.0 / math.sqrt(D), ffi.stream())
+    ffi.launch_counts["batched_causal_attention"] += 1
     return out
 
 
@@ -382,15 +333,15 @@ def batched_cache_flash_attention(q, k_new, v_new, k_cache, v_cache, start_pos: 
     B, T, H, D = q.shape
     _, KH, K, _ = k_cache.shape
     km = _rows_i32(kv_min, B, q.device)
-    _check_cuda(q, k_new, v_new, k_cache, v_cache, km)
+    ffi.check_cuda(q, k_new, v_new, k_cache, v_cache, km)
     _check_batched_qkv(q, k_new, v_new, KH)
-    _require(k_cache.dtype == v_cache.dtype
-             and k_cache.dtype in (torch.bfloat16, torch.float32),
-             f"cache must be bf16 or f32, got {k_cache.dtype}/{v_cache.dtype}")
-    _require(k_cache.shape == (B, KH, K, D) and v_cache.shape == k_cache.shape
-             and k_cache.stride() == v_cache.stride() and k_cache.stride(3) == 1,
-             "caches must be [B, KH, K, D] views with unit element stride")
-    _require(0 <= start_pos <= K, "positions out of the cache")
+    ffi.require(k_cache.dtype == v_cache.dtype
+                and k_cache.dtype in (torch.bfloat16, torch.float32),
+                f"cache must be bf16 or f32, got {k_cache.dtype}/{v_cache.dtype}")
+    ffi.require(k_cache.shape == (B, KH, K, D) and v_cache.shape == k_cache.shape
+                and k_cache.stride() == v_cache.stride() and k_cache.stride(3) == 1,
+                "caches must be [B, KH, K, D] views with unit element stride")
+    ffi.require(0 <= start_pos <= K, "positions out of the cache")
     pm_ptr = rs_ptr = None
     rs_all = 0
     if prompt_max is not None:
@@ -398,7 +349,7 @@ def batched_cache_flash_attention(q, k_new, v_new, k_cache, v_cache, start_pos: 
         pm_ptr = pm.data_ptr()
         if isinstance(region_start, torch.Tensor) and region_start.dim() > 0:
             rs = _rows_i32(region_start, B, q.device)
-            _check_cuda(q, pm, rs)
+            ffi.check_cuda(q, pm, rs)
             rs_ptr = rs.data_ptr()
         else:
             rs_all = int(region_start)
@@ -407,6 +358,6 @@ def batched_cache_flash_attention(q, k_new, v_new, k_cache, v_cache, start_pos: 
           k_cache.data_ptr(), v_cache.data_ptr(), km.data_ptr(), pm_ptr, rs_ptr, rs_all,
           out.data_ptr(), B, T, H, KH, D, k_cache.stride(0), k_cache.stride(1),
           k_cache.stride(2), start_pos, int(k_cache.dtype == torch.bfloat16),
-          1.0 / math.sqrt(D), _stream())
-    launch_counts["batched_cache_attention"] += 1
+          1.0 / math.sqrt(D), ffi.stream())
+    ffi.launch_counts["batched_cache_attention"] += 1
     return out

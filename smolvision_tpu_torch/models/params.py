@@ -9,7 +9,7 @@ layout, so the two packages can be compared leaf by leaf:
   * matmul weights take `param_dtype`; norms, biases and the conv stem
     stay f32; a tied lm_head is the embedding tensor itself.
 `params_from_jax` turns the JAX loaders' pytrees (as numpy arrays) into
-the same dictionaries.
+the same dictionaries; `quantize_decoder` makes the int8 (--q8) decoder.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from smolvision_tpu_torch.config import ModelConfig
+from smolvision_tpu_torch.ops.quant import QuantW, quantize_weight
 
 ENC_PREFIX = "thinker.audio_tower"
 DEC_PREFIX = "thinker.model"
@@ -121,6 +122,22 @@ def load_decoder(reader, cfg: ModelConfig, param_dtype=torch.bfloat16,
     }
 
 
+def quantize_decoder(params: Dict[str, Any]) -> Dict[str, Any]:
+    """int8 quantization (--q8) of the dense decoder's matrices: wqkv, wo,
+    w_gate_up, w_down and embed / lm_head, which stay ONE QuantW when tied
+    (the embedding gather and the lm_head read the same int8 table).  Norms
+    stay f32; the KV cache is untouched.  See ops/quant.py for the numerics."""
+    out = dict(params)
+    layers = dict(params["layers"])
+    for k in ("wqkv", "wo", "w_gate_up", "w_down"):
+        layers[k] = quantize_weight(layers[k])
+    out["layers"] = layers
+    out["embed"] = quantize_weight(params["embed"])
+    tied = params["lm_head"] is params["embed"]
+    out["lm_head"] = out["embed"] if tied else quantize_weight(params["lm_head"])
+    return out
+
+
 def _from_numpy(arr: np.ndarray, dtype, device) -> torch.Tensor:
     arr = np.array(arr)  # a writable copy (jax hands out read-only views)
     if arr.dtype.name == "bfloat16":  # numpy's bf16 extension type
@@ -129,13 +146,24 @@ def _from_numpy(arr: np.ndarray, dtype, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device=device, dtype=dtype)
 
 
+def _is_quant_pair(val) -> bool:
+    """A (q, s) NamedTuple leaf pair: the JAX package's QuantW as numpy."""
+    return isinstance(val, tuple) and getattr(val, "_fields", None) == ("q", "s")
+
+
+def _quant_from_numpy(val, device) -> QuantW:
+    return QuantW(torch.from_numpy(np.array(val.q)).to(device),
+                  _from_numpy(val.s, torch.float32, device))
+
+
 def params_from_jax(enc_np: Mapping[str, Any], dec_np: Mapping[str, Any], device="cpu",
                     dtype=torch.bfloat16):
     """The JAX loaders' (load_qwen3_encoder, load_decoder) pytrees, given as
     numpy arrays with stacked [L, ...] leaves, as the port's parameters:
     (encoder params, decoder params).  Leaves the dense port does not use
-    (None entries, MoE/bias slots) are dropped; a tied lm_head stays one
-    tensor with the embedding."""
+    (None entries, MoE/bias slots) are dropped; a quantized leaf (the JAX
+    package's QuantW under --q8, a (q, s) pair) becomes the port's QuantW;
+    a tied lm_head stays one object with the embedding."""
 
     def conv(tree, weights):
         out = {}
@@ -144,14 +172,27 @@ def params_from_jax(enc_np: Mapping[str, Any], dec_np: Mapping[str, Any], device
                 continue
             if isinstance(val, Mapping):
                 out[key] = conv(val, weights)
+            elif _is_quant_pair(val):
+                out[key] = _quant_from_numpy(val, device)
             else:
                 out[key] = _from_numpy(val, dtype if key in weights else torch.float32,
                                        device)
         return out
 
+    def same(a, b):
+        if _is_quant_pair(a) != _is_quant_pair(b):
+            return False
+        pairs = zip(a, b) if _is_quant_pair(a) else [(a, b)]
+        return all(np.array_equal(np.asarray(x), np.asarray(y)) for x, y in pairs)
+
     enc = conv(enc_np, ENC_WEIGHTS)
-    tied = dec_np["lm_head"] is dec_np["embed"] or np.array_equal(
-        np.asarray(dec_np["lm_head"]), np.asarray(dec_np["embed"]))
+    lm_head = dec_np["lm_head"]
+    tied = lm_head is dec_np["embed"] or same(lm_head, dec_np["embed"])
     dec = conv({k: v for k, v in dec_np.items() if k != "lm_head"}, DEC_WEIGHTS)
-    dec["lm_head"] = dec["embed"] if tied else _from_numpy(dec_np["lm_head"], dtype, device)
+    if tied:
+        dec["lm_head"] = dec["embed"]
+    elif _is_quant_pair(lm_head):
+        dec["lm_head"] = _quant_from_numpy(lm_head, device)
+    else:
+        dec["lm_head"] = _from_numpy(lm_head, dtype, device)
     return enc, dec

@@ -18,7 +18,19 @@ Port of the dense paths of smolvision_tpu/models/qwen3_decoder.py
     BATCHED_DELTA_FLASH_MIN_T are TPU crossovers and do not apply here); a
     batched decode step is plain torch, as in the JAX package,
   * activations: residual stream f32, matmul inputs cast to the weight
-    dtype, f32 accumulation (ops/common.linear).
+    dtype, f32 accumulation (ops/common.linear); int8 weights (--q8,
+    ops/quant.QuantW) go through ops/quant.proj and embed_rows,
+  * every greedy token comes from `greedy_head`: final RMSNorm, then kernel
+    K6 (bf16 / f32 lm_head) or K7 (int8 lm_head), the fused lm_head matvec +
+    argmax, which never writes the logits; the logits paths (greedy=False)
+    keep `linear`,
+  * the batched cache may be int8 (--kv8, ops/quant.QuantKV): fresh K/V
+    rows are quantized per row as they are written; fresh prefill still
+    runs B4 (it never reads the cache), while delta prefill and the decode
+    step run the two-part attention on the cache rows widened to f32 with
+    their scales, as the JAX package does (it sends the --kv8 delta prefill
+    away from B5 as well).
+    The single-stream cache stays bf16 / f32.
 """
 
 from __future__ import annotations
@@ -26,8 +38,11 @@ from __future__ import annotations
 import torch
 
 from smolvision_tpu_torch.config import EOS_TOKEN_IDS, ModelConfig
+from smolvision_tpu_torch.kernels import argmax_matvec as am
 from smolvision_tpu_torch.kernels import flash_attention as fa
 from smolvision_tpu_torch.ops.common import apply_rope_neox, linear, rms_norm, rope_tables, silu
+from smolvision_tpu_torch.ops.quant import (QuantKV, QuantW, embed_rows, kv_read, kv_write,
+                                            kv_zeros, take)
 
 
 def make_kv_cache(cfg: ModelConfig, kv_cap: int, dtype=torch.bfloat16, device="cpu"):
@@ -44,7 +59,7 @@ def build_embeds(params, ids: torch.Tensor, audio: torch.Tensor, audio_start: in
     audio_start <= i < audio_start + audio_len, else embed[ids[i]]
     (the replacement splice of MODEL.md:336-349).
     """
-    emb = params["embed"][ids].float()
+    emb = embed_rows(params["embed"], ids)
     rel = torch.arange(ids.shape[0], device=ids.device) - audio_start
     in_audio = (rel >= 0) & (rel < audio_len)
     audio_rows = audio[rel.clamp(0, audio.shape[0] - 1)].float()
@@ -104,13 +119,15 @@ def decoder_forward(params, cfg: ModelConfig, embeds: torch.Tensor, start_pos: i
     Returns (hidden [T, H] f32 pre-final-norm, kv) — kv is updated in place.
     Rows >= valid_len are junk; their cache rows are masked until overwritten.
     """
+    if isinstance(kv, QuantKV):
+        raise ValueError("the int8 KV cache (--kv8) is batched-path only (make_batched_kv)")
     T = embeds.shape[0]
     positions = start_pos + torch.arange(T, device=embeds.device)
     cos, sin = rope_tables(positions, cfg.dec_head_dim, cfg.rope_theta)
     layers = params["layers"]
     h = embeds.float()
     for i in range(layers["wqkv"].shape[0]):
-        lp = {key: val[i] for key, val in layers.items()}
+        lp = {key: take(val, i) for key, val in layers.items()}
         h = _attn_block(lp, h, kv, i, cfg, cos, sin, start_pos, valid_len)
         h = h + _dense_ffn(rms_norm(h, lp["post_ln"], cfg.rms_norm_eps), lp)
     return h, kv
@@ -122,25 +139,38 @@ def logits_at(params, cfg: ModelConfig, hidden: torch.Tensor, row: int) -> torch
     return linear(h[None], params["lm_head"])[0]
 
 
+def greedy_head(params, cfg: ModelConfig, hidden_rows: torch.Tensor) -> torch.Tensor:
+    """The greedy token of each row of hidden_rows [R, H]: int32 [R].
+
+    Final RMSNorm, then the fused lm_head matvec + argmax (kernel K6 for a
+    bf16 / f32 lm_head, K7 for an int8 one): argmax(linear(...)) without the
+    logits.  An int8 head computes the dequantized product bf16(h) .
+    bf16(q) * s, the JAX package's `proj` below 1024 rows (a batch of 1024
+    rows or more would take its int8 x int8 branch instead)."""
+    h = rms_norm(hidden_rows, params["final_norm"], cfg.rms_norm_eps).contiguous()
+    w = params["lm_head"]
+    if isinstance(w, QuantW):
+        return am.argmax_matvec(h, w.q, w.s)
+    return am.argmax_matvec(h, w)
+
+
 def prefill(params, cfg: ModelConfig, embeds, start_pos: int, valid_len: int, kv,
             greedy: bool = True):
     """Prefill the bucket; return (first token | logits of the last valid row, kv)."""
     hidden, kv = decoder_forward(params, cfg, embeds, start_pos, valid_len, kv)
-    logits = logits_at(params, cfg, hidden, valid_len - 1)
     if greedy:
-        return torch.argmax(logits).to(torch.int32), kv
-    return logits, kv
+        return greedy_head(params, cfg, hidden[valid_len - 1 : valid_len])[0], kv
+    return logits_at(params, cfg, hidden, valid_len - 1), kv
 
 
 def decode_step(params, cfg: ModelConfig, token, pos: int, kv, greedy: bool = True):
     """One autoregressive step writing cache row `pos`."""
     tok = torch.as_tensor(token, device=kv.device).reshape(1).long()
-    embed = params["embed"][tok].float()
+    embed = embed_rows(params["embed"], tok)
     hidden, kv = decoder_forward(params, cfg, embed, pos, 1, kv)
-    logits = logits_at(params, cfg, hidden, 0)
     if greedy:
-        return torch.argmax(logits).to(torch.int32), kv
-    return logits, kv
+        return greedy_head(params, cfg, hidden[:1])[0], kv
+    return logits_at(params, cfg, hidden, 0), kv
 
 
 # ---------------------------------------------------------------------------
@@ -153,23 +183,17 @@ def decode_step(params, cfg: ModelConfig, token, pos: int, kv, greedy: bool = Tr
 
 def make_batched_kv(cfg: ModelConfig, batch: int, kv_cap: int, dtype=torch.bfloat16,
                     device="cpu"):
-    """Batched KV cache [L, 2, B, KH, K, D] (bf16 or f32)."""
-    return torch.zeros((cfg.dec_layers, 2, batch, cfg.dec_kv_heads, kv_cap, cfg.dec_head_dim),
-                       dtype=dtype, device=device)
-
-
-def kv_grow_k(kv: torch.Tensor, kcap_new: int) -> torch.Tensor:
-    """Zero-grow the K (cache position) axis of a batched cache to kcap_new."""
-    new = kv.new_zeros(kv.shape[:4] + (kcap_new,) + kv.shape[5:])
-    new[:, :, :, :, : kv.shape[4]] = kv
-    return new
+    """Batched KV cache [L, 2, B, KH, K, D] (bf16 or f32); dtype int8 (--kv8)
+    gives a QuantKV: int8 values plus per-row f32 scales [L, 2, B, KH, K]."""
+    return kv_zeros((cfg.dec_layers, 2, batch, cfg.dec_kv_heads, kv_cap, cfg.dec_head_dim),
+                    dtype, device)
 
 
 def build_embeds_batched(params, ids: torch.Tensor, audio: torch.Tensor,
                          audio_start: torch.Tensor, audio_len: torch.Tensor) -> torch.Tensor:
     """`build_embeds` per row: ids [B, T], audio [B, A, H], audio_start /
     audio_len [B] -> [B, T, H] f32."""
-    emb = params["embed"][ids].float()
+    emb = embed_rows(params["embed"], ids)
     rel = torch.arange(ids.shape[1], device=ids.device)[None, :] - audio_start[:, None]
     in_audio = (rel >= 0) & (rel < audio_len[:, None])
     rows = torch.arange(ids.shape[0], device=ids.device)[:, None]
@@ -178,7 +202,7 @@ def build_embeds_batched(params, ids: torch.Tensor, audio: torch.Tensor,
 
 
 def batched_decoder_forward(params, cfg: ModelConfig, embeds: torch.Tensor, start_pos: int,
-                            kv: torch.Tensor, rope_start: torch.Tensor, kv_min: torch.Tensor,
+                            kv, rope_start: torch.Tensor, kv_min: torch.Tensor,
                             fresh_prefill: bool = False, prompt_max=None, region_start=None):
     """Run the layer stack over `embeds` [B, T, H] written into cache rows
     start_pos..start_pos+T-1 of every batch row.
@@ -186,22 +210,25 @@ def batched_decoder_forward(params, cfg: ModelConfig, embeds: torch.Tensor, star
     rope_start [B]: logical position of block row 0 per row (negative for
     left-pad rows).  kv_min [B]: cache rows below it are left-pad garbage.
     fresh_prefill: start_pos == 0 and the whole context is this block ->
-    kernel B4.  Otherwise a block of T > 1 runs kernel B5 against the cache
-    (with the natural-layout mask prompt_max / region_start when given), and
-    a decode step (T == 1) the plain two-part attention.  There is no size
-    crossover.  Returns (hidden [B, T, H] f32, kv) -- kv updated in place.
+    kernel B4.  Otherwise, on a bf16 / f32 cache, a block of T > 1 runs
+    kernel B5 against the cache (with the natural-layout mask prompt_max /
+    region_start when given), and a decode step (T == 1) the plain two-part
+    attention; on an int8 cache (QuantKV) both run the two-part attention
+    on the widened rows.  There is no size crossover.
+    Returns (hidden [B, T, H] f32, kv) -- kv updated in place.
     """
     B, T, _ = embeds.shape
     H, KH, D = cfg.dec_heads, cfg.dec_kv_heads, cfg.dec_head_dim
     eps = cfg.rms_norm_eps
     if start_pos + T > kv.shape[4]:
         raise ValueError(f"cache rows {start_pos}..{start_pos + T} past its {kv.shape[4]}")
+    kv8 = isinstance(kv, QuantKV)
     positions = rope_start[:, None] + torch.arange(T, device=embeds.device)[None, :]
     cos, sin = rope_tables(positions, D, cfg.rope_theta)       # [B, T, D]
     layers = params["layers"]
     h = embeds.float()
     for i in range(layers["wqkv"].shape[0]):
-        lp = {key: val[i] for key, val in layers.items()}
+        lp = {key: take(val, i) for key, val in layers.items()}
         xn = rms_norm(h, lp["input_ln"], eps)
         qkv = linear(xn, lp["wqkv"])
         q = qkv[..., : H * D].reshape(B, T, H, D)
@@ -213,19 +240,22 @@ def batched_decoder_forward(params, cfg: ModelConfig, embeds: torch.Tensor, star
         k_cache, v_cache = kv[i, 0], kv[i, 1]                  # [B, KH, K, D]
         if fresh_prefill:
             attn = fa.batched_causal_flash_attention(q, k, v, kv_min)
-        elif T > 1:
+        elif T > 1 and not kv8:
             attn = fa.batched_cache_flash_attention(q, k, v, k_cache, v_cache, start_pos, kv_min,
                                                     prompt_max, region_start)
         else:
-            # a decode step: the JAX package's two-part attention, which it
-            # computes outside any kernel -- the same function as B5's
-            # plain version
+            # a decode step, or any block on an int8 cache: the JAX
+            # package's two-part attention, which it computes outside any
+            # kernel -- the same function as B5's plain version, here on
+            # the int8 rows widened to f32 with their scales
+            if kv8:
+                k_cache, v_cache = kv_read(k_cache, start_pos), kv_read(v_cache, start_pos)
             attn = fa.batched_cache_attention_plain(q, k, v, k_cache, v_cache, start_pos,
                                                     kv_min, prompt_max, region_start)
         h = h + linear(attn.reshape(B, T, H * D), lp["wo"])
         h = h + _dense_ffn(rms_norm(h, lp["post_ln"], eps), lp)
-        k_cache[:, :, start_pos : start_pos + T] = k.transpose(1, 2).to(kv.dtype)
-        v_cache[:, :, start_pos : start_pos + T] = v.transpose(1, 2).to(kv.dtype)
+        kv_write(kv[i, 0], start_pos, k.transpose(1, 2))
+        kv_write(kv[i, 1], start_pos, v.transpose(1, 2))
     return h, kv
 
 
@@ -235,8 +265,10 @@ def batched_logits(params, cfg: ModelConfig, hidden_rows: torch.Tensor) -> torch
                   params["lm_head"])
 
 
-def _greedy_or_logits(logits: torch.Tensor, greedy: bool):
-    return torch.argmax(logits, dim=-1).to(torch.int32) if greedy else logits
+def _greedy_or_logits(params, cfg: ModelConfig, hidden_rows: torch.Tensor, greedy: bool):
+    if greedy:
+        return greedy_head(params, cfg, hidden_rows)
+    return batched_logits(params, cfg, hidden_rows)
 
 
 def batched_prefill(params, cfg: ModelConfig, embeds, kv, rope_start, kv_min,
@@ -246,17 +278,17 @@ def batched_prefill(params, cfg: ModelConfig, embeds, kv, rope_start, kv_min,
     T = embeds.shape[1]
     hidden, kv = batched_decoder_forward(params, cfg, embeds, 0, kv, rope_start, kv_min,
                                          fresh_prefill=True)
-    return _greedy_or_logits(batched_logits(params, cfg, hidden[:, T - 1]), greedy), kv
+    return _greedy_or_logits(params, cfg, hidden[:, T - 1], greedy), kv
 
 
 def batched_prefill_delta(params, cfg: ModelConfig, embeds, start_pos: int, kv, rope_start,
                           kv_min, greedy: bool = True, last_rows=None, prompt_max=None,
                           region_start=None):
-    """Delta prefill (kernel B5): the block writes cache rows [start_pos,
-    start_pos + T) of every row and attends each row's frozen context
-    [kv_min[b], start_pos).  Row b's last prompt token is at T - 1
-    (left-padded) or at last_rows[b] (natural layout).
-    Returns (tokens | logits, kv)."""
+    """Delta prefill (kernel B5; the two-part attention on an int8 cache):
+    the block writes cache rows [start_pos, start_pos + T) of every row and
+    attends each row's frozen context [kv_min[b], start_pos).  Row b's last
+    prompt token is at T - 1 (left-padded) or at last_rows[b] (natural
+    layout).  Returns (tokens | logits, kv)."""
     T = embeds.shape[1]
     hidden, kv = batched_decoder_forward(params, cfg, embeds, start_pos, kv, rope_start, kv_min,
                                          prompt_max=prompt_max, region_start=region_start)
@@ -264,7 +296,7 @@ def batched_prefill_delta(params, cfg: ModelConfig, embeds, start_pos: int, kv, 
         h_last = hidden[:, T - 1]
     else:
         h_last = hidden[torch.arange(hidden.shape[0], device=hidden.device), last_rows.long()]
-    return _greedy_or_logits(batched_logits(params, cfg, h_last), greedy), kv
+    return _greedy_or_logits(params, cfg, h_last, greedy), kv
 
 
 def batched_decode_chunk(params, cfg: ModelConfig, tokens: torch.Tensor, pos: int, kv,
@@ -292,10 +324,10 @@ def batched_decode_chunk(params, cfg: ModelConfig, tokens: torch.Tensor, pos: in
     i = 0
     while i < n_steps and not bool(done.all()):
         p = pos + i
-        embeds = params["embed"][toks.long()].float()[:, None, :]
+        embeds = embed_rows(params["embed"], toks.long())[:, None, :]
         hidden, kv = batched_decoder_forward(params, cfg, embeds, p, kv, p - rope_offset, kv_min,
                                              prompt_max=prompt_max, region_start=region_start)
-        toks = torch.argmax(batched_logits(params, cfg, hidden[:, 0]), dim=-1).to(torch.int32)
+        toks = greedy_head(params, cfg, hidden[:, 0])
         buf[:, i] = toks
         done = done | torch.isin(toks, eos)
         i += 1

@@ -19,6 +19,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from smolvision_tpu_torch.ops.quant import QuantW, proj
+
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last axis; f32 math, returns weight * normalized (f32)."""
@@ -72,7 +74,7 @@ def apply_rope_neox(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> to
 
 
 def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x [..., I] @ w[O, I]^T (+ b) -> f32 [..., O].
+    """x [..., I] @ w[O, I]^T (+ b) -> f32 [..., O]; w may be a QuantW.
 
     x is first cast to w's dtype (the JAX callers' `.astype(wdt)`); the
     product accumulates in f32 and is returned in f32.  bf16 weights on the
@@ -81,6 +83,9 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -
     no such kernel, so there bf16 operands are widened to f32 first (exact:
     every bf16 value and product is representable in f32).
     """
+    if isinstance(w, QuantW):  # int8 weights (--q8): ops/quant.proj
+        y = proj(x, w)
+        return y if b is None else y + b
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).to(w.dtype)
     if w.dtype == torch.float32:

@@ -13,10 +13,10 @@ import torch
 
 from smolvision_tpu_torch.config import EOS_TOKEN_IDS, ModelConfig
 from smolvision_tpu_torch.models import qwen3_decoder as dec_mod
+from smolvision_tpu_torch.ops.quant import QuantKV, kv_grow_k  # noqa: F401
 
 # KV cache layout [L, 2, B, KH, K, D] -- see models/qwen3_decoder.py
 make_batched_kv = dec_mod.make_batched_kv
-kv_grow_k = dec_mod.kv_grow_k
 
 
 def batched_prefill(params, cfg: ModelConfig, embeds, kv, rope_start=None, kv_min=None,
@@ -47,16 +47,19 @@ def batched_decode_chunk(params, cfg: ModelConfig, tokens, pos: int, kv, n_steps
         region_start=region_start, row_active=row_active)
 
 
-def admit_rows(big: torch.Tensor, small: torch.Tensor, rows, G: int, src=None) -> torch.Tensor:
+def admit_rows(big, small, rows, G: int, src=None):
     """Copy `G` batch rows of `small` into `big` at row indices `rows[g]` (row
     axis 2 of the [L, 2, B, KH, K, D] batched cache), in place: one
     scalar-indexed block copy per row, never a scatter.  `small`'s K axis
     may be shorter than `big`'s (prompt-region admit).  `src[g]` (default g)
-    selects which small row feeds rows[g]."""
+    selects which small row feeds rows[g].  An int8 cache (QuantKV) copies
+    both leaves, the scales [L, 2, B, KH, K] with the same index."""
+    leaves = zip(big, small) if isinstance(big, QuantKV) else [(big, small)]
     K = small.shape[4]
-    for g in range(G):
-        sg = g if src is None else int(src[g])
-        big[:, :, int(rows[g]), :, :K] = small[:, :, sg].to(big.dtype)
+    for b_leaf, s_leaf in leaves:
+        for g in range(G):
+            sg = g if src is None else int(src[g])
+            b_leaf[:, :, int(rows[g]), :, :K] = s_leaf[:, :, sg].to(b_leaf.dtype)
     return big
 
 

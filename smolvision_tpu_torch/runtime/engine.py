@@ -3,7 +3,9 @@
 Port of the dense offline path of smolvision_tpu/runtime/engine.py (the
 qwen_ctx_t + transcribe entry points of qwen_asr.c) and of the settings the
 segmented, batched and serving drivers read (runtime/segment.py,
-runtime/batch_segments.py, runtime/serving.py).  The engine owns:
+runtime/batch_segments.py, runtime/serving.py), with the JAX engine's
+options --q8 (int8 decoder weights), --kv8 (int8 batched KV cache) and
+--spec (speculative decoding with an int8 draft).  The engine owns:
   * the parameter dictionaries on its device (bf16 weights by default),
   * the KV cache (grow-by-copy to pow2 buckets, as in the JAX engine),
   * host-side text logic (prompt tokens, <asr_text> gating, callbacks),
@@ -17,8 +19,10 @@ device's, not the enqueue's.
 
 from __future__ import annotations
 
+import os
 import sys
 import time
+from collections import deque
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -36,11 +40,15 @@ from smolvision_tpu_torch.models import params as params_mod
 from smolvision_tpu_torch.models import qwen3_decoder as dec_mod
 from smolvision_tpu_torch.models import qwen3_encoder as enc_mod
 from smolvision_tpu_torch.ops.mel import log_mel
+from smolvision_tpu_torch.ops.quant import embed_rows
 from smolvision_tpu_torch.runtime import prompt as prompt_mod
 from smolvision_tpu_torch.runtime.buckets import bucket, window_bucket
 from smolvision_tpu_torch.text.tokenizer import Tokenizer, load_tokenizer
 
 KV_HEADROOM = 256
+# speculative draft depth (--spec): int8 draft tokens verified per forward;
+# tokens per verify <= SPEC_DRAFT + 1
+SPEC_DRAFT = max(1, int(os.environ.get("SMOLVISION_SPEC_DRAFT", "4")))
 
 TokenCallback = Callable[[bytes], None]
 
@@ -57,7 +65,9 @@ class PerfStats:
         self.decode_ms = 0.0   # prefill + decode loop (its "decoding")
         self.mel_ms = 0.0
         self.prefill_ms = 0.0
-        self.decode_steps = 0  # decode_step calls (one kernel-B3 launch per layer each)
+        # decode_step calls (one kernel-B3 launch per layer each), the --spec
+        # draft steps included
+        self.decode_steps = 0
         # launches of the other kernels follow these counts, one per layer each:
         self.encodes = 0          # encoder stack calls (B1), single clips or batches
         self.prefills = 0         # single-stream prefills (B2)
@@ -65,6 +75,11 @@ class PerfStats:
         self.delta_prefills = 0   # batched delta prefills (B5): one per admission wave
         self.batch_decode_steps = 0   # batched decode steps (plain attention)
         self.batch_decode_ms = 0.0    # wall ms of the batched decode chunks
+        # speculative decoding (--spec): verify forwards (one kernel-B2 launch
+        # per layer each) and the tokens they produced (tokens / iteration is
+        # the measured acceptance, at most SPEC_DRAFT + 1)
+        self.spec_iters = 0
+        self.spec_tokens = 0
         # continuous-serving per-clip latency (runtime/serving.py): ttft /
         # completion p50/p99 dict over the last queue, or None
         self.serving_latency = None
@@ -78,7 +93,8 @@ class Engine:
     """One loaded checkpoint on one device + generation settings."""
 
     def __init__(self, model_dir: str, param_dtype=torch.bfloat16, kv_dtype=torch.bfloat16,
-                 verbose: int = 0, device: Optional[Union[str, torch.device]] = None):
+                 verbose: int = 0, device: Optional[Union[str, torch.device]] = None,
+                 q8: bool = False, kv8: bool = False, spec: bool = False):
         self.device = resolve_device(device)
         self.model_dir = model_dir
         self.verbose = verbose
@@ -97,6 +113,35 @@ class Engine:
         self.enc_params = params_mod.load_qwen3_encoder(self.reader, cfg, param_dtype,
                                                         self.device)
         self.dec_params = params_mod.load_decoder(self.reader, cfg, param_dtype, self.device)
+        # int8 KV cache (--kv8): batched paths only; the single-stream cache
+        # keeps kv_dtype, as in the JAX engine
+        self.kv8 = bool(kv8)
+        if self.kv8 and verbose >= 1:
+            print("int8 KV cache active (--kv8) on batched paths: output "
+                  "may differ from the bf16 parity path", file=sys.stderr, flush=True)
+        # int8 decoder weights (--q8); the encoder keeps param_dtype
+        self.q8 = bool(q8)
+        if self.q8:
+            self.dec_params = params_mod.quantize_decoder(self.dec_params)
+            if verbose >= 1:
+                print("int8 decoder weights active (--q8): output may differ "
+                      "from the bf16 parity path", file=sys.stderr, flush=True)
+        # speculative int8-draft decoding (--spec): SPEC_DRAFT tokens drafted
+        # with an int8 copy of the decoder, then verified in one forward of
+        # the full-precision decoder, whose greedy choice decides every
+        # emitted token; meaningless under --q8, where it turns itself off
+        self.spec = bool(spec) and not self.q8
+        if spec and not self.spec:
+            print("warning: --spec disabled (meaningless with --q8 / "
+                  "--moe-offload); output follows the quantized/offload "
+                  "path, NOT bit-exact bf16 greedy", file=sys.stderr, flush=True)
+        self.dec_params_draft = None
+        if self.spec:
+            self.dec_params_draft = params_mod.quantize_decoder(self.dec_params)
+            if verbose >= 1:
+                print("speculative int8-draft decoding active (--spec): "
+                      "tokens remain exactly the bf16 greedy sequence",
+                      file=sys.stderr, flush=True)
 
         # ---- generation settings (defaults mirror qwen_asr.c:257-272) ----
         self.segment_sec = 0.0
@@ -122,9 +167,9 @@ class Engine:
 
     @property
     def batched_kv_dtype(self) -> torch.dtype:
-        """Cache dtype of the batched paths (segments, serving): kv_dtype
-        (the JAX package's int8 --kv8 cache is not ported)."""
-        return self.kv_dtype
+        """Cache dtype of the batched paths (segments, serving): int8 under
+        --kv8, else kv_dtype."""
+        return torch.int8 if self.kv8 else self.kv_dtype
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -283,9 +328,49 @@ class Engine:
         self.perf.decode_steps += 1
         return out
 
+    @torch.inference_mode()
+    def spec_iteration(self, token: int, pos: int, budget: int) -> List[int]:
+        """One speculative iteration (--spec) from `token` at cache row
+        `pos`: the next 1..min(SPEC_DRAFT + 1, budget) greedy tokens.
+
+        SPEC_DRAFT int8 decode steps draft d_0..d_{n-1} on the shared cache;
+        one full-precision forward over the n + 1 rows [token, d_0..d_{n-1}]
+        (kernel B2) rewrites their cache rows exactly, and the greedy head
+        over those rows gives g_i, the exact greedy successor of the prefix
+        through row i.  The longest draft prefix with d_i == g_i is accepted,
+        plus the verify's own next token; an EOS ends the iteration.  Every
+        emitted token is a g_i, so the draft decides only how many positions
+        share one forward.  Cache rows past the accepted prefix are rewritten
+        before anything attends them.  Host loop with the contract of the
+        JAX engine's spec chunk (runtime/engine.py _get_spec_chunk)."""
+        n = SPEC_DRAFT
+        cfg, p = self.cfg, self.dec_params
+        kv = self._ensure_kv(pos + n + 1)   # the verify block writes rows pos..pos+n
+        tok = torch.tensor([token], dtype=torch.long, device=self.device)
+        drafts = []
+        td = tok
+        for j in range(n):
+            td, kv = dec_mod.decode_step(self.dec_params_draft, cfg, td, pos + j, kv)
+            drafts.append(td.reshape(1))
+        self.perf.decode_steps += n
+        seq = torch.cat([tok, *(d.long() for d in drafts)])
+        hidden, kv = dec_mod.decoder_forward(p, cfg, embed_rows(p["embed"], seq), pos, n + 1, kv)
+        g_dev = dec_mod.greedy_head(p, cfg, hidden)
+        self._kv = kv
+        both = torch.cat([torch.cat(drafts), g_dev]).tolist()
+        d, g = both[:n], both[n:]
+        a = 0
+        while a < n and d[a] == g[a]:
+            a += 1
+        eos_pos = next((i for i in range(a + 1) if g[i] in EOS_TOKEN_IDS), n + 1)
+        e = max(min(a + 1, eos_pos + 1, budget), 1)
+        self.perf.spec_iters += 1
+        self.perf.spec_tokens += e
+        return g[:e]
+
     def decode_greedy(self, first_token, start_pos: int, max_tokens: int,
                       on_token: Callable[[int], bool]) -> int:
-        """Per-token greedy loop.
+        """Per-token greedy loop (spec iterations under --spec).
 
         `on_token(tid) -> keep_going` sees every token in order (the prefill
         token first); EOS tokens end the loop before the callback, like the C
@@ -294,12 +379,18 @@ class Engine:
         """
         pos = start_pos
         cur = int(first_token)
+        pending = deque()
         n = 0
         while n < max_tokens:
             n += 1
             if cur in EOS_TOKEN_IDS or not on_token(cur) or n >= max_tokens:
                 break
-            cur = int(self.decode_step(cur, pos))
+            if self.spec:
+                if not pending:
+                    pending.extend(self.spec_iteration(cur, pos, max_tokens - n))
+                cur = pending.popleft()
+            else:
+                cur = int(self.decode_step(cur, pos))
             pos += 1
         return n
 
@@ -369,4 +460,10 @@ class Engine:
                   f"Prefill: {len(ids)} tokens ({prefill_ms:.0f} ms); "
                   f"Decode: {state['n_text']} text tokens ({decode_ms:.0f} ms)",
                   file=sys.stderr, flush=True)
+            if self.spec and self.perf.spec_iters:
+                p = self.perf
+                print(f"  Spec: {p.spec_tokens} tokens / {p.spec_iters} "
+                      f"verify iters = {p.spec_tokens / p.spec_iters:.2f} "
+                      f"tokens/iter (draft {SPEC_DRAFT}, max "
+                      f"{SPEC_DRAFT + 1})", file=sys.stderr, flush=True)
         return text, state["n_text"]

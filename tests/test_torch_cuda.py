@@ -13,7 +13,10 @@ order: 1e-4 absolute at outputs of magnitude <~ 3, as chip_smoke.py.
 import pytest
 import torch
 
+from smolvision_tpu_torch.kernels import argmax_matvec as tam
+from smolvision_tpu_torch.kernels import ffi
 from smolvision_tpu_torch.kernels import flash_attention as tfa
+from smolvision_tpu_torch.kernels import probes as tprobes
 
 ATOL = 1e-4
 
@@ -30,7 +33,7 @@ def test_cuda_kernels_match_plain_versions():
     def close(got, want):
         torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
 
-    before = dict(tfa.launch_counts)
+    before = dict(ffi.launch_counts)
     calls = {name: 0 for name in before}
 
     # B1: windows shorter and longer than one 64-row tile; a whole pad
@@ -64,7 +67,7 @@ def test_cuda_kernels_match_plain_versions():
                       tfa.decode_attention_plain(qd, kn, vn, kd, vd, start, min(start, 5)))
                 calls["decode_attention"] += 1
     torch.cuda.synchronize()
-    assert {k: tfa.launch_counts[k] - before[k] for k in before} == calls
+    assert {k: ffi.launch_counts[k] - before[k] for k in before} == calls
 
 
 @pytest.mark.cuda
@@ -85,7 +88,7 @@ def test_cuda_batched_kernels_match_plain_versions():
     def close(got, want):
         torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
 
-    before = dict(tfa.launch_counts)
+    before = dict(ffi.launch_counts)
     calls = {name: 0 for name in before}
     for D, H, KH in ((128, 16, 8), (64, 8, 8), (64, 16, 2)):
         for T, kv_min in ((320, [0, 37, 320]), (100, [0, 5, 99])):
@@ -123,7 +126,7 @@ def test_cuda_batched_kernels_match_plain_versions():
                       tfa.batched_cache_attention_plain(*args))
                 calls["batched_cache_attention"] += 1
     torch.cuda.synchronize()
-    assert {k: tfa.launch_counts[k] - before[k] for k in before} == calls
+    assert {k: ffi.launch_counts[k] - before[k] for k in before} == calls
 
 
 @pytest.mark.cuda
@@ -146,3 +149,54 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
     kb = torch.zeros(2, 64, 4, 64, device="cuda")
     with pytest.raises(ValueError, match="G does not divide 64"):
         tfa.batched_causal_flash_attention(qb, kb, kb, torch.zeros(2, dtype=torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_head_and_probe_kernels_match_plain_versions():
+    """K6 (bf16, f32) and K7 (int8 + scales) at R 1, 5, 6, 11 (two row
+    groups) and 64 (a serving batch: more rows than one block's shared
+    memory holds at once for the f32 rows of h, so two passes), V not a
+    multiple of any block, an exact tie across blocks that must give the
+    first index; K8 and K9 against their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels are built with nvcc for sm_90a)")
+    g = torch.Generator(device="cuda").manual_seed(2)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g)
+
+    before = dict(ffi.launch_counts)
+    calls = {name: 0 for name in before}
+    V, H = 50_000 + 13, 1024
+    w32 = randn(V, H) * 0.05
+    qw = w32.abs().amax(-1) / 127.0
+    q8 = torch.round(w32 / qw[:, None]).clamp(-127, 127).to(torch.int8)
+    for R in (1, 5, 6, 11, 64):
+        h = randn(R, H)
+        # a clear winner per row: row r's argmax is planted at (977 r + 3) % V
+        want = [(977 * r + 3) % V for r in range(R)]
+        for r, v in enumerate(want):
+            w32[v] = torch.sign(h[r]) * 0.5
+        q8 = torch.round(w32 / qw[:, None]).clamp(-127, 127).to(torch.int8)
+        for w, scale, name in ((w32.to(torch.bfloat16), None, "argmax_matvec"),
+                               (w32, None, "argmax_matvec"), (q8, qw, "argmax_matvec_q8")):
+            got = tam.argmax_matvec(h, w, scale)
+            assert got.tolist() == want == tam.argmax_matvec_plain(h, w, scale).tolist()
+            calls[name] += 1
+    # exact tie across blocks: rows 7 and V - 2 are equal and the largest
+    h = randn(1, H)
+    w = randn(V, H).to(torch.bfloat16) * 0.05
+    w[7] = w[V - 2] = (torch.sign(h[0]) * 0.5).to(torch.bfloat16)
+    assert tam.argmax_matvec(h, w).tolist() == [7] == tam.argmax_matvec_plain(h, w).tolist()
+    calls["argmax_matvec"] += 1
+
+    x = randn(V, H).to(torch.bfloat16)
+    x[V - 1, H - 1] = 9.5                       # the maximum in the last element
+    assert float(tprobes.read_all(x, 0.25)) == float(tprobes.read_all_plain(x, 0.25)) == 9.75
+    calls["read_all"] += 1
+    a, b = randn(256, 256) / 4, randn(256, 256) / 4   # outputs of magnitude ~1
+    torch.testing.assert_close(tprobes.probe_mm(a, b), tprobes.probe_mm_plain(a, b),
+                               rtol=0, atol=ATOL)
+    calls["probe_mm"] += 1
+    torch.cuda.synchronize()
+    assert {k: ffi.launch_counts[k] - before[k] for k in before} == calls

@@ -142,8 +142,8 @@ def test_cli_stdout_byte_equal(visible_model, silent):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--kv8"], "--kv8"), (["--stream"], "--stream"), (["--q8"], "--q8"),
-    (["--thinker"], "--thinker"),
+    (["--moe-offload"], "--moe-offload"), (["--stream"], "--stream"),
+    (["--profile", "trace"], "--profile"), (["--thinker"], "--thinker"),
 ])
 def test_cli_unported_modes_exit_1(visible_model, extra, what):
     model, wav = visible_model

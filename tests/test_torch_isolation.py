@@ -38,6 +38,8 @@ def test_port_imports_no_jax():
         "import smolvision_tpu_torch.kernels.build, smolvision_tpu_torch.models.synthetic\n"
         "import smolvision_tpu_torch.runtime.segment, smolvision_tpu_torch.runtime.batch_segments\n"
         "import smolvision_tpu_torch.runtime.serving, smolvision_tpu_torch.parallel.batch\n"
+        "import smolvision_tpu_torch.ops.quant, smolvision_tpu_torch.kernels.argmax_matvec\n"
+        "import smolvision_tpu_torch.kernels.probes\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'smolvision_tpu')\n"
         "       or m.startswith(('jax.', 'jaxlib.', 'smolvision_tpu.'))]\n"
         "assert 'smolvision_tpu_torch.runtime.engine' in sys.modules\n"

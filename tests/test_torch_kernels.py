@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import torch
 
 from smolvision_tpu.kernels import flash_attention as jfa
+from smolvision_tpu_torch.kernels import ffi
 from smolvision_tpu_torch.kernels import flash_attention as tfa
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -108,7 +109,7 @@ def test_decode_plain_matches_pallas(K, H, KH, D, start, kvmin):
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     rng = np.random.default_rng(7)
-    before = dict(tfa.launch_counts)
+    before = dict(ffi.launch_counts)
     q = torch.from_numpy(_rand(rng, 1, 8, 2, 32))
     lens = torch.tensor([5], dtype=torch.int32)
     assert torch.equal(tfa.window_flash_attention(q, q, q, lens),
@@ -120,7 +121,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     qd, kn = torch.from_numpy(_rand(rng, 4, 32)), torch.from_numpy(_rand(rng, 2, 32))
     assert torch.equal(tfa.decode_flash_attention(qd, kn, kn, kc, kc, 10),
                        tfa.decode_attention_plain(qd, kn, kn, kc, kc, 10))
-    assert tfa.launch_counts == before
+    assert ffi.launch_counts == before
 
 
 @pytest.mark.parametrize("start,kv_min,expect", [
