@@ -17,10 +17,13 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
                 shapes of the paths below plus edge cases (all-pad windows
                 and rows, empty cache, kv_min > 0, B5 at start 0 and > 0
                 with per-row prompt_max / region_start, stale +-999 cache
-                rows; the greedy heads K6 / K7 at R 1, 5, 6, 11 and 64 (a
-                serving batch wider than one pass of the kernel), an exact
-                tie across blocks, V not a multiple of the block), then
-                timed against the plain version and one PyTorch library
+                rows; B2 on bf16 caches -- the tensor-core route, T 5 at
+                start 300 as the --spec verify -- and on an f32 cache; the
+                greedy heads K6 / K7 on both routes, the CUDA-core matvec
+                and the tensor-core tile product, at R 1 to 130, an exact
+                tie across blocks, V not a multiple of any block or tile),
+                then the sweep of R that sets the heads' crossover, then
+                timings against the plain version and one PyTorch library
                 call; K8 (read_all) over the lm_head gives the card's read
                 bandwidth, against which each head kernel's time is set;
   4. main path- a seeded Qwen3-ASR-0.6B checkpoint (full width, random
@@ -42,9 +45,13 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
                 two-part attention, no B5); then the q8 kernel path against
                 the plain path, and --spec tokens against plain greedy
                 tokens on f32 weights (equal over the whole run) and on
-                bf16 weights (equal up to the first near tie).
+                bf16 weights (equal up to the first near tie);
+  8. wide     - `--serve 64` and `--serve 64 --q8` on 64 clips of 2-6 s:
+                every greedy head is 64 rows wide and must take the
+                tensor-core route (the CUDA-core head launches 0 times).
 Each path runs with the launch counts set to 0 just before it, and its
-counts must equal what its own bookkeeping (engine.perf) says.
+counts must equal what its own bookkeeping (engine.perf) says, each head
+under the launch key of the route its rows take.
 
 Prints a `{"kernels": [...]}` line, the nvidia-smi line, and as its last
 line `{"ok": true, "device": {...}}`.  Without a card, or outside a
@@ -103,6 +110,14 @@ HEAD_RTOL = 1e-5
 # probe_mm (K9) against torch.matmul: 256-term f32 sums of magnitude ~1 in
 # another order
 PROBE_MM_ATOL = 1e-4
+# how each timed kernel computes, beside the "route" (CUDA C++ for all)
+DESIGNS = {"causal_cache_attention": "tensor cores (bf16 cache: mma.sync on a hi / lo split)",
+           "read_all": "CUDA cores", "probe_mm": "f32 CUDA cores"}
+HEAD_CHECK_ROWS = (1, 5, 6, 9, 11, 16, 33, 64, 130)   # R of the greedy-head checks
+HEAD_SWEEP_ROWS = (1, 2, 4, 5, 6, 8, 12, 16, 24, 32)  # R of the crossover sweep
+SERVE_WIDE_SLOTS = 64         # the --serve width the JAX package documents
+SERVE_WIDE_CLIPS = 64         # seeded clips of 2-6 s
+SERVE_WIDE_MAX_TOKENS = 16
 
 
 def fail(msg: str) -> None:
@@ -196,15 +211,16 @@ def window_case(W, lens, S=104, H=14, D=64, garbage=False):
     return q, k, v, torch.tensor(lens, dtype=torch.int32, device=DEV)
 
 
-def cache_case(T, K, start, kv_valid, H=16, KH=8, D=128, seed=0):
-    """q block at rows start+t; a bf16 cache holding it, with +-999 in every
-    row at or past kv_valid (the pad rows prefill writes, and stale rows)."""
+def cache_case(T, K, start, kv_valid, H=16, KH=8, D=128, seed=0, dtype="bfloat16"):
+    """q block at rows start+t; a bf16 (or f32) cache holding it, with +-999
+    in every row at or past kv_valid (the pad rows prefill writes, and stale
+    rows)."""
     import torch
 
     g = torch.Generator(device=DEV).manual_seed(seed)
     q = torch.randn(T, H, D, device=DEV, generator=g)
-    k = torch.randn(K, KH, D, device=DEV, generator=g).to(torch.bfloat16)
-    v = torch.randn(K, KH, D, device=DEV, generator=g).to(torch.bfloat16)
+    k = torch.randn(K, KH, D, device=DEV, generator=g).to(getattr(torch, dtype))
+    v = torch.randn(K, KH, D, device=DEV, generator=g).to(getattr(torch, dtype))
     k[kv_valid:] = 999.0
     v[kv_valid:] = -999.0
     return q, k, v
@@ -277,14 +293,20 @@ def phase_kernels(shapes):
                 fail(f"B1 W={W}: all-pad window {w} is not exactly 0")
         errs["window_attention"] = max(errs["window_attention"], err)
 
-    # B2: T 256 / 512, K 1024, start 0 and > 0, kv_min 0 and > 0, stale rows
-    # (T, start, kv_valid, kv_min); kv_valid < start + T leaves pad rows
-    for T, start, kv_valid, kv_min in ((256, 0, 200, 0), (512, 0, shapes["prompt_len"], 0),
-                                       (512, 300, 700, 0), (256, 100, 330, 37)):
-        q, k, v = cache_case(T, 1024, start, kv_valid)
+    # B2: T 256 / 512, K 1024, start 0 and > 0, kv_min 0 and > 0, stale rows,
+    # T 5 at start 300 (the --spec verify); bf16 caches (tensor cores) and
+    # one f32 cache (the f32 core)
+    # (T, start, kv_valid, kv_min, cache); kv_valid < start + T leaves pad rows
+    for T, start, kv_valid, kv_min, dtype in (
+            (256, 0, 200, 0, "bfloat16"), (512, 0, shapes["prompt_len"], 0, "bfloat16"),
+            (512, 300, 700, 0, "bfloat16"), (256, 100, 330, 37, "bfloat16"),
+            (5, 300, 305, 0, "bfloat16"), (5, 300, 305, 17, "bfloat16"),
+            (512, 0, shapes["prompt_len"], 0, "float32")):
+        q, k, v = cache_case(T, 1024, start, kv_valid, dtype=dtype)
         got = fa.causal_cache_flash_attention(q, k, v, start, kv_valid, kv_min=kv_min)
         want = fa.causal_cache_attention_plain(q, k, v, start, kv_valid, kv_min)
-        err = check_close(f"B2 T={T} start={start} valid={kv_valid} kv_min={kv_min}", got, want)
+        err = check_close(f"B2 T={T} start={start} valid={kv_valid} kv_min={kv_min} {dtype}",
+                          got, want)
         errs["causal_cache_attention"] = max(errs["causal_cache_attention"], err)
 
     # B3: K 1024 / 4096, start in {0, 1, 300, K-1}, kv_min 0 and > 0
@@ -434,6 +456,7 @@ def phase_kernels(shapes):
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "max_abs_err": errs[name], "ms": min(k1, k2_), "plain_ms": min(p1, p2),
             "library_ms": time_ms(lib), "bound_ms": bound_ms, "bound_by": bound_by,
+            "design": DESIGNS.get(name, "f32 CUDA cores"),
         })
         log(f"  {name}: kernel {k1:.4f}/{k2_:.4f} ms (eager {eager_ms(kern):.4f} ms), "
             f"plain {p1:.4f}/{p2:.4f} ms, library {table[-1]['library_ms']:.4f} ms, "
@@ -469,16 +492,17 @@ def head_case(V: int, H: int, R: int, kind: str, seed: int, planted: bool = Fals
     return h, w, scale, winners
 
 
-def check_head(name: str, h, w, scale=None, winners=None) -> float:
-    """K6 / K7 against the plain version: equal indices where a winner is
-    planted; elsewhere the plain logit at the kernel's index within
-    HEAD_RTOL of the row's largest |logit| of the maximum.  Returns the
-    largest shortfall (plain max logit - plain logit at the kernel's index)."""
+def check_head(name: str, h, w, scale=None, winners=None, route=None) -> float:
+    """K6 / K7 against the plain version, on `route` (by default the one
+    head_route picks): equal indices where a winner is planted; elsewhere
+    the plain logit at the kernel's index within HEAD_RTOL of the row's
+    largest |logit| of the maximum.  Returns the largest shortfall (plain
+    max logit - plain logit at the kernel's index)."""
     import torch
 
     from smolvision_tpu_torch.kernels import argmax_matvec as am
 
-    got = am.argmax_matvec(h, w, scale)
+    got = am.argmax_matvec(h, w, scale, route=route)
     logits = am.logits_plain(h, w, scale)
     want = torch.argmax(logits, dim=-1)
     if winners is not None and not (got.tolist() == winners == want.tolist()):
@@ -491,49 +515,93 @@ def check_head(name: str, h, w, scale=None, winners=None) -> float:
     return float(short.max())
 
 
-def phase_heads(cfg, seg_B: int) -> list:
-    """K6 (bf16 at R 1, 5, 6, 11 and 64; f32 at R 1), K7 (R 1, 5, 6, 11,
-    64) and K8 at the 0.6B lm_head shape, plus an exact tie across blocks
-    and V not a multiple of the block; then timings: K6 at the
-    single-stream head (R 1) and at the -S run's batch (R seg_B), K7 at R
-    1, K8 over the lm_head, which sets the read bandwidth each head kernel
-    is held against, and K6 at R 64 (two passes of rows) beside cuBLAS."""
+def head_sweep(V: int, H: int) -> dict:
+    """Both routes of the head over the 0.6B table at each R of
+    HEAD_SWEEP_ROWS, bf16 and int8: the crossover R* is the largest R of
+    the sweep at which the CUDA-core route is still at least as fast."""
     import torch
 
     from smolvision_tpu_torch.kernels import argmax_matvec as am
-    from smolvision_tpu_torch.kernels import ffi, probes
+
+    out = {}
+    for kind in ("bfloat16", "int8"):
+        rows = []
+        for R in HEAD_SWEEP_ROWS:
+            h, w, scale, _ = head_case(V, H, R, kind, 500 + R)
+            core = time_ms(lambda: am.argmax_matvec(h, w, scale, route="cuda_core"))
+            tc = time_ms(lambda: am.argmax_matvec(h, w, scale, route="tensor_core"))
+            rows.append({"R": R, "cuda_core_ms": core, "tensor_core_ms": tc})
+            del h, w, scale
+        r_star = max((r["R"] for r in rows if r["cuda_core_ms"] <= r["tensor_core_ms"]), default=0)
+        dtype = getattr(torch, kind)
+        out[kind] = {"sweep": rows, "measured_r_star": r_star,
+                     "source_r_star": am.HEAD_TC_ABOVE[dtype]}
+        log(f"  head crossover sweep, {kind}: " + ", ".join(
+            f"R {r['R']}: core {r['cuda_core_ms']:.4f} / tc {r['tensor_core_ms']:.4f}"
+            for r in rows))
+        log(f"  R* {kind}: measured {r_star} (the CUDA-core route at least as fast up to "
+            f"it), source HEAD_TC_ABOVE {am.HEAD_TC_ABOVE[dtype]}")
+    return out
+
+
+def phase_heads(cfg, seg_B: int) -> list:
+    """K6 (bf16) and K7 (int8) on both routes at each R of HEAD_CHECK_ROWS
+    (the CUDA-core matvec and the tensor-core tile product; R 64 and 130
+    are serving batches, R 130 wider than one tile of columns), K6 f32 at R
+    1, exact ties across blocks and V not a multiple of any tile on both
+    routes; then the crossover sweep; then timings: K6 at the single-stream
+    head (R 1) and at the -S run's batch (R seg_B), K7 at R 1, K6 and K7 at
+    R 64 (the serving width, tensor cores) beside cuBLAS + argmax, and K8
+    over the lm_head, which sets the read bandwidth each head kernel is held
+    against."""
+    import torch
+
+    from smolvision_tpu_torch.kernels import argmax_matvec as am
+    from smolvision_tpu_torch.kernels import probes
 
     V, H = cfg.vocab_size, cfg.dec_hidden
-    errs = {"argmax_matvec": 0.0, "argmax_matvec_q8": 0.0}
-    cases = [(R, kind, planted) for R in (1, 5, 6, 11, 64) for kind in ("bfloat16", "int8")
-             for planted in (True, False)] + [(1, "float32", True), (1, "float32", False)]
-    for i, (R, kind, planted) in enumerate(cases):
+    errs = {k: 0.0 for k in ("argmax_matvec", "argmax_matvec_tc", "argmax_matvec_q8",
+                              "argmax_matvec_q8_tc")}
+    cases = [(R, kind, planted, route) for R in HEAD_CHECK_ROWS for kind in ("bfloat16", "int8")
+             for planted in (True, False) for route in ("cuda_core", "tensor_core")]
+    cases += [(1, "float32", True, "cuda_core"), (1, "float32", False, "cuda_core")]
+    for i, (R, kind, planted, route) in enumerate(cases):
         h, w, scale, winners = head_case(V, H, R, kind, 100 + i, planted)
-        key = "argmax_matvec_q8" if kind == "int8" else "argmax_matvec"
-        err = check_head(f"{key} {kind} R={R} planted={planted}", h, w, scale, winners)
+        key = am.launch_key(route, w.dtype)
+        err = check_head(f"{key} {kind} R={R} planted={planted}", h, w, scale, winners, route)
         errs[key] = max(errs[key], err)
         del h, w, scale
-    # an exact tie across blocks (rows 7 and V - 2): the first index wins
-    for kind in ("bfloat16", "int8"):
-        h, w, scale, _ = head_case(V, H, 1, kind, 200)
-        w[V - 2] = w[7] = (torch.sign(h[0]) * (127 if kind == "int8" else 0.5)).to(w.dtype)
-        if scale is not None:
-            scale[V - 2] = scale[7]
-        check_head(f"tie {kind}", h, w, scale, [7])
-    # V not a multiple of any block, and R > 8 (two row groups)
-    h, w, scale, winners = head_case(50_013, H, 11, "bfloat16", 201, planted=True)
-    check_head("ragged V=50013 R=11", h, w, scale, winners)
+    for route in ("cuda_core", "tensor_core"):
+        # an exact tie across blocks (rows 7 and V - 2): the first index wins
+        for kind in ("bfloat16", "int8"):
+            h, w, scale, _ = head_case(V, H, 1, kind, 200)
+            w[V - 2] = w[7] = (torch.sign(h[0]) * (127 if kind == "int8" else 0.5)).to(w.dtype)
+            if scale is not None:
+                scale[V - 2] = scale[7]
+            check_head(f"tie {kind} {route}", h, w, scale, [7], route)
+        # V not a multiple of any block or tile, R > 8 (two row groups of the
+        # CUDA-core route), R > 32 (two column tiles of the tensor-core route)
+        for R in (11, 33):
+            h, w, scale, winners = head_case(50_013, H, R, "bfloat16", 201 + R, planted=True)
+            check_head(f"ragged V=50013 R={R} {route}", h, w, scale, winners, route)
     log(f"greedy heads vs plain: shortfall {json.dumps(errs)} (tolerance {HEAD_RTOL:g} of "
         f"max |logit|; planted winners, ties and ragged V equal)")
+    sweep = head_sweep(V, H)
 
     rows = []
     for name, R, kind, replaces in (
             ("argmax_matvec", 1, "bfloat16", "tools/profile_decode2.py:127"),
             ("argmax_matvec_batched", seg_B, "bfloat16", "tools/profile_decode3.py:145"),
-            ("argmax_matvec_q8", 1, "int8", "tools/probe_int8.py:110")):
+            ("argmax_matvec_q8", 1, "int8", "tools/probe_int8.py:110"),
+            ("argmax_matvec_tc", SERVE_WIDE_SLOTS, "bfloat16", "tools/profile_decode3.py:145"),
+            ("argmax_matvec_q8_tc", SERVE_WIDE_SLOTS, "int8", "tools/probe_int8.py:110")):
         h, w, scale, _ = head_case(V, H, R, kind, 300 + R)
+        route = am.head_route(R, w.dtype)
+        if name.endswith("_tc") and route != "tensor_core":
+            fail(f"{name}: R {R} does not take the tensor-core route")
         err = check_head(f"{name} timing inputs", h, w, scale)
-        key = "argmax_matvec_q8" if kind == "int8" else "argmax_matvec"
+        key = am.launch_key(route, w.dtype)
+        # one table read, plus h, the scales and the result
         nbytes = w.numel() * w.element_size() + (0 if scale is None else 4 * V) + 4 * R * (H + 1)
         lib = None
         if kind == "bfloat16":
@@ -541,7 +609,8 @@ def phase_heads(cfg, seg_B: int) -> list:
             lib = (lambda hb=hb, w=w: torch.argmax(torch.mm(hb, w.t(), out_dtype=torch.float32),
                                                     dim=-1))
         rows.append({"name": name, "source": "smolvision_tpu_torch/kernels/csrc/argmax_matvec.cu",
-                     "replaces": replaces, "err": max(errs[key], err),
+                     "replaces": replaces, "err": max(errs[key], err), "R": R,
+                     "design": route.replace("_", " ") + "s",
                      "kern": lambda h=h, w=w, s=scale: am.argmax_matvec(h, w, s),
                      "plain": lambda h=h, w=w, s=scale: am.argmax_matvec_plain(h, w, s),
                      "lib": lib, "bound": bound(nbytes, 2.0 * R * V * H, kind), "nbytes": nbytes})
@@ -552,7 +621,7 @@ def phase_heads(cfg, seg_B: int) -> list:
     if err != 0.0:
         fail(f"read_all: kernel and plain version differ by {err:g} (max is exact)")
     rows.append({"name": "read_all", "source": "smolvision_tpu_torch/kernels/csrc/probes.cu",
-                 "replaces": "tools/profile_decode3.py:98", "err": err,
+                 "replaces": "tools/profile_decode3.py:98", "err": err, "design": DESIGNS["read_all"],
                  "kern": lambda: probes.read_all(x, 0.25),
                  "plain": lambda: probes.read_all_plain(x, 0.25),
                  "lib": lambda: torch.amax(x), "nbytes": x.numel() * 2,
@@ -564,6 +633,7 @@ def phase_heads(cfg, seg_B: int) -> list:
                       PROBE_MM_ATOL)
     rows.append({"name": "probe_mm", "source": "smolvision_tpu_torch/kernels/csrc/probes.cu",
                  "replaces": "tools/probe_compile_cache.py:35", "err": err,
+                 "design": DESIGNS["probe_mm"],
                  "kern": lambda: probes.probe_mm(a, b), "plain": lambda: probes.probe_mm_plain(a, b),
                  "lib": lambda: torch.matmul(a, b), "nbytes": 3 * 256 * 256 * 4,
                  "bound": bound(3 * 256 * 256 * 4, 2.0 * 256 ** 3, "float32")})
@@ -576,12 +646,15 @@ def phase_heads(cfg, seg_B: int) -> list:
         table.append({"name": r["name"], "route": "cuda", "source": r["source"],
                       "replaces": r["replaces"], "max_abs_err": r["err"], "ms": min(k1, k2),
                       "plain_ms": min(p1, p2), "library_ms": lib_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by, "nbytes": r["nbytes"]})
+                      "bound_by": bound_by, "nbytes": r["nbytes"], "design": r["design"],
+                      "R": r.get("R")})
         log(f"  {r['name']}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, library "
             + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none (no one PyTorch call)")
-            + f", bound {bound_ms:.4f} ms ({bound_by})")
+            + f", bound {bound_ms:.4f} ms ({bound_by}); {r['design']}")
     read = next(t for t in table if t["name"] == "read_all")
     # the roofline's own read of the lm_head, counted as its path's launches
+    from smolvision_tpu_torch.kernels import ffi
+
     ffi.reset_launch_counts()
     probes.read_all(x, 0.25)
     read["launches"] = ffi.launch_counts["read_all"]
@@ -591,16 +664,10 @@ def phase_heads(cfg, seg_B: int) -> list:
     for t in table:
         if t["name"].startswith("argmax_matvec"):
             at_bw = t["nbytes"] / bw * 1e3
-            log(f"  {t['name']}: {t['ms']:.4f} ms = {at_bw / t['ms']:.1%} of the measured read "
-                f"rate ({at_bw:.4f} ms), {t['bound_ms'] / t['ms']:.1%} of the data-sheet bound")
-    # a serving-width batch: more rows than one pass holds
-    h, w, _, _ = head_case(V, H, 64, "bfloat16", 364)
-    hb = h.to(torch.bfloat16)
-    k_ms = min(time_ms(lambda: am.argmax_matvec(h, w)) for _ in range(2))
-    lib_ms = time_ms(lambda: torch.argmax(torch.mm(hb, w.t(), out_dtype=torch.float32), dim=-1))
-    b_ms, b_by = bound(w.numel() * 2 + 4 * 64 * (H + 1), 2.0 * 64 * V * H, "bfloat16")
-    log(f"  argmax_matvec at R 64: kernel {k_ms:.4f} ms, library {lib_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
+            log(f"  {t['name']} (R {t['R']}): {t['ms']:.4f} ms = {at_bw / t['ms']:.1%} of the "
+                f"measured read rate ({at_bw:.4f} ms), {t['bound_ms'] / t['ms']:.1%} of the "
+                f"data-sheet bound")
+    log(f"head sweep: {json.dumps(sweep)}")
     return table
 
 
@@ -623,13 +690,19 @@ with mock.patch.object(build, "_nvcc", no_nvcc):
 torch.backends.cuda.matmul.allow_tf32 = False
 g = torch.Generator(device="cuda").manual_seed(7)
 a, b = (torch.randn(256, 256, device="cuda", generator=g) / 4 for _ in range(2))
+torch.cuda.synchronize()
 ffi.reset_launch_counts()
 got = probes.probe_mm(a, b)
 launches = ffi.launch_counts["probe_mm"]
-err = float((got - torch.matmul(a, b)).abs().max())
+want = torch.matmul(a, b)
+torch.cuda.synchronize()
+bad = (got - want).abs() > {PROBE_MM_ATOL!r}
 print(json.dumps({{"built": [l.name for l in logs if l.seconds > 0],
                   "cached": [l.name for l in logs if l.seconds == 0],
-                  "probe_mm_max_abs_err": err, "probe_mm_launches": launches}}))
+                  "probe_mm_max_abs_err": float((got - want).abs().max()),
+                  "probe_mm_launches": launches,
+                  "probe_mm_wrong_outputs": int(bad.sum()),
+                  "probe_mm_first_wrong": bad.nonzero()[:4].tolist()}}))
 """
     t0 = time.monotonic()
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -871,25 +944,42 @@ def run_cli(argv, name: str):
     return eng, launches, out.getvalue().splitlines(), wall_s
 
 
-def check_launches(name: str, launches: dict, eng, cfg) -> None:
+def check_launches(name: str, launches: dict, eng, cfg, batch: int = 0, wave: int = 0) -> None:
     """Every kernel's launches equal the path's own bookkeeping: one per
     layer per encoder call, single prefill, --spec verify, decode step,
     batched fresh prefill and batched delta prefill (none on an int8
     cache, which runs the two-part attention), and one greedy head per
     prefill, decode step, verify and batched step -- int8 (K7) under --q8
-    and for the --spec draft steps, else K6."""
+    and for the --spec draft steps, else K6 -- each under the launch key of
+    the route `head_route` gives its rows: 1 for the single-stream heads,
+    SPEC_DRAFT + 1 for a verify, `batch` for a batched fresh prefill or
+    decode step, `wave` for a delta prefill (a serving wave)."""
+    import torch
+
+    from smolvision_tpu_torch.kernels import argmax_matvec as am
+    from smolvision_tpu_torch.ops.quant import QuantW
+    from smolvision_tpu_torch.runtime import engine as eng_mod
+
     perf = eng.perf
     L = cfg.dec_layers
-    heads = (perf.prefills + perf.decode_steps + perf.spec_iters + perf.fresh_prefills
-             + perf.delta_prefills + perf.batch_decode_steps)
-    q8_heads = heads if eng.q8 else (perf.decode_steps if eng.spec else 0)
-    expected = {"window_attention": cfg.enc_layers * perf.encodes,
-                "causal_cache_attention": L * (perf.prefills + perf.spec_iters),
-                "decode_attention": L * perf.decode_steps,
-                "batched_causal_attention": L * perf.fresh_prefills,
-                "batched_cache_attention": 0 if eng.kv8 else L * perf.delta_prefills,
-                "argmax_matvec": heads - q8_heads, "argmax_matvec_q8": q8_heads,
-                "read_all": 0, "probe_mm": 0}
+    head = eng.dec_params["lm_head"]
+    dtype = torch.int8 if isinstance(head, QuantW) else head.dtype
+    expected = {k: 0 for k in launches}
+    expected.update({"window_attention": cfg.enc_layers * perf.encodes,
+                     "causal_cache_attention": L * (perf.prefills + perf.spec_iters),
+                     "decode_attention": L * perf.decode_steps,
+                     "batched_causal_attention": L * perf.fresh_prefills,
+                     "batched_cache_attention": 0 if eng.kv8 else L * perf.delta_prefills})
+
+    def heads(n: int, R: int, w_dtype) -> None:
+        if n:
+            expected[am.launch_key(am.head_route(R, w_dtype), w_dtype)] += n
+
+    heads(perf.prefills, 1, dtype)
+    heads(perf.decode_steps, 1, torch.int8 if eng.spec else dtype)   # --spec: the draft
+    heads(perf.spec_iters, eng_mod.SPEC_DRAFT + 1, dtype)
+    heads(perf.fresh_prefills + perf.batch_decode_steps, batch, dtype)
+    heads(perf.delta_prefills, wave, dtype)
     log(f"{name}: launches {json.dumps(launches)}, expected {json.dumps(expected)}")
     if launches != expected:
         fail(f"{name}: launch counts {launches} != expected {expected}")
@@ -1035,7 +1125,7 @@ def phase_segments(model_dir: str, wav: str, cfg, batch: int, extra=()):
     perf = eng.perf
     log(f"{name}: {wall_s:.2f} s wall incl. load; {perf.fresh_prefills} length "
         f"group(s), {perf.encodes} batched encode(s)")
-    check_launches(name, launches, eng, cfg)
+    check_launches(name, launches, eng, cfg, batch=batch)
     if perf.fresh_prefills == 0 or perf.batch_decode_steps == 0:
         fail("-S run: no batched prefill or decode step ran")
     if perf.prefills or perf.decode_steps:
@@ -1047,25 +1137,62 @@ def phase_segments(model_dir: str, wav: str, cfg, batch: int, extra=()):
     return eng, launches
 
 
-def phase_serving(model_dir: str, wavs, cfg, extra=()):
-    """--serve 4 over the mixed clips: admission waves prefilled by B5 (by
-    the two-part attention under --kv8)."""
-    argv = ["-d", model_dir, "-i", *wavs, "--serve", str(SERVE_SLOTS), "--silent",
-            "--language", "English", "--max-tokens", str(SERVE_MAX_TOKENS), *extra]
-    name = " ".join([f"--serve {SERVE_SLOTS}", *extra]) + " run"
+def serving_widths(n_clips: int, slots: int):
+    """(batch rows per decode step, rows per admission wave) of `--serve
+    slots` over n_clips clips queued at once (runtime/serving.py: S slots,
+    waves of min(S, queued) clips bucketed to a power of two)."""
+    S = min(slots, max(2, 1 << (n_clips - 1).bit_length()))
+    G = min(S, n_clips)
+    return S, 1 << (G - 1).bit_length() if G > 1 else 1
+
+
+def phase_serving(model_dir: str, wavs, cfg, extra=(), slots: int = SERVE_SLOTS,
+                  max_tokens: int = SERVE_MAX_TOKENS, min_waves: int = 2):
+    """--serve over the clips: admission waves prefilled by B5 (by the
+    two-part attention under --kv8)."""
+    argv = ["-d", model_dir, "-i", *wavs, "--serve", str(slots), "--silent",
+            "--language", "English", "--max-tokens", str(max_tokens), *extra]
+    name = " ".join([f"--serve {slots}", *extra]) + " run"
     eng, launches, lines, wall_s = run_cli(argv, name)
     perf = eng.perf
+    batch, wave = serving_widths(len(wavs), slots)
     log(f"{name}: {wall_s:.2f} s wall incl. load; {len(wavs)} clips, "
-        f"{perf.delta_prefills} admission waves")
-    check_launches(name, launches, eng, cfg)
-    if perf.delta_prefills < 2:
-        fail(f"--serve run: {perf.delta_prefills} admission wave(s), expected at least 2")
+        f"{perf.delta_prefills} admission waves of {wave} rows, decode at B {batch}")
+    check_launches(name, launches, eng, cfg, batch=batch, wave=wave)
+    if perf.delta_prefills < min_waves:
+        fail(f"--serve run: {perf.delta_prefills} admission wave(s), expected at least "
+             f"{min_waves}")
     if len(lines) != len(wavs):
         fail(f"--serve run: {len(lines)} transcript lines for {len(wavs)} clips")
     lat = perf.serving_latency
-    log(f"  {name} perf: {batch_perf_line(perf, SERVE_SLOTS)}")
+    log(f"  {name} perf: {batch_perf_line(perf, batch)}")
     log(f"  serving latency (ms): {json.dumps(lat)}")
     return eng, launches
+
+
+def phase_serving_wide(model_dir: str, wavs, cfg) -> dict:
+    """--serve 64 (the JAX package's documented serving width) on 64 clips,
+    bf16 and --q8: every greedy head of the run is 64 rows wide and must
+    take the tensor-core route (K6 / K7 tc = waves + steps, the CUDA-core
+    head 0 times).  Returns the launches of each run."""
+    runs = {}
+    for extra in ((), ("--q8",)):
+        eng, launches = phase_serving(model_dir, wavs, cfg, extra, SERVE_WIDE_SLOTS,
+                                      SERVE_WIDE_MAX_TOKENS, min_waves=1)
+        perf = eng.perf
+        q8 = "_q8" if extra else ""
+        heads = perf.delta_prefills + perf.batch_decode_steps
+        if (launches[f"argmax_matvec{q8}_tc"], launches[f"argmax_matvec{q8}"]) != (heads, 0):
+            fail(f"--serve {SERVE_WIDE_SLOTS} {' '.join(extra)}: tensor-core heads "
+                 f"{launches[f'argmax_matvec{q8}_tc']}, CUDA-core heads "
+                 f"{launches[f'argmax_matvec{q8}']} (expected {heads} and 0)")
+        log(f"  --serve {SERVE_WIDE_SLOTS} {' '.join(extra)}: decode "
+            f"{perf.batch_decode_ms / max(perf.batch_decode_steps, 1):.2f} ms per step at B "
+            f"{SERVE_WIDE_SLOTS} ({perf.batch_decode_steps} steps); the head on the tensor "
+            f"cores {heads} times")
+        runs[extra[0] if extra else "bf16"] = launches
+        del eng
+    return runs
 
 
 def greedy_run(eng, samples, max_tokens: int, spec: bool) -> list:
@@ -1224,6 +1351,8 @@ def main() -> int:
         f"{cache['seconds']:.2f} s; probe_mm from the cache vs torch.matmul: max_abs_err "
         f"{cache['probe_mm_max_abs_err']:.3g} (tolerance {PROBE_MM_ATOL:g})")
 
+    import numpy as np
+
     from smolvision_tpu_torch.models.synthetic import build as build_checkpoint
 
     work = os.path.join(ROOT, "build", "chip_smoke")
@@ -1243,6 +1372,11 @@ def main() -> int:
         serve_wavs = [os.path.join(work, f"serve{i}.wav") for i in range(len(serve_clips))]
         for path, c in zip(serve_wavs, serve_clips):
             write_wav(path, c)
+        rng = np.random.default_rng(SEED + 100)
+        wide_wavs = []
+        for i, sec in enumerate(2.0 + 4.0 * rng.random(SERVE_WIDE_CLIPS)):
+            wide_wavs.append(os.path.join(work, f"wide{i}.wav"))
+            write_wav(wide_wavs[-1], speech_like(float(sec), SEED + 200 + i))
         log(f"checkpoint: 0.6b preset, seed {SEED}, bf16, written in "
             f"{time.monotonic() - t0:.2f} s; clip {CLIP_SEC:.0f} s")
         shapes = main_path_shapes(model_dir, samples)
@@ -1294,20 +1428,28 @@ def main() -> int:
 
         # phase 7: --q8, --spec, -S 20 --q8 --kv8, --serve 4 --kv8
         int8_runs = phase_int8(model_dir, wav, long_wav, serve_wavs, cfg, shapes["seg_B"])
+
+        # phase 8: --serve 64 and --serve 64 --q8 (the heads on the tensor cores)
+        wide_runs = phase_serving_wide(model_dir, wide_wavs, cfg)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     # launches: each kernel's count from the path that carries it at the
     # shape its row was timed at
+    from smolvision_tpu_torch.kernels import argmax_matvec as am
+
+    seg_head = am.launch_key(am.head_route(shapes["seg_B"], torch.bfloat16), torch.bfloat16)
     launches.update(batched_causal_attention=seg_launches["batched_causal_attention"],
                     batched_cache_attention=serve_launches["batched_cache_attention"],
-                    argmax_matvec_batched=seg_launches["argmax_matvec"],
+                    argmax_matvec_batched=seg_launches[seg_head],
                     argmax_matvec_q8=int8_runs["--q8"]["argmax_matvec_q8"],
+                    argmax_matvec_tc=wide_runs["bf16"]["argmax_matvec_tc"],
+                    argmax_matvec_q8_tc=wide_runs["--q8"]["argmax_matvec_q8_tc"],
                     probe_mm=cache["probe_mm_launches"])
     for row in table:
         row.setdefault("launches", launches.get(row["name"]))
         row["kernel_ms"] = row["ms"]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+    keys = ("name", "route", "design", "source", "replaces", "launches", "max_abs_err", "ms",
             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in table]}))
     print(smi_line)

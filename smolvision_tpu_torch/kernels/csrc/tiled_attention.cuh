@@ -1,6 +1,7 @@
 // The f32 register-tiled attention core of kernels B1 (window_attention.cu),
-// B2 (causal_cache_attention.cu), B4 (batched_causal_attention.cu) and B5
-// (batched_cache_attention.cu).
+// B2 on an f32 cache (causal_cache_attention.cu; a bf16 cache runs on the
+// tensor-core core of mma_attention.cuh), B4 (batched_causal_attention.cu)
+// and B5 (batched_cache_attention.cu).
 //
 // One block of 256 threads (16 x 16) holds a tile of 64 query rows.  Tile
 // row r is query t0 + r % rows_per_head of head r / rows_per_head: B1 and

@@ -4,8 +4,9 @@ Each wrapper (kernels/flash_attention.py, argmax_matvec.py, probes.py)
 binds its C symbol from the library `build.load` gives, calls it on
 PyTorch's current stream, raises if the C function returns a CUDA error,
 and adds one to `launch_counts[name]` per launch.  The counts of all nine
-kernels live in this one dictionary, so one `reset_launch_counts()` sets
-every count to 0 before a path runs.
+kernels (the greedy head under one key per route and weight type) live in
+this one dictionary, so one `reset_launch_counts()` sets every count to 0
+before a path runs.
 """
 
 from __future__ import annotations
@@ -25,8 +26,10 @@ launch_counts: Dict[str, int] = {
     "decode_attention": 0,
     "batched_causal_attention": 0,
     "batched_cache_attention": 0,
-    "argmax_matvec": 0,        # bf16 and f32 lm_head weights
-    "argmax_matvec_q8": 0,     # int8 lm_head weights + per-row scales
+    "argmax_matvec": 0,        # bf16 and f32 lm_head weights, CUDA-core route
+    "argmax_matvec_tc": 0,     # bf16 lm_head weights, tensor-core route
+    "argmax_matvec_q8": 0,     # int8 lm_head weights + per-row scales, CUDA-core route
+    "argmax_matvec_q8_tc": 0,  # int8 lm_head weights + per-row scales, tensor-core route
     "read_all": 0,
     "probe_mm": 0,
 }

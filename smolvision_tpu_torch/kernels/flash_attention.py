@@ -137,7 +137,13 @@ def causal_cache_attention_plain(q, k_cache, v_cache, start_pos: int,
 def causal_cache_flash_attention(q, k_cache, v_cache, start_pos: int,
                                  kv_valid_len: int, *, kv_min: int = 0):
     """Causal GQA attention of a query block against the cache (kernel B2 on
-    CUDA).  start_pos / kv_valid_len / kv_min are host ints."""
+    CUDA).  start_pos / kv_valid_len / kv_min are host ints.
+
+    Two routes inside the one kernel library, by the cache's type: a bf16
+    cache runs on the tensor cores (csrc/mma_attention.cuh: bf16 mma.sync
+    on a hi / lo split of q and P, f32 accumulation; 64 % G == 0), an f32
+    cache on the f32 CUDA-core tiles (csrc/tiled_attention.cuh).  Both
+    count as one `causal_cache_attention` launch."""
     if not q.is_cuda:
         return causal_cache_attention_plain(q, k_cache, v_cache, start_pos,
                                             kv_valid_len, kv_min)
@@ -148,6 +154,10 @@ def causal_cache_flash_attention(q, k_cache, v_cache, start_pos: int,
     kv_bf16 = _kv_flag(k_cache, v_cache)
     ffi.require(k_cache.shape[2] == D and H % KH == 0, "GQA shapes disagree")
     ffi.require(D in (64, 128), f"head dim {D} not built (64, 128)")
+    if kv_bf16:
+        ffi.require(64 % (H // KH) == 0, "G does not divide 64 (bf16 cache)")
+        ffi.require(k_cache.data_ptr() % 16 == 0 and v_cache.data_ptr() % 16 == 0
+                    and k_cache.stride(0) % 8 == 0, "bf16 cache rows must be 16-byte aligned")
     ffi.require(0 <= kv_min and start_pos >= 0 and start_pos + T <= K
                 and 0 <= kv_valid_len <= K, "positions out of the cache")
     out = torch.empty_like(q)

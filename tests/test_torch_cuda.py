@@ -155,7 +155,8 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
 def test_cuda_head_and_probe_kernels_match_plain_versions():
     """K6 (bf16, f32) and K7 (int8 + scales) at R 1, 5, 6, 11 (two row
     groups) and 64 (a serving batch: more rows than one block's shared
-    memory holds at once for the f32 rows of h, so two passes), V not a
+    memory holds at once for the f32 rows of h, so two passes), each on the
+    route `head_route` picks (the tensor cores above the crossover), V not a
     multiple of any block, an exact tie across blocks that must give the
     first index; K8 and K9 against their plain versions."""
     if not torch.cuda.is_available():
@@ -178,11 +179,10 @@ def test_cuda_head_and_probe_kernels_match_plain_versions():
         for r, v in enumerate(want):
             w32[v] = torch.sign(h[r]) * 0.5
         q8 = torch.round(w32 / qw[:, None]).clamp(-127, 127).to(torch.int8)
-        for w, scale, name in ((w32.to(torch.bfloat16), None, "argmax_matvec"),
-                               (w32, None, "argmax_matvec"), (q8, qw, "argmax_matvec_q8")):
+        for w, scale in ((w32.to(torch.bfloat16), None), (w32, None), (q8, qw)):
             got = tam.argmax_matvec(h, w, scale)
             assert got.tolist() == want == tam.argmax_matvec_plain(h, w, scale).tolist()
-            calls[name] += 1
+            calls[tam.launch_key(tam.head_route(R, w.dtype), w.dtype)] += 1
     # exact tie across blocks: rows 7 and V - 2 are equal and the largest
     h = randn(1, H)
     w = randn(V, H).to(torch.bfloat16) * 0.05
@@ -200,3 +200,91 @@ def test_cuda_head_and_probe_kernels_match_plain_versions():
     calls["probe_mm"] += 1
     torch.cuda.synchronize()
     assert {k: ffi.launch_counts[k] - before[k] for k in before} == calls
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_core_head_matches_plain_version():
+    """The tensor-core head (bf16 and int8 tables) at R 16 and 64, and at R
+    300 (two passes of columns), on planted winners (equal indices) and on
+    random inputs (the plain logit at its index within 1e-5 of the row's
+    largest |logit| of the maximum: the f32 sums differ only in order); the
+    CUDA-core route on the same inputs agrees; an exact tie across tiles
+    gives the first index."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels are built with nvcc for sm_90a)")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    V, H = 50_000 + 13, 1024
+    before = dict(ffi.launch_counts)
+    calls = {name: 0 for name in before}
+    for R in (16, 64, 300):
+        w32 = torch.randn(V, H, device="cuda", generator=g) * 0.05
+        h = torch.randn(R, H, device="cuda", generator=g)
+        qw = w32.abs().amax(-1) / 127.0
+        for planted in (False, True):
+            want = [(977 * r + 3) % V for r in range(R)]
+            if planted:
+                for r, v in enumerate(want):
+                    w32[v] = torch.sign(h[r]) * 0.5
+            q8 = torch.round(w32 / qw[:, None]).clamp(-127, 127).to(torch.int8)
+            for w, scale in ((w32.to(torch.bfloat16), None), (q8, qw)):
+                got = tam.argmax_matvec(h, w, scale, route="tensor_core")
+                core = tam.argmax_matvec(h, w, scale, route="cuda_core")
+                calls[tam.launch_key("tensor_core", w.dtype)] += 1
+                calls[tam.launch_key("cuda_core", w.dtype)] += 1
+                logits = tam.logits_plain(h, w, scale)
+                if planted:
+                    assert got.tolist() == want == core.tolist()
+                for idx in (got, core):
+                    short = logits.amax(-1) - logits.gather(1, idx.long()[:, None])[:, 0]
+                    assert bool((short <= 1e-5 * logits.abs().amax(-1)).all())
+    h = torch.randn(16, H, device="cuda", generator=g)
+    w = (torch.randn(V, H, device="cuda", generator=g) * 0.05).to(torch.bfloat16)
+    w[7] = w[V - 2] = (torch.sign(h[3]) * 0.5).to(torch.bfloat16)
+    assert tam.argmax_matvec(h, w, route="tensor_core")[3].item() == 7
+    calls["argmax_matvec_tc"] += 1
+    torch.cuda.synchronize()
+    assert {k: ffi.launch_counts[k] - before[k] for k in before} == calls
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_attention_both_routes():
+    """B2 at the 0.6B head layout: the --spec verify (T 5 at start 300) and
+    the main prefill (T 512 from 0, 283 valid rows) on a bf16 cache (the
+    tensor-core route) and an f32 cache (the f32 core), +-999 junk in every
+    row the call must not read."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels are built with nvcc for sm_90a)")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    before = ffi.launch_counts["causal_cache_attention"]
+    n = 0
+    for T, start, valid, kv_min in ((5, 300, 305, 0), (512, 0, 283, 0), (64, 40, 104, 13)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn(T, 16, 128, device="cuda", generator=g)
+            k = torch.randn(1024, 8, 128, device="cuda", generator=g).to(dtype)
+            v = torch.randn(1024, 8, 128, device="cuda", generator=g).to(dtype)
+            k[valid:], v[valid:] = 999.0, -999.0
+            got = tfa.causal_cache_flash_attention(q, k, v, start, valid, kv_min=kv_min)
+            torch.testing.assert_close(
+                got, tfa.causal_cache_attention_plain(q, k, v, start, valid, kv_min),
+                rtol=0, atol=ATOL)
+            n += 1
+    torch.cuda.synchronize()
+    assert ffi.launch_counts["causal_cache_attention"] - before == n
+
+
+@pytest.mark.cuda
+def test_cuda_new_routes_refuse_what_they_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    h = torch.zeros(16, 1024, device="cuda")
+    w = torch.zeros(1000, 1024, device="cuda")
+    with pytest.raises(ValueError, match="no tensor-core route"):
+        tam.argmax_matvec(h, w, route="tensor_core")
+    with pytest.raises(ValueError, match="multiple of 128"):
+        tam.argmax_matvec(torch.zeros(16, 96, device="cuda"),
+                          torch.zeros(10, 96, device="cuda", dtype=torch.bfloat16),
+                          route="tensor_core")
+    q = torch.zeros(16, 12, 64, device="cuda")
+    k = torch.zeros(64, 4, 64, device="cuda", dtype=torch.bfloat16)    # G 3
+    with pytest.raises(ValueError, match="G does not divide 64"):
+        tfa.causal_cache_flash_attention(q, k, k, 0, 16)
