@@ -9,23 +9,28 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
   1. device   - the card's name, count, and nvidia-smi's name / power limit;
   2. build    - nvcc builds the seven kernel libraries from
                 smolvision_tpu_torch/kernels/csrc (seconds, ptxas report);
-                then a fresh process runs the build again with nvcc made
-                unavailable: every library must come from the source-hash
-                cache, and kernel K9 (probe_mm) launched from it must match
-                torch.matmul;
+                then five fresh processes, one after another, run the build
+                again with nvcc made unavailable: every library must come
+                from the source-hash cache, and kernel K9 (probe_mm)
+                launched from it must match torch.matmul (each reports its
+                wrong outputs' count and positions);
   3. kernels  - each kernel against its plain torch version at the 0.6B
                 shapes of the paths below plus edge cases (all-pad windows
                 and rows, empty cache, kv_min > 0, B5 at start 0 and > 0
                 with per-row prompt_max / region_start, stale +-999 cache
-                rows; B2 on bf16 caches -- the tensor-core route, T 5 at
-                start 300 as the --spec verify -- and on an f32 cache; the
-                greedy heads K6 / K7 on both routes, the CUDA-core matvec
-                and the tensor-core tile product, at R 1 to 130, an exact
-                tie across blocks, V not a multiple of any block or tile),
-                then the sweep of R that sets the heads' crossover, then
+                rows; B3 at starts that are not multiples of its plan's
+                rows per block, 20 calls back to back and a CUDA-graph
+                replay of them; B2 on bf16 caches -- the tensor-core route,
+                T 5 at start 300 as the --spec verify -- and on an f32
+                cache; the greedy heads K6 / K7 on both routes, the
+                CUDA-core matvec and the tensor-core tile product, at R 1
+                to 130, an exact tie across blocks, V not a multiple of any
+                block or tile), then the sweep of R that sets the heads'
+                crossover and the sweep of B3's blocks per KV head, then
                 timings against the plain version and one PyTorch library
-                call; K8 (read_all) over the lm_head gives the card's read
-                bandwidth, against which each head kernel's time is set;
+                call (B3 also at a 4096-row context); K8 (read_all) over
+                the lm_head gives the card's read bandwidth, against which
+                each head kernel's time is set;
   4. main path- a seeded Qwen3-ASR-0.6B checkpoint (full width, random
                 weights) transcribes a 20 s synthetic clip through
                 `smolvision_tpu_torch.cli`; every kernel's launch count must
@@ -112,7 +117,14 @@ HEAD_RTOL = 1e-5
 PROBE_MM_ATOL = 1e-4
 # how each timed kernel computes, beside the "route" (CUDA C++ for all)
 DESIGNS = {"causal_cache_attention": "tensor cores (bf16 cache: mma.sync on a hi / lo split)",
-           "read_all": "CUDA cores", "probe_mm": "f32 CUDA cores"}
+           "decode_attention": "f32 CUDA cores, one launch: a thread block cluster per KV head "
+                               "merging its blocks in distributed shared memory",
+           "decode_attention_long": "as decode_attention",
+           "read_all": "CUDA cores",
+           "probe_mm": "f32 CUDA cores, register-tiled (4 x 4 per lane), cp.async ring"}
+DECODE_LONG = (4096, 4095)    # (K, start) of B3's long-context row
+DECODE_SWEEP_BLOCKS = (4, 8, 16)  # DECODE_MAX_BLOCKS values of the B3 plan sweep
+BUILD_CACHE_CHECKS = 5        # fresh processes that load the libraries from the cache
 HEAD_CHECK_ROWS = (1, 5, 6, 9, 11, 16, 33, 64, 130)   # R of the greedy-head checks
 HEAD_SWEEP_ROWS = (1, 2, 4, 5, 6, 8, 12, 16, 24, 32)  # R of the crossover sweep
 SERVE_WIDE_SLOTS = 64         # the --serve width the JAX package documents
@@ -269,6 +281,50 @@ def batched_cache(B, K, start, kv_min, prompt_max=None, region_start=None, KH=8,
     return kv[0, 0], kv[0, 1]
 
 
+def decode_row(K: int, start: int):
+    """B3's timing inputs at (K, start): (kernel, plain, SDPA, bound).  SDPA
+    gets the same rows in bf16 with the fresh row written into the cache at
+    `start`; the bound reads the live bf16 rows once, q, the fresh row and
+    the output in f32."""
+    import torch
+    import torch.nn.functional as F
+
+    from smolvision_tpu_torch.kernels import flash_attention as fa
+
+    q, kn, vn, k, v = decode_case(K, start)
+    H, D = q.shape
+    KH = kn.shape[0]
+    nbytes = 4 * (2 * q.numel() + 2 * kn.numel()) + 2 * 2 * start * KH * D
+    flops = 4 * H * D * (start + 1)
+    k[start] = kn.to(torch.bfloat16)
+    v[start] = vn.to(torch.bfloat16)
+    qb = q.to(torch.bfloat16)[None, :, None, :]
+    kb, vb = (x[: start + 1].permute(1, 0, 2)[None] for x in (k, v))
+    return (lambda: fa.decode_flash_attention(q, kn, vn, k, v, start, 0),
+            lambda: fa.decode_attention_plain(q, kn, vn, k, v, start, 0),
+            lambda: F.scaled_dot_product_attention(qb, kb, vb, enable_gqa=True),
+            bound(nbytes, flops, "bfloat16"))
+
+
+def decode_plan_sweep(K: int, start: int) -> dict:
+    """B3 with no live row (the fresh row alone: the launch, the cluster
+    barriers and the merge, the kernel's floor), at the main path's start
+    and at the long context, for each DECODE_MAX_BLOCKS of
+    DECODE_SWEEP_BLOCKS (blocks per KV head, one cluster): the time the
+    plan's cluster size buys."""
+    from smolvision_tpu_torch.kernels import flash_attention as fa
+
+    kept = fa.DECODE_MAX_BLOCKS
+    out = {}
+    try:
+        for n in DECODE_SWEEP_BLOCKS:
+            fa.DECODE_MAX_BLOCKS = n
+            out[n] = [time_ms(decode_row(K3, s)[0]) for K3, s in ((K, 0), (K, start), DECODE_LONG)]
+    finally:
+        fa.DECODE_MAX_BLOCKS = kept
+    return out
+
+
 def phase_kernels(shapes):
     """Correctness sweep, then timings at the main-path shapes."""
     import torch
@@ -309,15 +365,37 @@ def phase_kernels(shapes):
                           got, want)
         errs["causal_cache_attention"] = max(errs["causal_cache_attention"], err)
 
-    # B3: K 1024 / 4096, start in {0, 1, 300, K-1}, kv_min 0 and > 0
+    # B3: K 1024 / 4096, start in {0, 1, 37, 300, the main path's, K-1},
+    # kv_min 0 and > 0 (37 and the main path's start are not multiples of
+    # the plan's rows per block); then 20 calls back to back and one
+    # CUDA-graph replay of them, which must give the same output each time
+    # (the cluster merge leaves no state behind)
     for K in (1024, 4096):
-        for start in (0, 1, 300, K - 1):
+        for start in (0, 1, 37, 300, shapes["decode_pos"], K - 1):
             for kv_min in {0, min(17, start)}:
                 q, kn, vn, k, v = decode_case(K, start)
                 got = fa.decode_flash_attention(q, kn, vn, k, v, start, kv_min)
                 want = fa.decode_attention_plain(q, kn, vn, k, v, start, kv_min)
-                err = check_close(f"B3 K={K} start={start} kv_min={kv_min}", got, want)
+                err = check_close(f"B3 K={K} start={start} kv_min={kv_min} "
+                                  f"plan={fa.decode_plan(start, kv_min)}", got, want)
                 errs["decode_attention"] = max(errs["decode_attention"], err)
+    q, kn, vn, k, v = decode_case(1024, shapes["decode_pos"])
+    want = fa.decode_attention_plain(q, kn, vn, k, v, shapes["decode_pos"], 0)
+    outs = [fa.decode_flash_attention(q, kn, vn, k, v, shapes["decode_pos"], 0)
+            for _ in range(20)]
+    if DEV == "cuda":
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = [fa.decode_flash_attention(q, kn, vn, k, v, shapes["decode_pos"], 0)
+                        for _ in range(20)]
+        for o in replayed:
+            o.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        outs += replayed
+    for i, o in enumerate(outs):
+        errs["decode_attention"] = max(errs["decode_attention"],
+                                       check_close(f"B3 back-to-back call {i}", o, want))
 
     # B4: the -S run's batch and left pads; an all-pad row, kv_min > 0 in
     # every row, and a T that is not a multiple of the 64-row tile
@@ -390,23 +468,12 @@ def phase_kernels(shapes):
                                                         enable_gqa=True),
                  bound(nbytes, flops, "bfloat16")))
 
-    # --- B3 at a mid-decode shape of the main path
-    start = shapes["decode_pos"]
-    q3, kn, vn, k3, v3 = decode_case(K, start)
-    H3, D3 = q3.shape
-    KH3 = kn.shape[0]
-    nbytes = 4 * (2 * q3.numel() + 2 * kn.numel()) + 2 * 2 * start * KH3 * D3
-    flops = 4 * H3 * D3 * (start + 1)
-    k3[start] = kn.to(torch.bfloat16)
-    v3[start] = vn.to(torch.bfloat16)
-    q3b = q3.to(torch.bfloat16)[None, :, None, :]
-    k3b, v3b = (x[: start + 1].permute(1, 0, 2)[None] for x in (k3, v3))
-    rows.append(("decode_attention", "smolvision_tpu_torch/kernels/csrc/decode_attention.cu",
-                 "smolvision_tpu/kernels/flash_attention.py:184",
-                 lambda: fa.decode_flash_attention(q3, kn, vn, k3, v3, start, 0),
-                 lambda: fa.decode_attention_plain(q3, kn, vn, k3, v3, start, 0),
-                 lambda: F.scaled_dot_product_attention(q3b, k3b, v3b, enable_gqa=True),
-                 bound(nbytes, flops, "bfloat16")))
+    # --- B3 at a mid-decode shape of the main path, and at a long context
+    for name, K3, start in (("decode_attention", K, shapes["decode_pos"]),
+                            ("decode_attention_long", *DECODE_LONG)):
+        rows.append((name, "smolvision_tpu_torch/kernels/csrc/decode_attention.cu",
+                     "smolvision_tpu/kernels/flash_attention.py:184",
+                     *decode_row(K3, start)))
 
     # --- B4 at the -S run's shape (fresh prefill of one length group)
     q4, k4, v4 = batched_case(B4, T4)
@@ -448,13 +515,17 @@ def phase_kernels(shapes):
                                                         enable_gqa=True),
                  bound(nbytes, flops, "float32")))
 
+    log(f"  decode plan sweep (DECODE_MAX_BLOCKS: ms at start 0 / {shapes['decode_pos']} / "
+        f"{DECODE_LONG[1]}): {json.dumps(decode_plan_sweep(K, shapes['decode_pos']))}")
+
     table = []
     for name, source, replaces, kern, plain, lib, (bound_ms, bound_by) in rows:
         # turns: plain, kernel, kernel, plain (noise shows as disagreement)
         p1, k1, k2_, p2 = (time_ms(f) for f in (plain, kern, kern, plain))
         table.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "max_abs_err": errs[name], "ms": min(k1, k2_), "plain_ms": min(p1, p2),
+            "max_abs_err": errs[name.replace("_long", "")], "ms": min(k1, k2_),
+            "plain_ms": min(p1, p2),
             "library_ms": time_ms(lib), "bound_ms": bound_ms, "bound_by": bound_by,
             "design": DESIGNS.get(name, "f32 CUDA cores"),
         })
@@ -1346,10 +1417,13 @@ def main() -> int:
         for line in entry.ptxas.splitlines():
             if "Used" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  [{entry.name}] {line.strip()}")
-    cache = build_cache_check()
-    log(f"build cache: a fresh process loaded {len(cache['cached'])} libraries without nvcc in "
-        f"{cache['seconds']:.2f} s; probe_mm from the cache vs torch.matmul: max_abs_err "
-        f"{cache['probe_mm_max_abs_err']:.3g} (tolerance {PROBE_MM_ATOL:g})")
+    for i in range(BUILD_CACHE_CHECKS):
+        cache = build_cache_check()
+        log(f"build cache, fresh process {i + 1} of {BUILD_CACHE_CHECKS}: loaded "
+            f"{len(cache['cached'])} libraries without nvcc in {cache['seconds']:.2f} s; "
+            f"probe_mm from the cache vs torch.matmul: max_abs_err "
+            f"{cache['probe_mm_max_abs_err']:.3g} (tolerance {PROBE_MM_ATOL:g}), wrong outputs "
+            f"{cache['probe_mm_wrong_outputs']} at {cache['probe_mm_first_wrong']}")
 
     import numpy as np
 
@@ -1439,7 +1513,8 @@ def main() -> int:
     from smolvision_tpu_torch.kernels import argmax_matvec as am
 
     seg_head = am.launch_key(am.head_route(shapes["seg_B"], torch.bfloat16), torch.bfloat16)
-    launches.update(batched_causal_attention=seg_launches["batched_causal_attention"],
+    launches.update(decode_attention_long=launches["decode_attention"],
+                    batched_causal_attention=seg_launches["batched_causal_attention"],
                     batched_cache_attention=serve_launches["batched_cache_attention"],
                     argmax_matvec_batched=seg_launches[seg_head],
                     argmax_matvec_q8=int8_runs["--q8"]["argmax_matvec_q8"],

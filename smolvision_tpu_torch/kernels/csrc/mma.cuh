@@ -29,6 +29,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred
                  "l"(src), "r"(pred ? 16 : 0));
 }
 
+// the same for one 4-byte element (any 4-byte aligned address)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(pred ? 4 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 template <int N>

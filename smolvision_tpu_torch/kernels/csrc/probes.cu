@@ -16,11 +16,19 @@
 // asked whether a compiled kernel comes back from JAX's persistent cache; the
 // port's counterpart is kernels/build.py's source-hash cache, which
 // chip_smoke.py checks by loading this kernel in a fresh process without
-// nvcc.  Bound: operations (2 M N K at the card's f32 rate).  A plain
-// shared-memory tiled product: 16 x 16 output tiles, one output per thread,
-// 16-deep slices of x and y staged in shared memory.
+// nvcc.  Bound: operations (2 M N K at the card's f32 rate), but at [256,
+// 256] x2 the work is small enough that load latency and the number of
+// busy SMs set the time.  Register-tiled f32 FMA on the CUDA cores (no
+// TF32): 16 x 32 output tiles, so [256, 256] is 128 blocks on 132 SMs; each
+// block's 8 warps split every 128-deep k tile of x and y (a two-stage
+// cp.async ring, 16-byte copies when K and N are multiples of 4, else
+// 4-byte; out-of-range elements zero-filled) into 16-deep slices, each lane
+// keeps a 4 x 4 register tile (rows tm + 4 i, columns 4 tn + j: conflict-free
+// 16-byte shared loads of x and y, 16 FMAs per 8 loads), and the 8 slices are
+// summed in shared memory at the end in a fixed order.
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -70,25 +78,113 @@ __global__ void read_finish_kernel(const unsigned int* __restrict__ key, float s
     out[0] = from_order_bits(key[0]) + s;
 }
 
-constexpr int kTile = 16;
+constexpr int kMmBM = 16, kMmBN = 32, kMmKT = 128;  // block tile and k tile
+constexpr int kMmWarps = 8, kMmThreads = kMmWarps * 32, kMmStages = 2;
+constexpr int kMmSlice = kMmKT / kMmWarps;           // k of a warp per tile
+constexpr int kMmXStride = kMmKT + 4;                // padded x row (16-byte aligned)
+constexpr int kMmStageFloats = kMmBM * kMmXStride + kMmKT * kMmBN;
+constexpr int kMmSmem = kMmStages * kMmStageFloats * 4;
 
-__global__ void __launch_bounds__(kTile * kTile)
+template <bool kVec>
+__global__ void __launch_bounds__(kMmThreads)
 probe_mm_kernel(const float* __restrict__ x, const float* __restrict__ y, float* __restrict__ out,
                 int M, int N, int K) {
-    __shared__ float xs[kTile][kTile];
-    __shared__ float ys[kTile][kTile + 1];
-    const int tx = threadIdx.x, ty = threadIdx.y;
-    const int row = blockIdx.y * kTile + ty, col = blockIdx.x * kTile + tx;
-    float acc = 0.f;
-    for (int k0 = 0; k0 < K; k0 += kTile) {
-        xs[ty][tx] = (row < M && k0 + tx < K) ? x[static_cast<long long>(row) * K + k0 + tx] : 0.f;
-        ys[ty][tx] = (k0 + ty < K && col < N) ? y[static_cast<long long>(k0 + ty) * N + col] : 0.f;
-        __syncthreads();
+    extern __shared__ __align__(16) float mm_smem[];
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int tm = lane % 4, tn = lane / 4;
+    const int m0 = blockIdx.y * kMmBM, n0 = blockIdx.x * kMmBN;
+    const int n_tiles = (K + kMmKT - 1) / kMmKT;
+
+    auto fetch = [&](int t) {
+        if (t < n_tiles) {
+            float* xs = mm_smem + (t % kMmStages) * kMmStageFloats;
+            float* ys = xs + kMmBM * kMmXStride;
+            const int k0 = t * kMmKT;
+            constexpr int w = kVec ? 4 : 1;  // floats per copy
+            for (int c = tid; c < kMmBM * kMmKT / w; c += kMmThreads) {
+                const int r = c / (kMmKT / w), kk = (c % (kMmKT / w)) * w;
+                const bool ok = m0 + r < M && k0 + kk < K;
+                const float* src = ok ? x + static_cast<long long>(m0 + r) * K + k0 + kk : x;
+                if (kVec) sv::cp_async16(xs + r * kMmXStride + kk, src, ok);
+                else sv::cp_async4(xs + r * kMmXStride + kk, src, ok);
+            }
+            for (int c = tid; c < kMmKT * kMmBN / w; c += kMmThreads) {
+                const int r = c / (kMmBN / w), nn = (c % (kMmBN / w)) * w;
+                const bool ok = k0 + r < K && n0 + nn < N;
+                const float* src = ok ? y + static_cast<long long>(k0 + r) * N + n0 + nn : y;
+                if (kVec) sv::cp_async16(ys + r * kMmBN + nn, src, ok);
+                else sv::cp_async4(ys + r * kMmBN + nn, src, ok);
+            }
+        }
+        sv::cp_async_commit();
+    };
 #pragma unroll
-        for (int k = 0; k < kTile; ++k) acc = fmaf(xs[ty][k], ys[k][tx], acc);
+    for (int s = 0; s < kMmStages - 1; ++s) fetch(s);
+
+    float acc[4][4] = {};
+    for (int t = 0; t < n_tiles; ++t) {
+        fetch(t + kMmStages - 1);
+        sv::cp_async_wait<kMmStages - 1>();
         __syncthreads();
+        const float* xs = mm_smem + (t % kMmStages) * kMmStageFloats;
+        const float* ys = xs + kMmBM * kMmXStride;
+#pragma unroll
+        for (int kq = 0; kq < kMmSlice; kq += 4) {
+            const int kk = warp * kMmSlice + kq;
+            float4 xa[4], yb[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                xa[i] = *reinterpret_cast<const float4*>(xs + (tm + 4 * i) * kMmXStride + kk);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                yb[j] = *reinterpret_cast<const float4*>(ys + (kk + j) * kMmBN + tn * 4);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const float xv =
+                        j == 0 ? xa[i].x : j == 1 ? xa[i].y : j == 2 ? xa[i].z : xa[i].w;
+                    acc[i][0] = fmaf(xv, yb[j].x, acc[i][0]);
+                    acc[i][1] = fmaf(xv, yb[j].y, acc[i][1]);
+                    acc[i][2] = fmaf(xv, yb[j].z, acc[i][2]);
+                    acc[i][3] = fmaf(xv, yb[j].w, acc[i][3]);
+                }
+            }
+        }
+        __syncthreads();  // the stage is free for tile t + kMmStages
     }
-    if (row < M && col < N) out[static_cast<long long>(row) * N + col] = acc;
+    sv::cp_async_wait<0>();
+
+    // the warps' k slices summed in a fixed order (the ring is free now)
+    float* red = mm_smem;  // [kMmWarps][kMmBM][kMmBN]
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+            red[(warp * kMmBM + tm + 4 * i) * kMmBN + tn * 4 + j] = acc[i][j];
+    __syncthreads();
+    for (int o = tid; o < kMmBM * kMmBN; o += kMmThreads) {
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < kMmWarps; ++w) s += red[w * kMmBM * kMmBN + o];
+        const int r = m0 + o / kMmBN, c = n0 + o % kMmBN;
+        if (r < M && c < N) out[static_cast<long long>(r) * N + c] = s;
+    }
+}
+
+template <bool kVec>
+int launch_mm(const float* x, const float* y, float* out, int M, int N, int K,
+              cudaStream_t stream) {
+    static bool configured = false;
+    if (!configured) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            probe_mm_kernel<kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMmSmem);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        configured = true;
+    }
+    const dim3 grid((N + kMmBN - 1) / kMmBN, (M + kMmBM - 1) / kMmBM);
+    probe_mm_kernel<kVec><<<grid, kMmThreads, kMmSmem, stream>>>(x, y, out, M, N, K);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -114,11 +210,11 @@ extern "C" int sv_read_all(const void* x, long long n, float s, unsigned int* ke
     return static_cast<int>(cudaGetLastError());
 }
 
-// x [M, K], y [K, N], out [M, N]: f32 row-major.
+// x [M, K], y [K, N], out [M, N]: f32 row-major, M and N >= 1.
 extern "C" int sv_probe_mm(const float* x, const float* y, float* out, int M, int N, int K,
                            void* stream) {
-    const dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
-    probe_mm_kernel<<<grid, dim3(kTile, kTile), 0, static_cast<cudaStream_t>(stream)>>>(
-        x, y, out, M, N, K);
-    return static_cast<int>(cudaGetLastError());
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const bool vec = K % 4 == 0 && N % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0
+                     && reinterpret_cast<uintptr_t>(y) % 16 == 0;
+    return vec ? launch_mm<true>(x, y, out, M, N, K, st) : launch_mm<false>(x, y, out, M, N, K, st);
 }

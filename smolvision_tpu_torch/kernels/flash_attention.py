@@ -32,15 +32,18 @@ from smolvision_tpu_torch.kernels import ffi
 
 NEG_INF = -1e30
 DENOM_FLOOR = 1e-30
-# live cache rows per split of the decode kernel (B3 phase 1)
-DECODE_ROWS_PER_SPLIT = 64
-DECODE_MAX_SPLITS = 64
+# the decode kernel's plan (B3): at most this many blocks (one thread block
+# cluster) per KV head, each taking at least this many live rows.  8, the
+# portable cluster size: clusters of 12 and 16 blocks were slower on an H100
+# at 315 and 4095 live rows (chip_smoke.py's decode plan sweep, PERF.md)
+DECODE_MAX_BLOCKS = 8
+DECODE_MIN_ROWS = 16
 
 # C argument types, one letter each (kernels/ffi.py)
 _SIGNATURES = {
     "sv_window_attention": ("window_attention", "pppppiiiifp"),
     "sv_causal_cache_attention": ("causal_cache_attention", "ppppiiiiliiiifp"),
-    "sv_decode_attention": ("decode_attention", "pppppppiiiliiiiifp"),
+    "sv_decode_attention": ("decode_attention", "ppppppiiiliiiiifp"),
     "sv_batched_causal_attention": ("batched_causal_attention", "pppppiiiiifp"),
     "sv_batched_cache_attention": ("batched_cache_attention", "ppppppppipiiiiillliifp"),
 }
@@ -189,19 +192,26 @@ def decode_attention_plain(q, k_new, v_new, k_cache, v_cache, start_pos: int,
     return torch.einsum("kgs,skd->kgd", p, vals).reshape(H, D)
 
 
-def decode_splits(start_pos: int, kv_min: int):
-    """(n_splits, rows per split) of the decode kernel for this live range."""
+def decode_plan(start_pos: int, kv_min: int):
+    """(blocks per KV head, live rows per block) of the decode kernel: as
+    many blocks as the live rows fill at DECODE_MIN_ROWS each, at most
+    DECODE_MAX_BLOCKS (one cluster), the rows shared evenly; (1, 0) with
+    no live row (the fresh row alone)."""
     live = max(start_pos - kv_min, 0)
     if live == 0:
-        return 0, 0
-    n = min(-(-live // DECODE_ROWS_PER_SPLIT), DECODE_MAX_SPLITS)
-    return n, -(-live // n)
+        return 1, 0
+    n = min(-(-live // DECODE_MIN_ROWS), DECODE_MAX_BLOCKS)
+    chunk = -(-live // n)
+    return -(-live // chunk), chunk
 
 
 def decode_flash_attention(q, k_new, v_new, k_cache, v_cache, start_pos: int,
                            kv_min: int = 0):
     """One position's GQA attention over cache rows [kv_min, start_pos) plus
-    the fresh row (kernel B3 on CUDA).  start_pos / kv_min are host ints."""
+    the fresh row (kernel B3 on CUDA: one launch, a thread block cluster per
+    KV head that merges its blocks' partials in shared memory, the blocks
+    and rows per block from `decode_plan`).  start_pos / kv_min are host
+    ints."""
     if not q.is_cuda:
         return decode_attention_plain(q, k_new, v_new, k_cache, v_cache,
                                       start_pos, kv_min)
@@ -217,14 +227,15 @@ def decode_flash_attention(q, k_new, v_new, k_cache, v_cache, start_pos: int,
     kv_bf16 = _kv_flag(k_cache, v_cache)
     ffi.require(D in (64, 128), f"head dim {D} not built (64, 128)")
     ffi.require(0 <= kv_min and 0 <= start_pos <= K, "positions out of the cache")
-    n_splits, chunk = decode_splits(start_pos, kv_min)
-    part = torch.empty((KH, n_splits, H // KH, D + 2), dtype=torch.float32,
-                       device=q.device)
+    ffi.require(k_cache.data_ptr() % 16 == 0 and v_cache.data_ptr() % 16 == 0
+                and (k_cache.stride(0) * k_cache.element_size()) % 16 == 0,
+                "cache rows must be 16-byte aligned")
+    n_blocks, chunk = decode_plan(start_pos, kv_min)
     out = torch.empty_like(q)
     _call("sv_decode_attention", q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-          k_cache.data_ptr(), v_cache.data_ptr(), part.data_ptr(), out.data_ptr(),
-          H, KH, D, k_cache.stride(0), start_pos, kv_min, n_splits, chunk,
-          kv_bf16, 1.0 / math.sqrt(D), ffi.stream())
+          k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(), H, KH, D,
+          k_cache.stride(0), start_pos, kv_min, n_blocks, chunk, kv_bf16,
+          1.0 / math.sqrt(D), ffi.stream())
     ffi.launch_counts["decode_attention"] += 1
     return out
 

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from smolvision_tpu_torch.config import ModelConfig
+from smolvision_tpu_torch.device import resolve_device
 from smolvision_tpu_torch.ops.quant import QuantW, quantize_weight
 
 ENC_PREFIX = "thinker.audio_tower"
@@ -63,7 +64,10 @@ def _stack(reader, template: str, n: int, dtype, device) -> torch.Tensor:
 
 
 def load_qwen3_encoder(reader, cfg: ModelConfig, param_dtype=torch.bfloat16,
-                       device="cpu") -> Dict[str, Any]:
+                       device=None) -> Dict[str, Any]:
+    """The encoder's weights on `device` (the card unless the caller names
+    the CPU; raises without a card)."""
+    device = resolve_device(device)
     p = ENC_PREFIX
     L = cfg.enc_layers
     layers = {
@@ -81,9 +85,11 @@ def load_qwen3_encoder(reader, cfg: ModelConfig, param_dtype=torch.bfloat16,
 
 
 def load_decoder(reader, cfg: ModelConfig, param_dtype=torch.bfloat16,
-                 device="cpu") -> Dict[str, Any]:
+                 device=None) -> Dict[str, Any]:
     """Dense Qwen3 decoder weights (q/k norms, no QKV bias, tied or separate
-    lm_head).  MoE and biased-QKV checkpoints are not ported yet."""
+    lm_head) on `device` (the card unless the caller names the CPU).  MoE
+    and biased-QKV checkpoints are not ported yet."""
+    device = resolve_device(device)
     if cfg.is_moe or cfg.dec_qkv_bias or not cfg.dec_qk_norm:
         raise ValueError(f"{cfg.name}: only dense Qwen3 decoders are ported "
                          "to smolvision_tpu_torch")
@@ -156,14 +162,16 @@ def _quant_from_numpy(val, device) -> QuantW:
                   _from_numpy(val.s, torch.float32, device))
 
 
-def params_from_jax(enc_np: Mapping[str, Any], dec_np: Mapping[str, Any], device="cpu",
+def params_from_jax(enc_np: Mapping[str, Any], dec_np: Mapping[str, Any], device=None,
                     dtype=torch.bfloat16):
     """The JAX loaders' (load_qwen3_encoder, load_decoder) pytrees, given as
     numpy arrays with stacked [L, ...] leaves, as the port's parameters:
     (encoder params, decoder params).  Leaves the dense port does not use
     (None entries, MoE/bias slots) are dropped; a quantized leaf (the JAX
     package's QuantW under --q8, a (q, s) pair) becomes the port's QuantW;
-    a tied lm_head stays one object with the embedding."""
+    a tied lm_head stays one object with the embedding.  On `device`: the
+    card unless the caller names the CPU."""
+    device = resolve_device(device)
 
     def conv(tree, weights):
         out = {}

@@ -38,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from smolvision_tpu_torch.config import EOS_TOKEN_IDS, ModelConfig
+from smolvision_tpu_torch.device import resolve_device
 from smolvision_tpu_torch.kernels import argmax_matvec as am
 from smolvision_tpu_torch.kernels import flash_attention as fa
 from smolvision_tpu_torch.ops.common import apply_rope_neox, linear, rms_norm, rope_tables, silu
@@ -45,9 +46,11 @@ from smolvision_tpu_torch.ops.quant import (QuantKV, QuantW, embed_rows, kv_read
                                             kv_zeros, take)
 
 
-def make_kv_cache(cfg: ModelConfig, kv_cap: int, dtype=torch.bfloat16, device="cpu"):
+def make_kv_cache(cfg: ModelConfig, kv_cap: int, dtype=torch.bfloat16, device=None):
+    """Single-stream KV cache [L, 2, K, KH, D] on `device` (the card unless
+    the caller names the CPU)."""
     return torch.zeros((cfg.dec_layers, 2, kv_cap, cfg.dec_kv_heads, cfg.dec_head_dim),
-                       dtype=dtype, device=device)
+                       dtype=dtype, device=resolve_device(device))
 
 
 def build_embeds(params, ids: torch.Tensor, audio: torch.Tensor, audio_start: int,
@@ -182,7 +185,7 @@ def decode_step(params, cfg: ModelConfig, token, pos: int, kv, greedy: bool = Tr
 
 
 def make_batched_kv(cfg: ModelConfig, batch: int, kv_cap: int, dtype=torch.bfloat16,
-                    device="cpu"):
+                    device=None):
     """Batched KV cache [L, 2, B, KH, K, D] (bf16 or f32); dtype int8 (--kv8)
     gives a QuantKV: int8 values plus per-row f32 scales [L, 2, B, KH, K]."""
     return kv_zeros((cfg.dec_layers, 2, batch, cfg.dec_kv_heads, kv_cap, cfg.dec_head_dim),

@@ -34,6 +34,8 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from smolvision_tpu_torch.device import resolve_device
+
 ACTQ_MIN_M = 1024
 
 
@@ -140,8 +142,10 @@ def quantize_kv_rows(x: torch.Tensor) -> QuantKV:
     return QuantKV(*_quantize_rows(x))
 
 
-def kv_zeros(shape: Sequence[int], dtype, device="cpu"):
-    """Allocate a KV cache; dtype int8 selects the quantized layout."""
+def kv_zeros(shape: Sequence[int], dtype, device=None):
+    """Allocate a KV cache on `device` (the card unless the caller names the
+    CPU); dtype int8 selects the quantized layout."""
+    device = resolve_device(device)
     if dtype == torch.int8:
         return QuantKV(torch.zeros(tuple(shape), dtype=torch.int8, device=device),
                        torch.zeros(tuple(shape[:-1]), dtype=torch.float32, device=device))

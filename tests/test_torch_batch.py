@@ -75,12 +75,12 @@ def test_batched_prefill_matches_jax(engines, pads):
                                    jdec.make_batched_kv(jeng.cfg, B, K, jnp.float32),
                                    jnp.asarray(-pads), jnp.asarray(pads), greedy=False)
     tl, tkv = tdec.batched_prefill(teng.dec_params, cfg, torch.from_numpy(emb),
-                                   tdec.make_batched_kv(cfg, B, K, torch.float32),
+                                   tdec.make_batched_kv(cfg, B, K, torch.float32, "cpu"),
                                    torch.from_numpy(-pads), torch.from_numpy(pads), greedy=False)
     _close_logits(tl.numpy(), jl)
     np.testing.assert_allclose(tkv.numpy(), np.asarray(jkv), rtol=1e-5, atol=1e-5)
     toks, _ = tbatch.batched_prefill(teng.dec_params, cfg, torch.from_numpy(emb),
-                                     tdec.make_batched_kv(cfg, B, K, torch.float32),
+                                     tdec.make_batched_kv(cfg, B, K, torch.float32, "cpu"),
                                      torch.from_numpy(-pads), torch.from_numpy(pads))
     np.testing.assert_array_equal(toks.numpy(), np.asarray(jl).argmax(-1))
 
@@ -101,7 +101,7 @@ def test_batched_prefill_delta_start0_natural_layout(engines):
         region_start=jnp.int32(1 << 30))
     tl, tkv = tdec.batched_prefill_delta(
         teng.dec_params, cfg, torch.from_numpy(emb), 0,
-        tdec.make_batched_kv(cfg, B, T, torch.float32), torch.from_numpy(z),
+        tdec.make_batched_kv(cfg, B, T, torch.float32, "cpu"), torch.from_numpy(z),
         torch.from_numpy(z), greedy=False, last_rows=torch.from_numpy(lens - 1),
         prompt_max=torch.from_numpy(lens), region_start=1 << 30)
     _close_logits(tl.numpy(), jl)
@@ -124,7 +124,7 @@ def test_batched_prefill_delta_after_cache_per_row_region(engines):
         jeng.dec_params, jeng.cfg, jnp.asarray(e1), jnp.int32(T0), jkv,
         jnp.asarray(T0 - pads), jnp.asarray(pads), greedy=False,
         prompt_max=jnp.asarray(pm), region_start=jnp.asarray(rs))
-    tkv = tdec.make_batched_kv(cfg, B, K, torch.float32)
+    tkv = tdec.make_batched_kv(cfg, B, K, torch.float32, "cpu")
     _, tkv = tdec.batched_prefill(teng.dec_params, cfg, torch.from_numpy(e0), tkv,
                                   torch.from_numpy(-pads), torch.from_numpy(pads))
     tl, tkv = tdec.batched_prefill_delta(
@@ -152,7 +152,7 @@ def test_batched_decode_chunk_matches_jax(engines, active):
         jeng.dec_params, jeng.cfg, jtok, jnp.int32(T), jkv, cap, jnp.asarray(pads),
         jnp.asarray(pads), n_steps=jnp.int32(6), row_active=jnp.asarray(act))
     ttok, tkv = tdec.batched_prefill(teng.dec_params, cfg, torch.from_numpy(emb),
-                                     tdec.make_batched_kv(cfg, B, K, torch.float32),
+                                     tdec.make_batched_kv(cfg, B, K, torch.float32, "cpu"),
                                      torch.from_numpy(-pads), torch.from_numpy(pads))
     tbuf, tn, tlast, _ = tbatch.batched_decode_chunk(
         teng.dec_params, cfg, ttok, T, tkv, cap, rope_offset=torch.from_numpy(pads),
@@ -165,7 +165,7 @@ def test_batched_decode_chunk_matches_jax(engines, active):
 def test_batched_decode_chunk_exits_when_all_rows_done(engines):
     _, teng = engines
     cfg = teng.cfg
-    kv = tdec.make_batched_kv(cfg, 2, 64, torch.float32)
+    kv = tdec.make_batched_kv(cfg, 2, 64, torch.float32, "cpu")
     eos = torch.full((2,), 151645, dtype=torch.int32)
     buf, n, last, _ = tbatch.batched_decode_chunk(teng.dec_params, cfg, eos, 16, kv, 8)
     assert n == 0 and not buf.any() and torch.equal(last, eos)

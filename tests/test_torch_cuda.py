@@ -288,3 +288,72 @@ def test_cuda_new_routes_refuse_what_they_do_not_take():
     k = torch.zeros(64, 4, 64, device="cuda", dtype=torch.bfloat16)    # G 3
     with pytest.raises(ValueError, match="G does not divide 64"):
         tfa.causal_cache_flash_attention(q, k, k, 0, 16)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_plan_boundaries_and_replays():
+    """B3 (one launch, a thread block cluster per KV head) at the plan's
+    boundaries: no live row, one, a range that is not a multiple of the
+    rows per block, one block of 16 rows and two, a full cluster (315 and
+    4095 rows), kv_min > 0 and past start; G 1 / 2 / 8, D 64 / 128, bf16 and
+    f32 caches.  Then 20 calls back to back and one CUDA-graph replay of
+    them give the plain version's output every time: the merge leaves no
+    state behind."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels are built with nvcc for sm_90a)")
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, device="cuda", generator=g).to(dtype)
+
+    before = ffi.launch_counts["decode_attention"]
+    n = 0
+    for D, H, KH in ((128, 16, 8), (64, 8, 8), (128, 8, 1)):
+        for dtype in (torch.bfloat16, torch.float32):
+            for start, kv_min in ((0, 0), (1, 0), (16, 0), (17, 0), (37, 0), (315, 0),
+                                  (315, 23), (40, 50), (4095, 0), (4096, 7)):
+                q, kn, vn = randn(H, D), randn(KH, D), randn(KH, D)
+                k, v = randn(4096, KH, D, dtype=dtype), randn(4096, KH, D, dtype=dtype)
+                k[start:], v[start:] = 999.0, -999.0
+                torch.testing.assert_close(
+                    tfa.decode_flash_attention(q, kn, vn, k, v, start, kv_min),
+                    tfa.decode_attention_plain(q, kn, vn, k, v, start, kv_min),
+                    rtol=0, atol=ATOL)
+                n += 1
+    q, kn, vn = randn(16, 128), randn(8, 128), randn(8, 128)
+    k, v = randn(1024, 8, 128, dtype=torch.bfloat16), randn(1024, 8, 128, dtype=torch.bfloat16)
+    want = tfa.decode_attention_plain(q, kn, vn, k, v, 315, 0)
+    outs = [tfa.decode_flash_attention(q, kn, vn, k, v, 315, 0) for _ in range(20)]
+    n += 20
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = [tfa.decode_flash_attention(q, kn, vn, k, v, 315, 0) for _ in range(20)]
+    n += 20
+    for o in replayed:
+        o.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    for o in outs + replayed:
+        torch.testing.assert_close(o, want, rtol=0, atol=ATOL)
+    assert ffi.launch_counts["decode_attention"] - before == n
+
+
+@pytest.mark.cuda
+def test_cuda_probe_mm_ragged_shapes():
+    """K9 (register-tiled f32, 16 x 32 output blocks, 128-deep k tiles) at
+    shapes that are multiples of nothing, including K not a multiple of 4
+    (the 4-byte copy route) and K 0, against torch.matmul in full f32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels are built with nvcc for sm_90a)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(6)
+    before = ffi.launch_counts["probe_mm"]
+    shapes = ((256, 256, 256), (1, 1, 1), (17, 33, 5), (100, 70, 300), (255, 257, 129),
+              (64, 64, 0), (300, 40, 1024), (33, 100, 64))
+    for M, N, K in shapes:
+        a = torch.randn(M, K, device="cuda", generator=g) / 4
+        b = torch.randn(K, N, device="cuda", generator=g) / 4
+        torch.testing.assert_close(tprobes.probe_mm(a, b), torch.matmul(a, b), rtol=0,
+                                   atol=ATOL)
+    torch.cuda.synchronize()
+    assert ffi.launch_counts["probe_mm"] - before == len(shapes)

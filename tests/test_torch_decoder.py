@@ -64,7 +64,7 @@ def test_prefill_logits_and_cache(both, start):
     pre = rng.standard_normal((64, cfg.dec_hidden)).astype(np.float32)
     emb = rng.standard_normal((Tcap, cfg.dec_hidden)).astype(np.float32)
 
-    kv_t = tdec.make_kv_cache(cfg, Kcap, torch.float32)
+    kv_t = tdec.make_kv_cache(cfg, Kcap, torch.float32, "cpu")
     kv_j = jdec.make_kv_cache(jcfg, Kcap, jnp.float32)
     if start:
         _, kv_t = tdec.prefill(tparams, cfg, torch.from_numpy(pre), 0, start, kv_t)
@@ -84,7 +84,7 @@ def test_decode_steps_match(both):
     jcfg, jparams, cfg, tparams = both
     rng = np.random.default_rng(4)
     emb = rng.standard_normal((64, cfg.dec_hidden)).astype(np.float32)
-    kv_t = tdec.make_kv_cache(cfg, 256, torch.float32)
+    kv_t = tdec.make_kv_cache(cfg, 256, torch.float32, "cpu")
     kv_j = jdec.make_kv_cache(jcfg, 256, jnp.float32)
     tok_t, kv_t = tdec.prefill(tparams, cfg, torch.from_numpy(emb), 0, 50, kv_t)
     tok_j, kv_j = jdec.prefill(jparams, jcfg, jnp.asarray(emb), jnp.int32(0),

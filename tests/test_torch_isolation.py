@@ -72,6 +72,33 @@ def test_engine_without_card_raises(tiny_model_dir):
     assert "no CUDA device is available" in r.stderr
 
 
+_FACTORY_CALLS = {
+    "load_qwen3_encoder": "P.load_qwen3_encoder(MultiSafetensors(d), cfg)",
+    "load_decoder": "P.load_decoder(MultiSafetensors(d), cfg)",
+    "params_from_jax": "P.params_from_jax({}, {})",
+    "make_kv_cache": "D.make_kv_cache(cfg, 64)",
+    "make_batched_kv": "D.make_batched_kv(cfg, 2, 64)",
+    "kv_zeros": "Q.kv_zeros((2, 4, 8), torch.bfloat16)",
+}
+
+
+@pytest.mark.parametrize("factory", sorted(_FACTORY_CALLS))
+def test_model_factory_without_card_raises(tiny_model_dir, factory):
+    """A weight loader or cache allocator called with no device puts its
+    tensors on the card, never quietly on the CPU: without a card it
+    raises."""
+    r = _run("import torch\n"
+             "from smolvision_tpu_torch.config import detect_config\n"
+             "from smolvision_tpu_torch.io.safetensors import MultiSafetensors\n"
+             "from smolvision_tpu_torch.models import params as P, qwen3_decoder as D\n"
+             "from smolvision_tpu_torch.ops import quant as Q\n"
+             f"d = {tiny_model_dir!r}\n"
+             "cfg = detect_config(d)\n"
+             f"{_FACTORY_CALLS[factory]}\n")
+    assert r.returncode != 0
+    assert "no CUDA device is available" in r.stderr, r.stderr[-2000:]
+
+
 def test_cli_without_card_fails_and_names_the_switch(tiny_model_dir, tmp_path):
     wav = tmp_path / "x.wav"
     wav.write_bytes(b"")

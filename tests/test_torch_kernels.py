@@ -125,13 +125,18 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
 
 
 @pytest.mark.parametrize("start,kv_min,expect", [
-    (0, 0, (0, 0)), (1, 0, (1, 1)), (300, 0, (5, 60)), (300, 17, (5, 57)),
-    (4095, 0, (64, 64)), (100000, 0, (64, 1563)),
+    (0, 0, (1, 0)), (1, 0, (1, 1)), (37, 0, (3, 13)), (300, 0, (8, 38)), (300, 17, (8, 36)),
+    (315, 0, (8, 40)), (4095, 0, (8, 512)), (100000, 0, (8, 12500)), (20, 30, (1, 0)),
 ])
 def test_decode_splits_cover_the_live_rows(start, kv_min, expect):
-    n, chunk = tfa.decode_splits(start, kv_min)
+    """decode_plan: blocks per KV head (one cluster, at most
+    DECODE_MAX_BLOCKS) and live rows per block; every block holds at least
+    one live row, and together they hold them all."""
+    n, chunk = tfa.decode_plan(start, kv_min)
     assert (n, chunk) == expect
-    assert n * chunk >= start - kv_min and (n == 0 or (n - 1) * chunk < start - kv_min)
+    live = max(start - kv_min, 0)
+    assert 1 <= n <= tfa.DECODE_MAX_BLOCKS
+    assert n * chunk >= live and (live == 0 or (n - 1) * chunk < live)
 
 
 @pytest.mark.parametrize("B,T,H,KH,D,kvmins,block", [
