@@ -18,7 +18,9 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
                 shapes of the paths below plus edge cases (all-pad windows
                 and rows, empty cache, kv_min > 0, B5 at start 0 and > 0
                 with per-row prompt_max / region_start, stale +-999 cache
-                rows; B3 at starts that are not multiples of its plan's
+                rows; B2 on a bf16 cache, B4 and B5 also at GQA group sizes
+                that do not divide 64: G 7, Qwen2.5-Omni's decoder heads,
+                and G 3; B3 at starts that are not multiples of its plan's
                 rows per block, 20 calls back to back and a CUDA-graph
                 replay of them; B2 on bf16 caches -- the tensor-core route,
                 T 5 at start 300 as the --spec verify -- and on an f32
@@ -28,7 +30,8 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
                 block or tile), then the sweep of R that sets the heads'
                 crossover and the sweep of B3's blocks per KV head, then
                 timings against the plain version and one PyTorch library
-                call (B3 also at a 4096-row context); K8 (read_all) over
+                call (B3 also at a 4096-row context, B5 also at --serve
+                64's admission wave); K8 (read_all) over
                 the lm_head gives the card's read bandwidth, against which
                 each head kernel's time is set;
   4. main path- a seeded Qwen3-ASR-0.6B checkpoint (full width, random
@@ -117,6 +120,11 @@ HEAD_RTOL = 1e-5
 PROBE_MM_ATOL = 1e-4
 # how each timed kernel computes, beside the "route" (CUDA C++ for all)
 DESIGNS = {"causal_cache_attention": "tensor cores (bf16 cache: mma.sync on a hi / lo split)",
+           "batched_causal_attention": "tensor cores (f32 K/V: three mma.sync on hi / lo splits "
+                                       "of both sides, 32-key tiles split once in shared memory)",
+           "batched_cache_attention": "tensor cores (bf16 cache segments: two mma.sync per "
+                                      "product; f32 cache and fresh K/V: three)",
+           "batched_cache_attention_wide": "as batched_cache_attention",
            "decode_attention": "f32 CUDA cores, one launch: a thread block cluster per KV head "
                                "merging its blocks in distributed shared memory",
            "decode_attention_long": "as decode_attention",
@@ -126,6 +134,10 @@ DECODE_LONG = (4096, 4095)    # (K, start) of B3's long-context row
 DECODE_SWEEP_BLOCKS = (4, 8, 16)  # DECODE_MAX_BLOCKS values of the B3 plan sweep
 BUILD_CACHE_CHECKS = 5        # fresh processes that load the libraries from the cache
 HEAD_CHECK_ROWS = (1, 5, 6, 9, 11, 16, 33, 64, 130)   # R of the greedy-head checks
+MAIN_HEADS = (16, 8, 128)     # (H, KH, D) of the 0.6B decoder: G 2
+# (H, KH, D) at GQA group sizes that do not divide 64: G 7 (Qwen2.5-Omni's
+# decoder heads, config.QWEN25_OMNI_7B) and G 3
+GROUP_HEADS = ((28, 4, 128), (12, 4, 64))
 HEAD_SWEEP_ROWS = (1, 2, 4, 5, 6, 8, 12, 16, 24, 32)  # R of the crossover sweep
 SERVE_WIDE_SLOTS = 64         # the --serve width the JAX package documents
 SERVE_WIDE_CLIPS = 64         # seeded clips of 2-6 s
@@ -351,18 +363,25 @@ def phase_kernels(shapes):
 
     # B2: T 256 / 512, K 1024, start 0 and > 0, kv_min 0 and > 0, stale rows,
     # T 5 at start 300 (the --spec verify); bf16 caches (tensor cores) and
-    # one f32 cache (the f32 core)
-    # (T, start, kv_valid, kv_min, cache); kv_valid < start + T leaves pad rows
-    for T, start, kv_valid, kv_min, dtype in (
-            (256, 0, 200, 0, "bfloat16"), (512, 0, shapes["prompt_len"], 0, "bfloat16"),
-            (512, 300, 700, 0, "bfloat16"), (256, 100, 330, 37, "bfloat16"),
-            (5, 300, 305, 0, "bfloat16"), (5, 300, 305, 17, "bfloat16"),
-            (512, 0, shapes["prompt_len"], 0, "float32")):
-        q, k, v = cache_case(T, 1024, start, kv_valid, dtype=dtype)
+    # one f32 cache (the f32 core); then each of GROUP_HEADS, whose blocks
+    # hold floor(64 / G) queries of each head and dead rows past G times
+    # that, at T that are not multiples of it
+    # (T, start, kv_valid, kv_min, cache, (H, KH, D)); kv_valid < start + T
+    # leaves pad rows
+    cases = [(256, 0, 200, 0, "bfloat16"), (512, 0, shapes["prompt_len"], 0, "bfloat16"),
+             (512, 300, 700, 0, "bfloat16"), (256, 100, 330, 37, "bfloat16"),
+             (5, 300, 305, 0, "bfloat16"), (5, 300, 305, 17, "bfloat16"),
+             (512, 0, shapes["prompt_len"], 0, "float32")]
+    cases = [c + (MAIN_HEADS,) for c in cases]
+    for heads in GROUP_HEADS:
+        cases += [(100, 0, 97, 0, "bfloat16", heads), (256, 100, 330, 37, "bfloat16", heads),
+                  (5, 300, 305, 17, "bfloat16", heads), (100, 0, 97, 0, "float32", heads)]
+    for T, start, kv_valid, kv_min, dtype, (H, KH, D) in cases:
+        q, k, v = cache_case(T, 1024, start, kv_valid, H, KH, D, dtype=dtype)
         got = fa.causal_cache_flash_attention(q, k, v, start, kv_valid, kv_min=kv_min)
         want = fa.causal_cache_attention_plain(q, k, v, start, kv_valid, kv_min)
-        err = check_close(f"B2 T={T} start={start} valid={kv_valid} kv_min={kv_min} {dtype}",
-                          got, want)
+        err = check_close(f"B2 T={T} start={start} valid={kv_valid} kv_min={kv_min} {dtype} "
+                          f"H={H} KH={KH} D={D}", got, want)
         errs["causal_cache_attention"] = max(errs["causal_cache_attention"], err)
 
     # B3: K 1024 / 4096, start in {0, 1, 37, 300, the main path's, K-1},
@@ -398,36 +417,54 @@ def phase_kernels(shapes):
                                        check_close(f"B3 back-to-back call {i}", o, want))
 
     # B4: the -S run's batch and left pads; an all-pad row, kv_min > 0 in
-    # every row, and a T that is not a multiple of the 64-row tile
+    # every row, and a T that is not a multiple of the block's queries per
+    # head; then each of GROUP_HEADS
     B4, T4, pads4 = shapes["seg_B"], shapes["seg_T"], shapes["seg_pads"]
-    for B, T, kv_min in ((B4, T4, pads4), (3, T4, [T4, 1, 200]), (2, 100, [7, 99])):
-        q, k, v = batched_case(B, T)
+    cases = [(B4, T4, pads4, MAIN_HEADS), (3, T4, [T4, 1, 200], MAIN_HEADS),
+             (2, 100, [7, 99], MAIN_HEADS)]
+    for heads in GROUP_HEADS:
+        cases += [(3, 100, [0, 100, 37], heads), (2, T4, [5, 63], heads)]
+    for B, T, kv_min, (H, KH, D) in cases:
+        q, k, v = batched_case(B, T, H, KH, D)
         got = fa.batched_causal_flash_attention(q, k, v, ints(kv_min))
-        err = check_close(f"B4 B={B} T={T} kv_min={kv_min}", got,
+        err = check_close(f"B4 B={B} T={T} kv_min={kv_min} H={H} KH={KH} D={D}", got,
                           fa.batched_causal_attention_plain(q, k, v, ints(kv_min)))
         for b, lo in enumerate(kv_min):
             if lo and float(got[b, :lo].abs().max()) != 0.0:
-                fail(f"B4 B={B} T={T}: left-pad rows of row {b} are not exactly 0")
+                fail(f"B4 B={B} T={T} H={H}: left-pad rows of row {b} are not exactly 0")
         errs["batched_causal_attention"] = max(errs["batched_causal_attention"], err)
 
     # B5: serving's group prefill (start 0, per-row prompt lengths), then
     # the cache half at start > 0 with per-row prompt_max / region_start,
-    # kv_min > 0, a row whose cache window is empty, bf16 and f32 caches
+    # kv_min > 0, a row whose cache window is empty and whose first fresh
+    # rows attend nothing (exactly 0), bf16 and f32 caches; then each of
+    # GROUP_HEADS; then --serve 64's admission wave
     G5, T5, lens5 = shapes["serve_G"], shapes["serve_T"], shapes["serve_lens"]
-    cases = [(G5, T5, T5, 0, [0] * G5, lens5, 1 << 30, "bfloat16")]
+    cases = [(G5, T5, T5, 0, [0] * G5, lens5, 1 << 30, "bfloat16", MAIN_HEADS)]
     for dtype in ("bfloat16", "float32"):
         cases += [(4, 64, 1024, 448, [0, 17, 0, 500], [300, 120, 448, 200],
-                   [400, 300, 0, 64], dtype),
-                  (3, 128, 768, 320, [5, 0, 0], [100, 7, 320], 256, dtype),
-                  (2, 64, 512, 200, [0, 9], None, None, dtype)]
-    for B, T, K, start, kv_min, pm, rs, dtype in cases:
-        q, kn, vn = batched_case(B, T)
-        kc, vc = batched_cache(B, K, start, kv_min, pm, rs, dtype=dtype)
+                   [400, 300, 0, 64], dtype, MAIN_HEADS),
+                  (3, 128, 768, 320, [5, 0, 0], [100, 7, 320], 256, dtype, MAIN_HEADS),
+                  (2, 64, 512, 200, [0, 9], None, None, dtype, MAIN_HEADS)]
+        for heads in GROUP_HEADS:
+            cases += [(3, 100, 512, 0, [0, 0, 0], [100, 60, 1], 1 << 30, dtype, heads),
+                      (4, 100, 1024, 448, [0, 17, 0, 500], [300, 120, 448, 200],
+                       [400, 300, 0, 64], dtype, heads),
+                      (3, 100, 768, 320, [5, 0, 0], [100, 7, 320], 256, dtype, heads)]
+    GW, TW, lensw = shapes["wide_G"], shapes["wide_T"], shapes["wide_lens"]
+    cases.append((GW, TW, TW, 0, [0] * GW, lensw, 1 << 30, "bfloat16", MAIN_HEADS))
+    for B, T, K, start, kv_min, pm, rs, dtype, (H, KH, D) in cases:
+        q, kn, vn = batched_case(B, T, H, KH, D)
+        kc, vc = batched_cache(B, K, start, kv_min, pm, rs, KH, D, dtype=dtype)
         args = (q, kn, vn, kc, vc, start, ints(kv_min), None if pm is None else ints(pm),
                 rs if rs is None or isinstance(rs, int) else ints(rs))
-        err = check_close(f"B5 B={B} T={T} K={K} start={start} {dtype}",
-                          fa.batched_cache_flash_attention(*args),
-                          fa.batched_cache_attention_plain(*args))
+        got = fa.batched_cache_flash_attention(*args)
+        err = check_close(f"B5 B={B} T={T} K={K} start={start} {dtype} H={H} KH={KH} D={D}",
+                          got, fa.batched_cache_attention_plain(*args))
+        for b, lo in enumerate(kv_min):
+            if lo > start and float(got[b, :lo - start].abs().max()) != 0.0:
+                fail(f"B5 B={B} T={T} start={start} H={H}: rows of row {b} with no key are "
+                     f"not exactly 0")
         errs["batched_cache_attention"] = max(errs["batched_cache_attention"], err)
     log(f"kernels vs plain: max_abs_err {json.dumps(errs)} (tolerance {KERNEL_ATOL:g})")
 
@@ -475,11 +512,12 @@ def phase_kernels(shapes):
                      "smolvision_tpu/kernels/flash_attention.py:184",
                      *decode_row(K3, start)))
 
-    # --- B4 at the -S run's shape (fresh prefill of one length group)
+    # --- B4 at the -S run's shape (fresh prefill of one length group); the
+    # bound is the tensor cores' (bf16 operands, as B2's); the f32 CUDA-core
+    # bound of the earlier design is logged beside it
     q4, k4, v4 = batched_case(B4, T4)
     km4 = ints(pads4)
     H4, D4 = q4.shape[2:]
-    KH4 = k4.shape[2]
     attended = sum(max(t + 1 - lo, 0) for lo in pads4 for t in range(T4))
     nbytes = 4 * (2 * q4.numel() + 2 * k4.numel())
     flops = 4 * H4 * D4 * attended
@@ -493,27 +531,30 @@ def phase_kernels(shapes):
                  lambda: fa.batched_causal_attention_plain(q4, k4, v4, km4),
                  lambda: F.scaled_dot_product_attention(q4h, k4h, v4h, attn_mask=mask4[:, None],
                                                         enable_gqa=True),
-                 bound(nbytes, flops, "float32")))
+                 bound(nbytes, flops, "bfloat16")))
+    f32_bounds = {"batched_causal_attention": bound(nbytes, flops, "float32")}
 
-    # --- B5 at serving's group prefill (start 0: the cache is not read)
-    q5, kn5, vn5 = batched_case(G5, T5)
-    kc5, vc5 = batched_cache(G5, T5, 0, [0] * G5)
-    km5, pm5 = ints([0] * G5), ints(lens5)
-    attended = G5 * T5 * (T5 + 1) // 2
-    nbytes = 4 * (2 * q5.numel() + 2 * kn5.numel())
-    flops = 4 * q5.shape[2] * q5.shape[3] * attended
-    mask5 = (torch.arange(T5, device=DEV)[None, :] <= torch.arange(T5, device=DEV)[:, None])
-    q5h, k5h, v5h = (x.transpose(1, 2) for x in (q5, kn5, vn5))
-    rows.append(("batched_cache_attention",
-                 "smolvision_tpu_torch/kernels/csrc/batched_cache_attention.cu",
-                 "smolvision_tpu/kernels/flash_attention.py:412",
-                 lambda: fa.batched_cache_flash_attention(q5, kn5, vn5, kc5, vc5, 0, km5, pm5,
-                                                          1 << 30),
-                 lambda: fa.batched_cache_attention_plain(q5, kn5, vn5, kc5, vc5, 0, km5, pm5,
-                                                          1 << 30),
-                 lambda: F.scaled_dot_product_attention(q5h, k5h, v5h, attn_mask=mask5,
-                                                        enable_gqa=True),
-                 bound(nbytes, flops, "float32")))
+    # --- B5 at serving's group prefill (start 0: the cache is not read),
+    # at --serve 4's wave and at --serve 64's (one wave of 64 clips)
+    for name, (G, T, lens) in (("batched_cache_attention", (G5, T5, lens5)),
+                               ("batched_cache_attention_wide", (GW, TW, lensw))):
+        q5, kn5, vn5 = batched_case(G, T)
+        kc5, vc5 = batched_cache(G, T, 0, [0] * G)
+        km5, pm5 = ints([0] * G), ints(lens)
+        attended = G * T * (T + 1) // 2
+        nbytes = 4 * (2 * q5.numel() + 2 * kn5.numel())
+        flops = 4 * q5.shape[2] * q5.shape[3] * attended
+        mask5 = (torch.arange(T, device=DEV)[None, :] <= torch.arange(T, device=DEV)[:, None])
+        q5h, k5h, v5h = (x.transpose(1, 2) for x in (q5, kn5, vn5))
+        args = (q5, kn5, vn5, kc5, vc5, 0, km5, pm5, 1 << 30)
+        rows.append((name, "smolvision_tpu_torch/kernels/csrc/batched_cache_attention.cu",
+                     "smolvision_tpu/kernels/flash_attention.py:412",
+                     lambda a=args: fa.batched_cache_flash_attention(*a),
+                     lambda a=args: fa.batched_cache_attention_plain(*a),
+                     lambda q=q5h, k=k5h, v=v5h, m=mask5:
+                         F.scaled_dot_product_attention(q, k, v, attn_mask=m, enable_gqa=True),
+                     bound(nbytes, flops, "bfloat16")))
+        f32_bounds[name] = bound(nbytes, flops, "float32")
 
     log(f"  decode plan sweep (DECODE_MAX_BLOCKS: ms at start 0 / {shapes['decode_pos']} / "
         f"{DECODE_LONG[1]}): {json.dumps(decode_plan_sweep(K, shapes['decode_pos']))}")
@@ -524,14 +565,16 @@ def phase_kernels(shapes):
         p1, k1, k2_, p2 = (time_ms(f) for f in (plain, kern, kern, plain))
         table.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "max_abs_err": errs[name.replace("_long", "")], "ms": min(k1, k2_),
-            "plain_ms": min(p1, p2),
+            "max_abs_err": errs[name.replace("_long", "").replace("_wide", "")],
+            "ms": min(k1, k2_), "plain_ms": min(p1, p2),
             "library_ms": time_ms(lib), "bound_ms": bound_ms, "bound_by": bound_by,
             "design": DESIGNS.get(name, "f32 CUDA cores"),
         })
+        f32 = (f", f32 CUDA-core bound {f32_bounds[name][0]:.4f} ms ({f32_bounds[name][1]})"
+               if name in f32_bounds else "")
         log(f"  {name}: kernel {k1:.4f}/{k2_:.4f} ms (eager {eager_ms(kern):.4f} ms), "
             f"plain {p1:.4f}/{p2:.4f} ms, library {table[-1]['library_ms']:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by})")
+            f"bound {bound_ms:.4f} ms ({bound_by}){f32}")
     return table
 
 
@@ -847,10 +890,11 @@ def main_path_shapes(model_dir: str, samples):
     }
 
 
-def batched_path_shapes(model_dir: str, long_clip, serve_clips):
+def batched_path_shapes(model_dir: str, long_clip, serve_clips, wide_clips):
     """The B4 shape of the -S run (all segments as one group: B, T, left
-    pads) and the B5 shape of serving's first wave (Gcap, pcap, prompt
-    lengths), from host arithmetic only."""
+    pads) and the B5 shapes of serving's first wave (Gcap, pcap, prompt
+    lengths) under --serve 4 and under --serve 64, from host arithmetic
+    only."""
     from smolvision_tpu_torch.config import SAMPLE_RATE, TOKEN_ASR_TEXT, detect_config
     from smolvision_tpu_torch.models.qwen3_encoder import total_encoder_tokens
     from smolvision_tpu_torch.ops.mel import num_frames
@@ -866,14 +910,22 @@ def batched_path_shapes(model_dir: str, long_clip, serve_clips):
         n_tok = total_encoder_tokens(num_frames(n_samples), cfg)
         return len(build_asr_prompt(cfg, n_tok, (), force)[0])
 
+    def first_wave(clips, slots: int, key: str) -> dict:
+        """serving.py's first admission wave: the longest min(slots, n)
+        prompts, rows bucketed to a power of two (the last prompt repeated),
+        T the longest prompt of the queue to a multiple of 64."""
+        served = sorted((prompt_len(len(c)) for c in clips), reverse=True)
+        G = min(slots, len(served))
+        cap = 1 << (G - 1).bit_length()
+        return {f"{key}_G": cap, f"{key}_T": bucket64(max(served)),
+                f"{key}_lens": served[:G] + [served[G - 1]] * (cap - G)}
+
     splits = split_points(long_clip, SEGMENT_SEC, 3.0)
     seg = [prompt_len(max(b - a, SAMPLE_RATE // 2)) for a, b in zip(splits, splits[1:])]
     T = bucket64(max(seg))
-    served = sorted((prompt_len(len(c)) for c in serve_clips), reverse=True)
-    G = min(SERVE_SLOTS, len(served))
     return {"seg_B": len(seg), "seg_T": T, "seg_pads": [T - n for n in seg],
-            "serve_G": 1 << (G - 1).bit_length(), "serve_T": bucket64(max(served)),
-            "serve_lens": served[:G] + [served[G - 1]] * ((1 << (G - 1).bit_length()) - G)}
+            **first_wave(serve_clips, SERVE_SLOTS, "serve"),
+            **first_wave(wide_clips, SERVE_WIDE_SLOTS, "wide")}
 
 
 def path_trace(eng, samples, steps: int, forced=None):
@@ -1447,14 +1499,15 @@ def main() -> int:
         for path, c in zip(serve_wavs, serve_clips):
             write_wav(path, c)
         rng = np.random.default_rng(SEED + 100)
-        wide_wavs = []
-        for i, sec in enumerate(2.0 + 4.0 * rng.random(SERVE_WIDE_CLIPS)):
-            wide_wavs.append(os.path.join(work, f"wide{i}.wav"))
-            write_wav(wide_wavs[-1], speech_like(float(sec), SEED + 200 + i))
+        wide_clips = [speech_like(float(sec), SEED + 200 + i)
+                      for i, sec in enumerate(2.0 + 4.0 * rng.random(SERVE_WIDE_CLIPS))]
+        wide_wavs = [os.path.join(work, f"wide{i}.wav") for i in range(len(wide_clips))]
+        for path, c in zip(wide_wavs, wide_clips):
+            write_wav(path, c)
         log(f"checkpoint: 0.6b preset, seed {SEED}, bf16, written in "
             f"{time.monotonic() - t0:.2f} s; clip {CLIP_SEC:.0f} s")
         shapes = main_path_shapes(model_dir, samples)
-        shapes.update(batched_path_shapes(model_dir, long_clip, serve_clips))
+        shapes.update(batched_path_shapes(model_dir, long_clip, serve_clips, wide_clips))
         log(f"attention shapes of the paths: {json.dumps(shapes)}")
 
         # phase 3: kernels vs plain versions
@@ -1516,6 +1569,7 @@ def main() -> int:
     launches.update(decode_attention_long=launches["decode_attention"],
                     batched_causal_attention=seg_launches["batched_causal_attention"],
                     batched_cache_attention=serve_launches["batched_cache_attention"],
+                    batched_cache_attention_wide=wide_runs["bf16"]["batched_cache_attention"],
                     argmax_matvec_batched=seg_launches[seg_head],
                     argmax_matvec_q8=int8_runs["--q8"]["argmax_matvec_q8"],
                     argmax_matvec_tc=wide_runs["bf16"]["argmax_matvec_tc"],

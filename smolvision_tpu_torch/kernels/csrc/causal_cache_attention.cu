@@ -10,15 +10,16 @@
 // D 128, bf16 cache: a few MB against ~0.9 GFLOP).  Two routes, by the
 // cache's type:
 //   * bf16 cache (every bf16 engine: offline prefill, sequential segments,
-//     the --spec verify): the tensor-core core of mma_attention.cuh.  A
-//     block holds 64 rows, the G query heads of one KV head at 64 / G
-//     queries each, so each K/V tile read serves the whole group; S and
-//     P.V are bf16 mma.sync with f32 accumulation on a hi / lo split of q
-//     and P, which keeps the f32 contract to ~1e-5.  At T 512, G 2 the
-//     grid is 16 query tiles x 8 KV heads = 128 blocks, under one wave of
-//     132 SMs, and the causal triangle makes the late query tiles the
-//     longest: the blocks are numbered heaviest first, so that a larger
-//     grid (or a longer T) starts its long blocks before its short ones.
+//     the --spec verify): the tensor-core core of mma_attention.cuh, one
+//     causal bf16 key segment.  A block holds 64 rows, the G query heads of
+//     one KV head at floor(64 / G) queries each (any G up to 64), so each
+//     K/V tile read serves the whole group; S and P.V are bf16 mma.sync
+//     with f32 accumulation on a hi / lo split of q and P, which keeps the
+//     f32 contract to ~1e-5.  At T 512, G 2 the grid is 16 query tiles x 8
+//     KV heads = 128 blocks, under one wave of 132 SMs, and the causal
+//     triangle makes the late query tiles the longest: the blocks are
+//     numbered heaviest first, so that a larger grid (or a longer T)
+//     starts its long blocks before its short ones.
 //   * f32 cache (the --f32 engine): the f32 register-tiled core of
 //     tiled_attention.cuh, one head per block, reading the head's KV group
 //     h / G straight from the [K, KH, D] cache by stride.
@@ -28,15 +29,19 @@
 //
 // Layout: q [T, H, D] f32 contiguous; k/v cache [K, KH, D] (bf16 or f32) with
 // unit element stride, head stride D and row stride `row_stride` elements;
-// out [T, H, D] f32.  bf16: 64 % G == 0, 16-byte aligned rows.
+// out [T, H, D] f32.  bf16: 1 <= G <= 64, 16-byte aligned rows.
 
 #include "mma_attention.cuh"
 #include "tiled_attention.cuh"
 
 namespace {
 
+// warp groups per block of the tensor-core route: two split the key tiles
+// (one wave of blocks at the prefill shape leaves one block per SM)
+constexpr int kGroups = 2;
+
 template <int D>
-__global__ void __launch_bounds__(sv::kMmaThreads)
+__global__ void __launch_bounds__(128 * kGroups)
 causal_cache_mma_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v, float* __restrict__ out, int T,
                         int H, int KH, long long row_stride, int start, int kv_valid, int kv_min,
@@ -47,9 +52,12 @@ causal_cache_mma_kernel(const float* __restrict__ q, const __nv_bfloat16* __rest
     const int qtile = n_qtiles - 1 - static_cast<int>(blockIdx.x) / KH;  // heaviest first
     const int kvh = blockIdx.x % KH;
     const long long head = (long long)kvh * G * D, kv_head = (long long)kvh * D;
-    sv::mma_causal_attention<D>(smem, q + head, (long long)H * D, k + kv_head, v + kv_head,
-                                row_stride, out + head, T, qtile * P, G, start, kv_valid,
-                                kv_min, scale);
+    sv::MmaBlock<D> blk;
+    sv::mma_begin<D, kGroups>(smem, blk, q + head, (long long)H * D, T, qtile * P, G, scale);
+    sv::mma_attend<D, kGroups>(smem, blk, sv::KeySegment<__nv_bfloat16>{k + kv_head, v + kv_head,
+                                                                         row_stride, kv_min,
+                                                                         kv_valid, true, start});
+    sv::mma_end<D, kGroups>(smem, blk, out + head, (long long)H * D, G);
 }
 
 template <int D>
@@ -71,13 +79,13 @@ int launch_mma(const float* q, const void* k, const void* v, float* out, int T, 
                long long row_stride, int start, int kv_valid, int kv_min, float scale,
                cudaStream_t stream) {
     const int G = H / KH;
-    if (G < 1 || sv::kMmaRows % G != 0) return (int)cudaErrorInvalidValue;
-    const size_t smem = sv::mma_smem_bytes(D);
+    if (G < 1 || G > sv::kMmaRows) return (int)cudaErrorInvalidValue;
+    const size_t smem = sv::mma_smem_bytes(D, kGroups);
     cudaError_t e = cudaFuncSetAttribute(causal_cache_mma_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     const int P = sv::kMmaRows / G;
-    causal_cache_mma_kernel<D><<<((T + P - 1) / P) * KH, sv::kMmaThreads, smem, stream>>>(
+    causal_cache_mma_kernel<D><<<((T + P - 1) / P) * KH, 128 * kGroups, smem, stream>>>(
         q, static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), out, T, H,
         KH, row_stride, start, kv_valid, kv_min, scale);
     return (int)cudaGetLastError();

@@ -1,17 +1,11 @@
-// The f32 register-tiled attention core of kernels B1 (window_attention.cu),
-// B2 on an f32 cache (causal_cache_attention.cu; a bf16 cache runs on the
-// tensor-core core of mma_attention.cuh), B4 (batched_causal_attention.cu)
-// and B5 (batched_cache_attention.cu).
+// The f32 register-tiled attention core of kernels B1 (window_attention.cu)
+// and B2 on an f32 cache (causal_cache_attention.cu; a bf16 cache, B4 and B5
+// run on the tensor-core core of mma_attention.cuh).
 //
-// One block of 256 threads (16 x 16) holds a tile of 64 query rows.  Tile
-// row r is query t0 + r % rows_per_head of head r / rows_per_head: B1 and
-// B2 give a block one head (rows_per_head 64); B4 and B5 give it all G query
-// heads of one KV head (rows_per_head 64 / G), so each K/V row a block
-// loads serves every query head of its group.  The keys of a range
-// [lo, hi) are walked in BK = 64-row tiles (`attend_tiles`, called once per
-// key range: B5 walks up to two cache ranges and then the fresh block); the
-// [rows, keys] scores never leave the SM, and each row carries its online
-// softmax (m, l, acc) in registers across ranges.
+// One block of 256 threads (16 x 16) holds a tile of 64 query rows [t0, t0
+// + 64) of one head.  The keys of the range [lo, hi) are walked in BK = 64-row
+// tiles (`attend_tiles`); the [rows, keys] scores never leave the SM, and
+// each row carries its online softmax (m, l, acc) in registers.
 //
 // On the card this work is bounded by bytes at the path's shapes, but in f32
 // on the CUDA cores the products take the time, so the core is shaped like a
@@ -21,14 +15,12 @@
 // computes a 4 x 4 block of scores (rows ty + 16i, keys tx + 16j: 64 FMAs per
 // 8 shared loads), takes one online-softmax step per row and tile (max and
 // sum over the 16 threads of a row by shuffles), and accumulates a 4 x D/16
-// block of the output (columns 64f + 4tx + 0..3).  Tiles wholly outside a
+// block of the output (columns 64f + 4tx + 0..3).  Tiles wholly outside the
 // key range are never read; tile rows past it are zero-filled instead of
 // loaded, and masked probabilities are exactly 0, so stale rows (pad rows a
-// caller wrote past kv_valid, junk outside a cache window) contribute
-// nothing.  A row that attends no key ends with l == 0 and stores 0.
+// caller wrote past kv_valid) contribute nothing.  A row that attends no key
+// ends with l == 0 and stores 0.
 #pragma once
-
-#include <climits>
 
 #include "common.cuh"
 
@@ -65,13 +57,11 @@ __device__ __forceinline__ float lane_of(const float4& v, int i) {
     return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-// Which query a tile row holds: head r / rows_per_head (of `heads`), query
-// t0 + r % rows_per_head (of T).  `valid` is false for rows past either.
+// The queries of a tile: row r is query t0 + r of T.
 struct TileRows {
-    int T, t0, rows_per_head, heads;
-    __device__ __forceinline__ int head(int r) const { return r / rows_per_head; }
-    __device__ __forceinline__ int t(int r) const { return t0 + r % rows_per_head; }
-    __device__ __forceinline__ bool valid(int r) const { return head(r) < heads && t(r) < T; }
+    int T, t0;
+    __device__ __forceinline__ int t(int r) const { return t0 + r; }
+    __device__ __forceinline__ bool valid(int r) const { return t(r) < T; }
     // the thread's i-th row (of 4)
     __device__ __forceinline__ int mine(int i) const { return threadIdx.x / 16 + 16 * i; }
 };
@@ -83,17 +73,15 @@ struct RowState {
 };
 
 // Load the block's 64 query rows, scaled, into shared memory and clear the
-// row state.  Row (head h, query t) is at q + h * q_head_stride + t * q_stride.
+// row state.  Query t is at q + t * q_stride.
 template <int D>
 __device__ __forceinline__ void begin_rows(float* smem, RowState<D>& st, const TileRows& rows,
                                            const float* __restrict__ q, long long q_stride,
-                                           long long q_head_stride, float scale) {
+                                           float scale) {
     constexpr int LD = D + kTilePad;
     for (int i = threadIdx.x; i < kTileRows * D; i += kTileThreads) {
         const int r = i / D, c = i % D;
-        smem[r * LD + c] = rows.valid(r)
-            ? q[rows.head(r) * q_head_stride + (long long)rows.t(r) * q_stride + c] * scale
-            : 0.f;
+        smem[r * LD + c] = rows.valid(r) ? q[(long long)rows.t(r) * q_stride + c] * scale : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -210,8 +198,7 @@ __device__ __forceinline__ void attend_tiles(float* smem, RowState<D>& st,
 // Store the thread's valid rows, normalised: out like q in begin_rows.
 template <int D>
 __device__ __forceinline__ void end_rows(const RowState<D>& st, const TileRows& rows,
-                                         float* __restrict__ out, long long out_stride,
-                                         long long out_head_stride) {
+                                         float* __restrict__ out, long long out_stride) {
     constexpr int DG = D / 64;
     const int tx = threadIdx.x % 16;
 #pragma unroll
@@ -219,8 +206,7 @@ __device__ __forceinline__ void end_rows(const RowState<D>& st, const TileRows& 
         const int r = rows.mine(i);
         if (rows.valid(r)) {
             const float inv = 1.f / fmaxf(st.l[i], kDenomFloor);
-            float* op = out + rows.head(r) * out_head_stride + (long long)rows.t(r) * out_stride +
-                        4 * tx;
+            float* op = out + (long long)rows.t(r) * out_stride + 4 * tx;
 #pragma unroll
             for (int f = 0; f < DG; ++f)
                 *reinterpret_cast<float4*>(op + 64 * f) =
@@ -243,9 +229,9 @@ __device__ __forceinline__ void tiled_attention(
     const KV* __restrict__ v, long long kv_stride, float* __restrict__ out,
     long long out_stride, int T, int t0, int row_start, int kv_valid, int kv_min,
     float scale) {
-    const TileRows rows{T, t0, kTileRows, 1};
+    const TileRows rows{T, t0};
     RowState<D> st;
-    begin_rows<D>(smem, st, rows, q, q_stride, 0, scale);
+    begin_rows<D>(smem, st, rows, q, q_stride, scale);
     int row_hi[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -255,7 +241,7 @@ __device__ __forceinline__ void tiled_attention(
     const int t_last = min(t0 + kTileRows, T) - 1;
     attend_tiles<D, KV>(smem, st, k, v, kv_stride, kv_min,
                         min(row_start + t_last + 1, kv_valid), row_hi);
-    end_rows<D>(st, rows, out, out_stride, 0);
+    end_rows<D>(st, rows, out, out_stride);
 }
 
 }  // namespace sv

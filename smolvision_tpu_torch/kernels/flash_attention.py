@@ -144,9 +144,9 @@ def causal_cache_flash_attention(q, k_cache, v_cache, start_pos: int,
 
     Two routes inside the one kernel library, by the cache's type: a bf16
     cache runs on the tensor cores (csrc/mma_attention.cuh: bf16 mma.sync
-    on a hi / lo split of q and P, f32 accumulation; 64 % G == 0), an f32
-    cache on the f32 CUDA-core tiles (csrc/tiled_attention.cuh).  Both
-    count as one `causal_cache_attention` launch."""
+    on a hi / lo split of q and P, f32 accumulation; any G = H / KH up to
+    64), an f32 cache on the f32 CUDA-core tiles (csrc/tiled_attention.cuh).
+    Both count as one `causal_cache_attention` launch."""
     if not q.is_cuda:
         return causal_cache_attention_plain(q, k_cache, v_cache, start_pos,
                                             kv_valid_len, kv_min)
@@ -158,9 +158,10 @@ def causal_cache_flash_attention(q, k_cache, v_cache, start_pos: int,
     ffi.require(k_cache.shape[2] == D and H % KH == 0, "GQA shapes disagree")
     ffi.require(D in (64, 128), f"head dim {D} not built (64, 128)")
     if kv_bf16:
-        ffi.require(64 % (H // KH) == 0, "G does not divide 64 (bf16 cache)")
-        ffi.require(k_cache.data_ptr() % 16 == 0 and v_cache.data_ptr() % 16 == 0
-                    and k_cache.stride(0) % 8 == 0, "bf16 cache rows must be 16-byte aligned")
+        ffi.require(H // KH <= 64, "G above 64 (bf16 cache)")
+        ffi.require(q.data_ptr() % 16 == 0 and k_cache.data_ptr() % 16 == 0
+                    and v_cache.data_ptr() % 16 == 0 and k_cache.stride(0) % 8 == 0,
+                    "q and bf16 cache rows must be 16-byte aligned")
     ffi.require(0 <= kv_min and start_pos >= 0 and start_pos + T <= K
                 and 0 <= kv_valid_len <= K, "positions out of the cache")
     out = torch.empty_like(q)
@@ -267,14 +268,18 @@ def batched_causal_attention_plain(q, k, v, kv_min):
 
 
 def _check_batched_qkv(q, k_new, v_new, KH: int) -> None:
+    """B4 / B5 run on the tensor cores (csrc/mma_attention.cuh), any G =
+    H / KH from 1 to 64; the fresh K/V rows are copied 16 bytes at a time."""
     B, T, H, D = q.shape
     ffi.require(q.dtype == k_new.dtype == v_new.dtype == torch.float32, "q/k/v must be f32")
     ffi.require(q.is_contiguous() and k_new.is_contiguous() and v_new.is_contiguous(),
                 "q/k/v must be contiguous")
     ffi.require(k_new.shape == (B, T, KH, D) and v_new.shape == (B, T, KH, D)
-                and H % KH == 0 and 64 % (H // KH) == 0,
-                "GQA shapes disagree (or G does not divide 64)")
+                and KH <= H and H % KH == 0 and H // KH <= 64,
+                "GQA shapes disagree (or G above 64)")
     ffi.require(D in (64, 128), f"head dim {D} not built (64, 128)")
+    ffi.require(q.data_ptr() % 16 == 0 and k_new.data_ptr() % 16 == 0
+                and v_new.data_ptr() % 16 == 0, "q/k/v rows must be 16-byte aligned")
 
 
 def _rows_i32(x, B: int, device) -> torch.Tensor:
@@ -289,7 +294,8 @@ def _rows_i32(x, B: int, device) -> torch.Tensor:
 
 def batched_causal_flash_attention(q, k, v, kv_min):
     """Batched fresh-block causal GQA self-attention with a left-pad mask
-    (kernel B4 on CUDA, one launch for the whole batch)."""
+    (kernel B4 on CUDA, one launch for the whole batch, on the tensor cores:
+    bf16 mma.sync on hi / lo splits of q, P and the f32 K/V)."""
     if not q.is_cuda:
         return batched_causal_attention_plain(q, k, v, kv_min)
     B, T, H, D = q.shape
@@ -345,9 +351,11 @@ def batched_cache_attention_plain(q, k_new, v_new, k_cache, v_cache, start_pos: 
 def batched_cache_flash_attention(q, k_new, v_new, k_cache, v_cache, start_pos: int,
                                   kv_min, prompt_max=None, region_start=None):
     """Batched GQA attention of a fresh query block against the cache plus
-    its own K/V, causal within the block (kernel B5 on CUDA).  start_pos is
-    a host int shared by the batch; kv_min / prompt_max are [B];
-    region_start is an int or [B] (used only with prompt_max)."""
+    its own K/V, causal within the block (kernel B5 on CUDA, on the tensor
+    cores: two mma.sync per product on a bf16 cache, three on the f32 cache
+    and the fresh K/V).  start_pos is a host int shared by the batch;
+    kv_min / prompt_max are [B]; region_start is an int or [B] (used only
+    with prompt_max)."""
     if not q.is_cuda:
         return batched_cache_attention_plain(q, k_new, v_new, k_cache, v_cache, start_pos,
                                              kv_min, prompt_max, region_start)
@@ -362,6 +370,9 @@ def batched_cache_flash_attention(q, k_new, v_new, k_cache, v_cache, start_pos: 
     ffi.require(k_cache.shape == (B, KH, K, D) and v_cache.shape == k_cache.shape
                 and k_cache.stride() == v_cache.stride() and k_cache.stride(3) == 1,
                 "caches must be [B, KH, K, D] views with unit element stride")
+    ffi.require(k_cache.data_ptr() % 16 == 0 and v_cache.data_ptr() % 16 == 0
+                and all(x * k_cache.element_size() % 16 == 0 for x in k_cache.stride()[:3]),
+                "cache rows must be 16-byte aligned")
     ffi.require(0 <= start_pos <= K, "positions out of the cache")
     pm_ptr = rs_ptr = None
     rs_all = 0

@@ -140,7 +140,10 @@ class Engine:
             self.dec_params_draft = params_mod.quantize_decoder(self.dec_params)
             if verbose >= 1:
                 print("speculative int8-draft decoding active (--spec): "
-                      "tokens remain exactly the bf16 greedy sequence",
+                      "tokens are the verify forward's greedy choices, exactly "
+                      "the plain greedy sequence on f32 weights; on bf16 weights "
+                      "on the card, up to near ties (the verify and the "
+                      "one-token step round bf16 products differently)",
                       file=sys.stderr, flush=True)
 
         # ---- generation settings (defaults mirror qwen_asr.c:257-272) ----

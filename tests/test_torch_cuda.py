@@ -72,9 +72,11 @@ def test_cuda_kernels_match_plain_versions():
 
 @pytest.mark.cuda
 def test_cuda_batched_kernels_match_plain_versions():
-    """B4 and B5 at G 1 / 2 / 8, D 64 / 128, T not a multiple of the tile,
-    all-pad rows, kv_min > 0, B5 at start 0 and > 0 with per-row and scalar
-    region_start, bf16 and f32 caches holding +-999 outside every window."""
+    """B4 and B5 at G 1 / 2 / 8 and at G 7 (Qwen2.5-Omni's decoder heads)
+    and 3, which do not divide the 64-row block, D 64 / 128, T not a
+    multiple of the block's queries per head, all-pad rows, kv_min > 0, B5
+    at start 0 and > 0 with per-row and scalar region_start, bf16 and f32
+    caches holding +-999 outside every window."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (kernels are built with nvcc for sm_90a)")
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -90,7 +92,7 @@ def test_cuda_batched_kernels_match_plain_versions():
 
     before = dict(ffi.launch_counts)
     calls = {name: 0 for name in before}
-    for D, H, KH in ((128, 16, 8), (64, 8, 8), (64, 16, 2)):
+    for D, H, KH in ((128, 16, 8), (64, 8, 8), (64, 16, 2), (128, 28, 4), (64, 12, 4)):
         for T, kv_min in ((320, [0, 37, 320]), (100, [0, 5, 99])):
             q, k, v = randn(3, T, H, D), randn(3, T, KH, D), randn(3, T, KH, D)
             got = tfa.batched_causal_flash_attention(q, k, v, ints(kv_min))
@@ -145,10 +147,15 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
         tfa.causal_cache_flash_attention(q, k, k, 60, 64)
     with pytest.raises(ValueError, match="CUDA tensors"):
         tfa.causal_cache_flash_attention(q, k.cpu(), k.cpu(), 0, 16)
-    qb = torch.zeros(2, 64, 12, 64, device="cuda")   # G 3 does not divide 64
-    kb = torch.zeros(2, 64, 4, 64, device="cuda")
-    with pytest.raises(ValueError, match="G does not divide 64"):
-        tfa.batched_causal_flash_attention(qb, kb, kb, torch.zeros(2, dtype=torch.int32))
+    # G 3 does not divide the 64-row block: the kernel computes it (dead rows
+    # past 3 x 21), where it once refused it
+    g = torch.Generator(device="cuda").manual_seed(7)
+    qb = torch.randn(2, 64, 12, 64, device="cuda", generator=g)
+    kb, vb = (torch.randn(2, 64, 4, 64, device="cuda", generator=g) for _ in range(2))
+    km = torch.tensor([0, 9], dtype=torch.int32, device="cuda")
+    torch.testing.assert_close(tfa.batched_causal_flash_attention(qb, kb, vb, km),
+                               tfa.batched_causal_attention_plain(qb, kb, vb, km),
+                               rtol=0, atol=ATOL)
 
 
 @pytest.mark.cuda
@@ -248,26 +255,30 @@ def test_cuda_tensor_core_head_matches_plain_version():
 
 @pytest.mark.cuda
 def test_cuda_prefill_attention_both_routes():
-    """B2 at the 0.6B head layout: the --spec verify (T 5 at start 300) and
-    the main prefill (T 512 from 0, 283 valid rows) on a bf16 cache (the
-    tensor-core route) and an f32 cache (the f32 core), +-999 junk in every
-    row the call must not read."""
+    """B2 at the 0.6B head layout (H 16, KH 8) and at G 7 (H 28, KH 4,
+    Qwen2.5-Omni's decoder heads: 9 queries per head in a 64-row block, one
+    dead row): the --spec verify (T 5 at start 300) and the main prefill (T
+    512 from 0, 283 valid rows) on a bf16 cache (the tensor-core route) and
+    an f32 cache (the f32 core), +-999 junk in every row the call must not
+    read."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (kernels are built with nvcc for sm_90a)")
     g = torch.Generator(device="cuda").manual_seed(4)
     before = ffi.launch_counts["causal_cache_attention"]
     n = 0
-    for T, start, valid, kv_min in ((5, 300, 305, 0), (512, 0, 283, 0), (64, 40, 104, 13)):
-        for dtype in (torch.bfloat16, torch.float32):
-            q = torch.randn(T, 16, 128, device="cuda", generator=g)
-            k = torch.randn(1024, 8, 128, device="cuda", generator=g).to(dtype)
-            v = torch.randn(1024, 8, 128, device="cuda", generator=g).to(dtype)
-            k[valid:], v[valid:] = 999.0, -999.0
-            got = tfa.causal_cache_flash_attention(q, k, v, start, valid, kv_min=kv_min)
-            torch.testing.assert_close(
-                got, tfa.causal_cache_attention_plain(q, k, v, start, valid, kv_min),
-                rtol=0, atol=ATOL)
-            n += 1
+    cases = [(T, start, valid, kv_min, dtype, heads)
+             for T, start, valid, kv_min in ((5, 300, 305, 0), (512, 0, 283, 0), (64, 40, 104, 13))
+             for dtype in (torch.bfloat16, torch.float32) for heads in ((16, 8), (28, 4))]
+    for T, start, valid, kv_min, dtype, (H, KH) in cases:
+        q = torch.randn(T, H, 128, device="cuda", generator=g)
+        k = torch.randn(1024, KH, 128, device="cuda", generator=g).to(dtype)
+        v = torch.randn(1024, KH, 128, device="cuda", generator=g).to(dtype)
+        k[valid:], v[valid:] = 999.0, -999.0
+        got = tfa.causal_cache_flash_attention(q, k, v, start, valid, kv_min=kv_min)
+        torch.testing.assert_close(
+            got, tfa.causal_cache_attention_plain(q, k, v, start, valid, kv_min),
+            rtol=0, atol=ATOL)
+        n += 1
     torch.cuda.synchronize()
     assert ffi.launch_counts["causal_cache_attention"] - before == n
 
@@ -284,9 +295,9 @@ def test_cuda_new_routes_refuse_what_they_do_not_take():
         tam.argmax_matvec(torch.zeros(16, 96, device="cuda"),
                           torch.zeros(10, 96, device="cuda", dtype=torch.bfloat16),
                           route="tensor_core")
-    q = torch.zeros(16, 12, 64, device="cuda")
-    k = torch.zeros(64, 4, 64, device="cuda", dtype=torch.bfloat16)    # G 3
-    with pytest.raises(ValueError, match="G does not divide 64"):
+    q = torch.zeros(16, 65, 64, device="cuda")
+    k = torch.zeros(64, 1, 64, device="cuda", dtype=torch.bfloat16)    # G 65
+    with pytest.raises(ValueError, match="G above 64"):
         tfa.causal_cache_flash_attention(q, k, k, 0, 16)
 
 

@@ -57,6 +57,9 @@ def test_window_plain_matches_pallas(W, S, H, D, valid, garbage):
     (256, 256, 2, 1, 128, 0, 256, 0),
     (128, 256, 4, 2, 64, 0, 100, 0),       # pad rows past the valid length
     (64, 256, 4, 2, 16, 96, 150, 40),      # kv_min > 0 (left-pad layout)
+    (100, 256, 14, 2, 64, 0, 97, 0),       # G 7 (does not divide the card's 64-row block)
+    (64, 256, 14, 2, 64, 96, 150, 40),     # G 7, kv_min > 0
+    (100, 256, 12, 4, 64, 20, 110, 0),     # G 3
 ])
 def test_causal_cache_plain_matches_pallas(T, K, H, KH, D, start, valid, kv_min):
     rng = np.random.default_rng(1)
@@ -143,6 +146,8 @@ def test_decode_splits_cover_the_live_rows(start, kv_min, expect):
     (2, 128, 4, 2, 64, (0, 5), 128),
     (3, 256, 16, 8, 128, (0, 17, 130), 128),
     (2, 320, 16, 8, 64, (0, 320), 64),     # -S 20 prompt cap, G 2, an all-pad row
+    (3, 100, 14, 2, 64, (0, 100, 9), 128),  # G 7, an all-pad row
+    (2, 96, 12, 4, 64, (0, 40), 96),       # G 3
 ])
 def test_batched_causal_plain_matches_pallas(B, T, H, KH, D, kvmins, block):
     rng = np.random.default_rng(11)
@@ -182,6 +187,9 @@ def _both_batched_cache(q, kn, vn, kc, vc, start, kv_min, pm, rs, G, block_q=256
     (3, 64, 128, 4, 2, 64, 0),       # no cache (start 0): pure causal block
     (2, 192, 320, 4, 4, 64, 256),    # MHA (G=1), 64-granular sizes
     (4, 64, 384, 16, 8, 128, 0),     # serving group prefill: Gcap 4, G 2, D 128
+    (3, 64, 256, 14, 2, 64, 192),    # G 7: cache part + block
+    (2, 64, 128, 14, 2, 64, 0),      # G 7: serving group prefill
+    (2, 64, 192, 12, 4, 64, 128),    # G 3
 ])
 def test_batched_cache_plain_matches_pallas(B, T, K, H, KH, D, start):
     rng = np.random.default_rng(13)

@@ -10,6 +10,14 @@ pinned before the card sees it:
     softmax.  Held against `causal_cache_attention_plain` and the JAX
     `causal_cache_flash_attention` (Pallas, interpret mode off-TPU) within
     1e-4, the card's tolerance for the kernel;
+  * B4 and B5 as the card runs them (`mma_core_emulated`): 64-row blocks of
+    floor(64 / G) queries of each of a KV head's G heads (dead rows past G
+    times that), one warp group walking the key tiles with one online
+    softmax; f32 K / V segments in 32-key tiles split into bf16 hi + lo,
+    each product three bf16 products (hi.hi + lo.hi + hi.lo); bf16 cache
+    segments in 64-key tiles, two products; B5's cache window first, then
+    the fresh block.  Held against the plain versions and the JAX Pallas
+    kernels within 1e-4;
   * the tensor-core greedy head (csrc/argmax_matvec.cu): per 128-row tile
     of the table, each column's best 64-bit key (ordered value bits,
     inverted index), merged across tiles by max;
@@ -106,6 +114,216 @@ def test_b2_needs_the_lo_halves():
     err_one = float((mma_b2_emulated(q, k, v, 150, valid, 37, split=False) - plain).abs().max())
     assert err_split <= ATOL < err_one
     assert err_one > 10 * err_split
+
+
+MMA_ROWS = 64        # csrc/mma_attention.cuh: kMmaRows
+KEYS_F32 = 32        # kMmaKeysF32: keys per tile of an f32 segment
+
+
+def block_rows(T: int, G: int, t0: int):
+    """The kernel's row map of the block at query t0: row r holds query t0 +
+    r % P of head r // P (P = 64 // G), or nothing (-1, -1) when r >= G * P
+    (a dead row) or the query is past T."""
+    P = MMA_ROWS // G
+    r = np.arange(MMA_ROWS)
+    t = t0 + r % P
+    live = (r < G * P) & (t < T)
+    return np.where(live, t, -1), np.where(live, r // P, -1)
+
+
+def _split(x: torch.Tensor):
+    hi = _bf16(x)
+    return hi, _bf16(x - hi)
+
+
+def mma_core_emulated(q, segments, three=True):
+    """One (batch row, KV head) of the tensor-core core: q [T, G, D] f32
+    (the G query heads of the KV head), `segments` a list of (k, v, lo, hi,
+    causal, off): k / v [N, D] f32 (split into hi + lo: three products, or
+    with three=False rounded to bf16 once: two) or bf16 (exact: two
+    products), columns [lo, hi), causal rows needing c < t + off + 1.
+    Returns [T, G, D] f32; a query with no key gives 0."""
+    T, G, D = q.shape
+    P = MMA_ROWS // G
+    out = torch.zeros(T, G, D)
+    for t0 in range(0, T, P):
+        rt, rh = block_rows(T, G, t0)
+        rt_t, live = torch.from_numpy(rt), torch.from_numpy(rt >= 0)
+        t_last = min(t0 + P, T) - 1
+        qb = torch.zeros(MMA_ROWS, D)
+        qb[live] = q[rt[live.numpy()], rh[live.numpy()]] * (1.0 / math.sqrt(D))
+        q_hi, q_lo = _split(qb)
+        m = torch.full((MMA_ROWS,), tfa.NEG_INF)
+        l = torch.zeros(MMA_ROWS)
+        o = torch.zeros(MMA_ROWS, D)
+        for k, v, lo, hi, causal, off in segments:
+            f32 = k.dtype == torch.float32
+            nk = KEYS_F32 if f32 else KEYS_PER_TILE
+            hi = min(hi, t_last + off + 1) if causal else hi
+            row_hi = torch.where(live, torch.clamp(rt_t + off + 1, max=hi) if causal
+                                 else torch.full_like(rt_t, hi), lo)
+            for k0 in range(lo, hi, nk):
+                n = min(k0 + nk, hi) - k0            # rows past hi are zero-filled
+                kt, vt = k[k0:k0 + n].float(), v[k0:k0 + n].float()
+                if f32 and three:
+                    (k_hi, k_lo), (v_hi, v_lo) = _split(kt), _split(vt)
+                else:   # exact in bf16, or rounded once (three=False)
+                    k_hi, v_hi = _bf16(kt), _bf16(vt)
+                    k_lo, v_lo = torch.zeros_like(kt), torch.zeros_like(vt)
+                s = q_hi @ k_hi.T + q_lo @ k_hi.T + q_hi @ k_lo.T
+                mask = (k0 + torch.arange(n))[None, :] < row_hi[:, None]
+                s = torch.where(mask, s, tfa.NEG_INF)
+                m_new = torch.maximum(m, s.amax(-1))
+                alpha = torch.exp(m - m_new)
+                p = torch.where(mask, torch.exp(s - m_new[:, None]), 0.0)
+                l = l * alpha + p.sum(-1)
+                m = m_new
+                p_hi, p_lo = _split(p)
+                o = o * alpha[:, None] + p_hi @ v_hi + p_lo @ v_hi + p_hi @ v_lo
+        res = o / torch.clamp(l, min=tfa.DENOM_FLOOR)[:, None]
+        out[rt[live.numpy()], rh[live.numpy()]] = res[live]
+    return out
+
+
+def b4_emulated(q, k, v, kv_min, three=True):
+    """B4: per (batch row, KV head) one causal f32 segment from kv_min[b]."""
+    B, T, H, D = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    out = torch.zeros(B, T, H, D)
+    for b in range(B):
+        lo = min(max(int(kv_min[b]), 0), T)
+        for kh in range(KH):
+            seg = (k[b, :, kh], v[b, :, kh], lo, T, True, 0)
+            out[b, :, kh * G:(kh + 1) * G] = mma_core_emulated(
+                q[b, :, kh * G:(kh + 1) * G], [seg], three)
+    return out
+
+
+def b5_emulated(q, k_new, v_new, k_cache, v_cache, start, kv_min, prompt_max=None,
+                region_start=None, three=True):
+    """B5: the cache window's two ranges (segments of the cache's type, not
+    causal), then the fresh f32 block from max(kv_min[b] - start, 0),
+    causal, in one online softmax."""
+    B, T, H, D = q.shape
+    KH = k_new.shape[2]
+    G = H // KH
+    out = torch.zeros(B, T, H, D)
+    for b in range(B):
+        km = max(int(kv_min[b]), 0)
+        hi1 = lo2 = start
+        if prompt_max is not None:
+            rs = int(region_start if np.ndim(region_start) == 0 else region_start[b])
+            hi1 = max(km, min(start, int(prompt_max[b])))
+            lo2 = max(hi1, km, rs)
+        for kh in range(KH):
+            kc, vc = k_cache[b, kh], v_cache[b, kh]
+            segs = [(kc, vc, km, hi1, False, 0), (kc, vc, lo2, start, False, 0)] if start else []
+            segs.append((k_new[b, :, kh], v_new[b, :, kh], min(max(km - start, 0), T), T,
+                         True, 0))
+            out[b, :, kh * G:(kh + 1) * G] = mma_core_emulated(
+                q[b, :, kh * G:(kh + 1) * G], segs, three)
+    return out
+
+
+@pytest.mark.parametrize("G", [1, 2, 3, 7, 8, 14, 64])
+@pytest.mark.parametrize("T", [1, 5, 100, 130])
+def test_block_rows_cover_every_query_once(G, T):
+    """Over the ceil(T / P) blocks of a KV head, the kernel's row map holds
+    every (query, head) exactly once, no row names a head past G (at G 7, P
+    9: row 63 would be head 7, the next KV head's head 0, without the dead
+    rows), and each block has 64 - G * P dead rows."""
+    P = MMA_ROWS // G
+    seen = np.zeros((T, G), int)
+    for t0 in range(0, T, P):
+        rt, rh = block_rows(T, G, t0)
+        assert rh.max() < G
+        assert (rt[G * P:] == -1).all()
+        np.add.at(seen, (rt[rt >= 0], rh[rt >= 0]), 1)
+    assert (seen == 1).all()
+
+
+def _batched_case(seed, B, T, H, KH, D=64):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for shape in ((B, T, H, D), (B, T, KH, D), (B, T, KH, D)))
+
+
+@pytest.mark.parametrize("B,T,H,KH,kvmins", [
+    (2, 128, 4, 2, (0, 37)),           # G 2
+    (3, 100, 14, 2, (0, 100, 5)),      # G 7, an all-pad row, T not a multiple of P 9
+    (2, 96, 12, 4, (3, 61)),           # G 3
+    (2, 64, 4, 4, (0, 0)),             # G 1
+])
+def test_b4_three_product_split_matches_plain_and_pallas(B, T, H, KH, kvmins):
+    q, k, v = _batched_case(B * T + H, B, T, H, KH)
+    kv_min = np.asarray(kvmins, np.int32)
+    got = b4_emulated(*map(torch.from_numpy, (q, k, v, kv_min)))
+    plain = tfa.batched_causal_attention_plain(*map(torch.from_numpy, (q, k, v, kv_min)))
+    torch.testing.assert_close(got, plain, rtol=0, atol=ATOL)
+    pallas = jfa.batched_causal_flash_attention(*map(jnp.asarray, (q, k, v, kv_min)),
+                                                gqa_groups=H // KH, block_q=T, block_k=T)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=0, atol=ATOL)
+    for b, lo in enumerate(kvmins):
+        assert not got[b, :lo].any(), "left-pad rows must give exactly 0"
+
+
+@pytest.mark.parametrize("cache", ["bfloat16", "float32"])
+@pytest.mark.parametrize("B,T,K,H,KH,start,kvmins,window", [
+    (2, 64, 128, 4, 2, 0, (0, 0), "prompts"),          # serving's wave: no cache read
+    (3, 100, 256, 14, 2, 160, (0, 9, 170), "pm_rs"),   # G 7, an empty cache window
+    (2, 64, 256, 12, 4, 192, (5, 0), "none"),          # G 3, every column of the window
+    (2, 128, 384, 4, 2, 200, (0, 30), "pm_rs"),        # G 2, two cache ranges
+])
+def test_b5_three_product_split_matches_plain_and_pallas(cache, B, T, K, H, KH, start, kvmins,
+                                                         window):
+    rng = np.random.default_rng(B * K + H + start)
+    q, kn, vn = _batched_case(B * K + H, B, T, H, KH)
+    kc, vc = (torch.from_numpy(rng.standard_normal((B, KH, K, 64)).astype(np.float32))
+              .to(getattr(torch, cache)) for _ in range(2))
+    kv_min = np.asarray(kvmins, np.int32)
+    pm = rs = None
+    if window == "prompts":
+        pm, rs = np.asarray([64, 17][:B], np.int32), np.int32(1 << 30)
+    elif window == "pm_rs":
+        pm = rng.integers(1, start + 1, B).astype(np.int32)
+        rs = rng.integers(start // 2, start + 1, B).astype(np.int32)
+    args = (start, torch.from_numpy(kv_min), None if pm is None else torch.from_numpy(pm),
+            rs if rs is None or np.ndim(rs) == 0 else torch.from_numpy(rs))
+    tq, tkn, tvn = map(torch.from_numpy, (q, kn, vn))
+    got = b5_emulated(tq, tkn, tvn, kc, vc, *args)
+    plain = tfa.batched_cache_attention_plain(tq, tkn, tvn, kc, vc, *args)
+    torch.testing.assert_close(got, plain, rtol=0, atol=ATOL)
+    pallas = jfa.batched_cache_flash_attention(
+        *map(jnp.asarray, (q, kn, vn, kc.float().numpy(), vc.float().numpy())),
+        jnp.int32(start), jnp.asarray(kv_min), prompt_max=None if pm is None else jnp.asarray(pm),
+        region_start=None if rs is None else jnp.asarray(rs, jnp.int32), gqa_groups=H // KH,
+        block_q=T)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=0, atol=ATOL)
+    for b, lo in enumerate(kvmins):
+        if lo > start:
+            assert not got[b, :lo - start].any(), "rows with no key must give exactly 0"
+
+
+def test_b4_b5_need_three_products():
+    """With f32 K and V rounded to bf16 once (B2's two-product form) the
+    emulation misses the f32 contract at the inputs the three-product form
+    keeps within 1e-4: the lo halves of K and V are what keeps it."""
+    q, k, v = _batched_case(3, 2, 128, 14, 2)
+    kv_min = torch.tensor([0, 21])
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    plain = tfa.batched_causal_attention_plain(tq, tk, tv, kv_min)
+    err_three = float((b4_emulated(tq, tk, tv, kv_min) - plain).abs().max())
+    err_two = float((b4_emulated(tq, tk, tv, kv_min, three=False) - plain).abs().max())
+    assert err_three <= ATOL < err_two
+    assert err_two > 10 * err_three
+    kc = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 2, 256, 64))
+                          .astype(np.float32))
+    plain = tfa.batched_cache_attention_plain(tq, tk, tv, kc, kc, 200, kv_min)
+    err_three = float((b5_emulated(tq, tk, tv, kc, kc, 200, kv_min) - plain).abs().max())
+    err_two = float((b5_emulated(tq, tk, tv, kc, kc, 200, kv_min, three=False)
+                     - plain).abs().max())
+    assert err_three <= ATOL < err_two
 
 
 def _pack(values: np.ndarray, index: np.ndarray) -> np.ndarray:

@@ -5,7 +5,7 @@ accepted prefix, so the draft decides only how many positions share one
 forward: the port's spec tokens must equal its plain greedy tokens and the
 JAX engine's spec tokens, exactly, on the tiny f32 checkpoint (where the
 int8 draft disagrees with the verify often enough to exercise the reject
-and partial-accept paths).
+and partial-accept paths), and on the CPU also with bf16 weights.
 """
 
 import os
@@ -65,6 +65,37 @@ def test_spec_matches_plain_greedy_and_jax(spec_engines, speech_like_audio, max_
     assert p.decode_steps == teng_mod.SPEC_DRAFT * p.spec_iters
     assert p.spec_tokens == got[0] - 1
     assert (p.spec_iters > 0) == (max_tokens > 1)
+
+
+@pytest.fixture(scope="module")
+def bf16_spec_engines(tiny_model_dir):
+    plain = Engine(tiny_model_dir, param_dtype=torch.bfloat16, kv_dtype=torch.bfloat16,
+                   device="cpu")
+    spec = Engine(tiny_model_dir, param_dtype=torch.bfloat16, kv_dtype=torch.bfloat16,
+                  device="cpu", spec=True)
+    jspec = JEngine(tiny_model_dir, param_dtype=jnp.bfloat16, kv_dtype=jnp.bfloat16, spec=True)
+    return plain, spec, jspec
+
+
+@pytest.mark.parametrize("max_tokens", [5, 23, 48])
+def test_spec_bf16_matches_plain_greedy_and_jax(bf16_spec_engines, speech_like_audio,
+                                                max_tokens):
+    """bf16 weights and cache (the CLI's default) on the CPU: the port's
+    --spec tokens equal its plain greedy tokens and the JAX engine's --spec
+    tokens, through partial accepts (23 and 48 tokens take 5 and 10
+    verifies).  So the port's spec loop keeps the greedy sequence as the
+    reference's does; where a card run parts from it at a near tie, the
+    verify forward (5 rows: B2, products of 5 rows) and the one-token step
+    (B3, matrix-vector products) round their bf16 products differently,
+    which the engine's --spec message says."""
+    plain, spec, jspec = bf16_spec_engines
+    ref = _greedy_tokens(plain, tprompt, speech_like_audio, max_tokens)
+    spec.perf.reset()
+    got = _greedy_tokens(spec, tprompt, speech_like_audio, max_tokens)
+    assert got == ref == _greedy_tokens(jspec, jprompt, speech_like_audio, max_tokens)
+    p = spec.perf
+    assert p.spec_iters > 0 and p.decode_steps == teng_mod.SPEC_DRAFT * p.spec_iters
+    assert p.spec_tokens == got[0] - 1
 
 
 @pytest.mark.parametrize("depth", [1, 2, 7])
