@@ -15,8 +15,10 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
                 launched from it must match torch.matmul (each reports its
                 wrong outputs' count and positions);
   3. kernels  - each kernel against its plain torch version at the 0.6B
-                shapes of the paths below plus edge cases (all-pad windows
-                and rows, empty cache, kv_min > 0, B5 at start 0 and > 0
+                shapes of the paths below plus edge cases (B1 at S 13 to
+                208, under each split of a window's rows over blocks;
+                all-pad windows and rows, empty cache, kv_min > 0, B5 at
+                start 0 and > 0
                 with per-row prompt_max / region_start, stale +-999 cache
                 rows; B2 on a bf16 cache, B4 and B5 also at GQA group sizes
                 that do not divide 64: G 7, Qwen2.5-Omni's decoder heads,
@@ -28,10 +30,12 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
                 CUDA-core matvec and the tensor-core tile product, at R 1
                 to 130, an exact tie across blocks, V not a multiple of any
                 block or tile), then the sweep of R that sets the heads'
-                crossover and the sweep of B3's blocks per KV head, then
-                timings against the plain version and one PyTorch library
-                call (B3 also at a 4096-row context, B5 also at --serve
-                64's admission wave); K8 (read_all) over
+                crossover, the sweeps of B3's blocks per KV head and of
+                B1's blocks per window, then timings against the plain
+                version and one PyTorch library call (B1 at the windows of
+                the offline, -S 20 and --serve 64 encode calls, B3 also at
+                a 4096-row context, B5 also at --serve 64's admission
+                wave); K8 (read_all) over
                 the lm_head gives the card's read bandwidth, against which
                 each head kernel's time is set;
   4. main path- a seeded Qwen3-ASR-0.6B checkpoint (full width, random
@@ -64,6 +68,8 @@ under the launch key of the route its rows take.
 Prints a `{"kernels": [...]}` line, the nvidia-smi line, and as its last
 line `{"ok": true, "device": {...}}`.  Without a card, or outside a
 checkout, it exits non-zero and prints no result.  Imports nothing of JAX.
+`--kernels-only` stops after phase 3 (the kernels line has no launches,
+and no ok line follows).
 """
 
 from __future__ import annotations
@@ -119,7 +125,11 @@ HEAD_RTOL = 1e-5
 # another order
 PROBE_MM_ATOL = 1e-4
 # how each timed kernel computes, beside the "route" (CUDA C++ for all)
-DESIGNS = {"causal_cache_attention": "tensor cores (bf16 cache: mma.sync on a hi / lo split)",
+DESIGNS = {"window_attention": "tensor cores (f32 q/k/v: three mma.sync on hi / lo splits, "
+                               "window resident)",
+           "window_attention_segments": "as window_attention",
+           "window_attention_wide": "as window_attention",
+           "causal_cache_attention": "tensor cores (bf16 cache: mma.sync on a hi / lo split)",
            "batched_causal_attention": "tensor cores (f32 K/V: three mma.sync on hi / lo splits "
                                        "of both sides, 32-key tiles split once in shared memory)",
            "batched_cache_attention": "tensor cores (bf16 cache segments: two mma.sync per "
@@ -130,6 +140,10 @@ DESIGNS = {"causal_cache_attention": "tensor cores (bf16 cache: mma.sync on a hi
            "decode_attention_long": "as decode_attention",
            "read_all": "CUDA cores",
            "probe_mm": "f32 CUDA cores, register-tiled (4 x 4 per lane), cp.async ring"}
+# B1's timing rows: (row name, the shapes' key of its windows' kv_lens)
+WINDOW_ROWS = (("window_attention", "window_lens"),                 # offline 20 s
+               ("window_attention_segments", "seg_window_lens"),    # -S 20's encode call
+               ("window_attention_wide", "wide_window_lens"))       # --serve 64's group
 DECODE_LONG = (4096, 4095)    # (K, start) of B3's long-context row
 DECODE_SWEEP_BLOCKS = (4, 8, 16)  # DECODE_MAX_BLOCKS values of the B3 plan sweep
 BUILD_CACHE_CHECKS = 5        # fresh processes that load the libraries from the cache
@@ -318,6 +332,92 @@ def decode_row(K: int, start: int):
             bound(nbytes, flops, "bfloat16"))
 
 
+def kernel_of(name: str) -> str:
+    """The launch key of a timing row: its kernel's name without the suffix
+    of the shape it was timed at."""
+    for suffix in ("_long", "_wide", "_segments"):
+        name = name.removesuffix(suffix)
+    return name
+
+
+def window_row(lens, S=104, H=14, D=64):
+    """B1's timing inputs at windows `lens`: (kernel, plain, SDPA, bound,
+    f32 CUDA-core bound).  The bound reads q and writes the output at every
+    row and reads the valid K / V rows once; its operations are the valid
+    keys' products (SDPA gets the same f32 rows and mask)."""
+    import torch
+    import torch.nn.functional as F
+
+    from smolvision_tpu_torch.kernels import flash_attention as fa
+
+    q, k, v, lens_t = window_case(len(lens), lens, S=S, H=H, D=D)
+    mask = (torch.arange(S, device=DEV)[None, :] < lens_t[:, None])[:, None, None, :]
+    qh, kh, vh = (x.permute(0, 2, 1, 3) for x in (q, k, v))
+    nbytes = 4 * (2 * q.numel() + 2 * sum(lens) * H * D)
+    flops = 4 * S * sum(lens) * H * D
+    return (lambda: fa.window_flash_attention(q, k, v, lens_t),
+            lambda: fa.window_attention_plain(q, k, v, lens_t),
+            lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
+            bound(nbytes, flops, "bfloat16"), bound(nbytes, flops, "float32"))
+
+
+def window_splits(S: int):
+    """The WINDOW_ROW_BLOCKS values a correctness case runs under: the
+    plan's own pick (None), then each split it could make."""
+    from smolvision_tpu_torch.kernels import flash_attention as fa
+
+    return (None,) if S > fa.WINDOW_BLOCK_ROWS else (None, 1, 2)
+
+
+@contextlib.contextmanager
+def window_split(n):
+    """B1 with fa.WINDOW_ROW_BLOCKS forced to n (None: the plan picks)."""
+    from smolvision_tpu_torch.kernels import flash_attention as fa
+
+    kept = fa.WINDOW_ROW_BLOCKS
+    fa.WINDOW_ROW_BLOCKS = n
+    try:
+        yield
+    finally:
+        fa.WINDOW_ROW_BLOCKS = kept
+
+
+def window_split_sweep(shapes) -> dict:
+    """B1 at each WINDOW_ROWS shape with a window's rows in one block and
+    split over two: the time behind `window_row_blocks`'s choice."""
+    import torch
+
+    from smolvision_tpu_torch.kernels import flash_attention as fa
+
+    out = {}
+    for n in (1, 2):
+        with window_split(n):
+            out[n] = [time_ms(window_row(shapes[key])[0]) for _, key in WINDOW_ROWS]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out["plan"] = [fa.window_row_blocks(len(shapes[key]), 104, 14, sms) for _, key in WINDOW_ROWS]
+    return out
+
+
+def b2_f32_timing(shapes) -> str:
+    """B2 on an f32 cache (the --f32 engine's prefill) at the main path's
+    prefill shape: kernel (turns), plain, and its bound on the tensor cores
+    (f32 cache rows read once)."""
+    from smolvision_tpu_torch.kernels import flash_attention as fa
+
+    T, K, valid = shapes["prefill_T"], shapes["kv_cap"], shapes["prompt_len"]
+    q, k, v = cache_case(T, K, 0, valid, dtype="float32")
+    H, D = q.shape[1:]
+    KH = k.shape[1]
+    nbytes = 4 * 2 * q.numel() + 4 * 2 * valid * KH * D
+    flops = 4 * H * D * sum(min(t + 1, valid) for t in range(T))
+    kern = lambda: fa.causal_cache_flash_attention(q, k, v, 0, valid)
+    k1, k2 = time_ms(kern), time_ms(kern)
+    bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
+    return (f"kernel {k1:.4f}/{k2:.4f} ms, plain "
+            f"{time_ms(lambda: fa.causal_cache_attention_plain(q, k, v, 0, valid)):.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
+
+
 def decode_plan_sweep(K: int, start: int) -> dict:
     """B3 with no live row (the fresh row alone: the launch, the cluster
     barriers and the merge, the kernel's floor), at the main path's start
@@ -350,20 +450,31 @@ def phase_kernels(shapes):
 
     errs = {name: 0.0 for name in ffi.launch_counts}
 
-    # B1: W in {2, 4}, one all-pad window each
-    for W, lens, garbage in ((2, [104, 0], False), (4, shapes["window_lens"], False),
-                             (4, [104, 77, 1, 0], True)):
-        q, k, v, lens_t = window_case(W, lens, garbage=garbage)
-        got = fa.window_flash_attention(q, k, v, lens_t)
-        err = check_close(f"B1 W={W} lens={lens}", got, fa.window_attention_plain(q, k, v, lens_t))
-        for w in (w for w, n in enumerate(lens) if n == 0):
-            if float(got[w].abs().max()) != 0.0:
-                fail(f"B1 W={W}: all-pad window {w} is not exactly 0")
-        errs["window_attention"] = max(errs["window_attention"], err)
+    # B1: the paths' windows (offline W 4, -S 20's one encode call, --serve
+    # 64's encode group), S 13 and 100 (--enc-window-sec's shortest window,
+    # Qwen2.5-Omni's) and S 208 (above one block's rows: the query-tiled
+    # route), all-pad windows exactly 0, +-999 junk in the pad keys; each
+    # S <= WINDOW_BLOCK_ROWS case under every split of a window's rows
+    cases = [(104, [104, 0], False), (104, shapes["window_lens"], False),
+             (104, [104, 77, 1, 0], True), (104, shapes["seg_window_lens"], True),
+             (104, shapes["wide_window_lens"], True), (13, [13, 1, 0, 7], True),
+             (100, [100, 64, 17, 0], True), (208, [208, 130, 0], True)]
+    for S, lens, garbage in cases:
+        q, k, v, lens_t = window_case(len(lens), lens, S=S, garbage=garbage)
+        want = fa.window_attention_plain(q, k, v, lens_t)
+        for split in window_splits(S):
+            with window_split(split):
+                got = fa.window_flash_attention(q, k, v, lens_t)
+            err = check_close(f"B1 S={S} W={len(lens)} lens={lens[:8]} split={split}", got, want)
+            for w in (w for w, n in enumerate(lens) if n == 0):
+                if float(got[w].abs().max()) != 0.0:
+                    fail(f"B1 S={S} W={len(lens)} split={split}: all-pad window {w} is not "
+                         f"exactly 0")
+            errs["window_attention"] = max(errs["window_attention"], err)
 
     # B2: T 256 / 512, K 1024, start 0 and > 0, kv_min 0 and > 0, stale rows,
-    # T 5 at start 300 (the --spec verify); bf16 caches (tensor cores) and
-    # one f32 cache (the f32 core); then each of GROUP_HEADS, whose blocks
+    # T 5 at start 300 (the --spec verify); bf16 caches (two products) and
+    # one f32 cache (three); then each of GROUP_HEADS, whose blocks
     # hold floor(64 / G) queries of each head and dead rows past G times
     # that, at T that are not multiples of it
     # (T, start, kv_valid, kv_min, cache, (H, KH, D)); kv_valid < start + T
@@ -469,20 +580,16 @@ def phase_kernels(shapes):
     log(f"kernels vs plain: max_abs_err {json.dumps(errs)} (tolerance {KERNEL_ATOL:g})")
 
     rows = []
-    # --- B1 at the main-path shape
-    W, lens = len(shapes["window_lens"]), shapes["window_lens"]
-    q, k, v, lens_t = window_case(W, lens)
-    S, H, D = q.shape[1:]
-    mask = (torch.arange(S, device=DEV)[None, :] < lens_t[:, None])[:, None, None, :]
-    qh, kh, vh = (x.permute(0, 2, 1, 3) for x in (q, k, v))
-    nbytes = 4 * (2 * q.numel() + 2 * sum(lens) * H * D)
-    flops = 4 * S * sum(lens) * H * D
-    rows.append(("window_attention", "smolvision_tpu_torch/kernels/csrc/window_attention.cu",
-                 "smolvision_tpu/kernels/flash_attention.py:60",
-                 lambda: fa.window_flash_attention(q, k, v, lens_t),
-                 lambda: fa.window_attention_plain(q, k, v, lens_t),
-                 lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
-                 bound(nbytes, flops, "float32")))
+    # --- B1 at the windows of the offline path, of -S 20's encode call and of
+    # --serve 64's encode group; the bound is the tensor cores' (bf16
+    # operands, as B2's); the f32 CUDA-core bound of the earlier design is
+    # logged beside it
+    f32_bounds = {}
+    for name, key in WINDOW_ROWS:
+        row = window_row(shapes[key])
+        rows.append((name, "smolvision_tpu_torch/kernels/csrc/window_attention.cu",
+                     "smolvision_tpu/kernels/flash_attention.py:60", *row[:4]))
+        f32_bounds[name] = row[4]
 
     # --- B2 at the main-path shape (prefill from an empty cache)
     T, K, valid = shapes["prefill_T"], shapes["kv_cap"], shapes["prompt_len"]
@@ -532,7 +639,7 @@ def phase_kernels(shapes):
                  lambda: F.scaled_dot_product_attention(q4h, k4h, v4h, attn_mask=mask4[:, None],
                                                         enable_gqa=True),
                  bound(nbytes, flops, "bfloat16")))
-    f32_bounds = {"batched_causal_attention": bound(nbytes, flops, "float32")}
+    f32_bounds["batched_causal_attention"] = bound(nbytes, flops, "float32")
 
     # --- B5 at serving's group prefill (start 0: the cache is not read),
     # at --serve 4's wave and at --serve 64's (one wave of 64 clips)
@@ -558,6 +665,10 @@ def phase_kernels(shapes):
 
     log(f"  decode plan sweep (DECODE_MAX_BLOCKS: ms at start 0 / {shapes['decode_pos']} / "
         f"{DECODE_LONG[1]}): {json.dumps(decode_plan_sweep(K, shapes['decode_pos']))}")
+    log(f"  window split sweep (blocks per (window, head): ms at "
+        f"{' / '.join(name for name, _ in WINDOW_ROWS)}; the plan's pick): "
+        f"{json.dumps(window_split_sweep(shapes))}")
+    log(f"  B2 on an f32 cache at the main-path shape: {b2_f32_timing(shapes)}")
 
     table = []
     for name, source, replaces, kern, plain, lib, (bound_ms, bound_by) in rows:
@@ -565,7 +676,7 @@ def phase_kernels(shapes):
         p1, k1, k2_, p2 = (time_ms(f) for f in (plain, kern, kern, plain))
         table.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "max_abs_err": errs[name.replace("_long", "").replace("_wide", "")],
+            "max_abs_err": errs[kernel_of(name)],
             "ms": min(k1, k2_), "plain_ms": min(p1, p2),
             "library_ms": time_ms(lib), "bound_ms": bound_ms, "bound_by": bound_by,
             "design": DESIGNS.get(name, "f32 CUDA cores"),
@@ -892,23 +1003,33 @@ def main_path_shapes(model_dir: str, samples):
 
 def batched_path_shapes(model_dir: str, long_clip, serve_clips, wide_clips):
     """The B4 shape of the -S run (all segments as one group: B, T, left
-    pads) and the B5 shapes of serving's first wave (Gcap, pcap, prompt
-    lengths) under --serve 4 and under --serve 64, from host arithmetic
-    only."""
+    pads), the B5 shapes of serving's first wave (Gcap, pcap, prompt
+    lengths) under --serve 4 and under --serve 64, and B1's windows of the
+    -S run's one encode call and of --serve 64's first encode group (the
+    serving.ENCODE_GROUP longest clips), from host arithmetic only."""
     from smolvision_tpu_torch.config import SAMPLE_RATE, TOKEN_ASR_TEXT, detect_config
-    from smolvision_tpu_torch.models.qwen3_encoder import total_encoder_tokens
+    from smolvision_tpu_torch.models.qwen3_encoder import total_encoder_tokens, window_lens
     from smolvision_tpu_torch.ops.mel import num_frames
-    from smolvision_tpu_torch.runtime.buckets import bucket64
+    from smolvision_tpu_torch.runtime.buckets import bucket64, window_bucket
     from smolvision_tpu_torch.runtime.prompt import build_asr_prompt
     from smolvision_tpu_torch.runtime.segment import split_points
+    from smolvision_tpu_torch.runtime.serving import ENCODE_GROUP
     from smolvision_tpu_torch.text.tokenizer import load_tokenizer
 
     cfg = detect_config(model_dir)
     force = load_tokenizer(model_dir).encode("language English") + [TOKEN_ASR_TEXT]
+    wts = cfg.window_token_size()
+
+    def enc_tokens(n_samples):
+        return total_encoder_tokens(num_frames(n_samples), cfg)
 
     def prompt_len(n_samples):
-        n_tok = total_encoder_tokens(num_frames(n_samples), cfg)
-        return len(build_asr_prompt(cfg, n_tok, (), force)[0])
+        return len(build_asr_prompt(cfg, enc_tokens(n_samples), (), force)[0])
+
+    def windows(sample_counts):
+        """B1's kv_lens over one batched encode of these clips."""
+        n_tok = [enc_tokens(n) for n in sample_counts]
+        return window_lens(n_tok, max(window_bucket(n, wts) for n in n_tok) // wts, wts)
 
     def first_wave(clips, slots: int, key: str) -> dict:
         """serving.py's first admission wave: the longest min(slots, n)
@@ -921,9 +1042,12 @@ def batched_path_shapes(model_dir: str, long_clip, serve_clips, wide_clips):
                 f"{key}_lens": served[:G] + [served[G - 1]] * (cap - G)}
 
     splits = split_points(long_clip, SEGMENT_SEC, 3.0)
-    seg = [prompt_len(max(b - a, SAMPLE_RATE // 2)) for a, b in zip(splits, splits[1:])]
+    seg_samples = [max(b - a, SAMPLE_RATE // 2) for a, b in zip(splits, splits[1:])]
+    seg = [prompt_len(n) for n in seg_samples]
     T = bucket64(max(seg))
+    wide_group = sorted((len(c) for c in wide_clips), reverse=True)[:ENCODE_GROUP]
     return {"seg_B": len(seg), "seg_T": T, "seg_pads": [T - n for n in seg],
+            "seg_window_lens": windows(seg_samples), "wide_window_lens": windows(wide_group),
             **first_wave(serve_clips, SERVE_SLOTS, "serve"),
             **first_wave(wide_clips, SERVE_WIDE_SLOTS, "wide")}
 
@@ -1438,6 +1562,13 @@ def warm_run(eng, samples) -> str:
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="phases 1-3 only (build, kernels vs plain versions, timings); prints "
+                         "the kernels line without launches and no ok line")
+    args = ap.parse_args()
     if not os.path.isdir(os.path.join(ROOT, "smolvision_tpu_torch")):
         fail(f"no smolvision_tpu_torch/ beside {__file__}: run it from a checkout")
     try:
@@ -1515,6 +1646,10 @@ def main() -> int:
 
         cfg = detect_config(model_dir)
         table = phase_kernels(shapes) + phase_heads(cfg, shapes["seg_B"])
+        if args.kernels_only:
+            print(json.dumps({"kernels": table}))
+            print(smi_line)
+            return 0
 
         # phase 4: the main path through the CLI, then kernel vs plain path
         eng, launches = phase_main_path(model_dir, wav, cfg)
@@ -1566,7 +1701,9 @@ def main() -> int:
     from smolvision_tpu_torch.kernels import argmax_matvec as am
 
     seg_head = am.launch_key(am.head_route(shapes["seg_B"], torch.bfloat16), torch.bfloat16)
-    launches.update(decode_attention_long=launches["decode_attention"],
+    launches.update(window_attention_segments=seg_launches["window_attention"],
+                    window_attention_wide=wide_runs["bf16"]["window_attention"],
+                    decode_attention_long=launches["decode_attention"],
                     batched_causal_attention=seg_launches["batched_causal_attention"],
                     batched_cache_attention=serve_launches["batched_cache_attention"],
                     batched_cache_attention_wide=wide_runs["bf16"]["batched_cache_attention"],

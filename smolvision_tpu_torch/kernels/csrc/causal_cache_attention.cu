@@ -7,45 +7,40 @@
 // Online softmax in f32; a row with no key in range returns 0.
 //
 // Bound on the card: bytes at the 0.6B prefill shape (T 512, H 16, KH 8,
-// D 128, bf16 cache: a few MB against ~0.9 GFLOP).  Two routes, by the
-// cache's type:
-//   * bf16 cache (every bf16 engine: offline prefill, sequential segments,
-//     the --spec verify): the tensor-core core of mma_attention.cuh, one
-//     causal bf16 key segment.  A block holds 64 rows, the G query heads of
-//     one KV head at floor(64 / G) queries each (any G up to 64), so each
-//     K/V tile read serves the whole group; S and P.V are bf16 mma.sync
-//     with f32 accumulation on a hi / lo split of q and P, which keeps the
-//     f32 contract to ~1e-5.  At T 512, G 2 the grid is 16 query tiles x 8
-//     KV heads = 128 blocks, under one wave of 132 SMs, and the causal
-//     triangle makes the late query tiles the longest: the blocks are
-//     numbered heaviest first, so that a larger grid (or a longer T)
-//     starts its long blocks before its short ones.
-//   * f32 cache (the --f32 engine): the f32 register-tiled core of
-//     tiled_attention.cuh, one head per block, reading the head's KV group
-//     h / G straight from the [K, KH, D] cache by stride.
-// Both never read a tile outside [kv_min, min(start + last row + 1,
-// kv_valid)) and zero-fill tile rows past it, so the pad rows prefill wrote
-// past kv_valid never meet a product.
+// D 128, bf16 cache: a few MB against ~0.9 GFLOP).  One route, on the
+// tensor-core core of mma_attention.cuh: one causal key segment of the
+// cache's type.  A block holds 64 rows, the G query heads of one KV head at
+// floor(64 / G) queries each (any G up to 64), so each K/V tile read
+// serves the whole group; S and P.V are bf16 mma.sync with f32
+// accumulation on a hi / lo split of q and P -- two products on a bf16
+// cache (every bf16 engine: offline prefill, sequential segments, the
+// --spec verify), three on an f32 cache (the --f32 engine), whose K and V
+// are split too -- which keeps the f32 contract to ~1e-5.  At T 512, G 2
+// the grid is 16 query tiles x 8 KV heads = 128 blocks, under one wave of
+// 132 SMs, and the causal triangle makes the late query tiles the longest:
+// the blocks are numbered heaviest first, so that a larger grid (or a
+// longer T) starts its long blocks before its short ones.  No tile outside
+// [kv_min, min(start + last row + 1, kv_valid)) is read and tile rows past
+// it are zero-filled, so the pad rows prefill wrote past kv_valid never
+// meet a product.
 //
 // Layout: q [T, H, D] f32 contiguous; k/v cache [K, KH, D] (bf16 or f32) with
 // unit element stride, head stride D and row stride `row_stride` elements;
-// out [T, H, D] f32.  bf16: 1 <= G <= 64, 16-byte aligned rows.
+// out [T, H, D] f32.  1 <= G <= 64, 16-byte aligned rows.
 
 #include "mma_attention.cuh"
-#include "tiled_attention.cuh"
 
 namespace {
 
-// warp groups per block of the tensor-core route: two split the key tiles
+// warp groups per block: two split the key tiles
 // (one wave of blocks at the prefill shape leaves one block per SM)
 constexpr int kGroups = 2;
 
-template <int D>
+template <int D, typename KV>
 __global__ void __launch_bounds__(128 * kGroups)
-causal_cache_mma_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v, float* __restrict__ out, int T,
-                        int H, int KH, long long row_stride, int start, int kv_valid, int kv_min,
-                        float scale) {
+causal_cache_kernel(const float* __restrict__ q, const KV* __restrict__ k,
+                    const KV* __restrict__ v, float* __restrict__ out, int T, int H, int KH,
+                    long long row_stride, int start, int kv_valid, int kv_min, float scale) {
     extern __shared__ __align__(16) unsigned char smem[];
     const int G = H / KH, P = sv::kMmaRows / G;
     const int n_qtiles = (T + P - 1) / P;
@@ -54,61 +49,32 @@ causal_cache_mma_kernel(const float* __restrict__ q, const __nv_bfloat16* __rest
     const long long head = (long long)kvh * G * D, kv_head = (long long)kvh * D;
     sv::MmaBlock<D> blk;
     sv::mma_begin<D, kGroups>(smem, blk, q + head, (long long)H * D, T, qtile * P, G, scale);
-    sv::mma_attend<D, kGroups>(smem, blk, sv::KeySegment<__nv_bfloat16>{k + kv_head, v + kv_head,
-                                                                         row_stride, kv_min,
-                                                                         kv_valid, true, start});
+    sv::mma_attend<D, kGroups>(smem, blk, sv::KeySegment<KV>{k + kv_head, v + kv_head,
+                                                             row_stride, kv_min, kv_valid, true,
+                                                             start});
     sv::mma_end<D, kGroups>(smem, blk, out + head, (long long)H * D, G);
 }
 
-template <int D>
-__global__ void __launch_bounds__(sv::kTileThreads)
-causal_cache_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, float* __restrict__ out, int T, int H, int G,
-                        long long row_stride, int start, int kv_valid, int kv_min, float scale) {
-    extern __shared__ float4 smem4[];
-    const int h = blockIdx.y;
-    const long long head = (long long)h * D, kv_head = (long long)(h / G) * D;
-    const long long row = (long long)H * D;
-    sv::tiled_attention<D, float>(reinterpret_cast<float*>(smem4), q + head, row, k + kv_head,
-                                  v + kv_head, row_stride, out + head, row, T,
-                                  blockIdx.x * sv::kTileRows, start, kv_valid, kv_min, scale);
-}
-
-template <int D>
-int launch_mma(const float* q, const void* k, const void* v, float* out, int T, int H, int KH,
-               long long row_stride, int start, int kv_valid, int kv_min, float scale,
-               cudaStream_t stream) {
+template <int D, typename KV>
+int launch(const float* q, const void* k, const void* v, float* out, int T, int H, int KH,
+           long long row_stride, int start, int kv_valid, int kv_min, float scale,
+           cudaStream_t stream) {
     const int G = H / KH;
     if (G < 1 || G > sv::kMmaRows) return (int)cudaErrorInvalidValue;
     const size_t smem = sv::mma_smem_bytes(D, kGroups);
-    cudaError_t e = cudaFuncSetAttribute(causal_cache_mma_kernel<D>,
+    cudaError_t e = cudaFuncSetAttribute(causal_cache_kernel<D, KV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     const int P = sv::kMmaRows / G;
-    causal_cache_mma_kernel<D><<<((T + P - 1) / P) * KH, 128 * kGroups, smem, stream>>>(
-        q, static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), out, T, H,
-        KH, row_stride, start, kv_valid, kv_min, scale);
-    return (int)cudaGetLastError();
-}
-
-template <int D>
-int launch_f32(const float* q, const void* k, const void* v, float* out, int T, int H, int KH,
-               long long row_stride, int start, int kv_valid, int kv_min, float scale,
-               cudaStream_t stream) {
-    const size_t smem = sv::tiled_smem_bytes(D);
-    cudaError_t e = cudaFuncSetAttribute(causal_cache_f32_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    dim3 grid((T + sv::kTileRows - 1) / sv::kTileRows, H);
-    causal_cache_f32_kernel<D><<<grid, sv::kTileThreads, smem, stream>>>(
-        q, static_cast<const float*>(k), static_cast<const float*>(v), out, T, H, H / KH,
-        row_stride, start, kv_valid, kv_min, scale);
+    causal_cache_kernel<D, KV><<<((T + P - 1) / P) * KH, 128 * kGroups, smem, stream>>>(
+        q, static_cast<const KV*>(k), static_cast<const KV*>(v), out, T, H, KH, row_stride,
+        start, kv_valid, kv_min, scale);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// kv_bf16: 1 for a bf16 cache (tensor cores), 0 for f32 (the f32 core).
+// kv_bf16: 1 for a bf16 cache (two products), 0 for f32 (three).
 extern "C" int sv_causal_cache_attention(const float* q, const void* k, const void* v,
                                          float* out, int T, int H, int KH, int D,
                                          long long row_stride, int start, int kv_valid,
@@ -117,17 +83,17 @@ extern "C" int sv_causal_cache_attention(const float* q, const void* k, const vo
     if (T <= 0) return 0;
     switch ((kv_bf16 ? 1000 : 0) + D) {
         case 1064:
-            return launch_mma<64>(q, k, v, out, T, H, KH, row_stride, start, kv_valid, kv_min,
-                                  scale, st);
+            return launch<64, __nv_bfloat16>(q, k, v, out, T, H, KH, row_stride, start, kv_valid,
+                                             kv_min, scale, st);
         case 1128:
-            return launch_mma<128>(q, k, v, out, T, H, KH, row_stride, start, kv_valid, kv_min,
-                                   scale, st);
+            return launch<128, __nv_bfloat16>(q, k, v, out, T, H, KH, row_stride, start,
+                                              kv_valid, kv_min, scale, st);
         case 64:
-            return launch_f32<64>(q, k, v, out, T, H, KH, row_stride, start, kv_valid, kv_min,
-                                  scale, st);
+            return launch<64, float>(q, k, v, out, T, H, KH, row_stride, start, kv_valid, kv_min,
+                                     scale, st);
         case 128:
-            return launch_f32<128>(q, k, v, out, T, H, KH, row_stride, start, kv_valid, kv_min,
-                                   scale, st);
+            return launch<128, float>(q, k, v, out, T, H, KH, row_stride, start, kv_valid, kv_min,
+                                      scale, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -1,7 +1,8 @@
-// The tensor-core attention core of kernels B2 on a bf16 cache
+// The tensor-core attention core of kernels B1 (window_attention.cu), B2
 // (causal_cache_attention.cu), B4 (batched_causal_attention.cu) and B5
-// (batched_cache_attention.cu).  The f32 core of tiled_attention.cuh keeps
-// B1 and B2's f32 caches.
+// (batched_cache_attention.cu).  B1's window-resident route takes only the
+// fragment helpers (`split_tile`, `mma_scores`, `mma_pv`) and one exact
+// softmax; its query-tiled route and the others walk key segments here.
 //
 // FlashAttention-2 shaped: a block holds 64 query rows of one KV head's
 // group of G query heads, any G from 1 to 64: P = floor(64 / G) queries of
@@ -26,10 +27,11 @@
 // Key segments: one online softmax walks up to three segments of keys
 // (`mma_attend`, once per segment).  A segment is a K and a V pointer with a
 // row stride and an element type, a column range [lo, hi), and whether it
-// is causal (query t also needs column c < t + off + 1).  B2 walks its bf16
-// cache, causal at start_pos; B4 its fresh f32 block, causal; B5 up to two
-// ranges of its cache window (bf16 or f32, not causal: every cache column
-// lies below every row) and then its fresh f32 block.
+// is causal (query t also needs column c < t + off + 1).  B2 walks its
+// cache (bf16 or f32), causal at start_pos; B4 its fresh f32 block, causal;
+// B5 up to two ranges of its cache window (bf16 or f32, not causal: every
+// cache column lies below every row) and then its fresh f32 block; B1 above
+// 128 rows its window's f32 keys [0, len), not causal, at G 1.
 //   * bf16 segment: 64-key tiles through a two-stage cp.async ring per group.
 //   * f32 segment: 32-key tiles.  The group copies the f32 K and V tile into
 //     a staging tile (cp.async) and its 128 threads split it once into bf16
@@ -116,6 +118,26 @@ __device__ __forceinline__ float quad_sum(float x) {
     return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// Split `rows` f32 rows of D floats (src, unswizzled) times `scale` into
+// the bf16 hi and lo tiles h and l (swizzled), thread `tid` of `nthreads`
+// taking 4 floats (half a 16-byte chunk of each) per step: a warp reads 512
+// contiguous bytes and writes two rows of chunks, free of bank conflicts.
+template <int D>
+__device__ __forceinline__ void split_tile(const unsigned char* src, unsigned char* h,
+                                           unsigned char* l, int rows, int tid, int nthreads,
+                                           float scale = 1.f) {
+    constexpr int DC = D / 8;
+    for (int i = tid; i < rows * D / 4; i += nthreads) {
+        const int r = i / (D / 4), c = (i % (D / 4)) / 2, half = i % 2;
+        const float4 x = *reinterpret_cast<const float4*>(src + i * 16);
+        uint2 hv, lv;
+        split_bf16x2(x.x * scale, x.y * scale, hv.x, lv.x);
+        split_bf16x2(x.z * scale, x.w * scale, hv.y, lv.y);
+        *reinterpret_cast<uint2*>(h + swz(r, c, DC) + 8 * half) = hv;
+        *reinterpret_cast<uint2*>(l + swz(r, c, DC) + 8 * half) = lv;
+    }
+}
+
 // Load the block's 64 rows of q (query t, head i at q + t * q_stride + i *
 // D: head 0 of the group at query 0; 16-byte aligned rows), scaled and split
 // into bf16 hi and lo (dead rows and rows past T are 0), and clear the
@@ -126,7 +148,6 @@ template <int D, int NG>
 __device__ __forceinline__ void mma_begin(unsigned char* smem, MmaBlock<D>& b,
                                           const float* __restrict__ q, long long q_stride, int T,
                                           int t0, int G, float scale) {
-    constexpr int DC = D / 8;  // 16-byte chunks per bf16 row
     unsigned char* qh = smem;
     unsigned char* ql = qh + kMmaRows * D * 2;
     unsigned char* stage = ql + kMmaRows * D * 2;  // 64 f32 rows: 256 D bytes
@@ -154,16 +175,7 @@ __device__ __forceinline__ void mma_begin(unsigned char* smem, MmaBlock<D>& b,
         for (int e = 0; e < 4; ++e) b.o[j][e] = 0.f;
     cp_async_wait<0>();
     __syncthreads();  // every thread's rows are in the staging tile
-    // 4 floats (half a 16-byte chunk of hi and of lo) per thread and step
-    for (int i = threadIdx.x; i < kMmaRows * D / 4; i += 128 * NG) {
-        const int r = i / (D / 4), c = (i % (D / 4)) / 2, half = i % 2;
-        const float4 x = *reinterpret_cast<const float4*>(stage + i * 16);
-        uint2 hv, lv;
-        split_bf16x2(x.x * scale, x.y * scale, hv.x, lv.x);
-        split_bf16x2(x.z * scale, x.w * scale, hv.y, lv.y);
-        *reinterpret_cast<uint2*>(qh + swz(r, c, DC) + 8 * half) = hv;
-        *reinterpret_cast<uint2*>(ql + swz(r, c, DC) + 8 * half) = lv;
-    }
+    split_tile<D>(stage, qh, ql, kMmaRows, threadIdx.x, 128 * NG, scale);
     __syncthreads();  // Q hi / lo are in shared memory; the staging tile is free
 }
 
@@ -178,30 +190,22 @@ __device__ __forceinline__ void mma_range(const MmaBlock<D>& b, const KeySegment
         row_hi[i] = b.t[i] < 0 ? seg.lo : seg.causal ? min(b.t[i] + seg.off + 1, hi) : hi;
 }
 
-// One tile of NK keys from column k0 against the warp's 16 rows: S = Q K^T,
-// one online-softmax step per row, O += P V.  kh / vh: the bf16 K and V
-// tiles (swizzled, NK rows); with LO, kl / vl hold the lo halves of f32 K
-// and V, and each product takes a third mma (hi against lo).
+// S += Q K^T of a warp's 16 query rows against NK keys: qh / ql the
+// warp's 16 rows of the Q hi and lo tiles, kh the bf16 K tile (swizzled,
+// rows = keys); with LO, kl holds the lo half of an f32 K and each product
+// takes a third mma (hi against lo).  NK is a constant so that the whole
+// product is one straight-line block the compiler interleaves (a branch per
+// 16 keys left each warp waiting on every mma's latency).
 template <int D, int NK, bool LO>
-__device__ __forceinline__ void mma_tile(MmaBlock<D>& b, const unsigned char* qh,
-                                         const unsigned char* ql, const unsigned char* kh,
-                                         const unsigned char* kl, const unsigned char* vh,
-                                         const unsigned char* vl, int k0,
-                                         const int (&row_hi)[2]) {
+__device__ __forceinline__ void mma_scores(float (&s)[NK / 8][4], const unsigned char* qh,
+                                           const unsigned char* ql, const unsigned char* kh,
+                                           const unsigned char* kl) {
     constexpr int DC = D / 8;
-    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32, t4 = lane % 4;
-    const int mi = lane >> 3;
-
-    // S = Q K^T over the tile: 16 rows x NK keys per warp
-    float s[NK / 8][4];
-#pragma unroll
-    for (int j = 0; j < NK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    const int lane = threadIdx.x % 32, mi = lane >> 3;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
         unsigned ah[4], al[4];
-        const int qoff = swz(warp * 16 + (lane & 15), kk * 2 + (lane >> 4), DC);
+        const int qoff = swz(lane & 15, kk * 2 + (lane >> 4), DC);
         ldmatrix_x4(ah, qh + qoff);
         ldmatrix_x4(al, ql + qoff);
 #pragma unroll
@@ -221,6 +225,62 @@ __device__ __forceinline__ void mma_tile(MmaBlock<D>& b, const unsigned char* qh
             }
         }
     }
+}
+
+// O += P V over NK keys: p the probabilities in the score fragments'
+// layout, split here into hi and lo straight into the A fragments; vh (and
+// with LO vl) the bf16 V tiles as kh / kl above.
+template <int D, int NK, bool LO>
+__device__ __forceinline__ void mma_pv(float (&o)[D / 8][4], const float (&p)[NK / 8][4],
+                                       const unsigned char* vh, const unsigned char* vl) {
+    constexpr int DC = D / 8;
+    const int lane = threadIdx.x % 32, mi = lane >> 3;
+#pragma unroll
+    for (int ks16 = 0; ks16 < NK / 16; ++ks16) {
+        unsigned ph[4], pl[4];
+        split_bf16x2(p[2 * ks16][0], p[2 * ks16][1], ph[0], pl[0]);
+        split_bf16x2(p[2 * ks16][2], p[2 * ks16][3], ph[1], pl[1]);
+        split_bf16x2(p[2 * ks16 + 1][0], p[2 * ks16 + 1][1], ph[2], pl[2]);
+        split_bf16x2(p[2 * ks16 + 1][2], p[2 * ks16 + 1][3], ph[3], pl[3]);
+#pragma unroll
+        for (int dj = 0; dj < D / 16; ++dj) {
+            const int voff = swz(ks16 * 16 + (mi & 1) * 8 + (lane & 7), dj * 2 + (mi >> 1), DC);
+            unsigned bh[4];
+            ldmatrix_x4_trans(bh, vh + voff);
+            mma_bf16(o[2 * dj], ph, bh[0], bh[1]);
+            mma_bf16(o[2 * dj + 1], ph, bh[2], bh[3]);
+            mma_bf16(o[2 * dj], pl, bh[0], bh[1]);
+            mma_bf16(o[2 * dj + 1], pl, bh[2], bh[3]);
+            if constexpr (LO) {
+                unsigned bl[4];
+                ldmatrix_x4_trans(bl, vl + voff);
+                mma_bf16(o[2 * dj], ph, bl[0], bl[1]);
+                mma_bf16(o[2 * dj + 1], ph, bl[2], bl[3]);
+            }
+        }
+    }
+}
+
+// One tile of NK keys from column k0 against the warp's 16 rows: S = Q K^T,
+// one online-softmax step per row, O += P V.  kh / vh: the bf16 K and V
+// tiles (swizzled, NK rows); with LO, kl / vl hold the lo halves of f32 K
+// and V, and each product takes a third mma (hi against lo).
+template <int D, int NK, bool LO>
+__device__ __forceinline__ void mma_tile(MmaBlock<D>& b, const unsigned char* qh,
+                                         const unsigned char* ql, const unsigned char* kh,
+                                         const unsigned char* kl, const unsigned char* vh,
+                                         const unsigned char* vl, int k0,
+                                         const int (&row_hi)[2]) {
+    const int warp = (threadIdx.x % 128) / 32, t4 = threadIdx.x % 4;
+    const int qrows = warp * 16 * D * 2;  // the warp's 16 rows of the Q tiles
+
+    // S = Q K^T over the tile: 16 rows x NK keys per warp
+    float s[NK / 8][4];
+#pragma unroll
+    for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    mma_scores<D, NK, LO>(s, qh + qrows, ql + qrows, kh, kl);
 
     // one online-softmax step per row; masked p exactly 0
 #pragma unroll
@@ -253,30 +313,7 @@ __device__ __forceinline__ void mma_tile(MmaBlock<D>& b, const unsigned char* qh
     }
 
     // O += P V, P split into hi and lo straight from the score fragments
-#pragma unroll
-    for (int ks16 = 0; ks16 < NK / 16; ++ks16) {
-        unsigned ph[4], pl[4];
-        split_bf16x2(s[2 * ks16][0], s[2 * ks16][1], ph[0], pl[0]);
-        split_bf16x2(s[2 * ks16][2], s[2 * ks16][3], ph[1], pl[1]);
-        split_bf16x2(s[2 * ks16 + 1][0], s[2 * ks16 + 1][1], ph[2], pl[2]);
-        split_bf16x2(s[2 * ks16 + 1][2], s[2 * ks16 + 1][3], ph[3], pl[3]);
-#pragma unroll
-        for (int dj = 0; dj < D / 16; ++dj) {
-            const int voff = swz(ks16 * 16 + (mi & 1) * 8 + (lane & 7), dj * 2 + (mi >> 1), DC);
-            unsigned bh[4];
-            ldmatrix_x4_trans(bh, vh + voff);
-            mma_bf16(b.o[2 * dj], ph, bh[0], bh[1]);
-            mma_bf16(b.o[2 * dj + 1], ph, bh[2], bh[3]);
-            mma_bf16(b.o[2 * dj], pl, bh[0], bh[1]);
-            mma_bf16(b.o[2 * dj + 1], pl, bh[2], bh[3]);
-            if constexpr (LO) {
-                unsigned bl[4];
-                ldmatrix_x4_trans(bl, vl + voff);
-                mma_bf16(b.o[2 * dj], ph, bl[0], bl[1]);
-                mma_bf16(b.o[2 * dj + 1], ph, bl[2], bl[3]);
-            }
-        }
-    }
+    mma_pv<D, NK, LO>(b.o, s, vh, vl);
 }
 
 // The block's queries against a bf16 segment (exact in bf16: two products).
@@ -330,7 +367,7 @@ __device__ __forceinline__ void mma_attend(unsigned char* smem, MmaBlock<D>& b,
 template <int D, int NG>
 __device__ __forceinline__ void mma_attend(unsigned char* smem, MmaBlock<D>& b,
                                            const KeySegment<float>& seg) {
-    constexpr int NK = kMmaKeysF32, DC = D / 8;
+    constexpr int NK = kMmaKeysF32;
     constexpr int STAGE = NK * D * 4;  // bytes of one f32 staging tile
     constexpr int HALF = NK * D * 2;   // bytes of one bf16 hi or lo tile
     const unsigned char* qh = smem;
@@ -359,20 +396,6 @@ __device__ __forceinline__ void mma_attend(unsigned char* smem, MmaBlock<D>& b,
         }
         cp_async_commit();
     };
-    // a staging tile into its bf16 hi and lo tiles, 4 floats (half a
-    // 16-byte chunk of each) per thread and step: a warp reads 512
-    // contiguous bytes and writes two rows of chunks, free of bank conflicts
-    auto split = [&](const unsigned char* src, unsigned char* h, unsigned char* l) {
-        for (int i = gt; i < NK * D / 4; i += 128) {
-            const int r = i / (D / 4), c = (i % (D / 4)) / 2, half = i % 2;
-            const float4 x = *reinterpret_cast<const float4*>(src + i * 16);
-            uint2 hv, lv;
-            split_bf16x2(x.x, x.y, hv.x, lv.x);
-            split_bf16x2(x.z, x.w, hv.y, lv.y);
-            *reinterpret_cast<uint2*>(h + swz(r, c, DC) + 8 * half) = hv;
-            *reinterpret_cast<uint2*>(l + swz(r, c, DC) + 8 * half) = lv;
-        }
-    };
     if (grp < n_tiles) load(lo + grp * NK);
 
     // group grp takes the tiles grp, grp + 2, ...
@@ -381,8 +404,8 @@ __device__ __forceinline__ void mma_attend(unsigned char* smem, MmaBlock<D>& b,
         cp_async_wait<0>();
         group_sync(grp);  // this tile's f32 K and V are in the staging tiles;
                           // the last tile's hi / lo tiles are read
-        split(sk, kh, kl);
-        split(sv, vh, vl);
+        split_tile<D>(sk, kh, kl, NK, gt, 128);
+        split_tile<D>(sv, vh, vl, NK, gt, 128);
         group_sync(grp);  // hi / lo written; the staging tiles are free
         if (tile + NG < n_tiles) load(k0 + NG * NK);
         mma_tile<D, NK, true>(b, qh, ql, kh, kl, vh, vl, k0, row_hi);

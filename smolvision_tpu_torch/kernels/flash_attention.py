@@ -38,10 +38,18 @@ DENOM_FLOOR = 1e-30
 # at 315 and 4095 live rows (chip_smoke.py's decode plan sweep, PERF.md)
 DECODE_MAX_BLOCKS = 8
 DECODE_MIN_ROWS = 16
+# B1 (csrc/window_attention.cu): a window of up to WINDOW_BLOCK_ROWS rows is
+# held whole by one block (or its rows by two, see `window_row_blocks`);
+# longer windows take query tiles of WINDOW_TILE_ROWS rows.  WINDOW_ROW_BLOCKS
+# forces the split of the first route (1 or 2; None: the plan picks), for
+# chip_smoke.py's sweep
+WINDOW_BLOCK_ROWS = 128
+WINDOW_TILE_ROWS = 64
+WINDOW_ROW_BLOCKS = None
 
 # C argument types, one letter each (kernels/ffi.py)
 _SIGNATURES = {
-    "sv_window_attention": ("window_attention", "pppppiiiifp"),
+    "sv_window_attention": ("window_attention", "pppppiiiiifp"),
     "sv_causal_cache_attention": ("causal_cache_attention", "ppppiiiiliiiifp"),
     "sv_decode_attention": ("decode_attention", "ppppppiiiliiiiifp"),
     "sv_batched_causal_attention": ("batched_causal_attention", "pppppiiiiifp"),
@@ -92,8 +100,26 @@ def window_attention_plain(q, k, v, kv_valid_lens):
     return torch.einsum("whts,wshd->wthd", _masked_probs(s, valid), v.float())
 
 
+def window_row_blocks(W: int, S: int, H: int, sms: int) -> int:
+    """Blocks per (window, head) of kernel B1 on a card with `sms` SMs.
+    Above WINDOW_BLOCK_ROWS rows: one per query tile of WINDOW_TILE_ROWS.
+    Else 1 (the window whole in one block), or 2 (its 16-row warps split
+    over two blocks, each loading the window's K/V) while the split grid of
+    2 * W * H blocks still fits one wave of the SMs and a window has two
+    warps' rows to split."""
+    if S > WINDOW_BLOCK_ROWS:
+        return -(-S // WINDOW_TILE_ROWS)
+    if WINDOW_ROW_BLOCKS is not None:
+        return WINDOW_ROW_BLOCKS
+    return 2 if S > 16 and 2 * W * H <= sms else 1
+
+
+
 def window_flash_attention(q, k, v, kv_valid_lens):
-    """Bidirectional attention inside hard windows (kernel B1 on CUDA)."""
+    """Bidirectional attention inside hard windows (kernel B1 on CUDA, on
+    the tensor cores: three bf16 mma.sync per product on hi / lo splits of
+    the f32 q, K, P and V; a window of up to WINDOW_BLOCK_ROWS rows resident
+    in one block with one exact softmax, longer windows in query tiles)."""
     if not q.is_cuda:
         return window_attention_plain(q, k, v, kv_valid_lens)
     W, S, H, D = q.shape
@@ -105,9 +131,13 @@ def window_flash_attention(q, k, v, kv_valid_lens):
     ffi.require(q.is_contiguous() and k.is_contiguous() and v.is_contiguous(),
                 "q/k/v must be contiguous")
     ffi.require(D == 64, f"head dim {D} not built (64)")
+    ffi.require(q.data_ptr() % 16 == 0 and k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0,
+                "q/k/v rows must be 16-byte aligned")
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     out = torch.empty_like(q)
     _call("sv_window_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-          lens.data_ptr(), out.data_ptr(), W, S, H, D, 1.0 / math.sqrt(D), ffi.stream())
+          lens.data_ptr(), out.data_ptr(), W, S, H, D, window_row_blocks(W, S, H, sms),
+          1.0 / math.sqrt(D), ffi.stream())
     ffi.launch_counts["window_attention"] += 1
     return out
 
@@ -142,11 +172,10 @@ def causal_cache_flash_attention(q, k_cache, v_cache, start_pos: int,
     """Causal GQA attention of a query block against the cache (kernel B2 on
     CUDA).  start_pos / kv_valid_len / kv_min are host ints.
 
-    Two routes inside the one kernel library, by the cache's type: a bf16
-    cache runs on the tensor cores (csrc/mma_attention.cuh: bf16 mma.sync
-    on a hi / lo split of q and P, f32 accumulation; any G = H / KH up to
-    64), an f32 cache on the f32 CUDA-core tiles (csrc/tiled_attention.cuh).
-    Both count as one `causal_cache_attention` launch."""
+    On the tensor cores (csrc/mma_attention.cuh: bf16 mma.sync with f32
+    accumulation on hi / lo splits; any G = H / KH up to 64): two products
+    on a bf16 cache (q and P split), three on an f32 cache (its K and V
+    split too)."""
     if not q.is_cuda:
         return causal_cache_attention_plain(q, k_cache, v_cache, start_pos,
                                             kv_valid_len, kv_min)
@@ -157,11 +186,11 @@ def causal_cache_flash_attention(q, k_cache, v_cache, start_pos: int,
     kv_bf16 = _kv_flag(k_cache, v_cache)
     ffi.require(k_cache.shape[2] == D and H % KH == 0, "GQA shapes disagree")
     ffi.require(D in (64, 128), f"head dim {D} not built (64, 128)")
-    if kv_bf16:
-        ffi.require(H // KH <= 64, "G above 64 (bf16 cache)")
-        ffi.require(q.data_ptr() % 16 == 0 and k_cache.data_ptr() % 16 == 0
-                    and v_cache.data_ptr() % 16 == 0 and k_cache.stride(0) % 8 == 0,
-                    "q and bf16 cache rows must be 16-byte aligned")
+    ffi.require(H // KH <= 64, "G above 64")
+    ffi.require(q.data_ptr() % 16 == 0 and k_cache.data_ptr() % 16 == 0
+                and v_cache.data_ptr() % 16 == 0
+                and (k_cache.stride(0) * k_cache.element_size()) % 16 == 0,
+                "q and cache rows must be 16-byte aligned")
     ffi.require(0 <= kv_min and start_pos >= 0 and start_pos + T <= K
                 and 0 <= kv_valid_len <= K, "positions out of the cache")
     out = torch.empty_like(q)

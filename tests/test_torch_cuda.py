@@ -36,7 +36,7 @@ def test_cuda_kernels_match_plain_versions():
     before = dict(ffi.launch_counts)
     calls = {name: 0 for name in before}
 
-    # B1: windows shorter and longer than one 64-row tile; a whole pad
+    # B1: windows shorter and longer than one block's 128 rows; a whole pad
     # window gives exactly 0; +-999 junk in pad keys must not leak in
     for S, lens in ((104, [104, 104, 52, 0]), (13, [13, 0]), (208, [208, 130])):
         q, k, v = (randn(len(lens), S, 14, 64) for _ in range(3))
@@ -254,13 +254,47 @@ def test_cuda_tensor_core_head_matches_plain_version():
 
 
 @pytest.mark.cuda
+def test_cuda_window_attention_both_routes():
+    """B1 at S 13 (the shortest --enc-window-sec window), 100 (Qwen2.5-Omni's
+    window), 104 (Qwen3-ASR's) -- the window-resident route, each with a
+    window's rows in one block and split over two -- and 208 (the
+    query-tiled route above 128 rows); ragged lens, one key, an all-pad
+    window that must be exactly 0, +-999 junk in every pad key."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels are built with nvcc for sm_90a)")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    before = ffi.launch_counts["window_attention"]
+    n = 0
+    kept = tfa.WINDOW_ROW_BLOCKS
+    try:
+        for S, lens in ((13, [13, 0, 1, 6]), (100, [100, 64, 0, 17]), (104, [104, 104, 52, 0]),
+                        (208, [208, 0, 130, 1])):
+            q, k, v = (torch.randn(len(lens), S, 14, 64, device="cuda", generator=g)
+                       for _ in range(3))
+            for w, m in enumerate(lens):
+                k[w, m:], v[w, m:] = 999.0, -999.0
+            lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            want = tfa.window_attention_plain(q, k, v, lens_t)
+            for split in (None, 1, 2):
+                tfa.WINDOW_ROW_BLOCKS = split
+                got = tfa.window_flash_attention(q, k, v, lens_t)
+                torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+                assert not got[lens.index(0)].any(), "an all-pad window must give exactly 0"
+                n += 1
+    finally:
+        tfa.WINDOW_ROW_BLOCKS = kept
+    torch.cuda.synchronize()
+    assert ffi.launch_counts["window_attention"] - before == n
+
+
+@pytest.mark.cuda
 def test_cuda_prefill_attention_both_routes():
     """B2 at the 0.6B head layout (H 16, KH 8) and at G 7 (H 28, KH 4,
     Qwen2.5-Omni's decoder heads: 9 queries per head in a 64-row block, one
     dead row): the --spec verify (T 5 at start 300) and the main prefill (T
-    512 from 0, 283 valid rows) on a bf16 cache (the tensor-core route) and
-    an f32 cache (the f32 core), +-999 junk in every row the call must not
-    read."""
+    512 from 0, 283 valid rows) on a bf16 cache (two products) and an f32
+    cache (three: its K and V split too), both on the tensor cores, +-999
+    junk in every row the call must not read."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (kernels are built with nvcc for sm_90a)")
     g = torch.Generator(device="cuda").manual_seed(4)

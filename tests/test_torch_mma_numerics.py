@@ -18,6 +18,16 @@ pinned before the card sees it:
     segments in 64-key tiles, two products; B5's cache window first, then
     the fresh block.  Held against the plain versions and the JAX Pallas
     kernels within 1e-4;
+  * B1 as the card runs it (`window_emulated`): up to 128 rows, a
+    (window, head) is resident in one block (or its 16-row warps split over
+    two): the window's keys zero-filled to a multiple of 16, q, K and V
+    split into bf16 hi + lo, three products per product, one exact
+    softmax (exp2 of log2-unit scores on the card, exp here: they differ
+    by a few ulp), P split; above 128 rows, query tiles of 64 rows walk one
+    non-causal f32 segment (`mma_core_emulated` with G 1).  Held against
+    `window_attention_plain` and the JAX `window_flash_attention` (Pallas,
+    interpret mode) within 1e-4; B2 on an f32 cache runs the causal f32
+    segment, held likewise at G 2 and G 7;
   * the tensor-core greedy head (csrc/argmax_matvec.cu): per 128-row tile
     of the table, each column's best 64-bit key (ordered value bits,
     inverted index), merged across tiles by max;
@@ -324,6 +334,164 @@ def test_b4_b5_need_three_products():
     err_two = float((b5_emulated(tq, tk, tv, kc, kc, 200, kv_min, three=False)
                      - plain).abs().max())
     assert err_three <= ATOL < err_two
+
+
+WINDOW_BLOCK_ROWS = 128   # csrc/window_attention.cu: kWinRows
+
+
+def window_blocks(S: int, row_blocks: int):
+    """The resident route's blocks of a (window, head), as its launcher
+    builds them: ceil(S / 16) warps of 16 rows split over `row_blocks`
+    blocks; block b holds rows [b * rb, (b + 1) * rb), rows >= S dead."""
+    warps16 = -(-S // 16)
+    warps = -(-warps16 // row_blocks)
+    rb = 16 * warps
+    return [range(b * rb, (b + 1) * rb) for b in range(-(-warps16 // warps))]
+
+
+def window_emulated(q, k, v, lens, row_blocks=1, three=True):
+    """B1 on the card: q / k / v [W, S, H, D] f32, lens [W].  Up to 128 rows
+    the window-resident route: keys [0, len) zero-filled to a multiple of
+    16, q (scaled), K, V and P split into bf16 hi + lo (or with three=False
+    rounded to bf16 once), each product three bf16 products summed in f32,
+    one exact softmax over the valid keys; above 128 rows query tiles of 64
+    rows against one non-causal f32 segment [0, len)."""
+    W, S, H, D = q.shape
+    out = torch.zeros(W, S, H, D)
+    for w in range(W):
+        n = min(max(int(lens[w]), 0), S)
+        for h in range(H):
+            if S > WINDOW_BLOCK_ROWS:
+                out[w, :, h:h + 1] = mma_core_emulated(
+                    q[w, :, h:h + 1], [(k[w, :, h], v[w, :, h], 0, n, False, 0)], three)
+                continue
+            nk = -(-n // 16) * 16
+            kt, vt = torch.zeros(nk, D), torch.zeros(nk, D)
+            kt[:n], vt[:n] = k[w, :n, h], v[w, :n, h]
+            (k_hi, k_lo), (v_hi, v_lo) = _split(kt), _split(vt)
+            if not three:
+                k_hi, v_hi = _bf16(kt), _bf16(vt)
+                k_lo, v_lo = torch.zeros_like(kt), torch.zeros_like(vt)
+            for rows in window_blocks(S, row_blocks):
+                live = [r for r in rows if r < S]        # dead rows load and store nothing
+                if not live:
+                    continue
+                qb = torch.zeros(len(rows), D)
+                qb[:len(live)] = q[w, live, h] * (1.0 / math.sqrt(D))
+                q_hi, q_lo = _split(qb)
+                if not three:
+                    q_hi, q_lo = _bf16(qb), torch.zeros_like(qb)
+                s = q_hi @ k_hi.T + q_lo @ k_hi.T + q_hi @ k_lo.T            # [rb, nk]
+                mask = (torch.arange(nk) < n)[None, :]
+                m = torch.where(mask, s, tfa.NEG_INF).amax(-1, keepdim=True) if nk else s
+                p = torch.where(mask, torch.exp(s - m), 0.0)
+                l = p.sum(-1)
+                p_hi, p_lo = _split(p)
+                if not three:
+                    p_hi, p_lo = _bf16(p), torch.zeros_like(p)
+                o = p_hi @ v_hi + p_lo @ v_hi + p_hi @ v_lo
+                res = o / torch.clamp(l, min=tfa.DENOM_FLOOR)[:, None]
+                out[w, live, h] = res[:len(live)]
+    return out
+
+
+def _window_case(seed, S, H, lens, D=64):
+    """q / k / v [W, S, H, D] f32 with +-999 in every pad key row."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((len(lens), S, H, D)).astype(np.float32) for _ in range(3))
+    for w, n in enumerate(lens):
+        k[w, n:], v[w, n:] = 999.0, -999.0
+    return q, k, v, np.asarray(lens, np.int32)
+
+
+@pytest.mark.parametrize("S,H,lens,row_blocks", [
+    (13, 2, [13, 1, 0], 1),               # --enc-window-sec's shortest window: one warp
+    (26, 3, [26, 9], 2),                  # two warps, split over two blocks
+    (100, 2, [100, 64, 17, 0], 1),        # Qwen2.5-Omni's window
+    (104, 2, [104, 104, 52, 0], 1),       # the offline path's windows
+    (104, 3, [1, 77, 104], 2),            # split: the second block's last warp is dead
+    (208, 2, [208, 130, 0], 1),           # above 128 rows: the query-tiled route
+    (208, 1, [129, 5], 1),
+])
+def test_b1_window_matches_plain_and_pallas(S, H, lens, row_blocks):
+    q, k, v, kl = _window_case(S * 7 + sum(lens), S, H, lens)
+    got = window_emulated(*map(torch.from_numpy, (q, k, v)), kl, row_blocks)
+    plain = tfa.window_attention_plain(*map(torch.from_numpy, (q, k, v, kl)))
+    torch.testing.assert_close(got, plain, rtol=0, atol=ATOL)
+    pallas = jfa.window_flash_attention(*map(jnp.asarray, (q, k, v, kl)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=0, atol=ATOL)
+    for w, n in enumerate(lens):
+        assert n or not got[w].any(), "an all-pad window must give exactly 0"
+
+
+def test_b1_needs_the_lo_halves():
+    """With q, K, P and V rounded to bf16 once (one bf16 product each) the
+    emulation misses the f32 contract at the offline path's windows, where
+    the three-product split keeps 1e-4."""
+    q, k, v, kl = _window_case(3, 104, 4, [104, 104, 52, 0])
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    plain = tfa.window_attention_plain(tq, tk, tv, torch.from_numpy(kl))
+    err_three = float((window_emulated(tq, tk, tv, kl) - plain).abs().max())
+    err_one = float((window_emulated(tq, tk, tv, kl, three=False) - plain).abs().max())
+    assert err_three <= ATOL < err_one
+    assert err_one > 10 * err_three
+
+
+@pytest.mark.parametrize("S", [1, 13, 16, 17, 100, 104, 128])
+@pytest.mark.parametrize("row_blocks", [1, 2])
+def test_window_blocks_cover_every_row_once(S, row_blocks):
+    """The resident route's blocks hold every row of the window exactly
+    once, at most 128 rows (8 warps) each; the rows past S are the last
+    block's dead rows, fewer than one warp's unless a whole warp is dead."""
+    blocks = window_blocks(S, row_blocks)
+    rows = [r for b in blocks for r in b]
+    assert sorted(r for r in rows if r < S) == list(range(S))
+    assert len(blocks) <= row_blocks and all(len(b) <= WINDOW_BLOCK_ROWS for b in blocks)
+    assert len(rows) - S < 32
+
+
+@pytest.mark.parametrize("W,S,H,sms,want", [
+    (4, 104, 14, 132, 2),      # offline: 56 blocks, split into 112 (one wave)
+    (24, 104, 14, 132, 1),     # -S 20's encode call: 336 blocks already
+    (32, 104, 14, 132, 1),     # a --serve 64 encode group
+    (5, 104, 14, 132, 1),      # 140 split blocks would need a second wave
+    (4, 16, 14, 132, 1),       # one warp's rows: nothing to split
+    (2, 208, 14, 132, 4),      # the query-tiled route: ceil(208 / 64) tiles
+    (2, 129, 14, 132, 3),
+])
+def test_window_row_blocks(W, S, H, sms, want):
+    assert tfa.window_row_blocks(W, S, H, sms) == want
+
+
+def _b2_f32_case(T, start, valid, kv_min, H, KH, seed, K=512, D=128):
+    """q and an f32 cache holding the block, +-999 in every row at or past
+    kv_valid."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((T, H, D)).astype(np.float32)
+    k, v = (rng.standard_normal((K, KH, D)).astype(np.float32) for _ in range(2))
+    k[valid:], v[valid:] = 999.0, -999.0
+    return q, k, v
+
+
+@pytest.mark.parametrize("H,KH", [(16, 8), (28, 4)])     # G 2 (0.6B) and G 7 (Qwen2.5-Omni)
+@pytest.mark.parametrize("T,start,valid,kv_min", [(100, 0, 97, 0), (5, 300, 305, 17)])
+def test_b2_f32_cache_causal_segment_matches_plain_and_pallas(H, KH, T, start, valid, kv_min):
+    """B2 on an f32 cache (the --f32 engine): one causal f32 segment at
+    start_pos, [kv_min, kv_valid), 32-key tiles split into hi + lo, three
+    products, as the card runs it."""
+    q, k, v = _b2_f32_case(T, start, valid, kv_min, H, KH, seed=T + H + start)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    G = H // KH
+    got = torch.zeros(T, H, 128)
+    for kh in range(KH):
+        seg = (tk[:, kh], tv[:, kh], kv_min, valid, True, start)
+        got[:, kh * G:(kh + 1) * G] = mma_core_emulated(tq[:, kh * G:(kh + 1) * G], [seg])
+    plain = tfa.causal_cache_attention_plain(tq, tk, tv, start, valid, kv_min)
+    torch.testing.assert_close(got, plain, rtol=0, atol=ATOL)
+    pallas = jfa.causal_cache_flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.int32(start), jnp.int32(valid),
+        gqa_groups=G, block_q=T, kv_min=jnp.int32(kv_min))
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=0, atol=ATOL)
 
 
 def _pack(values: np.ndarray, index: np.ndarray) -> np.ndarray:
