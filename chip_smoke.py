@@ -22,20 +22,22 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
                 with per-row prompt_max / region_start, stale +-999 cache
                 rows; B2 on a bf16 cache, B4 and B5 also at GQA group sizes
                 that do not divide 64: G 7, Qwen2.5-Omni's decoder heads,
-                and G 3; B3 at starts that are not multiples of its plan's
-                rows per block, 20 calls back to back and a CUDA-graph
-                replay of them; B2 on bf16 caches -- the tensor-core route,
+                and G 3; B3, which reads its position from device memory
+                on a fixed grid, at starts that are not multiples of its
+                blocks, with the position a host int and a device tensor,
+                20 calls back to back, a CUDA-graph replay of them and one
+                graph replayed at several positions; B2 on bf16 caches -- the tensor-core route,
                 T 5 at start 300 as the --spec verify -- and on an f32
                 cache; the greedy heads K6 / K7 on both routes, the
                 CUDA-core matvec and the tensor-core tile product, at R 1
                 to 130, an exact tie across blocks, V not a multiple of any
                 block or tile), then the sweep of R that sets the heads'
-                crossover, the sweeps of B3's blocks per KV head and of
-                B1's blocks per window, then timings against the plain
+                crossover, B3's fixed grid at start 0 (its floor) and the
+                sweep of B1's blocks per window, then timings against the plain
                 version and one PyTorch library call (B1 at the windows of
                 the offline, -S 20 and --serve 64 encode calls, B3 also at
                 a 4096-row context, B5 also at --serve 64's admission
-                wave); K8 (read_all) over
+                wave, B2 also on an f32 cache beside SDPA); K8 (read_all) over
                 the lm_head gives the card's read bandwidth, against which
                 each head kernel's time is set;
   4. main path- a seeded Qwen3-ASR-0.6B checkpoint (full width, random
@@ -61,9 +63,16 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
   8. wide     - `--serve 64` and `--serve 64 --q8` on 64 clips of 2-6 s:
                 every greedy head is 64 rows wide and must take the
                 tensor-core route (the CUDA-core head launches 0 times).
-Each path runs with the launch counts set to 0 just before it, and its
-counts must equal what its own bookkeeping (engine.perf) says, each head
-under the launch key of the route its rows take.
+Each path that decodes greedily runs twice, in turns: first with the
+decode loops' steps run eagerly on every replay, then as CUDA graphs (the
+path as it ships, runtime/decode_graph.py).  The two runs' decoded chunks
+(tokens and counts) must be equal, and every captured graph must launch
+its step's kernels once per replay.  Each run has the launch counts set
+to 0 just before it, and its counts must equal what its own bookkeeping
+(engine.perf) says, each head under the launch key of the route its rows
+take.  Decode ms per step and the device's idle share are measured for
+graph and eager steps in turns (eager, graph, graph, eager) at each
+path's batch and weights.
 
 Prints a `{"kernels": [...]}` line, the nvidia-smi line, and as its last
 line `{"ok": true, "device": {...}}`.  Without a card, or outside a
@@ -135,8 +144,10 @@ DESIGNS = {"window_attention": "tensor cores (f32 q/k/v: three mma.sync on hi / 
            "batched_cache_attention": "tensor cores (bf16 cache segments: two mma.sync per "
                                       "product; f32 cache and fresh K/V: three)",
            "batched_cache_attention_wide": "as batched_cache_attention",
-           "decode_attention": "f32 CUDA cores, one launch: a thread block cluster per KV head "
-                               "merging its blocks in distributed shared memory",
+           "decode_attention": "f32 CUDA cores, one launch of a fixed grid: a thread block "
+                               "cluster of 8 blocks per KV head, its rows worked out from the "
+                               "position it reads on the device, merging in distributed "
+                               "shared memory",
            "decode_attention_long": "as decode_attention",
            "read_all": "CUDA cores",
            "probe_mm": "f32 CUDA cores, register-tiled (4 x 4 per lane), cp.async ring"}
@@ -145,7 +156,12 @@ WINDOW_ROWS = (("window_attention", "window_lens"),                 # offline 20
                ("window_attention_segments", "seg_window_lens"),    # -S 20's encode call
                ("window_attention_wide", "wide_window_lens"))       # --serve 64's group
 DECODE_LONG = (4096, 4095)    # (K, start) of B3's long-context row
-DECODE_SWEEP_BLOCKS = (4, 8, 16)  # DECODE_MAX_BLOCKS values of the B3 plan sweep
+# decode steps per profiled window (one chunk): the graph's windows are
+# long enough that the chunk's own host read weighs as in a 64-step chunk;
+# an eager window traces some 6000 host ops a step, so it is kept short
+PROFILE_STEPS = {"eager": 8, "graph": 32}
+# graph vs eager per path (run_path), printed as one line at the end
+DECODE_RUNS = {}
 BUILD_CACHE_CHECKS = 5        # fresh processes that load the libraries from the cache
 HEAD_CHECK_ROWS = (1, 5, 6, 9, 11, 16, 33, 64, 130)   # R of the greedy-head checks
 MAIN_HEADS = (16, 8, 128)     # (H, KH, D) of the 0.6B decoder: G 2
@@ -165,6 +181,13 @@ def fail(msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_T0 = time.monotonic()
+
+
+def since(what: str) -> None:
+    log(f"{what} done, {time.monotonic() - _T0:.1f} s since the start")
 
 
 # ---------------------------------------------------------------------------
@@ -308,10 +331,11 @@ def batched_cache(B, K, start, kv_min, prompt_max=None, region_start=None, KH=8,
 
 
 def decode_row(K: int, start: int):
-    """B3's timing inputs at (K, start): (kernel, plain, SDPA, bound).  SDPA
-    gets the same rows in bf16 with the fresh row written into the cache at
-    `start`; the bound reads the live bf16 rows once, q, the fresh row and
-    the output in f32."""
+    """B3's timing inputs at (K, start): (kernel, plain, SDPA, bound).  The
+    kernel reads start from a device tensor, as the decode step passes it.
+    SDPA gets the same rows in bf16 with the fresh row written into the
+    cache at `start`; the bound reads the live bf16 rows once, q, the fresh
+    row and the output in f32."""
     import torch
     import torch.nn.functional as F
 
@@ -322,11 +346,12 @@ def decode_row(K: int, start: int):
     KH = kn.shape[0]
     nbytes = 4 * (2 * q.numel() + 2 * kn.numel()) + 2 * 2 * start * KH * D
     flops = 4 * H * D * (start + 1)
+    at = torch.tensor([start], dtype=torch.int32, device=DEV)   # the decode step's position
     k[start] = kn.to(torch.bfloat16)
     v[start] = vn.to(torch.bfloat16)
     qb = q.to(torch.bfloat16)[None, :, None, :]
     kb, vb = (x[: start + 1].permute(1, 0, 2)[None] for x in (k, v))
-    return (lambda: fa.decode_flash_attention(q, kn, vn, k, v, start, 0),
+    return (lambda: fa.decode_flash_attention(q, kn, vn, k, v, at),
             lambda: fa.decode_attention_plain(q, kn, vn, k, v, start, 0),
             lambda: F.scaled_dot_product_attention(qb, kb, vb, enable_gqa=True),
             bound(nbytes, flops, "bfloat16"))
@@ -400,8 +425,11 @@ def window_split_sweep(shapes) -> dict:
 
 def b2_f32_timing(shapes) -> str:
     """B2 on an f32 cache (the --f32 engine's prefill) at the main path's
-    prefill shape: kernel (turns), plain, and its bound on the tensor cores
-    (f32 cache rows read once)."""
+    prefill shape: kernel (turns), plain, SDPA on the same f32 rows and
+    mask, and its bound on the tensor cores (f32 cache rows read once)."""
+    import torch
+    import torch.nn.functional as F
+
     from smolvision_tpu_torch.kernels import flash_attention as fa
 
     T, K, valid = shapes["prefill_T"], shapes["kv_cap"], shapes["prompt_len"]
@@ -410,31 +438,17 @@ def b2_f32_timing(shapes) -> str:
     KH = k.shape[1]
     nbytes = 4 * 2 * q.numel() + 4 * 2 * valid * KH * D
     flops = 4 * H * D * sum(min(t + 1, valid) for t in range(T))
+    qh = q.permute(1, 0, 2)[None]
+    kh, vh = (x[:valid].permute(1, 0, 2)[None] for x in (k, v))
+    mask = torch.arange(valid, device=DEV)[None, :] <= torch.arange(T, device=DEV)[:, None]
     kern = lambda: fa.causal_cache_flash_attention(q, k, v, 0, valid)
     k1, k2 = time_ms(kern), time_ms(kern)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                         enable_gqa=True))
     bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
     return (f"kernel {k1:.4f}/{k2:.4f} ms, plain "
             f"{time_ms(lambda: fa.causal_cache_attention_plain(q, k, v, 0, valid)):.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by})")
-
-
-def decode_plan_sweep(K: int, start: int) -> dict:
-    """B3 with no live row (the fresh row alone: the launch, the cluster
-    barriers and the merge, the kernel's floor), at the main path's start
-    and at the long context, for each DECODE_MAX_BLOCKS of
-    DECODE_SWEEP_BLOCKS (blocks per KV head, one cluster): the time the
-    plan's cluster size buys."""
-    from smolvision_tpu_torch.kernels import flash_attention as fa
-
-    kept = fa.DECODE_MAX_BLOCKS
-    out = {}
-    try:
-        for n in DECODE_SWEEP_BLOCKS:
-            fa.DECODE_MAX_BLOCKS = n
-            out[n] = [time_ms(decode_row(K3, s)[0]) for K3, s in ((K, 0), (K, start), DECODE_LONG)]
-    finally:
-        fa.DECODE_MAX_BLOCKS = kept
-    return out
+            f"library (SDPA, f32) {lib:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
 
 
 def phase_kernels(shapes):
@@ -495,29 +509,34 @@ def phase_kernels(shapes):
                           f"H={H} KH={KH} D={D}", got, want)
         errs["causal_cache_attention"] = max(errs["causal_cache_attention"], err)
 
-    # B3: K 1024 / 4096, start in {0, 1, 37, 300, the main path's, K-1},
-    # kv_min 0 and > 0 (37 and the main path's start are not multiples of
-    # the plan's rows per block); then 20 calls back to back and one
-    # CUDA-graph replay of them, which must give the same output each time
-    # (the cluster merge leaves no state behind)
+    # B3: K 1024 / 4096, start in {0, 1, 5, 37, 300, the main path's, K-1},
+    # kv_min 0 and > 0 (fewer live rows than the grid's 8 blocks, and
+    # starts that are not multiples of 8), the position a host int and a
+    # device tensor; then 20 calls back to back and one CUDA-graph replay
+    # of them, which must give the same output each time (the cluster
+    # merge leaves no state behind), and the graph replayed at other
+    # positions by changing its position tensor alone
+    def at(x):
+        return torch.tensor([x], dtype=torch.int32, device=DEV)
+
     for K in (1024, 4096):
-        for start in (0, 1, 37, 300, shapes["decode_pos"], K - 1):
+        for start in (0, 1, 5, 37, 300, shapes["decode_pos"], K - 1):
             for kv_min in {0, min(17, start)}:
                 q, kn, vn, k, v = decode_case(K, start)
-                got = fa.decode_flash_attention(q, kn, vn, k, v, start, kv_min)
                 want = fa.decode_attention_plain(q, kn, vn, k, v, start, kv_min)
-                err = check_close(f"B3 K={K} start={start} kv_min={kv_min} "
-                                  f"plan={fa.decode_plan(start, kv_min)}", got, want)
-                errs["decode_attention"] = max(errs["decode_attention"], err)
-    q, kn, vn, k, v = decode_case(1024, shapes["decode_pos"])
+                for pos, lo in ((start, kv_min), (at(start), at(kv_min))):
+                    got = fa.decode_flash_attention(q, kn, vn, k, v, pos, lo)
+                    err = check_close(f"B3 K={K} start={start} kv_min={kv_min} "
+                                      f"{type(pos).__name__} position", got, want)
+                    errs["decode_attention"] = max(errs["decode_attention"], err)
+    q, kn, vn, k, v = decode_case(DECODE_LONG[0], shapes["decode_pos"])
+    pos = at(shapes["decode_pos"])
     want = fa.decode_attention_plain(q, kn, vn, k, v, shapes["decode_pos"], 0)
-    outs = [fa.decode_flash_attention(q, kn, vn, k, v, shapes["decode_pos"], 0)
-            for _ in range(20)]
+    outs = [fa.decode_flash_attention(q, kn, vn, k, v, pos) for _ in range(20)]
     if DEV == "cuda":
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            replayed = [fa.decode_flash_attention(q, kn, vn, k, v, shapes["decode_pos"], 0)
-                        for _ in range(20)]
+            replayed = [fa.decode_flash_attention(q, kn, vn, k, v, pos) for _ in range(20)]
         for o in replayed:
             o.fill_(float("nan"))
         graph.replay()
@@ -526,6 +545,19 @@ def phase_kernels(shapes):
     for i, o in enumerate(outs):
         errs["decode_attention"] = max(errs["decode_attention"],
                                        check_close(f"B3 back-to-back call {i}", o, want))
+    if DEV == "cuda":
+        # rows past decode_pos hold +-999: the grid's rows must follow the
+        # position the graph reads, not the one it was captured at
+        for start in (0, 1, shapes["decode_pos"] // 2, shapes["decode_pos"]):
+            pos.fill_(start)
+            graph.replay()
+            torch.cuda.synchronize()
+            want = fa.decode_attention_plain(q, kn, vn, k, v, start, 0)
+            for o in replayed:
+                errs["decode_attention"] = max(
+                    errs["decode_attention"],
+                    check_close(f"B3 graph replayed at start {start}", o, want))
+        del graph
 
     # B4: the -S run's batch and left pads; an all-pad row, kv_min > 0 in
     # every row, and a T that is not a multiple of the block's queries per
@@ -663,8 +695,9 @@ def phase_kernels(shapes):
                      bound(nbytes, flops, "bfloat16")))
         f32_bounds[name] = bound(nbytes, flops, "float32")
 
-    log(f"  decode plan sweep (DECODE_MAX_BLOCKS: ms at start 0 / {shapes['decode_pos']} / "
-        f"{DECODE_LONG[1]}): {json.dumps(decode_plan_sweep(K, shapes['decode_pos']))}")
+    log(f"  B3 on its fixed grid with no live row (the fresh row alone: the launch, the "
+        f"cluster barriers and the merge, the kernel's floor): "
+        f"{time_ms(decode_row(K, 0)[0]):.4f} ms")
     log(f"  window split sweep (blocks per (window, head): ms at "
         f"{' / '.join(name for name, _ in WINDOW_ROWS)}; the plan's pick): "
         f"{json.dumps(window_split_sweep(shapes))}")
@@ -1120,12 +1153,102 @@ def compare_paths(eng, samples, steps: int) -> dict:
     return out
 
 
-def profile_decode(eng, samples, steps: int = 16) -> dict:
-    """Device busy time and the top kernels over `steps` decode steps of the
-    main path (torch.profiler), against the host wall clock."""
+@contextlib.contextmanager
+def decode_mode(mode: str):
+    """The decode loops (runtime/decode_graph.py) as they ship ("graph": one
+    CUDA graph of the step, replayed) or with every replay running the step
+    eagerly ("eager": decode_graph.capture returns the step itself).  Yields
+    a record of every chunk's tokens and count and the launches per replay
+    of every captured graph (not the graph: it holds its loop's cache and
+    weights)."""
+    from smolvision_tpu_torch.runtime import decode_graph
+
+    rec = {"chunks": [], "graphs": []}   # graphs: each graph's launches per replay
+    run = decode_graph.DecodeLoop.run
+
+    def recording_run(self, *args, **kwargs):
+        out = run(self, *args, **kwargs)
+        rec["chunks"].append((out[0].tolist(), out[1]))
+        return out
+
+    class RecordingGraph(decode_graph.StepGraph):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            rec["graphs"].append(self.launches)
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(decode_graph.DecodeLoop, "run", recording_run))
+        stack.enter_context(mock.patch.object(decode_graph, "StepGraph", RecordingGraph))
+        if mode == "eager":
+            stack.enter_context(mock.patch.object(decode_graph, "capture",
+                                                  lambda step, stream: step))
+        yield rec
+
+
+def loop_windows(make_loop, tokens, pos: int, turns=("eager", "graph")) -> dict:
+    """Decode ms per step and the device's idle share of `make_loop()`'s
+    chunks of PROFILE_STEPS[mode] steps, eager and graph in turns, each
+    loop warmed by one chunk first (its capture).  Each mode also runs one
+    chunk untraced (host clock, synchronised): tracing slows a replay, so
+    its idle share is also given against the untraced time per step."""
     import torch
 
+    out = {}
+    for i, mode in enumerate(turns):
+        with decode_mode(mode):
+            loop = make_loop()
+            steps = PROFILE_STEPS[mode]
+            _, count, _ = loop.run(tokens, pos, steps)
+            state = {"tok": loop.tok.clone(), "pos": pos + count}
+
+            def chunk():
+                _, n, replays = loop.run(state["tok"], state["pos"], steps)
+                state["tok"], state["pos"] = loop.tok.clone(), state["pos"] + n
+                return replays
+
+            if DEV == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.monotonic()
+            ran = chunk()   # ends in the chunk's host read, which waits for the card
+            untraced = (time.monotonic() - t0) * 1e3 / max(ran, 1)
+            window = profile_window(chunk)
+            window["untraced_wall_ms_per_step"] = untraced
+            window["untraced_idle_share"] = 1.0 - window["device_busy_ms_per_step"] / untraced
+            out[f"{mode}_{i}"] = window
+            del loop
+    graph = [v for k, v in out.items() if k.startswith("graph")]
+    eager = [v for k, v in out.items() if k.startswith("eager")]
+    # the profiler must see the graph's kernels one by one for its busy time
+    # to count: a replay that shows as fewer kernels than the eager step has
+    # no idle share
+    seen = min(g["kernels_per_step"] for g in graph) >= 0.95 * min(
+        e["kernels_per_step"] for e in eager)
+    summary = {"graph_ms_per_step": [g["wall_ms_per_step"] for g in graph],
+               "eager_ms_per_step": [e["wall_ms_per_step"] for e in eager],
+               "graph_untraced_ms_per_step": [g["untraced_wall_ms_per_step"] for g in graph],
+               "eager_untraced_ms_per_step": [e["untraced_wall_ms_per_step"] for e in eager],
+               "graph_untraced_idle_share": [g["untraced_idle_share"] for g in graph],
+               "eager_untraced_idle_share": [e["untraced_idle_share"] for e in eager],
+               "graph_busy_ms_per_step": [g["device_busy_ms_per_step"] for g in graph],
+               "eager_busy_ms_per_step": [e["device_busy_ms_per_step"] for e in eager],
+               "graph_idle_share": ([g["device_idle_share"] for g in graph] if seen
+                                    else "not measured: the profiler did not list the "
+                                         "replays' kernels"),
+               "eager_idle_share": [e["device_idle_share"] for e in eager],
+               "kernels_per_step": {"graph": graph[0]["kernels_per_step"],
+                                    "eager": eager[0]["kernels_per_step"]},
+               "windows": out}
+    return summary
+
+
+def profile_decode(eng, samples) -> dict:
+    """The single-stream decode loop after the main path's prefill, eager
+    and graph in turns (`loop_windows`: eager, graph, graph, eager)."""
+    import torch
+
+    from smolvision_tpu_torch.models import qwen3_decoder as dec_mod
     from smolvision_tpu_torch.ops.mel import log_mel
+    from smolvision_tpu_torch.runtime.decode_graph import DecodeLoop
     from smolvision_tpu_torch.runtime.prompt import build_asr_prompt
 
     with torch.inference_mode():
@@ -1133,37 +1256,102 @@ def profile_decode(eng, samples, steps: int = 16) -> dict:
         ids, a0 = build_asr_prompt(eng.cfg, n_audio, eng._prompt_tokens, eng._force_tokens)
         eng.reset_kv()
         tok, pos = eng.prefill_ids(ids, enc, a0, n_audio)
-        state = {"tok": int(tok), "pos": pos}
+        kv = eng._ensure_kv(pos + 4 * PROFILE_STEPS["graph"])
+        p, cfg = eng.dec_params, eng.cfg
+        return loop_windows(lambda: DecodeLoop(
+            lambda t, at: dec_mod.decode_step(p, cfg, t, at, kv)[0].reshape(1),
+            1, kv, eng._kv_cap, eng.device, None), int(tok), pos,
+            ("eager", "graph", "graph", "eager"))
 
-        def step():
-            state["tok"] = int(eng.decode_step(state["tok"], state["pos"]))
-            state["pos"] += 1
 
-        for _ in range(4):  # warm-up steps outside the window
-            step()
-        return profile_window(step, steps)
+def replay_launches(eng, cfg, batch: int) -> dict:
+    """The launches one replay of a decode step makes: single stream (batch
+    0) B3 once per layer and the head once; batched the head once (its
+    attention is plain torch)."""
+    import torch
+
+    from smolvision_tpu_torch.kernels import argmax_matvec as am
+    from smolvision_tpu_torch.ops.quant import QuantW
+
+    head = eng.dec_params["lm_head"]
+    dtype = torch.int8 if isinstance(head, QuantW) else head.dtype
+    key = am.launch_key(am.head_route(max(batch, 1), dtype), dtype)
+    return {key: 1} if batch else {"decode_attention": cfg.dec_layers, key: 1}
+
+
+def decode_ms_per_step(perf) -> float:
+    if perf.batch_decode_steps:
+        return perf.batch_decode_ms / perf.batch_decode_steps
+    return (perf.decode_ms - perf.prefill_ms) / max(perf.decode_steps, 1)
+
+
+def run_path(argv, name: str, cfg, batch: int = 0, wave: int = 0):
+    """One path through the CLI twice, in turns: the decode loops' steps run
+    eagerly, then as CUDA graphs.  Each run's launches must equal its own
+    bookkeeping; the two runs' decoded chunks (tokens and counts) must be
+    equal; every graph must launch its step's kernels once per replay.
+    Returns the graph run's (engine, launches, stdout lines, wall s)."""
+    import gc
+
+    import torch
+
+    runs = {}
+    for mode in ("eager", "graph"):
+        if DEV == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        with decode_mode(mode) as rec:
+            eng, launches, lines, wall_s = run_cli(argv, f"{name} ({mode})")
+        check_launches(f"{name} ({mode})", launches, eng, cfg, batch, wave)
+        perf = eng.perf
+        runs[mode] = {"rec": rec, "lines": lines,
+                      "decode_ms_per_step": decode_ms_per_step(perf),
+                      "steps": perf.decode_steps + perf.batch_decode_steps,
+                      "wasted_steps": perf.wasted_steps, "captures": perf.graph_captures,
+                      "capture_ms": perf.graph_capture_ms, "wall_s": wall_s,
+                      "max_memory_allocated_gib":
+                          torch.cuda.max_memory_allocated() / 2**30 if DEV == "cuda" else 0.0}
+        if mode == "eager":
+            del eng
+            gc.collect()
+    eager, graph = runs["eager"], runs["graph"]
+    if not graph["rec"]["chunks"]:
+        fail(f"{name}: no decode chunk ran")
+    if graph["rec"]["chunks"] != eager["rec"]["chunks"] or graph["lines"] != eager["lines"]:
+        first = next((i for i, (a, b) in enumerate(zip(graph["rec"]["chunks"],
+                                                       eager["rec"]["chunks"])) if a != b), None)
+        fail(f"{name}: the graph run's decoded chunks differ from the eager run's (first at "
+             f"chunk {first} of {len(graph['rec']['chunks'])} / {len(eager['rec']['chunks'])})")
+    want = replay_launches(eng, cfg, batch)
+    graphs = graph["rec"]["graphs"]
+    if DEV == "cuda" and (not graphs or any(g != want for g in graphs)):
+        fail(f"{name}: launches per replay {graphs}, expected {want}")
+    if any(eager["rec"]["graphs"]):
+        fail(f"{name}: an eager step was captured as a graph")
+    summary = {"tokens_equal_chunks": len(graph["rec"]["chunks"]),
+               "launches_per_replay": want, "graphs": len(graphs)}
+    for key in ("decode_ms_per_step", "steps", "wasted_steps", "captures", "capture_ms",
+                "wall_s", "max_memory_allocated_gib"):
+        summary[key] = {"eager": eager[key], "graph": graph[key]}
+    DECODE_RUNS[name] = summary
+    log(f"  {name}: graph vs eager: {json.dumps(summary)}")
+    return eng, launches, graph["lines"], graph["wall_s"]
 
 
 def phase_main_path(model_dir: str, wav: str, cfg):
-    import torch
-
     argv = ["-d", model_dir, "-i", wav, "--silent", "--language", "English",
             "--max-tokens", str(MAX_TOKENS)]
-    if DEV == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    eng, launches, lines, wall_s = run_cli(argv, "main path")
+    eng, launches, lines, wall_s = run_path(argv, "main path", cfg)
     transcript = "\n".join(lines).strip()
     if not transcript:
         fail("empty transcript")
     perf = eng.perf
     log(f"main path: {wall_s:.2f} s wall incl. load ({perf.decode_steps} decode steps)")
-    check_launches("main path", launches, eng, cfg)
     if (perf.encodes, perf.prefills) != (1, 1) or perf.decode_steps == 0:
         fail(f"main path: {perf.encodes} encodes, {perf.prefills} prefills, "
              f"{perf.decode_steps} decode steps (expected 1, 1, > 0)")
     log(f"  transcript ({perf.text_tokens} text tokens): {transcript[:120]}")
-    log(f"  first run in the process: {perf_line(perf)}, max_memory_allocated "
-        f"{torch.cuda.max_memory_allocated() / 2**30 if DEV == 'cuda' else 0:.3f} GiB")
+    log(f"  graph run, second in the process: {perf_line(perf)}, max_memory_allocated "
+        f"{DECODE_RUNS['main path']['max_memory_allocated_gib']['graph']:.3f} GiB")
     return eng, launches
 
 
@@ -1243,9 +1431,10 @@ def batch_perf_line(perf, batch: int) -> str:
             f"{perf.text_tokens} text tokens")
 
 
-def profile_window(step, steps: int) -> dict:
-    """Device busy time, idle share and the top kernels over `steps` calls
-    of `step()` (torch.profiler), against the host wall clock."""
+def profile_window(run) -> dict:
+    """Device busy time, idle share and the top kernels of one call of
+    `run()`, which returns the decode steps it ran (torch.profiler), against
+    the host wall clock."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1253,8 +1442,7 @@ def profile_window(step, steps: int) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        for _ in range(steps):
-            step()
+        steps = run()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
     # device-side entries only (kernels, memcpy/memset): the CPU ops that
@@ -1263,6 +1451,7 @@ def profile_window(step, steps: int) -> dict:
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:6]
+    steps = max(steps, 1)
     return {
         "steps": steps, "wall_ms_per_step": wall_ms / steps,
         "device_busy_ms_per_step": busy_ms / steps,
@@ -1278,15 +1467,19 @@ def batched_inputs(eng, B: int, T: int, seed: int):
     table, so their scale is the model's) and random left pads."""
     import torch
 
+    from smolvision_tpu_torch.ops.quant import embed_rows
+
     g = torch.Generator(device="cpu").manual_seed(seed)
     ids = torch.randint(0, eng.cfg.vocab_size, (B, T), generator=g).to(eng.device)
     pads = torch.randint(0, T // 2, (B,), generator=g).to(torch.int32).to(eng.device)
     pads[0] = 0
-    return eng.dec_params["embed"][ids].float(), pads
+    return embed_rows(eng.dec_params["embed"], ids), pads
 
 
-def profile_batched_decode(eng, B: int, T: int, steps: int = 8) -> dict:
-    """The batched decode loop at batch B after a fresh prefill of T rows."""
+def profile_batched_decode(eng, B: int, T: int, natural: bool = False) -> dict:
+    """The batched decode loop at batch B after a fresh prefill of T rows
+    (serving's natural-layout masks with `natural`), eager and graph in
+    turns (`loop_windows`)."""
     import torch
 
     from smolvision_tpu_torch.models import qwen3_decoder as dec_mod
@@ -1294,19 +1487,26 @@ def profile_batched_decode(eng, B: int, T: int, steps: int = 8) -> dict:
 
     with torch.inference_mode():
         emb, pads = batched_inputs(eng, B, T, 3)
-        kv = pbatch.make_batched_kv(eng.cfg, B, T + 64, eng.batched_kv_dtype, eng.device)
+        kv = pbatch.make_batched_kv(eng.cfg, B, T + 4 * PROFILE_STEPS["graph"],
+                                    eng.batched_kv_dtype, eng.device)
         tok, kv = dec_mod.batched_prefill(eng.dec_params, eng.cfg, emb, kv, -pads, pads)
-        state = {"tok": tok, "pos": T}
+        inputs = {"rope_offset": pads, "kv_min": pads}
+        if natural:
+            inputs.update(prompt_max=torch.full_like(pads, T),
+                          region_start=torch.full_like(pads, T))
 
-        def step():
-            _, _, state["tok"], _ = pbatch.batched_decode_chunk(
-                eng.dec_params, eng.cfg, state["tok"], state["pos"], kv, 1, rope_offset=pads,
-                kv_min=pads)
-            state["pos"] += 1
+        class Loop:
+            """The batched loop with this window's inputs bound."""
 
-        for _ in range(4):  # warm-up steps outside the window
-            step()
-        return profile_window(step, steps)
+            def __init__(self):
+                self.inner = pbatch.batched_decode_loop(eng.dec_params, eng.cfg, kv, B,
+                                                        natural=natural)
+                self.tok = self.inner.tok
+
+            def run(self, tokens, pos, steps):
+                return self.inner.run(tokens, pos, steps, **inputs)
+
+        return loop_windows(Loop, tok, T)
 
 
 def compare_batched_paths(eng, B: int, T: int) -> dict:
@@ -1362,17 +1562,24 @@ def compare_batched_paths(eng, B: int, T: int) -> dict:
     return out
 
 
-def phase_segments(model_dir: str, wav: str, cfg, batch: int, extra=()):
+def profile_path(name: str, eng, B: int, T: int, natural: bool = False) -> None:
+    """The path's batched decode loop at its batch, cache and weights, eager
+    and graph in turns; kept in its DECODE_RUNS entry."""
+    prof = profile_batched_decode(eng, B, T, natural)
+    DECODE_RUNS[name]["profile"] = {k: v for k, v in prof.items() if k != "windows"}
+    log(f"  {name} decode loop at B {B}, eager and graph in turns: {json.dumps(prof)}")
+
+
+def phase_segments(model_dir: str, wav: str, cfg, batch: int, T: int, extra=()):
     """-S 20 on the long clip through the CLI: batched encode, one B4 launch
     per layer per length group, batched decode."""
     argv = ["-d", model_dir, "-i", wav, "-S", str(SEGMENT_SEC), "--silent", "--language",
             "English", "--max-tokens", str(MAX_TOKENS), *extra]
     name = " ".join([f"-S {SEGMENT_SEC}", *extra]) + " run"
-    eng, launches, lines, wall_s = run_cli(argv, name)
+    eng, launches, lines, wall_s = run_path(argv, name, cfg, batch=batch)
     perf = eng.perf
     log(f"{name}: {wall_s:.2f} s wall incl. load; {perf.fresh_prefills} length "
         f"group(s), {perf.encodes} batched encode(s)")
-    check_launches(name, launches, eng, cfg, batch=batch)
     if perf.fresh_prefills == 0 or perf.batch_decode_steps == 0:
         fail("-S run: no batched prefill or decode step ran")
     if perf.prefills or perf.decode_steps:
@@ -1381,6 +1588,7 @@ def phase_segments(model_dir: str, wav: str, cfg, batch: int, extra=()):
         fail(f"-S run: expected one transcript line, got {lines!r}")
     log(f"  transcript ({perf.text_tokens} text tokens): {lines[0][:120]}")
     log(f"  {name} perf: {batch_perf_line(perf, batch)}")
+    profile_path(name, eng, batch, T)
     return eng, launches
 
 
@@ -1393,19 +1601,18 @@ def serving_widths(n_clips: int, slots: int):
     return S, 1 << (G - 1).bit_length() if G > 1 else 1
 
 
-def phase_serving(model_dir: str, wavs, cfg, extra=(), slots: int = SERVE_SLOTS,
+def phase_serving(model_dir: str, wavs, cfg, T: int, extra=(), slots: int = SERVE_SLOTS,
                   max_tokens: int = SERVE_MAX_TOKENS, min_waves: int = 2):
     """--serve over the clips: admission waves prefilled by B5 (by the
     two-part attention under --kv8)."""
     argv = ["-d", model_dir, "-i", *wavs, "--serve", str(slots), "--silent",
             "--language", "English", "--max-tokens", str(max_tokens), *extra]
     name = " ".join([f"--serve {slots}", *extra]) + " run"
-    eng, launches, lines, wall_s = run_cli(argv, name)
-    perf = eng.perf
     batch, wave = serving_widths(len(wavs), slots)
+    eng, launches, lines, wall_s = run_path(argv, name, cfg, batch=batch, wave=wave)
+    perf = eng.perf
     log(f"{name}: {wall_s:.2f} s wall incl. load; {len(wavs)} clips, "
         f"{perf.delta_prefills} admission waves of {wave} rows, decode at B {batch}")
-    check_launches(name, launches, eng, cfg, batch=batch, wave=wave)
     if perf.delta_prefills < min_waves:
         fail(f"--serve run: {perf.delta_prefills} admission wave(s), expected at least "
              f"{min_waves}")
@@ -1414,17 +1621,18 @@ def phase_serving(model_dir: str, wavs, cfg, extra=(), slots: int = SERVE_SLOTS,
     lat = perf.serving_latency
     log(f"  {name} perf: {batch_perf_line(perf, batch)}")
     log(f"  serving latency (ms): {json.dumps(lat)}")
+    profile_path(name, eng, batch, T, natural=True)
     return eng, launches
 
 
-def phase_serving_wide(model_dir: str, wavs, cfg) -> dict:
+def phase_serving_wide(model_dir: str, wavs, cfg, T: int) -> dict:
     """--serve 64 (the JAX package's documented serving width) on 64 clips,
     bf16 and --q8: every greedy head of the run is 64 rows wide and must
     take the tensor-core route (K6 / K7 tc = waves + steps, the CUDA-core
     head 0 times).  Returns the launches of each run."""
     runs = {}
     for extra in ((), ("--q8",)):
-        eng, launches = phase_serving(model_dir, wavs, cfg, extra, SERVE_WIDE_SLOTS,
+        eng, launches = phase_serving(model_dir, wavs, cfg, T, extra, SERVE_WIDE_SLOTS,
                                       SERVE_WIDE_MAX_TOKENS, min_waves=1)
         perf = eng.perf
         q8 = "_q8" if extra else ""
@@ -1494,11 +1702,12 @@ def spec_vs_plain(eng, samples, max_tokens: int, exact: bool) -> dict:
     return out
 
 
-def phase_int8(model_dir: str, wav: str, long_wav: str, serve_wavs, cfg, seg_B: int) -> dict:
+def phase_int8(model_dir: str, wav: str, long_wav: str, serve_wavs, cfg, shapes) -> dict:
     """--q8 and --spec on the 20 s clip, -S 20 --q8 --kv8 on the 120 s clip
-    and --serve 4 --kv8 on the 8 clips, each checked against engine.perf;
-    then the q8 kernel path against its plain path and --spec against plain
-    greedy on bf16 weights.  Returns the launches of each run."""
+    and --serve 4 --kv8 on the 8 clips, each checked against engine.perf
+    (--spec keeps its per-token host loop: one run); then the q8 kernel
+    path against its plain path and --spec against plain greedy on bf16
+    weights.  Returns the launches of each run."""
     from smolvision_tpu_torch.io.wav import load_wav
     from smolvision_tpu_torch.runtime import engine as eng_mod
 
@@ -1507,11 +1716,14 @@ def phase_int8(model_dir: str, wav: str, long_wav: str, serve_wavs, cfg, seg_B: 
     base = ["-d", model_dir, "-i", wav, "--silent", "--language", "English", "--max-tokens",
             str(MAX_TOKENS)]
     for flag in ("--q8", "--spec"):
-        eng, launches, lines, wall_s = run_cli(base + [flag], f"{flag} run")
+        if flag == "--q8":
+            eng, launches, lines, wall_s = run_path(base + [flag], f"{flag} run", cfg)
+        else:
+            eng, launches, lines, wall_s = run_cli(base + [flag], f"{flag} run")
+            check_launches(f"{flag} run", launches, eng, cfg)
         perf = eng.perf
         log(f"{flag} run: {wall_s:.2f} s wall incl. load ({perf.decode_steps} decode steps, "
             f"{perf.spec_iters} verify iterations)")
-        check_launches(f"{flag} run", launches, eng, cfg)
         if perf.prefills != 1 or (flag == "--q8") != eng.q8 or (flag == "--spec") != eng.spec:
             fail(f"{flag} run: {perf.prefills} prefills, q8 {eng.q8}, spec {eng.spec}")
         if flag == "--spec" and (perf.spec_iters == 0
@@ -1520,6 +1732,10 @@ def phase_int8(model_dir: str, wav: str, long_wav: str, serve_wavs, cfg, seg_B: 
         log(f"  transcript ({perf.text_tokens} text tokens): {' '.join(lines)[:120]}")
         log(f"  {flag} run perf: {perf_line(perf)}")
         if flag == "--q8":
+            prof = profile_decode(eng, clip)
+            DECODE_RUNS["--q8 run"]["profile"] = {k: v for k, v in prof.items()
+                                                  if k != "windows"}
+            log(f"  --q8 decode loop, eager and graph in turns: {json.dumps(prof)}")
             cmp = compare_paths(eng, clip, steps=MAX_TOKENS // 2)
             log(f"kernel path vs plain path on the card, --q8 weights: {json.dumps(cmp)}")
         else:
@@ -1530,10 +1746,11 @@ def phase_int8(model_dir: str, wav: str, long_wav: str, serve_wavs, cfg, seg_B: 
             log(f"--spec vs plain greedy on the card, bf16 weights: {json.dumps(cmp)}")
         runs[flag] = launches
         del eng
-    eng, runs["-S q8 kv8"] = phase_segments(model_dir, long_wav, cfg, seg_B,
-                                            extra=("--q8", "--kv8"))
+    eng, runs["-S q8 kv8"] = phase_segments(model_dir, long_wav, cfg, shapes["seg_B"],
+                                            shapes["seg_T"], extra=("--q8", "--kv8"))
     del eng
-    eng, runs["--serve kv8"] = phase_serving(model_dir, serve_wavs, cfg, extra=("--kv8",))
+    eng, runs["--serve kv8"] = phase_serving(model_dir, serve_wavs, cfg, shapes["serve_T"],
+                                             extra=("--kv8",))
     del eng
     return runs
 
@@ -1600,6 +1817,7 @@ def main() -> int:
         for line in entry.ptxas.splitlines():
             if "Used" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  [{entry.name}] {line.strip()}")
+    since("phase 2 (build)")
     for i in range(BUILD_CACHE_CHECKS):
         cache = build_cache_check()
         log(f"build cache, fresh process {i + 1} of {BUILD_CACHE_CHECKS}: loaded "
@@ -1646,6 +1864,7 @@ def main() -> int:
 
         cfg = detect_config(model_dir)
         table = phase_kernels(shapes) + phase_heads(cfg, shapes["seg_B"])
+        since("phase 3 (kernels)")
         if args.kernels_only:
             print(json.dumps({"kernels": table}))
             print(smi_line)
@@ -1656,8 +1875,10 @@ def main() -> int:
         from smolvision_tpu_torch.io.wav import load_wav
 
         clip = load_wav(wav)
-        log(f"  warm second run: {warm_run(eng, clip)}")
-        log(f"decode profile (bf16 main path): {json.dumps(profile_decode(eng, clip))}")
+        log(f"  warm third run: {warm_run(eng, clip)}")
+        prof = profile_decode(eng, clip)
+        DECODE_RUNS["main path"]["profile"] = {k: v for k, v in prof.items() if k != "windows"}
+        log(f"decode loop (bf16 main path), eager and graph in turns: {json.dumps(prof)}")
         cmp = compare_paths(eng, clip, steps=MAX_TOKENS // 2)
         log(f"kernel path vs plain path on the card, bf16 weights: {json.dumps(cmp)}")
         del eng
@@ -1676,23 +1897,31 @@ def main() -> int:
             f"{json.dumps(cmp)}")
         del eng
 
+        since("phase 4 (main path)")
+
         # phase 5: -S 20 on the long clip (batched segments: B1, B4)
-        eng, seg_launches = phase_segments(model_dir, long_wav, cfg, shapes["seg_B"])
-        log(f"batched decode profile (bf16, B {shapes['seg_B']}): "
-            f"{json.dumps(profile_batched_decode(eng, shapes['seg_B'], shapes['seg_T']))}")
+        eng, seg_launches = phase_segments(model_dir, long_wav, cfg, shapes["seg_B"],
+                                           shapes["seg_T"])
         cmp = compare_batched_paths(eng, shapes["seg_B"], shapes["seg_T"])
         log(f"batched kernel path vs plain path on the card, bf16 weights: {json.dumps(cmp)}")
         del eng
 
+        since("phase 5 (-S 20)")
+
         # phase 6: --serve over the mixed clips (admission waves: B5)
-        eng, serve_launches = phase_serving(model_dir, serve_wavs, cfg)
+        eng, serve_launches = phase_serving(model_dir, serve_wavs, cfg, shapes["serve_T"])
         del eng
 
+        since("phase 6 (--serve 4)")
+
         # phase 7: --q8, --spec, -S 20 --q8 --kv8, --serve 4 --kv8
-        int8_runs = phase_int8(model_dir, wav, long_wav, serve_wavs, cfg, shapes["seg_B"])
+        int8_runs = phase_int8(model_dir, wav, long_wav, serve_wavs, cfg, shapes)
+
+        since("phase 7 (int8)")
 
         # phase 8: --serve 64 and --serve 64 --q8 (the heads on the tensor cores)
-        wide_runs = phase_serving_wide(model_dir, wide_wavs, cfg)
+        wide_runs = phase_serving_wide(model_dir, wide_wavs, cfg, shapes["wide_T"])
+        since("phase 8 (--serve 64)")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1717,6 +1946,7 @@ def main() -> int:
         row["kernel_ms"] = row["ms"]
     keys = ("name", "route", "design", "source", "replaces", "launches", "max_abs_err", "ms",
             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log(f"decode loops, graph vs eager per path: {json.dumps(DECODE_RUNS)}")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in table]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

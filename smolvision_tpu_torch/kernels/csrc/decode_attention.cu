@@ -7,25 +7,34 @@
 // past `start` are neither read nor computed, so the cost follows the live
 // context, not the cache capacity.
 //
+// `start` and `kv_min` are read from device memory, as the Pallas kernel
+// takes them as scalar-prefetch operands: the decode step keeps its
+// position on the device, and one CUDA graph of the step replays at every
+// position (runtime/decode_graph.py).  So the grid cannot follow the
+// position either: it is fixed, and each block works out its own rows.
+//
 // Bound on the card: bytes.  Each cache row is read once for ~4 G D flops,
 // orders of magnitude below the card's ops:byte balance, so the time is the
 // live rows' bytes at the memory rate plus the latency of getting them in
 // flight.  The design:
-//   * one launch: a thread block cluster per KV head, grid (n, KH), cluster
-//     (n, 1, 1), n <= 16 (kMaxBlocks, non-portable above 8).  Block r of the
-//     cluster takes the live rows [kv_min + r chunk, kv_min + (r+1) chunk)
-//     (n and chunk from the host planner `decode_plan` in
-//     kernels/flash_attention.py) and leaves its partial (m, l, acc[G][D])
-//     in its own shared memory; after cluster.sync() the output's 4-column
-//     quads are dealt out over the cluster's threads, and each reads every
-//     peer's (m, l, acc quad) at once through distributed shared memory and
-//     folds in the fresh row (its values fetched at the start, so the merge
-//     waits on no device-memory load); a second cluster.sync() keeps each
-//     block's shared memory alive until its peers have read it.  Nothing
-//     goes through device memory between the blocks, so there is no scratch
-//     to reset, and back-to-back calls and CUDA-graph replays need no
-//     memset.  Clusters of up to 8 blocks (portable) are what the planner
-//     asks for: 12 and 16 were slower on the H100 (PERF.md);
+//   * one launch: a thread block cluster of kBlocks (8, the portable
+//     cluster size) blocks per KV head, grid (kBlocks, KH).  Block r of the
+//     cluster takes the live rows [kv_min + r chunk, kv_min + (r+1) chunk),
+//     chunk = ceil((start - kv_min) / kBlocks), worked out in the kernel; a
+//     block with no live row leaves an empty partial (m = -1e30, l = 0,
+//     acc = 0), which the merge weighs by exp2(-1e30 - m) = 0.  Each block
+//     leaves its partial (m, l, acc[G][D]) in its own shared memory; after
+//     cluster.sync() the output's 4-column quads are dealt out over the
+//     cluster's threads, and each reads every peer's (m, l, acc quad) at
+//     once through distributed shared memory and folds in the fresh row
+//     (its values fetched at the start, so the merge waits on no
+//     device-memory load); a second cluster.sync() keeps each block's
+//     shared memory alive until its peers have read it.  Nothing goes
+//     through device memory between the blocks, so there is no scratch to
+//     reset, and back-to-back calls and CUDA-graph replays need no memset.
+//     8 blocks per KV head is what the host planner of the earlier design
+//     picked at every live range above 112 rows, and 12 or 16 were slower
+//     on the H100 at 315 and 4095 rows (PERF.md);
 //   * every row in flight at once: a block's rows go in tiles of kTile rows
 //     (K + V 4 KB) to its 8 warps in turn; each warp copies its own tiles
 //     with 16-byte cp.async into a private ring of kStages tiles, so up to
@@ -44,7 +53,8 @@
 //
 // Layout: q [H, D] f32; k_new/v_new [KH, D] f32; k/v cache [K, KH, D] (bf16
 // or f32) with unit element stride, head stride D, row stride `row_stride`
-// (16-byte aligned rows); out [H, D] f32.
+// (16-byte aligned rows); start and kv_min one int32 each (kv_min may be
+// null: 0); out [H, D] f32.
 
 #include <cooperative_groups.h>
 
@@ -58,7 +68,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = 8;
-constexpr int kMaxBlocks = 16;          // blocks per cluster (one KV head)
+constexpr int kBlocks = 8;              // blocks per cluster (one KV head)
 constexpr int kWarpTileBytes = 4096;    // K + V of one warp tile
 constexpr int kStages = 4;              // warp tiles in flight per warp
 constexpr int kSmem = kWarps * kStages * kWarpTileBytes;
@@ -113,7 +123,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 decode_kernel(const float* __restrict__ q, const float* __restrict__ k_new,
               const float* __restrict__ v_new, const KV* __restrict__ k,
               const KV* __restrict__ v, float* __restrict__ out, int G, long long row_stride,
-              int kv_min, int start, int chunk, float scale) {
+              const int* __restrict__ start_at, const int* __restrict__ kv_min_at, float scale) {
     using S = Shape<D, KV>;
     constexpr int kEpl = S::kEpl, kLpr = S::kLpr, kRpw = S::kRpw, kTile = S::kTile;
     constexpr int kSteps = S::kSteps;
@@ -126,9 +136,12 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k_new,
 
     cg::cluster_group cluster = cg::this_cluster();
     const int rank = static_cast<int>(cluster.block_rank());
-    const int n_ranks = static_cast<int>(cluster.num_blocks());
     const int kh = blockIdx.y;
     const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    // the position from device memory; the block's share of the live rows
+    const int start = *start_at;
+    const int kv_min = kv_min_at != nullptr ? *kv_min_at : 0;
+    const int chunk = (max(start - kv_min, 0) + kBlocks - 1) / kBlocks;
     const int lo = kv_min + rank * chunk;
     const int hi = min(lo + chunk, start);
     // the block's tiles of kTile rows go to the warps in turn
@@ -176,7 +189,7 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k_new,
     }
     // this thread's quad of the output (merged at the end, below) and the
     // fresh row's values there, fetched now so the merge waits on no load
-    const int o = rank + tid * n_ranks;
+    const int o = rank + tid * kBlocks;
     const int og = o / kQuads, od = (o % kQuads) * 4;
     float4 vn4 = make_float4(0.f, 0.f, 0.f, 0.f);
     if (o < G * kQuads) {
@@ -301,35 +314,30 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k_new,
     }
 
     cluster.sync();  // every block's partial is in its shared memory
-    // quad o of the group's output goes to rank o % n_ranks: its thread
+    // quad o of the group's output goes to rank o % kBlocks: its thread
     // reads every peer's (m, l, acc quad) at once through distributed
     // shared memory and folds in the fresh row
     if (o < G * kQuads) {
-        float pm[kMaxBlocks], pl[kMaxBlocks];
-        float4 x[kMaxBlocks];
+        float pm[kBlocks], pl[kBlocks];
+        float4 x[kBlocks];
 #pragma unroll
-        for (int r = 0; r < kMaxBlocks; ++r) {
-            if (r < n_ranks) {
-                pm[r] = *cluster.map_shared_rank(&m_s[og], r);
-                pl[r] = *cluster.map_shared_rank(&l_s[og], r);
-                x[r] = *cluster.map_shared_rank(&part[o], r);
-            }
+        for (int r = 0; r < kBlocks; ++r) {
+            pm[r] = *cluster.map_shared_rank(&m_s[og], r);
+            pl[r] = *cluster.map_shared_rank(&l_s[og], r);
+            x[r] = *cluster.map_shared_rank(&part[o], r);
         }
         float mx = self_s[og];
 #pragma unroll
-        for (int r = 0; r < kMaxBlocks; ++r)
-            if (r < n_ranks) mx = fmaxf(mx, pm[r]);
+        for (int r = 0; r < kBlocks; ++r) mx = fmaxf(mx, pm[r]);
         const float fs = exp2f(self_s[og] - mx);
         float lt = fs;
         float4 a = make_float4(fs * vn4.x, fs * vn4.y, fs * vn4.z, fs * vn4.w);
 #pragma unroll
-        for (int r = 0; r < kMaxBlocks; ++r) {
-            if (r < n_ranks) {
-                const float f = exp2f(pm[r] - mx);
-                lt = fmaf(f, pl[r], lt);
-                a = make_float4(fmaf(f, x[r].x, a.x), fmaf(f, x[r].y, a.y),
-                                fmaf(f, x[r].z, a.z), fmaf(f, x[r].w, a.w));
-            }
+        for (int r = 0; r < kBlocks; ++r) {
+            const float f = exp2f(pm[r] - mx);
+            lt = fmaf(f, pl[r], lt);
+            a = make_float4(fmaf(f, x[r].x, a.x), fmaf(f, x[r].y, a.y), fmaf(f, x[r].z, a.z),
+                            fmaf(f, x[r].w, a.w));
         }
         const float inv = 1.f / fmaxf(lt, sv::kDenomFloor);
         float* dst = out + (kh * G + og) * D + od;
@@ -343,88 +351,87 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k_new,
 
 template <int D, typename KV, int kG>
 int launch_g(const float* q, const float* k_new, const float* v_new, const void* k,
-           const void* v, float* out, int H, int KH, long long row_stride, int start,
-           int kv_min, int n_blocks, int chunk, float scale, cudaStream_t stream) {
+             const void* v, float* out, int H, int KH, long long row_stride, const int* start,
+             const int* kv_min, float scale, cudaStream_t stream) {
     const int G = H / KH;
     auto* kernel = decode_kernel<D, KV, kG>;
     constexpr int smem = kSmem;
     static bool configured = false;
     if (!configured) {
-        cudaError_t e =
+        const cudaError_t e =
             cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (e == cudaSuccess)
-            e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
         if (e != cudaSuccess) return static_cast<int>(e);
         configured = true;
     }
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(n_blocks, KH);
+    cfg.gridDim = dim3(kBlocks, KH);
     cfg.blockDim = dim3(kThreads);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = n_blocks;
+    attr[0].val.clusterDim.x = kBlocks;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, q, k_new, v_new,
                                              static_cast<const KV*>(k), static_cast<const KV*>(v),
-                                             out, G, row_stride, kv_min, start, chunk, scale);
+                                             out, G, row_stride, start, kv_min, scale);
     if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, typename KV>
 int launch(const float* q, const float* k_new, const float* v_new, const void* k,
-           const void* v, float* out, int H, int KH, long long row_stride, int start,
-           int kv_min, int n_blocks, int chunk, float scale, cudaStream_t stream) {
+           const void* v, float* out, int H, int KH, long long row_stride, const int* start,
+           const int* kv_min, int n_blocks, float scale, cudaStream_t stream) {
     const int G = KH > 0 ? H / KH : 0;
-    if (G < 1 || G > kMaxG || n_blocks < 1 || n_blocks > kMaxBlocks) {
+    if (G < 1 || G > kMaxG || n_blocks != kBlocks || start == nullptr) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     if (G == 1)
         return launch_g<D, KV, 1>(q, k_new, v_new, k, v, out, H, KH, row_stride, start, kv_min,
-                                  n_blocks, chunk, scale, stream);
+                                  scale, stream);
     if (G == 2)
         return launch_g<D, KV, 2>(q, k_new, v_new, k, v, out, H, KH, row_stride, start, kv_min,
-                                  n_blocks, chunk, scale, stream);
+                                  scale, stream);
     if (G <= 4)
         return launch_g<D, KV, 4>(q, k_new, v_new, k, v, out, H, KH, row_stride, start, kv_min,
-                                  n_blocks, chunk, scale, stream);
+                                  scale, stream);
     return launch_g<D, KV, 8>(q, k_new, v_new, k, v, out, H, KH, row_stride, start, kv_min,
-                              n_blocks, chunk, scale, stream);
+                              scale, stream);
 }
 
 template <typename KV>
 int dispatch(const float* q, const float* k_new, const float* v_new, const void* k,
-             const void* v, float* out, int H, int KH, int D, long long row_stride, int start,
-             int kv_min, int n_blocks, int chunk, float scale, cudaStream_t st) {
+             const void* v, float* out, int H, int KH, int D, long long row_stride,
+             const int* start, const int* kv_min, int n_blocks, float scale, cudaStream_t st) {
     switch (D) {
         case 64:
             return launch<64, KV>(q, k_new, v_new, k, v, out, H, KH, row_stride, start, kv_min,
-                                  n_blocks, chunk, scale, st);
+                                  n_blocks, scale, st);
         case 128:
             return launch<128, KV>(q, k_new, v_new, k, v, out, H, KH, row_stride, start, kv_min,
-                                   n_blocks, chunk, scale, st);
+                                   n_blocks, scale, st);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
 
 }  // namespace
 
-// kv_bf16: 1 for a bf16 cache, 0 for f32.  n_blocks (1..16) blocks per KV
-// head, each taking `chunk` live rows from kv_min on; chunk 0 (no live
-// cache row) attends the fresh row only.
+// kv_bf16: 1 for a bf16 cache, 0 for f32.  start / kv_min: device pointers
+// to one int32 each (kv_min may be null: 0), read by the kernel.  n_blocks
+// must be kBlocks (8), the fixed cluster per KV head that the wrapper's
+// DECODE_MAX_BLOCKS names.
 extern "C" int sv_decode_attention(const float* q, const float* k_new, const float* v_new,
                                    const void* k, const void* v, float* out, int H, int KH, int D,
-                                   long long row_stride, int start, int kv_min, int n_blocks,
-                                   int chunk, int kv_bf16, float scale, void* stream) {
+                                   long long row_stride, const int* start, const int* kv_min,
+                                   int n_blocks, int kv_bf16, float scale, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (kv_bf16)
         return dispatch<__nv_bfloat16>(q, k_new, v_new, k, v, out, H, KH, D, row_stride, start,
-                                       kv_min, n_blocks, chunk, scale, st);
+                                       kv_min, n_blocks, scale, st);
     return dispatch<float>(q, k_new, v_new, k, v, out, H, KH, D, row_stride, start, kv_min,
-                           n_blocks, chunk, scale, st);
+                           n_blocks, scale, st);
 }

@@ -6,7 +6,9 @@ PyTorch's current stream, raises if the C function returns a CUDA error,
 and adds one to `launch_counts[name]` per launch.  The counts of all nine
 kernels (the greedy head under one key per route and weight type) live in
 this one dictionary, so one `reset_launch_counts()` sets every count to 0
-before a path runs.
+before a path runs.  A CUDA-graph replay runs no wrapper: the decode loop
+(runtime/decode_graph.StepGraph) adds the launches its capture recorded,
+once per replay, and takes back those the capture itself counted.
 """
 
 from __future__ import annotations

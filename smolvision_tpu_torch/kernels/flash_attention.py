@@ -15,7 +15,8 @@ adds one to `ffi.launch_counts[name]` (kernels/ffi.py) per launch; for CPU
 tensors it calls the plain torch version beside it (same contract: masks,
 kv_min / start_pos semantics, zero output for a row with no key).  There
 is no fallback: a CUDA tensor either goes through the kernel or the
-wrapper raises.
+wrapper raises.  `batched_decode_attention`, the batched decode step's
+attention, has no kernel: the JAX package computes it outside any kernel.
 
 All math is f32 with scale 1/sqrt(D) applied to q before the product.
 Shapes keep the JAX package's layouts ([W, S, H, D] windows, [K, KH, D]
@@ -32,12 +33,11 @@ from smolvision_tpu_torch.kernels import ffi
 
 NEG_INF = -1e30
 DENOM_FLOOR = 1e-30
-# the decode kernel's plan (B3): at most this many blocks (one thread block
-# cluster) per KV head, each taking at least this many live rows.  8, the
-# portable cluster size: clusters of 12 and 16 blocks were slower on an H100
-# at 315 and 4095 live rows (chip_smoke.py's decode plan sweep, PERF.md)
+# the decode kernel's fixed grid (B3): this many blocks (one thread block
+# cluster) per KV head at every position, each taking ceil(live / 8) of
+# the live rows, worked out in the kernel from the device position.  8, the
+# portable cluster size (csrc/decode_attention.cu's kBlocks)
 DECODE_MAX_BLOCKS = 8
-DECODE_MIN_ROWS = 16
 # B1 (csrc/window_attention.cu): a window of up to WINDOW_BLOCK_ROWS rows is
 # held whole by one block (or its rows by two, see `window_row_blocks`);
 # longer windows take query tiles of WINDOW_TILE_ROWS rows.  WINDOW_ROW_BLOCKS
@@ -51,7 +51,7 @@ WINDOW_ROW_BLOCKS = None
 _SIGNATURES = {
     "sv_window_attention": ("window_attention", "pppppiiiiifp"),
     "sv_causal_cache_attention": ("causal_cache_attention", "ppppiiiiliiiifp"),
-    "sv_decode_attention": ("decode_attention", "ppppppiiiliiiiifp"),
+    "sv_decode_attention": ("decode_attention", "ppppppiiilppiifp"),
     "sv_batched_causal_attention": ("batched_causal_attention", "pppppiiiiifp"),
     "sv_batched_cache_attention": ("batched_cache_attention", "ppppppppipiiiiillliifp"),
 }
@@ -205,46 +205,56 @@ def causal_cache_flash_attention(q, k_cache, v_cache, start_pos: int,
 # B3: single-token decode attention
 # ---------------------------------------------------------------------------
 
-def decode_attention_plain(q, k_new, v_new, k_cache, v_cache, start_pos: int,
-                           kv_min: int = 0):
+def decode_attention_plain(q, k_new, v_new, k_cache, v_cache, start_pos, kv_min=0):
     """q: [H, D] at cache row start_pos; k_new/v_new: [KH, D] (not yet in the
     cache, always attended); cache rows [kv_min, start_pos) are attended.
-    Returns [H, D] f32."""
+    Returns [H, D] f32.
+
+    With host ints it reads the live rows only.  With a device position (a
+    one-element int tensor, as the decode step keeps it; kv_min an int or
+    such a tensor) it is the fixed-shape form: every row of the [K] cache
+    under a mask built from the position, with no host read."""
     H, D = q.shape
     KH = k_new.shape[0]
     G = H // KH
-    lo = min(kv_min, start_pos)
-    keys = torch.cat([k_cache[lo:start_pos].float(), k_new.float()[None]])
-    vals = torch.cat([v_cache[lo:start_pos].float(), v_new.float()[None]])
+    if isinstance(start_pos, torch.Tensor):
+        cols = torch.arange(k_cache.shape[0], device=q.device)
+        km = kv_min.reshape(1) if isinstance(kv_min, torch.Tensor) else kv_min
+        live = (cols >= km) & (cols < start_pos.reshape(1))
+        mask = torch.cat([live, live.new_ones(1)])
+        keys = torch.cat([k_cache.float(), k_new.float()[None]])
+        vals = torch.cat([v_cache.float(), v_new.float()[None]])
+    else:
+        lo = min(kv_min, start_pos)
+        keys = torch.cat([k_cache[lo:start_pos].float(), k_new.float()[None]])
+        vals = torch.cat([v_cache[lo:start_pos].float(), v_new.float()[None]])
+        mask = torch.ones(keys.shape[0], dtype=torch.bool, device=q.device)
     qc = (q.float() * (1.0 / math.sqrt(D))).reshape(KH, G, D)
     s = torch.einsum("kgd,skd->kgs", qc, keys)
-    p = _masked_probs(s, torch.ones_like(s, dtype=torch.bool))
+    p = _masked_probs(s, mask)
     return torch.einsum("kgs,skd->kgd", p, vals).reshape(H, D)
 
 
-def decode_plan(start_pos: int, kv_min: int):
-    """(blocks per KV head, live rows per block) of the decode kernel: as
-    many blocks as the live rows fill at DECODE_MIN_ROWS each, at most
-    DECODE_MAX_BLOCKS (one cluster), the rows shared evenly; (1, 0) with
-    no live row (the fresh row alone)."""
-    live = max(start_pos - kv_min, 0)
-    if live == 0:
-        return 1, 0
-    n = min(-(-live // DECODE_MIN_ROWS), DECODE_MAX_BLOCKS)
-    chunk = -(-live // n)
-    return -(-live // chunk), chunk
+def _position_i32(x, device) -> torch.Tensor:
+    """A position as one int32 on `device`: a device tensor as it is
+    (converted only if it is not int32), a host int filled in on the
+    device (no host-to-device copy)."""
+    if isinstance(x, torch.Tensor):
+        ffi.require(x.numel() == 1, "a position tensor holds one int")
+        return x.to(device=device, dtype=torch.int32).reshape(1)
+    return torch.full((1,), int(x), dtype=torch.int32, device=device)
 
 
-def decode_flash_attention(q, k_new, v_new, k_cache, v_cache, start_pos: int,
-                           kv_min: int = 0):
+def decode_flash_attention(q, k_new, v_new, k_cache, v_cache, start_pos, kv_min=0):
     """One position's GQA attention over cache rows [kv_min, start_pos) plus
-    the fresh row (kernel B3 on CUDA: one launch, a thread block cluster per
-    KV head that merges its blocks' partials in shared memory, the blocks
-    and rows per block from `decode_plan`).  start_pos / kv_min are host
-    ints."""
+    the fresh row (kernel B3 on CUDA: one launch of a fixed grid, a thread
+    block cluster of DECODE_MAX_BLOCKS blocks per KV head that merges its
+    blocks' partials in shared memory).  The kernel reads start_pos and
+    kv_min from device memory: pass them as one-element device int tensors
+    (the decode step's position, which a CUDA graph holds) or host ints
+    (filled in on the device here; kv_min 0 is passed as none)."""
     if not q.is_cuda:
-        return decode_attention_plain(q, k_new, v_new, k_cache, v_cache,
-                                      start_pos, kv_min)
+        return decode_attention_plain(q, k_new, v_new, k_cache, v_cache, start_pos, kv_min)
     H, D = q.shape
     K, KH, _ = k_cache.shape
     ffi.check_cuda(q, k_new, v_new, k_cache, v_cache)
@@ -256,16 +266,22 @@ def decode_flash_attention(q, k_new, v_new, k_cache, v_cache, start_pos: int,
                 and H // KH <= 8, "GQA shapes disagree (or G > 8)")
     kv_bf16 = _kv_flag(k_cache, v_cache)
     ffi.require(D in (64, 128), f"head dim {D} not built (64, 128)")
-    ffi.require(0 <= kv_min and 0 <= start_pos <= K, "positions out of the cache")
+    for x, hi in ((start_pos, K), (kv_min, None)):
+        if not isinstance(x, torch.Tensor):  # a device position is checked by its owner
+            ffi.require(0 <= x and (hi is None or x <= hi), "positions out of the cache")
     ffi.require(k_cache.data_ptr() % 16 == 0 and v_cache.data_ptr() % 16 == 0
                 and (k_cache.stride(0) * k_cache.element_size()) % 16 == 0,
                 "cache rows must be 16-byte aligned")
-    n_blocks, chunk = decode_plan(start_pos, kv_min)
+    start = _position_i32(start_pos, q.device)
+    km = None
+    if isinstance(kv_min, torch.Tensor) or kv_min != 0:
+        km = _position_i32(kv_min, q.device)
+    ffi.check_cuda(q, start, *(() if km is None else (km,)))
     out = torch.empty_like(q)
     _call("sv_decode_attention", q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
           k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(), H, KH, D,
-          k_cache.stride(0), start_pos, kv_min, n_blocks, chunk, kv_bf16,
-          1.0 / math.sqrt(D), ffi.stream())
+          k_cache.stride(0), start.data_ptr(), None if km is None else km.data_ptr(),
+          DECODE_MAX_BLOCKS, kv_bf16, 1.0 / math.sqrt(D), ffi.stream())
     ffi.launch_counts["decode_attention"] += 1
     return out
 
@@ -374,6 +390,44 @@ def batched_cache_attention_plain(q, k_new, v_new, k_cache, v_cache, start_pos: 
     p = _masked_probs(s, mask[:, None, None])
     out = (torch.einsum("bkgts,bksd->btkgd", p[..., :start_pos], vc)
            + torch.einsum("bkgts,bskd->btkgd", p[..., start_pos:], v_new.float()))
+    return out.reshape(B, T, H, D)
+
+
+def batched_decode_attention(q, k_new, v_new, k_cache, v_cache, pos, kv_min,
+                             prompt_max=None, region_start=None):
+    """The batched decode step's attention at a device position: the JAX
+    package's `_batched_attention_two_part` (models/qwen3_decoder.py), which
+    it computes outside any kernel.  q: [B, T, H, D] at cache rows pos + t
+    (pos an int64 device tensor [1], batch-uniform); k_new/v_new: [B, T, KH,
+    D]; k/v_cache: [B, KH, K, D] f32 or bf16 (an int8 cache widened by
+    the caller).  Row b attends the cache columns [kv_min[b], pos) ∩ ([0,
+    prompt_max[b]) ∪ [region_start[b], K)) (every column of [kv_min[b], pos)
+    without prompt_max) and the fresh columns c <= t with pos + c >=
+    kv_min[b]: the contract of `batched_cache_attention_plain`, whose slices
+    need pos on the host.  Here every one of the K columns is read under a
+    mask built from pos, so the shapes are fixed and nothing is read back:
+    a CUDA graph holds it.  Returns [B, T, H, D] f32."""
+    B, T, H, D = q.shape
+    KH = k_new.shape[2]
+    K = k_cache.shape[2]
+    dev = q.device
+    km = kv_min.to(device=dev, dtype=torch.int64)
+    cols = torch.arange(K, device=dev)
+    live = (cols[None, :] < pos.reshape(1)) & (cols[None, :] >= km[:, None])      # [B, K]
+    if prompt_max is not None:
+        pm = prompt_max.to(device=dev, dtype=torch.int64)
+        rs = region_start.to(device=dev, dtype=torch.int64)
+        live = live & ((cols[None, :] < pm[:, None]) | (cols[None, :] >= rs[:, None]))
+    qc = (q.float() * (1.0 / math.sqrt(D))).reshape(B, T, KH, H // KH, D)
+    s = torch.cat([torch.einsum("btkgd,bksd->bkgts", qc, k_cache.float()),
+                   torch.einsum("btkgd,bskd->bkgts", qc, k_new.float())], dim=-1)
+    ar = torch.arange(T, device=dev)
+    fresh = ((ar[None, :] <= ar[:, None])[None]
+             & (pos.reshape(1) + ar[None, None, :] >= km[:, None, None]))    # [B, T, T]
+    mask = torch.cat([live[:, None, :].expand(B, T, K), fresh], dim=-1)
+    p = _masked_probs(s, mask[:, None, None])
+    out = (torch.einsum("bkgts,bksd->btkgd", p[..., :K], v_cache.float())
+           + torch.einsum("bkgts,bskd->btkgd", p[..., K:], v_new.float()))
     return out.reshape(B, T, H, D)
 
 

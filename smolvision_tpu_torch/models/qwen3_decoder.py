@@ -11,12 +11,16 @@ Port of the dense paths of smolvision_tpu/models/qwen3_decoder.py
   * every decode step runs kernel B3 over the live rows [0, pos) plus
     the fresh row, then writes that row into the cache; there is no
     cache-size crossover (the JAX package's FLASH_DECODE_MIN_KCAP is a TPU
-    measurement and does not apply here),
+    measurement and does not apply here).  The step takes its token and
+    position as device tensors (B3 reads the position from device memory,
+    the row is written with index_copy_), so one CUDA graph of it replays at
+    every position (runtime/decode_graph.py),
   * the batched decoder (segments, serving) keeps a [L, 2, B, KH, K, D]
     cache: fresh prefill runs kernel B4, delta prefill of a block of T > 1
     rows kernel B5, at every size (the JAX package's BATCHED_FLASH_MIN_T /
     BATCHED_DELTA_FLASH_MIN_T are TPU crossovers and do not apply here); a
-    batched decode step is plain torch, as in the JAX package,
+    batched decode step is plain torch, as in the JAX package, at a device
+    position: the whole cache under a mask (`batched_decode_step`),
   * activations: residual stream f32, matmul inputs cast to the weight
     dtype, f32 accumulation (ops/common.linear); int8 weights (--q8,
     ops/quant.QuantW) go through ops/quant.proj and embed_rows,
@@ -37,7 +41,7 @@ from __future__ import annotations
 
 import torch
 
-from smolvision_tpu_torch.config import EOS_TOKEN_IDS, ModelConfig
+from smolvision_tpu_torch.config import ModelConfig
 from smolvision_tpu_torch.device import resolve_device
 from smolvision_tpu_torch.kernels import argmax_matvec as am
 from smolvision_tpu_torch.kernels import flash_attention as fa
@@ -75,11 +79,13 @@ def _split_gate_up(gate_up: torch.Tensor):
     return gate_up[..., :I], gate_up[..., I:]
 
 
-def _attn_block(lp, h, kv, layer: int, cfg: ModelConfig, cos, sin, start_pos: int,
-                valid_len: int):
+def _attn_block(lp, h, kv, layer: int, cfg: ModelConfig, cos, sin, start_pos,
+                valid_len: int, pos32=None):
     """One layer's attention half: input RMSNorm -> fused QKV -> per-head Q/K
     norm -> RoPE -> causal GQA attention vs the cache -> o-proj residual.
-    Writes this block's K/V rows into kv[layer]."""
+    Writes this block's K/V rows into kv[layer].  A decode step (T == 1)
+    has start_pos as an int64 device tensor [1] and pos32 as its int32 copy,
+    which kernel B3 reads."""
     T = h.shape[0]
     H, KH, D = cfg.dec_heads, cfg.dec_kv_heads, cfg.dec_head_dim
     eps = cfg.rms_norm_eps
@@ -96,9 +102,9 @@ def _attn_block(lp, h, kv, layer: int, cfg: ModelConfig, cos, sin, start_pos: in
     k_cache, v_cache = kv[layer, 0], kv[layer, 1]
     if T == 1:
         attn = fa.decode_flash_attention(q[0].contiguous(), k[0].contiguous(),
-                                         v[0].contiguous(), k_cache, v_cache, start_pos)[None]
-        k_cache[start_pos] = k[0].to(kv.dtype)
-        v_cache[start_pos] = v[0].to(kv.dtype)
+                                         v[0].contiguous(), k_cache, v_cache, pos32)[None]
+        k_cache.index_copy_(0, start_pos, k.to(kv.dtype))
+        v_cache.index_copy_(0, start_pos, v.to(kv.dtype))
     else:
         k_cache[start_pos : start_pos + T] = k.to(kv.dtype)
         v_cache[start_pos : start_pos + T] = v.to(kv.dtype)
@@ -113,11 +119,12 @@ def _dense_ffn(xn, lp):
     return linear(silu(gate) * up, lp["w_down"])
 
 
-def decoder_forward(params, cfg: ModelConfig, embeds: torch.Tensor, start_pos: int,
+def decoder_forward(params, cfg: ModelConfig, embeds: torch.Tensor, start_pos,
                     valid_len: int, kv: torch.Tensor):
     """Run the layer stack over `embeds` [T, H] written into cache rows
-    start_pos..start_pos+T-1; T == 1 is a decode step (kernel B3), longer
-    blocks are prefill (kernel B2).
+    start_pos..start_pos+T-1; T == 1 is a decode step (kernel B3) at a
+    device position (an int64 tensor [1]; a host int is moved there),
+    longer blocks are prefill (kernel B2) at a host int start_pos.
 
     Returns (hidden [T, H] f32 pre-final-norm, kv) — kv is updated in place.
     Rows >= valid_len are junk; their cache rows are masked until overwritten.
@@ -125,13 +132,19 @@ def decoder_forward(params, cfg: ModelConfig, embeds: torch.Tensor, start_pos: i
     if isinstance(kv, QuantKV):
         raise ValueError("the int8 KV cache (--kv8) is batched-path only (make_batched_kv)")
     T = embeds.shape[0]
+    pos32 = None
+    if T == 1:
+        if not isinstance(start_pos, torch.Tensor):
+            start_pos = torch.full((1,), start_pos, dtype=torch.int64, device=embeds.device)
+        start_pos = start_pos.reshape(1)
+        pos32 = start_pos.to(torch.int32)
     positions = start_pos + torch.arange(T, device=embeds.device)
     cos, sin = rope_tables(positions, cfg.dec_head_dim, cfg.rope_theta)
     layers = params["layers"]
     h = embeds.float()
     for i in range(layers["wqkv"].shape[0]):
         lp = {key: take(val, i) for key, val in layers.items()}
-        h = _attn_block(lp, h, kv, i, cfg, cos, sin, start_pos, valid_len)
+        h = _attn_block(lp, h, kv, i, cfg, cos, sin, start_pos, valid_len, pos32)
         h = h + _dense_ffn(rms_norm(h, lp["post_ln"], cfg.rms_norm_eps), lp)
     return h, kv
 
@@ -166,9 +179,14 @@ def prefill(params, cfg: ModelConfig, embeds, start_pos: int, valid_len: int, kv
     return logits_at(params, cfg, hidden, valid_len - 1), kv
 
 
-def decode_step(params, cfg: ModelConfig, token, pos: int, kv, greedy: bool = True):
-    """One autoregressive step writing cache row `pos`."""
-    tok = torch.as_tensor(token, device=kv.device).reshape(1).long()
+def decode_step(params, cfg: ModelConfig, token, pos, kv, greedy: bool = True):
+    """One autoregressive step writing cache row `pos`.  In the decode loop
+    (runtime/decode_graph.py) token ([1] int) and pos (int64 [1]) are its
+    device tensors, which the CUDA graph of the step holds; host ints are
+    filled in on the device."""
+    if not isinstance(token, torch.Tensor):
+        token = torch.full((1,), int(token), dtype=torch.int64, device=kv.device)
+    tok = token.reshape(1).long()
     embed = embed_rows(params["embed"], tok)
     hidden, kv = decoder_forward(params, cfg, embed, pos, 1, kv)
     if greedy:
@@ -204,11 +222,16 @@ def build_embeds_batched(params, ids: torch.Tensor, audio: torch.Tensor,
     return torch.where(in_audio[..., None], audio_rows, emb)
 
 
-def batched_decoder_forward(params, cfg: ModelConfig, embeds: torch.Tensor, start_pos: int,
+def batched_decoder_forward(params, cfg: ModelConfig, embeds: torch.Tensor, start_pos,
                             kv, rope_start: torch.Tensor, kv_min: torch.Tensor,
                             fresh_prefill: bool = False, prompt_max=None, region_start=None):
     """Run the layer stack over `embeds` [B, T, H] written into cache rows
-    start_pos..start_pos+T-1 of every batch row.
+    start_pos..start_pos+T-1 of every batch row.  start_pos is a host int,
+    or, for the decode step, an int64 device tensor [1]: then the attention
+    reads the whole cache under a mask built from it
+    (`fa.batched_decode_attention`, the JAX package's full-Kcap two-part
+    form; an int8 cache widened whole) and the rows are written with
+    index_copy_, so nothing depends on the position's value on the host.
 
     rope_start [B]: logical position of block row 0 per row (negative for
     left-pad rows).  kv_min [B]: cache rows below it are left-pad garbage.
@@ -223,7 +246,10 @@ def batched_decoder_forward(params, cfg: ModelConfig, embeds: torch.Tensor, star
     B, T, _ = embeds.shape
     H, KH, D = cfg.dec_heads, cfg.dec_kv_heads, cfg.dec_head_dim
     eps = cfg.rms_norm_eps
-    if start_pos + T > kv.shape[4]:
+    device_pos = isinstance(start_pos, torch.Tensor)
+    if device_pos:  # its owner checks the rows against the cache on the host
+        rows = start_pos.reshape(1) + torch.arange(T, device=embeds.device)
+    elif start_pos + T > kv.shape[4]:
         raise ValueError(f"cache rows {start_pos}..{start_pos + T} past its {kv.shape[4]}")
     kv8 = isinstance(kv, QuantKV)
     positions = rope_start[:, None] + torch.arange(T, device=embeds.device)[None, :]
@@ -243,22 +269,28 @@ def batched_decoder_forward(params, cfg: ModelConfig, embeds: torch.Tensor, star
         k_cache, v_cache = kv[i, 0], kv[i, 1]                  # [B, KH, K, D]
         if fresh_prefill:
             attn = fa.batched_causal_flash_attention(q, k, v, kv_min)
+        elif device_pos:
+            if kv8:
+                k_cache, v_cache = kv_read(k_cache), kv_read(v_cache)
+            attn = fa.batched_decode_attention(q, k, v, k_cache, v_cache, start_pos, kv_min,
+                                               prompt_max, region_start)
         elif T > 1 and not kv8:
             attn = fa.batched_cache_flash_attention(q, k, v, k_cache, v_cache, start_pos, kv_min,
                                                     prompt_max, region_start)
         else:
-            # a decode step, or any block on an int8 cache: the JAX
-            # package's two-part attention, which it computes outside any
-            # kernel -- the same function as B5's plain version, here on
-            # the int8 rows widened to f32 with their scales
+            # a block at a host position on an int8 cache (or a one-row
+            # block): the JAX package's two-part attention, which it
+            # computes outside any kernel -- the same function as B5's
+            # plain version, here on the int8 rows widened to f32 with
+            # their scales
             if kv8:
                 k_cache, v_cache = kv_read(k_cache, start_pos), kv_read(v_cache, start_pos)
             attn = fa.batched_cache_attention_plain(q, k, v, k_cache, v_cache, start_pos,
                                                     kv_min, prompt_max, region_start)
         h = h + linear(attn.reshape(B, T, H * D), lp["wo"])
         h = h + _dense_ffn(rms_norm(h, lp["post_ln"], eps), lp)
-        kv_write(kv[i, 0], start_pos, k.transpose(1, 2))
-        kv_write(kv[i, 1], start_pos, v.transpose(1, 2))
+        kv_write(kv[i, 0], rows if device_pos else start_pos, k.transpose(1, 2))
+        kv_write(kv[i, 1], rows if device_pos else start_pos, v.transpose(1, 2))
     return h, kv
 
 
@@ -302,36 +334,14 @@ def batched_prefill_delta(params, cfg: ModelConfig, embeds, start_pos: int, kv, 
     return _greedy_or_logits(params, cfg, h_last, greedy), kv
 
 
-def batched_decode_chunk(params, cfg: ModelConfig, tokens: torch.Tensor, pos: int, kv,
-                         n_steps_cap: int, rope_offset, kv_min, n_steps=None, prompt_max=None,
-                         region_start=None, row_active=None):
-    """Greedy-decode up to n_steps (default n_steps_cap) tokens for every
-    row, stopping once every row has emitted an EOS (rows that finish first
-    keep decoding garbage into the buffer; the host truncates at EOS).
-
-    tokens [B]; pos is the batch-uniform cache row; the rope position of row
-    b is pos - rope_offset[b].  row_active [B] bool marks pad / duplicate
-    rows as done from the start, so the exit waits only on real rows.  A
-    host loop with the contract of the JAX package's device while_loop:
-    returns (buf [B, n_steps_cap] int32, count, last_tokens [B], kv).
-    """
-    B = tokens.shape[0]
-    dev = tokens.device
-    eos = torch.tensor(sorted(EOS_TOKEN_IDS), dtype=torch.int32, device=dev)
-    n_steps = n_steps_cap if n_steps is None else min(int(n_steps), n_steps_cap)
-    buf = torch.zeros((B, n_steps_cap), dtype=torch.int32, device=dev)
-    done = torch.isin(tokens, eos)
-    if row_active is not None:
-        done = done | ~row_active
-    toks = tokens.to(torch.int32)
-    i = 0
-    while i < n_steps and not bool(done.all()):
-        p = pos + i
-        embeds = embed_rows(params["embed"], toks.long())[:, None, :]
-        hidden, kv = batched_decoder_forward(params, cfg, embeds, p, kv, p - rope_offset, kv_min,
-                                             prompt_max=prompt_max, region_start=region_start)
-        toks = greedy_head(params, cfg, hidden[:, 0])
-        buf[:, i] = toks
-        done = done | torch.isin(toks, eos)
-        i += 1
-    return buf, i, toks, kv
+def batched_decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos: torch.Tensor, kv,
+                        rope_offset, kv_min, prompt_max=None, region_start=None) -> torch.Tensor:
+    """One greedy step of every row: tokens [B] int at the batch-uniform
+    cache row pos (an int64 device tensor [1]); the rope position of row b
+    is pos - rope_offset[b].  Returns the next tokens, int32 [B] (kernel K6
+    or K7).  Nothing is read back to the host: the batched decode loop
+    (runtime/decode_graph.py) captures it as one CUDA graph."""
+    embeds = embed_rows(params["embed"], tokens.long())[:, None, :]
+    hidden, _ = batched_decoder_forward(params, cfg, embeds, pos, kv, pos - rope_offset, kv_min,
+                                        prompt_max=prompt_max, region_start=region_start)
+    return greedy_head(params, cfg, hidden[:, 0])

@@ -152,17 +152,27 @@ def kv_zeros(shape: Sequence[int], dtype, device=None):
     return torch.zeros(tuple(shape), dtype=dtype, device=device)
 
 
-def kv_read(cache: QuantKV, end: int) -> torch.Tensor:
-    """Rows [0, end) of one int8 cache [B, KH, K, D] as f32 q * s."""
-    return cache.q[:, :, :end].float() * cache.s[:, :, :end, None]
+def kv_read(cache: QuantKV, end=None) -> torch.Tensor:
+    """Rows [0, end) of one int8 cache [B, KH, K, D] as f32 q * s; every row
+    with end None (the decode step at a device position reads them all,
+    under its mask)."""
+    q, s = (cache.q, cache.s) if end is None else (cache.q[:, :, :end], cache.s[:, :, :end])
+    return q.float() * s[..., None]
 
 
-def kv_write(cache, start: int, rows: torch.Tensor) -> None:
+def kv_write(cache, start, rows: torch.Tensor) -> None:
     """In place: cache [B, KH, K, D] rows [start, start + T) <- rows
     [B, KH, T, D] (f32), quantized per row into a QuantKV cache (the slice
-    write of the JAX package's kv_dus)."""
+    write of the JAX package's kv_dus).  start is a host int, or an int64
+    device tensor [T] of the rows' indices (the decode step's device
+    position: an index_copy_, which a CUDA graph holds)."""
     T = rows.shape[2]
-    if isinstance(cache, QuantKV):
+    if isinstance(start, torch.Tensor):
+        leaves = zip(cache, quantize_kv_rows(rows)) if isinstance(cache, QuantKV) else \
+            [(cache, rows.to(cache.dtype))]
+        for leaf, new in leaves:
+            leaf.index_copy_(2, start, new)
+    elif isinstance(cache, QuantKV):
         new = quantize_kv_rows(rows)
         cache.q[:, :, start : start + T] = new.q
         cache.s[:, :, start : start + T] = new.s

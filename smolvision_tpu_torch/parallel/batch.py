@@ -14,6 +14,7 @@ import torch
 from smolvision_tpu_torch.config import EOS_TOKEN_IDS, ModelConfig
 from smolvision_tpu_torch.models import qwen3_decoder as dec_mod
 from smolvision_tpu_torch.ops.quant import QuantKV, kv_grow_k  # noqa: F401
+from smolvision_tpu_torch.runtime.decode_graph import DecodeLoop
 
 # KV cache layout [L, 2, B, KH, K, D] -- see models/qwen3_decoder.py
 make_batched_kv = dec_mod.make_batched_kv
@@ -32,19 +33,45 @@ def batched_prefill(params, cfg: ModelConfig, embeds, kv, rope_start=None, kv_mi
                                    zeros if kv_min is None else kv_min, greedy=greedy)
 
 
+def batched_decode_loop(params, cfg: ModelConfig, kv, batch: int, perf=None,
+                        natural: bool = False) -> DecodeLoop:
+    """The batched greedy decode loop on cache `kv` (runtime/decode_graph.py:
+    one CUDA graph of the step on the card, replayed per token).  Its
+    inputs per chunk: rope_offset / kv_min [B], and with `natural` (the
+    natural layout of serving) prompt_max / region_start [B].  The loop
+    holds `kv`: make a new one when the cache is replaced."""
+    names = ("rope_offset", "kv_min") + (("prompt_max", "region_start") if natural else ())
+    zeros = torch.zeros((batch,), dtype=torch.int32)
+    return DecodeLoop(lambda tok, pos, **x: dec_mod.batched_decode_step(params, cfg, tok, pos,
+                                                                        kv, **x),
+                      batch, kv, kv.shape[4], kv.device, perf, {name: zeros for name in names})
+
+
 def batched_decode_chunk(params, cfg: ModelConfig, tokens, pos: int, kv, n_steps_cap: int,
                          rope_offset=None, kv_min=None, n_steps=None, prompt_max=None,
                          region_start=None, row_active=None):
-    """Greedy-decode up to n_steps (<= n_steps_cap) tokens for every row,
-    stopping once every active row has emitted an EOS.  pos is the cache row
-    shared by all rows; the rope position of row b is pos - rope_offset[b].
-    Returns (buf [B, n_steps_cap] int32, count, last_tokens [B], kv)."""
-    zeros = torch.zeros_like(tokens, dtype=torch.int32)
-    return dec_mod.batched_decode_chunk(
-        params, cfg, tokens, pos, kv, n_steps_cap,
-        zeros if rope_offset is None else rope_offset,
-        zeros if kv_min is None else kv_min, n_steps=n_steps, prompt_max=prompt_max,
-        region_start=region_start, row_active=row_active)
+    """Greedy-decode up to n_steps (<= n_steps_cap <= DECODE_CHUNK) tokens
+    for every row, stopping once every active row has emitted an EOS, on a
+    loop of its own (callers that decode many chunks keep a
+    `batched_decode_loop`).  pos is the cache row shared by all rows; the
+    rope position of row b is pos - rope_offset[b]; region_start is [B] or
+    an int.  The contract of the JAX package's device while_loop: returns
+    (buf [B, n_steps_cap] int32, count, last_tokens [B], kv)."""
+    B = tokens.shape[0]
+    dev = tokens.device
+    zeros = torch.zeros((B,), dtype=torch.int32, device=dev)
+    inputs = {"rope_offset": zeros if rope_offset is None else rope_offset,
+              "kv_min": zeros if kv_min is None else kv_min}
+    if prompt_max is not None:
+        inputs.update(prompt_max=prompt_max, region_start=torch.as_tensor(region_start).expand(B))
+    out = torch.zeros((B, n_steps_cap), dtype=torch.int32)
+    steps = n_steps_cap if n_steps is None else min(int(n_steps), n_steps_cap)
+    if steps <= 0:
+        return out, 0, tokens.to(torch.int32), kv
+    loop = batched_decode_loop(params, cfg, kv, B, natural=prompt_max is not None)
+    buf, count, _ = loop.run(tokens, pos, steps, row_active, **inputs)
+    out[:, :count] = torch.from_numpy(buf)
+    return out, count, loop.tok.clone(), kv
 
 
 def admit_rows(big, small, rows, G: int, src=None):

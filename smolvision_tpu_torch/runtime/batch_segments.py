@@ -300,18 +300,21 @@ def _decode_segment_group(engine, segments: Sequence[np.ndarray]) -> List[List[i
     tokens = first
     pos = tcap  # the cache row every batch row writes next
     produced = 1
+    loop = None  # the decode loop of the current cache (one CUDA graph on the card)
     while produced < engine.max_tokens and not all(done):
         steps = min(BATCH_DECODE_CHUNK, engine.max_tokens - produced)
         if pos + BATCH_DECODE_CHUNK + 1 > kcap:
             kcap = bucket64(pos + BATCH_DECODE_CHUNK + 64)
             kv = pbatch.kv_grow_k(kv, kcap)
+            loop = None
+        if loop is None:
+            loop = pbatch.batched_decode_loop(engine.dec_params, cfg, kv, B, perf)
         t0 = _now_ms()
-        buf, count, tokens, kv = pbatch.batched_decode_chunk(
-            engine.dec_params, cfg, tokens, pos, kv, BATCH_DECODE_CHUNK, rope_offset=kv_min,
-            kv_min=kv_min, n_steps=steps)
-        buf_host = buf.cpu().numpy()
+        buf_host, count, replays = loop.run(tokens, pos, steps, rope_offset=kv_min,
+                                            kv_min=kv_min)
+        tokens = loop.tok
         perf.batch_decode_ms += _now_ms() - t0
-        perf.batch_decode_steps += count
+        perf.batch_decode_steps += replays
         if count == 0:
             break
         for b in range(B):

@@ -11,8 +11,11 @@ options --q8 (int8 decoder weights), --kv8 (int8 batched KV cache) and
   * host-side text logic (prompt tokens, <asr_text> gating, callbacks),
   * perf counters matching the reference's stderr contract.
 
-PyTorch runs eagerly, so there are no jitted programs: decode is a plain
-per-token host loop (one device->host token read per step).  Phases are
+PyTorch runs eagerly, so there are no jitted programs.  Greedy decode is
+the reference's device loop in the form the card offers: one decode step
+captured as a CUDA graph and replayed per token, the token, position and
+EOS flag on the device, one host read per chunk of DECODE_CHUNK steps
+(runtime/decode_graph.py); --spec keeps a per-token host loop.  Phases are
 synchronised at their ends on the card so the per-phase times are the
 device's, not the enqueue's.
 """
@@ -43,6 +46,7 @@ from smolvision_tpu_torch.ops.mel import log_mel
 from smolvision_tpu_torch.ops.quant import embed_rows
 from smolvision_tpu_torch.runtime import prompt as prompt_mod
 from smolvision_tpu_torch.runtime.buckets import bucket, window_bucket
+from smolvision_tpu_torch.runtime.decode_graph import DECODE_CHUNK, DecodeLoop
 from smolvision_tpu_torch.text.tokenizer import Tokenizer, load_tokenizer
 
 KV_HEADROOM = 256
@@ -65,15 +69,23 @@ class PerfStats:
         self.decode_ms = 0.0   # prefill + decode loop (its "decoding")
         self.mel_ms = 0.0
         self.prefill_ms = 0.0
-        # decode_step calls (one kernel-B3 launch per layer each), the --spec
-        # draft steps included
+        # single-stream decode steps run (one kernel-B3 launch per layer
+        # each): graph replays and eager steps, those past the end of a
+        # chunk and the --spec draft steps included
         self.decode_steps = 0
+        # decode steps (single and batched) run after their chunk's end
+        # (runtime/decode_graph.py: the host learns of the end DONE_LAG
+        # replays late); their outputs are never read
+        self.wasted_steps = 0
+        # CUDA graphs of a decode step captured, and the host ms they took
+        self.graph_captures = 0
+        self.graph_capture_ms = 0.0
         # launches of the other kernels follow these counts, one per layer each:
         self.encodes = 0          # encoder stack calls (B1), single clips or batches
         self.prefills = 0         # single-stream prefills (B2)
         self.fresh_prefills = 0   # batched fresh prefills (B4): one per length group
         self.delta_prefills = 0   # batched delta prefills (B5): one per admission wave
-        self.batch_decode_steps = 0   # batched decode steps (plain attention)
+        self.batch_decode_steps = 0   # batched decode steps run (plain attention)
         self.batch_decode_ms = 0.0    # wall ms of the batched decode chunks
         # speculative decoding (--spec): verify forwards (one kernel-B2 launch
         # per layer each) and the tokens they produced (tokens / iteration is
@@ -167,6 +179,9 @@ class Engine:
 
         self._kv: Optional[torch.Tensor] = None
         self._kv_cap = 0
+        # the single-stream decode loop of the current cache (its CUDA graph
+        # holds the cache tensor): dropped whenever the cache is
+        self._loop: Optional[DecodeLoop] = None
 
     @property
     def batched_kv_dtype(self) -> torch.dtype:
@@ -238,6 +253,7 @@ class Engine:
     def reset_kv(self):
         self._kv = None
         self._kv_cap = 0
+        self._loop = None
 
     def _ensure_kv(self, needed: int) -> torch.Tensor:
         """Cache sized to a pow2 bucket; grows by copy when exceeded."""
@@ -250,6 +266,7 @@ class Engine:
             new[:, :, : self._kv_cap] = self._kv
             self._kv = new
             self._kv_cap = cap
+            self._loop = None
         return self._kv
 
     # ------------------------------------------------------------------
@@ -373,29 +390,59 @@ class Engine:
 
     def decode_greedy(self, first_token, start_pos: int, max_tokens: int,
                       on_token: Callable[[int], bool]) -> int:
-        """Per-token greedy loop (spec iterations under --spec).
+        """Greedy loop in device chunks of DECODE_CHUNK tokens (per-token
+        spec iterations under --spec).
 
         `on_token(tid) -> keep_going` sees every token in order (the prefill
         token first); EOS tokens end the loop before the callback, like the C
         loop (qwen_asr.c:788-818).  Returns the iteration count (C's
-        n_generated).  No step runs past the last token the caller can see.
-        """
-        pos = start_pos
+        n_generated).  A chunk runs on the device up to its first EOS and
+        is read once; the callbacks follow.  Gating never alters the
+        generated sequence, so running the model a chunk ahead of the host
+        is exact."""
+        if max_tokens <= 0:
+            return 0
         cur = int(first_token)
+        n = 1
+        if cur in EOS_TOKEN_IDS or not on_token(cur) or n >= max_tokens:
+            return n
+        if self.spec:
+            return self._decode_greedy_spec(cur, start_pos, max_tokens, on_token)
+        pos = start_pos
+        while True:
+            steps = min(DECODE_CHUNK, max_tokens - n)
+            kv = self._ensure_kv(pos + steps + 1)
+            if self._loop is None:
+                p, cfg = self.dec_params, self.cfg
+                self._loop = DecodeLoop(
+                    lambda tok, at, kv=kv: dec_mod.decode_step(p, cfg, tok, at, kv)[0].reshape(1),
+                    1, kv, self._kv_cap, self.device, self.perf)
+            buf, count, replays = self._loop.run(cur, pos, steps)
+            self.perf.decode_steps += replays
+            for t in buf[0].tolist():
+                n += 1
+                if t in EOS_TOKEN_IDS or not on_token(t) or n >= max_tokens:
+                    return n
+            if count == 0:
+                return n
+            cur = int(buf[0, -1])
+            pos += count
+
+    def _decode_greedy_spec(self, cur: int, pos: int, max_tokens: int,
+                            on_token: Callable[[int], bool]) -> int:
+        """decode_greedy under --spec, past the prefill token: a host loop of
+        speculative iterations, each giving the next 1..SPEC_DRAFT + 1
+        tokens.  No iteration runs past the last token the caller sees."""
         pending = deque()
-        n = 0
-        while n < max_tokens:
+        n = 1
+        while True:
+            if not pending:
+                pending.extend(self.spec_iteration(cur, pos, max_tokens - n))
+            cur = pending.popleft()
+            pos += 1
             n += 1
             if cur in EOS_TOKEN_IDS or not on_token(cur) or n >= max_tokens:
-                break
-            if self.spec:
-                if not pending:
-                    pending.extend(self.spec_iteration(cur, pos, max_tokens - n))
-                cur = pending.popleft()
-            else:
-                cur = int(self.decode_step(cur, pos))
-            pos += 1
-        return n
+                return n
 
     # ------------------------------------------------------------------
     # segment transcription (the core ASR path)

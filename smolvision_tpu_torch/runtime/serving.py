@@ -117,6 +117,7 @@ def decode_continuous(engine, clips: Sequence[np.ndarray], slots: int = 32,
     kv_min = torch.zeros((S,), dtype=torch.int32, device=dev)
 
     clock = pcap                         # shared decode-region write head
+    loop = None                          # the decode loop of `kv` (one CUDA graph)
     emitted = 0                          # clips fully decoded
     admitted = 0                         # clips admitted so far
     tokens_dev = torch.zeros((S,), dtype=torch.int32, device=dev)
@@ -237,15 +238,16 @@ def decode_continuous(engine, clips: Sequence[np.ndarray], slots: int = 32,
         if clock + steps + 1 > kcap:
             kcap = bucket64(clock + chunk + 64)
             kv = pbatch.kv_grow_k(kv, kcap)
-        act = torch.as_tensor(np.asarray([not d for d in slot_done]), device=dev)
+            loop = None
+        if loop is None:
+            loop = pbatch.batched_decode_loop(engine.dec_params, cfg, kv, S, perf, natural=True)
         t_dec = bs_mod._now_ms()
-        buf, count, tokens_dev, kv = pbatch.batched_decode_chunk(
-            engine.dec_params, cfg, tokens_dev, clock, kv, chunk, rope_offset=i32(rope_off),
-            kv_min=kv_min, n_steps=steps, prompt_max=i32(prompt_max),
-            region_start=i32(region_min), row_active=act)
-        buf_h = buf.cpu().numpy()
+        buf_h, count, replays = loop.run(
+            tokens_dev, clock, steps, row_active=np.asarray([not d for d in slot_done]),
+            rope_offset=rope_off, kv_min=kv_min, prompt_max=prompt_max, region_start=region_min)
+        tokens_dev = loop.tok
         perf.batch_decode_ms += bs_mod._now_ms() - t_dec
-        perf.batch_decode_steps += count
+        perf.batch_decode_steps += replays
         # behind the chunk: keep the encode queue ahead of admission and
         # prefill the next wave before any slot frees
         if next_enc < n and next_enc - admitted < 2 * S:

@@ -337,13 +337,16 @@ def test_cuda_new_routes_refuse_what_they_do_not_take():
 
 @pytest.mark.cuda
 def test_cuda_decode_attention_plan_boundaries_and_replays():
-    """B3 (one launch, a thread block cluster per KV head) at the plan's
-    boundaries: no live row, one, a range that is not a multiple of the
-    rows per block, one block of 16 rows and two, a full cluster (315 and
-    4095 rows), kv_min > 0 and past start; G 1 / 2 / 8, D 64 / 128, bf16 and
-    f32 caches.  Then 20 calls back to back and one CUDA-graph replay of
-    them give the plain version's output every time: the merge leaves no
-    state behind."""
+    """B3 (one launch of a fixed grid: a thread block cluster of 8 blocks
+    per KV head, each block's rows worked out from the position it reads
+    on the device) at the grid's boundaries: no live row, fewer live rows
+    than blocks, a range that is not a multiple of 8, a full context (315
+    and 4095 rows), kv_min > 0 and past start; G 1 / 2 / 8, D 64 / 128,
+    bf16 and f32 caches; the position as a host int and as a device tensor.
+    Then 20 calls back to back and one CUDA-graph replay of them give the
+    plain version's output every time (the merge leaves no state behind),
+    and one graph replays at start 0 / 315 / 4095 by changing its position
+    tensor alone."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (kernels are built with nvcc for sm_90a)")
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -351,28 +354,32 @@ def test_cuda_decode_attention_plan_boundaries_and_replays():
     def randn(*shape, dtype=torch.float32):
         return torch.randn(*shape, device="cuda", generator=g).to(dtype)
 
+    def dev(x):
+        return torch.tensor([x], dtype=torch.int32, device="cuda")
+
     before = ffi.launch_counts["decode_attention"]
     n = 0
     for D, H, KH in ((128, 16, 8), (64, 8, 8), (128, 8, 1)):
         for dtype in (torch.bfloat16, torch.float32):
-            for start, kv_min in ((0, 0), (1, 0), (16, 0), (17, 0), (37, 0), (315, 0),
+            for start, kv_min in ((0, 0), (1, 0), (5, 0), (16, 0), (17, 0), (37, 0), (315, 0),
                                   (315, 23), (40, 50), (4095, 0), (4096, 7)):
                 q, kn, vn = randn(H, D), randn(KH, D), randn(KH, D)
                 k, v = randn(4096, KH, D, dtype=dtype), randn(4096, KH, D, dtype=dtype)
                 k[start:], v[start:] = 999.0, -999.0
-                torch.testing.assert_close(
-                    tfa.decode_flash_attention(q, kn, vn, k, v, start, kv_min),
-                    tfa.decode_attention_plain(q, kn, vn, k, v, start, kv_min),
-                    rtol=0, atol=ATOL)
-                n += 1
+                want = tfa.decode_attention_plain(q, kn, vn, k, v, start, kv_min)
+                for at, lo in ((start, kv_min), (dev(start), dev(kv_min))):
+                    torch.testing.assert_close(tfa.decode_flash_attention(q, kn, vn, k, v, at, lo),
+                                               want, rtol=0, atol=ATOL)
+                    n += 1
     q, kn, vn = randn(16, 128), randn(8, 128), randn(8, 128)
-    k, v = randn(1024, 8, 128, dtype=torch.bfloat16), randn(1024, 8, 128, dtype=torch.bfloat16)
+    k, v = randn(4096, 8, 128, dtype=torch.bfloat16), randn(4096, 8, 128, dtype=torch.bfloat16)
     want = tfa.decode_attention_plain(q, kn, vn, k, v, 315, 0)
-    outs = [tfa.decode_flash_attention(q, kn, vn, k, v, 315, 0) for _ in range(20)]
+    at = dev(315)
+    outs = [tfa.decode_flash_attention(q, kn, vn, k, v, at) for _ in range(20)]
     n += 20
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        replayed = [tfa.decode_flash_attention(q, kn, vn, k, v, 315, 0) for _ in range(20)]
+        replayed = [tfa.decode_flash_attention(q, kn, vn, k, v, at) for _ in range(20)]
     n += 20
     for o in replayed:
         o.fill_(float("nan"))
@@ -380,7 +387,127 @@ def test_cuda_decode_attention_plan_boundaries_and_replays():
     torch.cuda.synchronize()
     for o in outs + replayed:
         torch.testing.assert_close(o, want, rtol=0, atol=ATOL)
+    for start in (0, 315, 4095, 1):
+        at.fill_(start)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = tfa.decode_attention_plain(q, kn, vn, k, v, start, 0)
+        for o in replayed:
+            torch.testing.assert_close(o, want, rtol=0, atol=ATOL)
     assert ffi.launch_counts["decode_attention"] - before == n
+
+
+# a checkpoint small enough to build in seconds whose decoder the kernels
+# take (head dim 128, G 2; the encoder's head dim 64)
+CARD_PRESET = dict(enc_d=128, enc_L=1, enc_heads=2, enc_ffn=256, enc_out=256, conv_hidden=16,
+                   dec_h=256, dec_L=2, dec_heads=4, dec_kv=2, head_dim=128, dec_inter=512,
+                   vocab=151936)
+
+
+@pytest.fixture
+def card_engine(tmp_path, monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels are built with nvcc for sm_90a)")
+    from smolvision_tpu_torch.models import synthetic
+    from smolvision_tpu_torch.runtime.engine import Engine
+
+    monkeypatch.setitem(synthetic.PRESETS, "card", CARD_PRESET)
+    return Engine(synthetic.build("card", str(tmp_path / "model"), seed=3), device="cuda")
+
+
+def _eager_capture(step, stream):
+    """The decode loop's step run eagerly on every replay (no CUDA graph)."""
+    return step
+
+
+@pytest.mark.cuda
+def test_cuda_decode_graph_tokens_equal_eager_across_cache_growth(card_engine, monkeypatch):
+    """Single stream: decode_greedy's graph replays give the eager step's
+    tokens over 500 steps, which grow the cache from 512 to 1024 rows: the
+    growth drops the first graph and captures a second on the new cache.
+    Each replay adds its step's launches (L B3, one head) once."""
+    from smolvision_tpu_torch.runtime import decode_graph
+
+    eng = card_engine
+    ids = list(range(1000, 1100))   # a 128-row prefill block: a 512-row cache
+
+    def greedy():
+        eng.reset_kv()
+        first, pos = eng.prefill_ids(ids, None, -1, 0)
+        out = []
+        eng.decode_greedy(first, pos, 501, lambda t: out.append(t) or True)
+        return out
+
+    eng.perf.reset()
+    before = dict(ffi.launch_counts)
+    graph = greedy()
+    torch.cuda.synchronize()
+    perf = eng.perf
+    assert len(graph) == 501, "an EOS cut the run short of the cache growth"
+    assert eng._kv_cap == 1024 and eng._loop.kv is eng._kv
+    assert perf.graph_captures == 2
+    assert eng._loop.graph.launches == {"decode_attention": 2, "argmax_matvec": 1}
+    delta = {k: ffi.launch_counts[k] - before[k] for k in before}
+    assert delta["decode_attention"] == 2 * perf.decode_steps
+    assert delta["argmax_matvec"] == perf.prefills + perf.decode_steps
+    assert perf.decode_steps == 500 + perf.wasted_steps
+    with monkeypatch.context() as m:
+        m.setattr(decode_graph, "capture", _eager_capture)
+        eager = greedy()
+    assert graph == eager
+    # an EOS inside a chunk (the first token the run shows for the first time
+    # after the prefill token): the host learns of it DONE_LAG replays late,
+    # and the steps past it change nothing it reads
+    k = next((i for i in range(1, len(graph)) if graph[i] not in graph[:i]), None)
+    if k is not None:
+        from smolvision_tpu_torch.runtime import engine as engine_mod
+
+        for mod in (engine_mod, decode_graph):
+            monkeypatch.setattr(mod, "EOS_TOKEN_IDS", (graph[k],))
+        eng.perf.reset()
+        assert greedy() == graph[:k]
+        assert eng.perf.wasted_steps <= decode_graph.DONE_LAG - 1
+        assert eng.perf.decode_steps == k + eng.perf.wasted_steps
+
+
+@pytest.mark.cuda
+def test_cuda_batched_decode_graph_tokens_equal_eager(card_engine, monkeypatch):
+    """Batched, natural layout with one inactive row, bf16 and int8 caches:
+    two chunks of graph replays give the eager step's tokens, counts and
+    last tokens."""
+    from smolvision_tpu_torch.models import qwen3_decoder as tdec
+    from smolvision_tpu_torch.parallel import batch as tbatch
+    from smolvision_tpu_torch.runtime import decode_graph
+
+    eng = card_engine
+    cfg, p = eng.cfg, eng.dec_params
+    B, T, K = 3, 64, 192
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    ids = torch.randint(0, 150000, (B, T), generator=gen).cuda()
+    pads = torch.tensor([0, 12, 40], dtype=torch.int32, device="cuda")
+    inputs = dict(rope_offset=pads, kv_min=pads,
+                  prompt_max=torch.full((B,), T, dtype=torch.int32, device="cuda"),
+                  region_start=torch.full((B,), T, dtype=torch.int32, device="cuda"))
+
+    def run(dtype):
+        kv = tdec.make_batched_kv(cfg, B, K, dtype, "cuda")
+        tok, kv = tdec.batched_prefill(p, cfg, p["embed"][ids].float(), kv, -pads, pads)
+        loop = tbatch.batched_decode_loop(p, cfg, kv, B, natural=True)
+        out, pos = [], T
+        for steps in (40, 24):
+            buf, count, replays = loop.run(tok, pos, steps, row_active=[True, False, True],
+                                           **inputs)
+            out.append((buf.tolist(), count, loop.tok.tolist()))
+            tok, pos = loop.tok, pos + count
+        return out, loop
+
+    for dtype in (torch.bfloat16, torch.int8):
+        graph, loop = run(dtype)
+        assert loop.graph.launches == {"argmax_matvec": 1}
+        with monkeypatch.context() as m:
+            m.setattr(decode_graph, "capture", _eager_capture)
+            eager, _ = run(dtype)
+        assert graph == eager
 
 
 @pytest.mark.cuda

@@ -1,14 +1,17 @@
 """The partitions of the redesigned kernels B3 and K9, emulated in plain torch.
 
 csrc/decode_attention.cu (B3) splits one position's attention over the
-live cache rows into a thread block cluster per KV head: `decode_plan`
-gives the blocks and rows per block; inside a block the rows go in tiles
+live cache rows into a thread block cluster of a fixed DECODE_MAX_BLOCKS
+blocks per KV head, each taking ceil(live / DECODE_MAX_BLOCKS) rows, which
+it works out from the position it reads from device memory (a block with
+no row leaves an empty partial); inside a block the rows go in tiles
 of WARP_TILE_BYTES (K + V) to the warps in turn; each warp keeps an online
 softmax with one max and one rescale per tile; the block merges its warps
 at one max; the cluster merges its blocks and the fresh row.  The emulation
 below does exactly that, step for step, and is held against the Pallas
 kernel (`decode_flash_attention`, interpret mode off-TPU, as in
-tests/test_kernels.py) and against `decode_attention_plain`.  Tolerance
+tests/test_kernels.py) and against `decode_attention_plain` in both forms
+(host ints, and the fixed-shape form at a device position).  Tolerance
 1e-5: all three are f32 softmax-attention over <= 4096 keys of outputs of
 magnitude <~ 3 and differ only in summation order (~1e-6); a row counted
 twice or missed, or a wrong merge factor, moves outputs by > 1e-3.
@@ -60,8 +63,8 @@ def decode_emulated(q, k_new, v_new, k_cache, v_cache, start: int, kv_min: int):
     H, D = q.shape
     KH = k_new.shape[0]
     G = H // KH
-    n, chunk = tfa.decode_plan(start, kv_min)
-    assert 1 <= n <= tfa.DECODE_MAX_BLOCKS
+    n = tfa.DECODE_MAX_BLOCKS
+    chunk = -(-max(start - kv_min, 0) // n)
     tile = WARP_TILE_BYTES // (2 * D * k_cache.element_size())
     qs = (q.float() * (1.0 / math.sqrt(D))).reshape(KH, G, D)
     out = torch.empty(KH, G, D)
@@ -101,9 +104,9 @@ def decode_emulated(q, k_new, v_new, k_cache, v_cache, start: int, kv_min: int):
 
 
 @pytest.mark.parametrize("K,H,KH,D,start,kv_min,cache", [
-    (256, 8, 4, 64, 0, 0, "f32"),          # empty cache: the fresh row alone
-    (256, 8, 4, 64, 1, 0, "f32"),          # one live row: one block
-    (256, 8, 8, 64, 37, 0, "f32"),         # G 1; 37 rows: 3 blocks of 13, ragged tiles
+    (256, 8, 4, 64, 0, 0, "f32"),          # empty cache: the fresh row alone, 8 empty blocks
+    (256, 8, 4, 64, 1, 0, "f32"),          # one live row: one block, 7 empty
+    (256, 8, 8, 64, 37, 0, "f32"),         # G 1; 37 rows: 7 blocks of 5 and one of 2
     (512, 8, 1, 128, 315, 0, "f32"),       # G 8; the offline run's live range
     (1024, 16, 8, 128, 315, 0, "bf16"),    # the 0.6B head layout on a bf16 cache
     (512, 16, 8, 128, 300, 17, "f32"),     # kv_min > 0 (left-padded layout)
@@ -124,10 +127,13 @@ def test_decode_partition_matches_pallas_and_plain(K, H, KH, D, start, kv_min, c
     tk, tv = torch.from_numpy(k).to(dt_t), torch.from_numpy(v).to(dt_t)
     got = decode_emulated(tq, tkn, tvn, tk, tv, start, kv_min).numpy()
     plain = tfa.decode_attention_plain(tq, tkn, tvn, tk, tv, start, kv_min).numpy()
+    masked = tfa.decode_attention_plain(tq, tkn, tvn, tk, tv, torch.tensor([start]),
+                                        torch.tensor(kv_min)).numpy()
     want = jfa.decode_flash_attention(
         jnp.asarray(q), jnp.asarray(k_new), jnp.asarray(v_new), jnp.asarray(k, dt_j),
         jnp.asarray(v, dt_j), jnp.int32(start), jnp.int32(kv_min), gqa_groups=H // KH)
     np.testing.assert_allclose(got, plain, **TOL)
+    np.testing.assert_allclose(got, masked, **TOL)
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
 
 

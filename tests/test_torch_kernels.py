@@ -128,18 +128,22 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
 
 
 @pytest.mark.parametrize("start,kv_min,expect", [
-    (0, 0, (1, 0)), (1, 0, (1, 1)), (37, 0, (3, 13)), (300, 0, (8, 38)), (300, 17, (8, 36)),
-    (315, 0, (8, 40)), (4095, 0, (8, 512)), (100000, 0, (8, 12500)), (20, 30, (1, 0)),
+    (0, 0, 0), (1, 0, 1), (37, 0, 5), (300, 0, 38), (300, 17, 36),
+    (315, 0, 40), (4095, 0, 512), (100000, 0, 12500), (20, 30, 0),
 ])
 def test_decode_splits_cover_the_live_rows(start, kv_min, expect):
-    """decode_plan: blocks per KV head (one cluster, at most
-    DECODE_MAX_BLOCKS) and live rows per block; every block holds at least
-    one live row, and together they hold them all."""
-    n, chunk = tfa.decode_plan(start, kv_min)
-    assert (n, chunk) == expect
+    """B3's fixed grid: DECODE_MAX_BLOCKS blocks per KV head (one cluster)
+    at every position, each taking `expect` = ceil(live / 8) live rows from
+    kv_min on, as csrc/decode_attention.cu works them out from the position
+    it reads on the device; together the blocks hold every live row once,
+    and the blocks past the live rows hold none."""
+    n = tfa.DECODE_MAX_BLOCKS
     live = max(start - kv_min, 0)
-    assert 1 <= n <= tfa.DECODE_MAX_BLOCKS
-    assert n * chunk >= live and (live == 0 or (n - 1) * chunk < live)
+    chunk = -(-live // n)
+    assert n == 8 and chunk == expect
+    rows = [max(min(kv_min + (r + 1) * chunk, start) - (kv_min + r * chunk), 0)
+            for r in range(n)]
+    assert sum(rows) == live and all(x == chunk for x in rows[: live // max(chunk, 1)])
 
 
 @pytest.mark.parametrize("B,T,H,KH,D,kvmins,block", [
