@@ -37,7 +37,9 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
                 version and one PyTorch library call (B1 at the windows of
                 the offline, -S 20 and --serve 64 encode calls, B3 also at
                 a 4096-row context, B5 also at --serve 64's admission
-                wave, B2 also on an f32 cache beside SDPA); K8 (read_all) over
+                wave, B2 also on an f32 cache beside SDPA and at the
+                stream's delta shapes: start 300, T 128 and 256, checked
+                at T 64-512); K8 (read_all) over
                 the lm_head gives the card's read bandwidth, against which
                 each head kernel's time is set;
   4. main path- a seeded Qwen3-ASR-0.6B checkpoint (full width, random
@@ -62,7 +64,22 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
                 bf16 weights (equal up to the first near tie);
   8. wide     - `--serve 64` and `--serve 64 --q8` on 64 clips of 2-6 s:
                 every greedy head is 64 rows wide and must take the
-                tensor-core route (the CUDA-core head launches 0 times).
+                tensor-core route (the CUDA-core head launches 0 times);
+  9. stream   - `--stream` on a 60 s clip (30 chunks of 2 s, 8 s encoder
+                windows, evicted past 4; each chunk re-encodes its partial
+                tail through B1, prefills its delta through B2 at start =
+                the reused rows, and decodes up to 32 tokens by replaying
+                the decode loop's CUDA graph), bf16 and `--q8`; `--stream
+                --enc-window-sec 2` on 20 s (B1 at S 26); `--stream --f32`
+                on 16 s with the encoder window cache ON and then OFF (the
+                chunks that encode one span either way must be equal in
+                audio rows and raw tokens; past the first window, where the
+                cache's per-span log-mel parts the audio rows, the parting
+                is shown on the host and the tokens reported); `--stdin
+                --stream` fed the 20 s clip through a pipe by a feeder
+                process (it must reach EOF); `--stream --profile DIR`,
+                which must leave a trace file.  Each stream's graph
+                captures must be at most its caches (1 + growths).
 Each path that decodes greedily runs twice, in turns: first with the
 decode loops' steps run eagerly on every replay, then as CUDA graphs (the
 path as it ships, runtime/decode_graph.py).  The two runs' decoded chunks
@@ -139,6 +156,8 @@ DESIGNS = {"window_attention": "tensor cores (f32 q/k/v: three mma.sync on hi / 
            "window_attention_segments": "as window_attention",
            "window_attention_wide": "as window_attention",
            "causal_cache_attention": "tensor cores (bf16 cache: mma.sync on a hi / lo split)",
+           "causal_cache_attention_delta128": "as causal_cache_attention, at start > 0",
+           "causal_cache_attention_delta256": "as causal_cache_attention, at start > 0",
            "batched_causal_attention": "tensor cores (f32 K/V: three mma.sync on hi / lo splits "
                                        "of both sides, 32-key tiles split once in shared memory)",
            "batched_cache_attention": "tensor cores (bf16 cache segments: two mma.sync per "
@@ -172,6 +191,19 @@ HEAD_SWEEP_ROWS = (1, 2, 4, 5, 6, 8, 12, 16, 24, 32)  # R of the crossover sweep
 SERVE_WIDE_SLOTS = 64         # the --serve width the JAX package documents
 SERVE_WIDE_CLIPS = 64         # seeded clips of 2-6 s
 SERVE_WIDE_MAX_TOKENS = 16
+STREAM_CLIP_SEC = 60.0        # phase 9: --stream, bf16 and --q8 (30 chunks)
+STREAM_WINDOW_CLIP_SEC = 20.0  # --stream --enc-window-sec 2; --stdin --stream
+STREAM_ON_OFF_CLIP_SEC = 16.0  # --stream --f32, encoder cache ON / OFF (no eviction)
+STREAM_PROFILE_CLIP_SEC = 4.0  # --stream --profile DIR
+LIVE_FEED_BYTES = 32000       # the live feeder writes 1 s of s16 audio ...
+LIVE_FEED_PAUSE_S = 0.05      # ... then pauses this long
+LIVE_TIMEOUT_S = 300          # a live run that has not reached EOF by then is a fault
+# B2's timing rows at the stream's delta prefill, whose blocks are 128 and
+# 256 rows at 8 s windows (64 at 2 s): (row, T, start, kv_valid)
+B2_DELTA_ROWS = (("causal_cache_attention_delta128", 128, 300, 421),
+                 ("causal_cache_attention_delta256", 256, 300, 549))
+# per stream run (phase 9), printed as one line at the end
+STREAM_RUNS = {}
 
 
 def fail(msg: str) -> None:
@@ -360,7 +392,7 @@ def decode_row(K: int, start: int):
 def kernel_of(name: str) -> str:
     """The launch key of a timing row: its kernel's name without the suffix
     of the shape it was timed at."""
-    for suffix in ("_long", "_wide", "_segments"):
+    for suffix in ("_long", "_wide", "_segments", "_delta128", "_delta256"):
         name = name.removesuffix(suffix)
     return name
 
@@ -423,32 +455,47 @@ def window_split_sweep(shapes) -> dict:
     return out
 
 
-def b2_f32_timing(shapes) -> str:
-    """B2 on an f32 cache (the --f32 engine's prefill) at the main path's
-    prefill shape: kernel (turns), plain, SDPA on the same f32 rows and
-    mask, and its bound on the tensor cores (f32 cache rows read once)."""
+def cache_row(T: int, K: int, start: int, valid: int, dtype: str = "bfloat16"):
+    """B2's timing inputs: a block of T query rows at cache rows start.. of
+    a K-row cache of `dtype` holding `valid` rows: (kernel, plain, SDPA,
+    bound).  SDPA gets q in the cache's type and the same causal mask over
+    the valid rows; the bound reads q and writes the output in f32, reads
+    the valid cache rows once, and counts the products the mask keeps, at
+    the tensor cores' bf16 rate."""
     import torch
     import torch.nn.functional as F
 
     from smolvision_tpu_torch.kernels import flash_attention as fa
 
-    T, K, valid = shapes["prefill_T"], shapes["kv_cap"], shapes["prompt_len"]
-    q, k, v = cache_case(T, K, 0, valid, dtype="float32")
+    q, k, v = cache_case(T, K, start, valid, dtype=dtype)
     H, D = q.shape[1:]
     KH = k.shape[1]
-    nbytes = 4 * 2 * q.numel() + 4 * 2 * valid * KH * D
-    flops = 4 * H * D * sum(min(t + 1, valid) for t in range(T))
-    qh = q.permute(1, 0, 2)[None]
+    nbytes = 4 * 2 * q.numel() + k.element_size() * 2 * valid * KH * D
+    flops = 4 * H * D * sum(min(start + t + 1, valid) for t in range(T))
+    qh = q.to(k.dtype).permute(1, 0, 2)[None]
     kh, vh = (x[:valid].permute(1, 0, 2)[None] for x in (k, v))
-    mask = torch.arange(valid, device=DEV)[None, :] <= torch.arange(T, device=DEV)[:, None]
-    kern = lambda: fa.causal_cache_flash_attention(q, k, v, 0, valid)
-    k1, k2 = time_ms(kern), time_ms(kern)
-    lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
-                                                         enable_gqa=True))
-    bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
-    return (f"kernel {k1:.4f}/{k2:.4f} ms, plain "
-            f"{time_ms(lambda: fa.causal_cache_attention_plain(q, k, v, 0, valid)):.4f} ms, "
-            f"library (SDPA, f32) {lib:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    mask = (torch.arange(valid, device=DEV)[None, :]
+            <= start + torch.arange(T, device=DEV)[:, None])
+    return (lambda: fa.causal_cache_flash_attention(q, k, v, start, valid),
+            lambda: fa.causal_cache_attention_plain(q, k, v, start, valid),
+            lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, enable_gqa=True),
+            bound(nbytes, flops, "bfloat16"))
+
+
+def b2_f32_timings(shapes) -> str:
+    """B2 on an f32 cache (the --f32 engine's prefill) at the main path's
+    prefill shape and at the stream's delta shapes: kernel (turns), plain,
+    SDPA on the same f32 rows and mask, and its bound (`cache_row`)."""
+    out = []
+    for name, T, start, valid in (("main", shapes["prefill_T"], 0, shapes["prompt_len"]),
+                                  *B2_DELTA_ROWS):
+        K = shapes["kv_cap"] if name == "main" else 1024
+        kern, plain, lib, (bound_ms, bound_by) = cache_row(T, K, start, valid, "float32")
+        out.append(f"{name} (T {T}, start {start}, valid {valid}): kernel "
+                   f"{time_ms(kern):.4f}/{time_ms(kern):.4f} ms, plain {time_ms(plain):.4f} ms, "
+                   f"library (SDPA, f32) {time_ms(lib):.4f} ms, "
+                   f"bound {bound_ms:.4f} ms ({bound_by})")
+    return "; ".join(out)
 
 
 def phase_kernels(shapes):
@@ -465,13 +512,14 @@ def phase_kernels(shapes):
     errs = {name: 0.0 for name in ffi.launch_counts}
 
     # B1: the paths' windows (offline W 4, -S 20's one encode call, --serve
-    # 64's encode group), S 13 and 100 (--enc-window-sec's shortest window,
+    # 64's encode group), S 13, 26 and 100 (--enc-window-sec 1 and 2,
     # Qwen2.5-Omni's) and S 208 (above one block's rows: the query-tiled
     # route), all-pad windows exactly 0, +-999 junk in the pad keys; each
     # S <= WINDOW_BLOCK_ROWS case under every split of a window's rows
     cases = [(104, [104, 0], False), (104, shapes["window_lens"], False),
              (104, [104, 77, 1, 0], True), (104, shapes["seg_window_lens"], True),
              (104, shapes["wide_window_lens"], True), (13, [13, 1, 0, 7], True),
+             (26, [26, 26, 9, 0], True),
              (100, [100, 64, 17, 0], True), (208, [208, 130, 0], True)]
     for S, lens, garbage in cases:
         q, k, v, lens_t = window_case(len(lens), lens, S=S, garbage=garbage)
@@ -497,6 +545,9 @@ def phase_kernels(shapes):
              (512, 300, 700, 0, "bfloat16"), (256, 100, 330, 37, "bfloat16"),
              (5, 300, 305, 0, "bfloat16"), (5, 300, 305, 17, "bfloat16"),
              (512, 0, shapes["prompt_len"], 0, "float32")]
+    # the stream's KV-reuse prefill: a delta block after ~300 reused rows
+    cases += [(T, 300, 300 + T - 7, 0, dtype) for T in (64, 128, 256, 512)
+              for dtype in ("bfloat16", "float32")]
     cases = [c + (MAIN_HEADS,) for c in cases]
     for heads in GROUP_HEADS:
         cases += [(100, 0, 97, 0, "bfloat16", heads), (256, 100, 330, 37, "bfloat16", heads),
@@ -623,26 +674,14 @@ def phase_kernels(shapes):
                      "smolvision_tpu/kernels/flash_attention.py:60", *row[:4]))
         f32_bounds[name] = row[4]
 
-    # --- B2 at the main-path shape (prefill from an empty cache)
-    T, K, valid = shapes["prefill_T"], shapes["kv_cap"], shapes["prompt_len"]
-    q2, k2, v2 = cache_case(T, K, 0, valid)
-    H2, D2 = q2.shape[1:]
-    KH2 = k2.shape[1]
-    attended = sum(min(t + 1, valid) for t in range(T))
-    nbytes = 4 * 2 * q2.numel() + 2 * 2 * valid * KH2 * D2
-    flops = 4 * H2 * D2 * attended
-    q2b = q2.to(torch.bfloat16).permute(1, 0, 2)[None]
-    k2b, v2b = (x[:valid].permute(1, 0, 2)[None] for x in (k2, v2))
-    rows2 = torch.arange(T, device=DEV)[:, None]
-    mask2 = torch.arange(valid, device=DEV)[None, :] <= rows2
-    rows.append(("causal_cache_attention",
-                 "smolvision_tpu_torch/kernels/csrc/causal_cache_attention.cu",
-                 "smolvision_tpu/kernels/flash_attention.py:491",
-                 lambda: fa.causal_cache_flash_attention(q2, k2, v2, 0, valid),
-                 lambda: fa.causal_cache_attention_plain(q2, k2, v2, 0, valid),
-                 lambda: F.scaled_dot_product_attention(q2b, k2b, v2b, attn_mask=mask2,
-                                                        enable_gqa=True),
-                 bound(nbytes, flops, "bfloat16")))
+    # --- B2 at the main-path shape (prefill from an empty cache), then at
+    # the stream's delta prefill (start > 0 on a 1024-row cache)
+    K = shapes["kv_cap"]
+    for name, T, start, valid in (("causal_cache_attention", shapes["prefill_T"], 0,
+                                   shapes["prompt_len"]), *B2_DELTA_ROWS):
+        rows.append((name, "smolvision_tpu_torch/kernels/csrc/causal_cache_attention.cu",
+                     "smolvision_tpu/kernels/flash_attention.py:491",
+                     *cache_row(T, K if start == 0 else 1024, start, valid)))
 
     # --- B3 at a mid-decode shape of the main path, and at a long context
     for name, K3, start in (("decode_attention", K, shapes["decode_pos"]),
@@ -701,7 +740,7 @@ def phase_kernels(shapes):
     log(f"  window split sweep (blocks per (window, head): ms at "
         f"{' / '.join(name for name, _ in WINDOW_ROWS)}; the plan's pick): "
         f"{json.dumps(window_split_sweep(shapes))}")
-    log(f"  B2 on an f32 cache at the main-path shape: {b2_f32_timing(shapes)}")
+    log(f"  B2 on an f32 cache: {b2_f32_timings(shapes)}")
 
     table = []
     for name, source, replaces, kern, plain, lib, (bound_ms, bound_by) in rows:
@@ -1355,9 +1394,11 @@ def phase_main_path(model_dir: str, wav: str, cfg):
     return eng, launches
 
 
-def run_cli(argv, name: str):
-    """One CLI run with the launch counts set to 0 just before it; returns
-    (engine, launches, stdout lines, wall seconds)."""
+def run_cli(argv, name: str, stdin=None):
+    """One CLI run with the launch counts set to 0 just before it (and
+    sys.stdin replaced by `stdin` if given); returns (engine, launches,
+    stdout lines, wall seconds).  Its stdout is bytes underneath, as the
+    CLI writes streamed pieces to sys.stdout.buffer."""
     import torch
 
     from smolvision_tpu_torch import cli
@@ -1365,10 +1406,14 @@ def run_cli(argv, name: str):
 
     if DEV == "cuda":
         torch.cuda.synchronize()
-    out = io.StringIO()
+    raw = io.BytesIO()
+    out = io.TextIOWrapper(raw, encoding="utf-8", write_through=True)
     ffi.reset_launch_counts()
     t0 = time.monotonic()
-    with contextlib.redirect_stdout(out):
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(contextlib.redirect_stdout(out))
+        if stdin is not None:
+            stack.enter_context(mock.patch.object(sys, "stdin", stdin))
         rc, eng = cli.run(argv)
     if DEV == "cuda":
         torch.cuda.synchronize()
@@ -1376,7 +1421,8 @@ def run_cli(argv, name: str):
     launches = dict(ffi.launch_counts)
     if rc != 0 or eng is None:
         fail(f"{name}: cli exited {rc}")
-    return eng, launches, out.getvalue().splitlines(), wall_s
+    out.flush()
+    return eng, launches, raw.getvalue().decode("utf-8", errors="replace").splitlines(), wall_s
 
 
 def check_launches(name: str, launches: dict, eng, cfg, batch: int = 0, wave: int = 0) -> None:
@@ -1778,6 +1824,265 @@ def warm_run(eng, samples) -> str:
     return perf_line(eng.perf)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: streaming and live input
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def stream_record(audio: bool = False):
+    """Records each stream (runtime/stream.py) the block runs: per chunk its
+    index, reused rows and raw tokens (and with `audio` its audio rows, on
+    the host); the session's prefill rows and reused rows; the KV caches
+    allocated (the first and each growth); and the (T, start) of every B2
+    call at start > 0 (the KV-reuse deltas).  The wrappers only record; the
+    calls they wrap run as they ship."""
+    from smolvision_tpu_torch.kernels import flash_attention as fa
+    from smolvision_tpu_torch.models import qwen3_decoder as dec_mod
+    from smolvision_tpu_torch.runtime import stream
+
+    runs = []
+    init, finish, final = (stream.StreamState.__init__, stream.StreamState.finish_chunk,
+                           stream.StreamState.finalize)
+    make_kv, b2 = dec_mod.make_kv_cache, fa.causal_cache_flash_attention
+
+    def rec_init(self, *args, **kwargs):
+        runs.append({"chunks": [], "allocs": 0, "b2_deltas": [], "audio": []})
+        init(self, *args, **kwargs)
+
+    def rec_finish(self, w, *args, **kwargs):
+        finish(self, w, *args, **kwargs)
+        runs[-1]["chunks"].append((self.chunk_idx - 1, w.reused, list(self.raw_tokens)))
+        if audio:
+            runs[-1]["audio"].append(w.audio_block[: w.enc_seq_len].float().cpu())
+
+    def rec_final(self):
+        runs[-1].update(prefill_total=self.prefill_total, prefill_reused=self.prefill_reused)
+        return final(self)
+
+    def rec_make_kv(*args, **kwargs):
+        if runs:
+            runs[-1]["allocs"] += 1
+        return make_kv(*args, **kwargs)
+
+    def rec_b2(q, k_cache, v_cache, start_pos, *args, **kwargs):
+        if runs and start_pos > 0:
+            runs[-1]["b2_deltas"].append((q.shape[0], start_pos))
+        return b2(q, k_cache, v_cache, start_pos, *args, **kwargs)
+
+    with contextlib.ExitStack() as stack:
+        for obj, attr, fn in ((stream.StreamState, "__init__", rec_init),
+                              (stream.StreamState, "finish_chunk", rec_finish),
+                              (stream.StreamState, "finalize", rec_final),
+                              (dec_mod, "make_kv_cache", rec_make_kv),
+                              (fa, "causal_cache_flash_attention", rec_b2)):
+            stack.enter_context(mock.patch.object(obj, attr, fn))
+        yield runs
+
+
+def stream_summary(name: str, eng, run: dict, cfg, wall_s: float) -> dict:
+    """What a stream run shows (its realtime factor, chunk latency, the
+    phase times, the reused share of prefill rows, graph captures against
+    caches, decode ms per step, B2's launches at start > 0); fails if it
+    captured more graphs than it had caches, or if a chunk after a reused
+    prefix ran no B2 at start > 0."""
+    perf = eng.perf
+    lat = perf.stream_latency()
+    if lat is None or not run["chunks"]:
+        fail(f"{name}: no chunk ran")
+    first, p50, p99 = lat
+    L = cfg.dec_layers
+    deltas = run["b2_deltas"]
+    if len(deltas) != L * perf.reuse_prefills:
+        fail(f"{name}: {len(deltas)} B2 calls at start > 0, expected {L} x "
+             f"{perf.reuse_prefills} reuse prefills")
+    if DEV == "cuda" and not 1 <= perf.graph_captures <= run["allocs"]:
+        fail(f"{name}: {perf.graph_captures} decode graphs captured over {run['allocs']} "
+             f"caches (at most one per cache)")
+    Ts = sorted({T for T, _ in deltas})
+    summary = {
+        "chunks": len(run["chunks"]), "wall_s": wall_s,
+        "realtime_factor": perf.audio_ms / perf.total_ms,
+        "chunk_ms_p50": p50, "chunk_ms_p99": p99, "first_commit_ms": first,
+        "encode_ms": perf.encode_ms, "prefill_ms": perf.prefill_ms,
+        "decode_ms": perf.decode_ms - perf.prefill_ms, "total_ms": perf.total_ms,
+        "encodes": perf.encodes, "prefill_rows": run["prefill_total"],
+        "reused_rows": run["prefill_reused"],
+        "reused_share": run["prefill_reused"] / max(run["prefill_total"], 1),
+        "graph_captures": perf.graph_captures, "graph_capture_ms": perf.graph_capture_ms,
+        "kv_caches": run["allocs"], "decode_steps": perf.decode_steps,
+        "wasted_steps": perf.wasted_steps, "decode_ms_per_step": decode_ms_per_step(perf),
+        "reuse_prefills": perf.reuse_prefills, "b2_launches_start_gt_0": len(deltas),
+        "b2_delta_T": {T: sum(1 for t, _ in deltas if t == T) for T in Ts},
+        "b2_delta_start_range": ([min(st for _, st in deltas), max(st for _, st in deltas)]
+                                 if deltas else None),
+        "text_tokens": perf.text_tokens,
+    }
+    STREAM_RUNS[name] = summary
+    log(f"  {name}: {json.dumps(summary)}")
+    return summary
+
+
+def run_stream(argv, name: str, cfg, stdin=None, audio: bool = False):
+    """One stream through the CLI (launches checked against the engine's
+    counts); returns (engine, launches, stdout lines, its record)."""
+    with stream_record(audio) as runs:
+        eng, launches, lines, wall_s = run_cli(argv, name, stdin)
+    check_launches(name, launches, eng, cfg)
+    stream_summary(name, eng, runs[-1], cfg, wall_s)
+    return eng, launches, lines, runs[-1]
+
+
+LIVE_FEEDER = """
+import sys, time
+data = open(sys.argv[1], "rb").read()
+step, pause = int(sys.argv[2]), float(sys.argv[3])
+for i in range(0, len(data), step):
+    sys.stdout.buffer.write(data[i:i + step])
+    sys.stdout.buffer.flush()
+    time.sleep(pause)
+"""
+
+
+def run_live(argv, name: str, cfg, wav: str):
+    """`--stdin --stream` with stdin the read end of a pipe that a feeder
+    process fills with `wav`, LIVE_FEED_BYTES at a time with a pause between
+    (the stream waits on the audio); the run must reach the feed's EOF.  A
+    watchdog ends the script if it has not after LIVE_TIMEOUT_S."""
+    import threading
+
+    feeder = subprocess.Popen([sys.executable, "-c", LIVE_FEEDER, wav, str(LIVE_FEED_BYTES),
+                               str(LIVE_FEED_PAUSE_S)], stdout=subprocess.PIPE)
+
+    def stuck():
+        print(f"chip_smoke: FAIL: {name}: no EOF after {LIVE_TIMEOUT_S} s (deadlock?)",
+              file=sys.stderr, flush=True)
+        feeder.kill()
+        os._exit(1)
+
+    watchdog = threading.Timer(LIVE_TIMEOUT_S, stuck)
+    watchdog.start()
+    try:
+        out = run_stream(argv, name, cfg, stdin=io.TextIOWrapper(feeder.stdout))
+    finally:
+        watchdog.cancel()
+        feeder.stdout.close()
+        rc = feeder.wait(timeout=60)
+    if rc != 0:
+        fail(f"{name}: the feeder exited {rc}")
+    return out
+
+
+def on_off_cache(model_dir: str, wav: str, cfg, base) -> None:
+    """--stream --f32 with the encoder window cache ON, then OFF.  Where both
+    encode the same span (every chunk up to the first completed window's
+    end) their audio rows must be bitwise equal and their chunks' raw tokens
+    equal; if every chunk's audio rows are equal, every chunk's tokens and
+    the stdout must be.  Past that point the cache joins a window encoded
+    from its own span to a re-encoded tail, while OFF encodes the whole span
+    at once: a chunk whose audio rows differ must owe it to the log-mel,
+    taken per span (reflect-padded edges, a clamp at the span's own maximum
+    less 8) in both packages, which is shown on the host; its tokens are
+    reported, not held."""
+    import numpy as np
+    import torch
+
+    from smolvision_tpu_torch.config import HOP_LENGTH, SAMPLE_RATE
+    from smolvision_tpu_torch.io.wav import load_wav
+    from smolvision_tpu_torch.ops.mel import log_mel
+
+    on = run_stream(base + ["-i", wav, "--f32"], "--stream --f32 (cache on)", cfg, audio=True)
+    os.environ["SMOLVISION_STREAM_NO_ENC_CACHE"] = "1"
+    try:
+        off = run_stream(base + ["-i", wav, "--f32"], "--stream --f32 (cache off)", cfg,
+                         audio=True)
+    finally:
+        del os.environ["SMOLVISION_STREAM_NO_ENC_CACHE"]
+    ron, roff = on[3], off[3]
+    same = [a.shape == b.shape and torch.equal(a, b) for a, b in zip(ron["audio"], roff["audio"])]
+    n_same = same.index(False) if False in same else len(same)
+    chunk = int(on[0].stream_chunk_sec * SAMPLE_RATE)
+    window = on[0].cfg.enc_n_window_infer * HOP_LENGTH
+    one_span = window // chunk          # chunks whose cursor is at most one window
+    tok_on = [(c[0], c[2]) for c in ron["chunks"]]
+    tok_off = [(c[0], c[2]) for c in roff["chunks"]]
+    if len(same) != len(tok_on) or len(tok_on) != len(tok_off):
+        fail(f"--stream --f32: {len(tok_on)} chunks with the cache, {len(tok_off)} without")
+    if n_same < min(one_span, len(same)):
+        fail(f"--stream --f32: audio rows of chunk {n_same} differ ON / OFF, where both "
+             f"encode the same span")
+    if tok_on[:n_same] != tok_off[:n_same]:
+        fail(f"--stream --f32: chunk tokens differ ON / OFF over chunks 0-{n_same - 1}, "
+             f"whose audio rows are equal")
+    if n_same == len(same):
+        if on[2] != off[2]:
+            fail("--stream --f32: stdout differs ON / OFF, every chunk's audio rows equal")
+        log(f"  --stream --f32: encoder cache ON and OFF equal over all {n_same} chunks "
+            f"(audio rows, raw tokens per chunk, stdout)")
+        return
+    # the first chunk whose audio rows differ: its spans' log-mel, ON against OFF
+    x = load_wav(wav)
+    cursor = min((n_same + 1) * chunk, len(x))
+    full_end = cursor // window * window
+    spans = [(a, a + window) for a in range(0, full_end, window)]
+    spans += [(full_end, cursor)] if full_end < cursor else []
+    mel_on = np.concatenate([log_mel(x[a:b]) for a, b in spans], axis=1)
+    mel_off = log_mel(x[:cursor])
+    frames = np.nonzero(np.abs(mel_on - mel_off).max(axis=0))[0]
+    if mel_on.shape != mel_off.shape or not len(frames):
+        fail(f"--stream --f32: audio rows of chunk {n_same} differ ON / OFF with the same "
+             f"log-mel")
+    rows = ron["audio"][n_same] - roff["audio"][n_same]
+    first_tok = next((a[0] for a, b in zip(tok_on, tok_off) if a != b), None)
+    log(f"  --stream --f32: encoder cache ON and OFF: chunks 0-{n_same - 1} (both encode one "
+        f"span) equal in audio rows and raw tokens; from chunk {n_same} (cursor "
+        f"{cursor / SAMPLE_RATE:.0f} s, spans {[(a / SAMPLE_RATE, b / SAMPLE_RATE) for a, b in spans]}) "
+        f"the per-span log-mel differs from the whole span's at {len(frames)} of "
+        f"{mel_off.shape[1]} frames (first {frames[:6].tolist()}, max "
+        f"{float(np.abs(mel_on - mel_off).max()):.4g}), the audio rows by up to "
+        f"{float(rows.abs().max()):.4g}; tokens first differ at chunk {first_tok}, stdout "
+        f"{'equal' if on[2] == off[2] else 'differs'}")
+
+
+def phase_stream(model_dir: str, wavs: dict, cfg) -> dict:
+    """Phase 9: --stream bf16 (eager and graph steps, `run_path`) and --q8
+    on the 60 s clip, --enc-window-sec 2 on 20 s, --f32 with the encoder
+    window cache ON and OFF on 16 s (`on_off_cache`), --stdin --stream
+    through a pipe, and --profile.  Returns the bf16 graph run's launches
+    and record."""
+    import glob
+
+    base = ["-d", model_dir, "--stream", "--language", "English"]
+    with stream_record() as runs:
+        eng, launches, lines, wall_s = run_path(base + ["-i", wavs["stream"]], "--stream", cfg)
+    stream_summary("--stream", eng, runs[-1], cfg, wall_s)
+    bf16 = runs[-1]
+    if not "".join(lines).strip():
+        fail("--stream: empty transcript")
+    log(f"  --stream transcript ({eng.perf.text_tokens} text tokens): {''.join(lines)[:120]}")
+    del eng
+    run_stream(base + ["-i", wavs["stream"], "--q8"], "--stream --q8", cfg)
+    run_stream(base + ["-i", wavs["window"], "--enc-window-sec", "2"],
+               "--stream --enc-window-sec 2", cfg)
+
+    on_off_cache(model_dir, wavs["on_off"], cfg, base)
+
+    run_live(["-d", model_dir, "--stdin", "--stream", "--language", "English"],
+             "--stdin --stream", cfg, wavs["window"])
+
+    trace_dir = os.path.join(os.path.dirname(wavs["profile"]), "profile")
+    run_stream(base + ["-i", wavs["profile"], "--profile", trace_dir], "--stream --profile",
+               cfg)
+    traces = glob.glob(os.path.join(trace_dir, "*.json"))
+    if not traces or not os.path.getsize(traces[0]):
+        fail(f"--profile: no trace file in {trace_dir}")
+    with open(traces[0]) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    log(f"  --profile: {traces[0]} ({os.path.getsize(traces[0])} bytes, {len(events)} events, "
+        f"{kernels} of them the card's kernels)")
+    return {"launches": launches, "record": bf16}
+
+
 def main() -> int:
     import argparse
 
@@ -1853,6 +2158,11 @@ def main() -> int:
         wide_wavs = [os.path.join(work, f"wide{i}.wav") for i in range(len(wide_clips))]
         for path, c in zip(wide_wavs, wide_clips):
             write_wav(path, c)
+        stream_wavs = {}
+        for key, sec in (("stream", STREAM_CLIP_SEC), ("window", STREAM_WINDOW_CLIP_SEC),
+                         ("on_off", STREAM_ON_OFF_CLIP_SEC), ("profile", STREAM_PROFILE_CLIP_SEC)):
+            stream_wavs[key] = os.path.join(work, f"stream_{key}.wav")
+            write_wav(stream_wavs[key], speech_like(sec, SEED + 300 + len(stream_wavs)))
         log(f"checkpoint: 0.6b preset, seed {SEED}, bf16, written in "
             f"{time.monotonic() - t0:.2f} s; clip {CLIP_SEC:.0f} s")
         shapes = main_path_shapes(model_dir, samples)
@@ -1922,6 +2232,10 @@ def main() -> int:
         # phase 8: --serve 64 and --serve 64 --q8 (the heads on the tensor cores)
         wide_runs = phase_serving_wide(model_dir, wide_wavs, cfg, shapes["wide_T"])
         since("phase 8 (--serve 64)")
+
+        # phase 9: --stream, --stdin --stream, --enc-window-sec, --profile
+        stream_run = phase_stream(model_dir, stream_wavs, cfg)
+        since("phase 9 (--stream)")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1941,11 +2255,14 @@ def main() -> int:
                     argmax_matvec_tc=wide_runs["bf16"]["argmax_matvec_tc"],
                     argmax_matvec_q8_tc=wide_runs["--q8"]["argmax_matvec_q8_tc"],
                     probe_mm=cache["probe_mm_launches"])
+    for name, T, _, _ in B2_DELTA_ROWS:   # the bf16 stream's delta prefills of T rows
+        launches[name] = sum(1 for t, _ in stream_run["record"]["b2_deltas"] if t == T)
     for row in table:
         row.setdefault("launches", launches.get(row["name"]))
         row["kernel_ms"] = row["ms"]
     keys = ("name", "route", "design", "source", "replaces", "launches", "max_abs_err", "ms",
             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log(f"streams: {json.dumps(STREAM_RUNS)}")
     log(f"decode loops, graph vs eager per path: {json.dumps(DECODE_RUNS)}")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in table]}))
     print(smi_line)

@@ -1,12 +1,15 @@
 """CLI — the JAX package's parser and stdout/stderr contract, on the port.
 
-Port of smolvision_tpu/cli.py for the offline paths: one file (`-i x.wav`
-or --stdin), whole or segmented (-S / -W / --past-text / --skip-silence /
---no-batch-segments), and several -i files as one static batch or through
-the continuous scheduler (--serve SLOTS [--serve-admit N]); with --silent /
---language / --prompt / --max-tokens / --f32, and the decoder options
---q8 / --kv8 / --spec (or SMOLVISION_Q8=1 / SMOLVISION_KV8=1 /
-SMOLVISION_SPEC=1, as the JAX CLI reads them).  The transcript goes to STDOUT
+Port of smolvision_tpu/cli.py for the offline and streaming paths: one
+file (`-i x.wav` or --stdin), whole or segmented (-S / -W / --past-text /
+--skip-silence / --no-batch-segments), streamed (--stream, from a file or
+live from stdin with --stdin; --stream-max-new-tokens, --monitor), several
+-i files as one static batch or through the continuous scheduler (--serve
+SLOTS [--serve-admit N]); with --silent / --language / --prompt /
+--max-tokens / --f32 / --enc-window-sec / --profile DIR (a torch.profiler
+trace of the transcription), and the decoder options --q8 / --kv8 /
+--spec (or SMOLVISION_Q8=1 / SMOLVISION_KV8=1 / SMOLVISION_SPEC=1, as the
+JAX CLI reads them).  The transcript goes to STDOUT
 (tokens streamed as decoded in normal mode; one final line in --silent; one
 line per file for several files); status/perf lines go to STDERR:
   Inference: ... ms, N text tokens (X tok/s, encoding: ...ms, decoding: ...ms)
@@ -21,6 +24,7 @@ Runs on the card; SMOLVISION_PLATFORM=cpu selects the CPU.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 from typing import TYPE_CHECKING, Optional, Tuple
@@ -106,7 +110,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "admit->first-token p50 ~100 ms at N=16 vs ~1.2 s "
                         "full-wave, at ~47%% throughput cost)")
     p.add_argument("--profile", metavar="DIR", default=None,
-                   help="write a profiler trace of the transcription to DIR")
+                   help="write a torch.profiler trace of the transcription to DIR "
+                        "(DIR/trace.json)")
     return p
 
 
@@ -116,10 +121,7 @@ def _unported(args) -> Optional[str]:
     checks = [
         (args.thinker, "--thinker"),
         (args.stream and several, "--stream with several -i files (multistream)"),
-        (args.stream, "--stream"),
         (args.moe_offload, "--moe-offload"), (args.moe_preload, "--moe-preload"),
-        (args.profile, "--profile"),
-        (args.enc_window_sec >= 0, "--enc-window-sec"),
     ]
     for on, what in checks:
         if on:
@@ -136,6 +138,10 @@ def run(argv=None) -> Tuple[int, Optional["Engine"]]:
         return 1, None
     if args.input_wav and args.stdin:
         print("Error: -i and --stdin are mutually exclusive", file=sys.stderr)
+        return 1, None
+    if args.enc_window_sec >= 0 and not (1.0 <= args.enc_window_sec <= 8.0):
+        print(f"Error: --enc-window-sec must be in [1, 8], got {args.enc_window_sec}",
+              file=sys.stderr)
         return 1, None
     missing = _unported(args)
     if missing:
@@ -158,6 +164,7 @@ def run(argv=None) -> Tuple[int, Optional["Engine"]]:
             # --f32 is f32 weights AND f32 KV, the C engine's arithmetic
             # family end to end (its kv_cache_k/v are float*)
             kv_dtype=torch.float32 if args.f32 else torch.bfloat16,
+            enc_window_sec=args.enc_window_sec if args.enc_window_sec >= 0 else None,
             verbose=verbosity,
             device="cpu" if platform == "cpu" else None,
             q8=args.q8 or os.environ.get("SMOLVISION_Q8", "") == "1",
@@ -169,13 +176,19 @@ def run(argv=None) -> Tuple[int, Optional["Engine"]]:
         print(f"smolvision: failed to load model from {args.model_dir}: "
               f"{type(e).__name__}: {e}", file=sys.stderr)
         return 1, None
+    eng.monitor = args.monitor
 
     if args.segment_sec >= 0:
         eng.segment_sec = args.segment_sec
     if args.search_sec >= 0:
         eng.search_sec = args.search_sec
+    if args.stream_max_new_tokens > 0:
+        eng.stream_max_new_tokens = args.stream_max_new_tokens
     if args.past_text in ("yes", "no"):
         eng.past_text_conditioning = args.past_text == "yes"
+    elif args.stream:
+        # auto: streaming defaults to prefix conditioning (main.c:316-320)
+        eng.past_text_conditioning = True
     if args.skip_silence:
         eng.skip_silence = True
     if args.max_tokens > 0:
@@ -203,18 +216,36 @@ def run(argv=None) -> Tuple[int, Optional["Engine"]]:
     if args.input_wav and len(args.input_wav) > 1:
         return _run_several(args, eng, verbosity), eng
 
-    try:
-        samples = load_wav(args.input_wav[0]) if args.input_wav else read_pcm_stdin()
-    except (OSError, ValueError) as e:
-        print(f"smolvision: cannot load audio: {e}", file=sys.stderr)
-        return 1, eng
-
     from smolvision_tpu_torch.runtime import segment as segment_mod
+    from smolvision_tpu_torch.runtime import stream as stream_mod
+
+    live = None
+    samples = None
+    if args.stream and args.stdin:
+        from smolvision_tpu_torch.io.live import LiveAudio
+
+        live = LiveAudio.start_stdin()
+    else:
+        try:
+            samples = load_wav(args.input_wav[0]) if args.input_wav else read_pcm_stdin()
+        except (OSError, ValueError) as e:
+            print(f"smolvision: cannot load audio: {e}", file=sys.stderr)
+            return 1, eng
+        samples = np.asarray(samples, dtype=np.float32)
 
     try:
-        text = segment_mod.transcribe_audio(eng, np.asarray(samples, dtype=np.float32))
+        with _profiled(args.profile, eng.device):
+            if live is not None:
+                text = stream_mod.transcribe_stream_live(eng, live)
+            elif args.stream:
+                text = stream_mod.transcribe_stream(eng, samples)
+            else:
+                text = segment_mod.transcribe_audio(eng, samples)
     except ValueError as e:
         print(f"smolvision: {e}", file=sys.stderr)
+        return 1, eng
+    if text is None:
+        print("Transcription failed", file=sys.stderr)
         return 1, eng
 
     if emit_tokens:
@@ -235,6 +266,33 @@ def run(argv=None) -> Tuple[int, Optional["Engine"]]:
             print(f"Audio: {audio_s:.1f} s processed in {infer_s:.1f} s "
                   f"({audio_s / infer_s:.2f}x realtime)", file=sys.stderr)
     return 0, eng
+
+
+@contextlib.contextmanager
+def _profiled(trace_dir: Optional[str], device):
+    """Under --profile DIR: a torch.profiler trace of the block (host, and
+    the card's kernels when the engine runs there) written to
+    DIR/trace.json.  Writing it is best-effort, as in the JAX CLI."""
+    if not trace_dir:
+        yield
+        return
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        try:
+            prof.stop()
+            os.makedirs(trace_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+            print(f"profile trace written to {trace_dir}", file=sys.stderr)
+        except Exception as e:  # profiling is best-effort
+            print(f"smolvision: profiler stop failed: {e}", file=sys.stderr)
 
 
 def _run_several(args, eng: "Engine", verbosity: int) -> int:

@@ -2,10 +2,13 @@
 
 Port of the dense offline path of smolvision_tpu/runtime/engine.py (the
 qwen_ctx_t + transcribe entry points of qwen_asr.c) and of the settings the
-segmented, batched and serving drivers read (runtime/segment.py,
-runtime/batch_segments.py, runtime/serving.py), with the JAX engine's
-options --q8 (int8 decoder weights), --kv8 (int8 batched KV cache) and
---spec (speculative decoding with an int8 draft).  The engine owns:
+segmented, batched, serving and streaming modules read (runtime/segment.py,
+runtime/batch_segments.py, runtime/serving.py, runtime/stream.py), with the
+JAX engine's options --q8 (int8 decoder weights), --kv8 (int8 batched KV
+cache), --spec (speculative decoding with an int8 draft) and
+--enc-window-sec (the encoder's attention window), and streaming's prefill
+with KV reuse (`prefill_with_reuse`: kernel B2 at a start > 0).  The
+engine owns:
   * the parameter dictionaries on its device (bf16 weights by default),
   * the KV cache (grow-by-copy to pow2 buckets, as in the JAX engine),
   * host-side text logic (prompt tokens, <asr_text> gating, callbacks),
@@ -22,6 +25,7 @@ device's, not the enqueue's.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 import time
@@ -69,6 +73,10 @@ class PerfStats:
         self.decode_ms = 0.0   # prefill + decode loop (its "decoding")
         self.mel_ms = 0.0
         self.prefill_ms = 0.0
+        # streaming latency (runtime/stream.py): wall ms per chunk round and
+        # session-start -> first committed token (the TTFT analog)
+        self.stream_chunk_ms = []
+        self.stream_first_commit_ms = None
         # single-stream decode steps run (one kernel-B3 launch per layer
         # each): graph replays and eager steps, those past the end of a
         # chunk and the --spec draft steps included
@@ -83,6 +91,7 @@ class PerfStats:
         # launches of the other kernels follow these counts, one per layer each:
         self.encodes = 0          # encoder stack calls (B1), single clips or batches
         self.prefills = 0         # single-stream prefills (B2)
+        self.reuse_prefills = 0   # of which at a cache row > 0 (streaming's KV reuse)
         self.fresh_prefills = 0   # batched fresh prefills (B4): one per length group
         self.delta_prefills = 0   # batched delta prefills (B5): one per admission wave
         self.batch_decode_steps = 0   # batched decode steps run (plain attention)
@@ -96,6 +105,16 @@ class PerfStats:
         # completion p50/p99 dict over the last queue, or None
         self.serving_latency = None
 
+    def stream_latency(self):
+        """(first_commit_ms, p50, p99) over the recorded chunk rounds, or
+        None when no streaming ran."""
+        if not self.stream_chunk_ms:
+            return None
+        arr = np.asarray(self.stream_chunk_ms)
+        return (self.stream_first_commit_ms,
+                float(np.percentile(arr, 50)),
+                float(np.percentile(arr, 99)))
+
 
 def _now_ms() -> float:
     return time.monotonic() * 1000.0
@@ -105,7 +124,8 @@ class Engine:
     """One loaded checkpoint on one device + generation settings."""
 
     def __init__(self, model_dir: str, param_dtype=torch.bfloat16, kv_dtype=torch.bfloat16,
-                 verbose: int = 0, device: Optional[Union[str, torch.device]] = None,
+                 enc_window_sec: Optional[float] = None, verbose: int = 0,
+                 device: Optional[Union[str, torch.device]] = None,
                  q8: bool = False, kv8: bool = False, spec: bool = False):
         self.device = resolve_device(device)
         self.model_dir = model_dir
@@ -115,6 +135,10 @@ class Engine:
         if cfg.family != "qwen3" or cfg.is_moe:
             raise ValueError(f"{cfg.name}: Qwen2.5-Omni and MoE checkpoints are not yet "
                              "ported to smolvision_tpu_torch")
+        if enc_window_sec is not None:
+            frames = int(enc_window_sec * 100.0 + 0.5)
+            frames = min(max(frames, 100), 800)
+            cfg = dataclasses.replace(cfg, enc_n_window_infer=frames)
         self.cfg = cfg
         self.param_dtype = param_dtype
         self.kv_dtype = kv_dtype
@@ -161,6 +185,10 @@ class Engine:
         # ---- generation settings (defaults mirror qwen_asr.c:257-272) ----
         self.segment_sec = 0.0
         self.search_sec = 3.0
+        self.stream_chunk_sec = 2.0
+        self.stream_rollback = 5
+        self.stream_unfixed_chunks = 2
+        self.stream_max_new_tokens = 32
         self.past_text_conditioning = False
         self.skip_silence = False
         self.max_tokens = 2048
@@ -174,6 +202,8 @@ class Engine:
         self._prompt_ready = False
 
         self.token_cb: Optional[TokenCallback] = None
+        # --monitor: streaming heartbeat symbols on stderr (runtime/stream.py)
+        self.monitor = False
         self.perf = PerfStats()
         self._tokenizer: Optional[Tokenizer] = None
 
@@ -319,25 +349,57 @@ class Engine:
     # decoder primitives
     # ------------------------------------------------------------------
 
-    @torch.inference_mode()
-    def prefill_ids(self, ids: Sequence[int], audio: Optional[torch.Tensor],
-                    audio_start: int, n_audio: int, greedy: bool = True):
-        """Embed + splice + prefill into a fresh cache position 0.  Returns
-        (token_or_logits, total_pos)."""
-        total = len(ids)
-        tcap = bucket(total, 64)
+    def _embeds(self, ids: Sequence[int], tcap: int, audio: Optional[torch.Tensor],
+                audio_start: int, n_audio: int) -> torch.Tensor:
+        """Embeddings [tcap, H] of `ids` (zero ids past them) with the audio
+        rows spliced in at audio_start."""
         ids_arr = np.zeros(tcap, dtype=np.int64)
-        ids_arr[:total] = np.asarray(ids, dtype=np.int64)
+        ids_arr[:len(ids)] = np.asarray(ids, dtype=np.int64)
         if audio is None:
             audio = torch.zeros((16, self.cfg.dec_hidden), device=self.device)
             audio_start, n_audio = -1_000_000, 0
-        embeds = dec_mod.build_embeds(self.dec_params, torch.from_numpy(ids_arr).to(self.device),
-                                      audio, audio_start, n_audio)
-        kv = self._ensure_kv(tcap + KV_HEADROOM)
-        out, self._kv = dec_mod.prefill(self.dec_params, self.cfg, embeds, 0, total, kv,
-                                        greedy=greedy)
+        return dec_mod.build_embeds(self.dec_params, torch.from_numpy(ids_arr).to(self.device),
+                                    audio, audio_start, n_audio)
+
+    def _prefill(self, embeds: torch.Tensor, start_pos: int, valid_len: int, greedy: bool):
+        """Kernel B2 over `embeds` written into cache rows start_pos.. (the
+        rows below start_pos are kept); the first token or logits."""
+        kv = self._ensure_kv(start_pos + embeds.shape[0] + KV_HEADROOM)
+        out, self._kv = dec_mod.prefill(self.dec_params, self.cfg, embeds, start_pos,
+                                        valid_len, kv, greedy=greedy)
         self.perf.prefills += 1
-        return out, total
+        self.perf.reuse_prefills += int(start_pos > 0)
+        return out
+
+    @torch.inference_mode()
+    def prefill_ids(self, ids: Sequence[int], audio: Optional[torch.Tensor],
+                    audio_start: int, n_audio: int, start_pos: int = 0,
+                    greedy: bool = True):
+        """Embed + splice + prefill `ids` into cache rows start_pos.. (0: a
+        fresh prompt; > 0: a delta after start_pos cached rows, which are
+        kept).  Returns (token_or_logits, start_pos + len(ids))."""
+        total = len(ids)
+        embeds = self._embeds(ids, bucket(total, 64), audio, audio_start, n_audio)
+        return self._prefill(embeds, start_pos, total, greedy), start_pos + total
+
+    @torch.inference_mode()
+    def prefill_with_reuse(self, ids: Sequence[int], audio: Optional[torch.Tensor],
+                           audio_start: int, n_audio: int, reused: int,
+                           greedy: bool = True):
+        """Prefill only the delta of the FULL prompt `ids` past its first
+        `reused` rows, which the cache already holds (streaming KV reuse,
+        qwen_asr.c:1807-1831, keyed on a host-side prompt signature;
+        runtime/stream.py).  reused is clamped to len(ids) - 1, so the last
+        row is always recomputed.  Returns (token_or_logits, len(ids))."""
+        total = len(ids)
+        reused = max(0, min(reused, total - 1))
+        delta_cap = bucket(total - reused, 64)
+        # the embeds cover [reused, reused + delta_cap), so the slice of the
+        # delta rows is never cut short at the end of the bucket
+        tcap = bucket(max(total, reused + delta_cap), 64)
+        embeds = self._embeds(ids, tcap, audio, audio_start, n_audio)
+        delta = embeds[reused : reused + delta_cap]
+        return self._prefill(delta, reused, total - reused, greedy), total
 
     @torch.inference_mode()
     def decode_step(self, token: int, pos: int, greedy: bool = True):

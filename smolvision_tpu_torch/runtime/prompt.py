@@ -1,13 +1,15 @@
 """Chat-template prompt assembly (host side, token ids only).
 
-Port of smolvision_tpu/runtime/prompt.py: the ASR layout (the stream and
-thinker layouts come with those modes).
+Port of smolvision_tpu/runtime/prompt.py: the ASR and streaming layouts
+(the thinker layouts come with that mode).
 
 Token constants from qwen_asr.c:388-409 and qwen25_omni.c:78-93.  Layout
 (qwen_asr.c transcribe_segment / stream_impl / thinker paths):
 
   ASR:     PREFIX_HEAD [prompt] PREFIX_TAIL [audio x N] SUFFIX_BASE
            [force-lang + <asr_text>] [past-text + <asr_text>]
+  stream:  PREFIX_HEAD [prompt] PREFIX_TAIL [audio x N] SUFFIX_BASE
+           [force-lang + <asr_text>] [rolled-back raw tokens]
 """
 
 from __future__ import annotations
@@ -55,4 +57,24 @@ def build_asr_prompt(
     if past_tokens:
         ids += list(past_tokens)
         ids.append(TOKEN_ASR_TEXT)
+    return ids, audio_start
+
+
+def build_stream_prompt(
+    cfg: ModelConfig,
+    n_audio: int,
+    prompt_tokens: Sequence[int] = (),
+    force_tokens: Sequence[int] = (),
+    prefix_tokens: Sequence[int] = (),
+) -> Tuple[List[int], int]:
+    """Streaming layout (qwen_asr.c:1751-1805): like ASR but the rolled-back
+    raw-token prefix is appended verbatim (NO extra <asr_text>; the prefix
+    already contains the language/<asr_text> lead from earlier chunks)."""
+    prefix_tail, suffix_base = _tails(cfg)
+    ids = list(PREFIX_HEAD) + list(prompt_tokens) + list(prefix_tail)
+    audio_start = len(ids)
+    ids += [cfg.audio_pad_token] * n_audio
+    ids += list(suffix_base)
+    ids += list(force_tokens)
+    ids += list(prefix_tokens)
     return ids, audio_start

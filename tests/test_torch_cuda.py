@@ -255,7 +255,7 @@ def test_cuda_tensor_core_head_matches_plain_version():
 
 @pytest.mark.cuda
 def test_cuda_window_attention_both_routes():
-    """B1 at S 13 (the shortest --enc-window-sec window), 100 (Qwen2.5-Omni's
+    """B1 at S 13 and 26 (--enc-window-sec 1 and 2), 100 (Qwen2.5-Omni's
     window), 104 (Qwen3-ASR's) -- the window-resident route, each with a
     window's rows in one block and split over two -- and 208 (the
     query-tiled route above 128 rows); ragged lens, one key, an all-pad
@@ -267,8 +267,8 @@ def test_cuda_window_attention_both_routes():
     n = 0
     kept = tfa.WINDOW_ROW_BLOCKS
     try:
-        for S, lens in ((13, [13, 0, 1, 6]), (100, [100, 64, 0, 17]), (104, [104, 104, 52, 0]),
-                        (208, [208, 0, 130, 1])):
+        for S, lens in ((13, [13, 0, 1, 6]), (26, [26, 9, 0, 26]), (100, [100, 64, 0, 17]),
+                        (104, [104, 104, 52, 0]), (208, [208, 0, 130, 1])):
             q, k, v = (torch.randn(len(lens), S, 14, 64, device="cuda", generator=g)
                        for _ in range(3))
             for w, m in enumerate(lens):
@@ -313,6 +313,33 @@ def test_cuda_prefill_attention_both_routes():
             got, tfa.causal_cache_attention_plain(q, k, v, start, valid, kv_min),
             rtol=0, atol=ATOL)
         n += 1
+    torch.cuda.synchronize()
+    assert ffi.launch_counts["causal_cache_attention"] - before == n
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_attention_at_stream_delta_shapes():
+    """B2 at start > 0 as streaming's KV-reuse prefill runs it: a delta
+    block of T 64 to 512 rows written after 9 (the prompt's template) to
+    321 reused rows of a 1024-row cache, its last rows pad (kv_valid =
+    reused + delta rows), on bf16 and f32 caches, +-999 junk in every row
+    past the valid ones."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels are built with nvcc for sm_90a)")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    before = ffi.launch_counts["causal_cache_attention"]
+    n = 0
+    for T, start, valid in ((64, 300, 357), (128, 9, 130), (128, 300, 421), (256, 300, 549),
+                            (512, 321, 800)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn(T, 16, 128, device="cuda", generator=g)
+            k = torch.randn(1024, 8, 128, device="cuda", generator=g).to(dtype)
+            v = torch.randn(1024, 8, 128, device="cuda", generator=g).to(dtype)
+            k[valid:], v[valid:] = 999.0, -999.0
+            got = tfa.causal_cache_flash_attention(q, k, v, start, valid)
+            torch.testing.assert_close(
+                got, tfa.causal_cache_attention_plain(q, k, v, start, valid), rtol=0, atol=ATOL)
+            n += 1
     torch.cuda.synchronize()
     assert ffi.launch_counts["causal_cache_attention"] - before == n
 
@@ -529,3 +556,83 @@ def test_cuda_probe_mm_ragged_shapes():
                                    atol=ATOL)
     torch.cuda.synchronize()
     assert ffi.launch_counts["probe_mm"] - before == len(shapes)
+
+
+@pytest.fixture
+def card_stream_engine(tmp_path, monkeypatch):
+    """The card checkpoint (full vocab) with a separate random lm_head: a
+    tied random head greedy-decodes one token over and over, which the
+    stream's recovery reset swallows; an untied one decodes varied tokens,
+    so the prefix conditioning and the KV reuse run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels are built with nvcc for sm_90a)")
+    import json
+    import os
+
+    from smolvision_tpu_torch.io.safetensors import MultiSafetensors, write_safetensors
+    from smolvision_tpu_torch.models import synthetic
+    from smolvision_tpu_torch.runtime.engine import Engine
+
+    monkeypatch.setitem(synthetic.PRESETS, "card", CARD_PRESET)
+    model = synthetic.build("card", str(tmp_path / "model"), seed=3, full_vocab=True)
+    with MultiSafetensors(model) as r:
+        tensors = {k: r.get(k).clone() for k in r.names()}
+    embed = tensors["thinker.model.embed_tokens.weight"]
+    g = torch.Generator().manual_seed(4)
+    tensors["thinker.lm_head.weight"] = (torch.randn(embed.shape, generator=g) * 0.1).to(
+        embed.dtype)
+    write_safetensors(os.path.join(model, "model.safetensors"), tensors)
+    path = os.path.join(model, "config.json")
+    with open(path) as f:
+        cfg = json.load(f)
+    cfg["thinker_config"]["text_config"]["tie_word_embeddings"] = False
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return Engine(model, device="cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_stream_captures_one_graph_per_cache(card_stream_engine, monkeypatch):
+    """A 10-chunk stream (20 s, 2 s chunks) on the card: every chunk after
+    the first prefills its delta through B2 at start > 0 into the cache the
+    decode loop's CUDA graph holds, and decodes by replaying that graph; a
+    graph is captured once per cache (1 + its growths), not per chunk.  The
+    chunks' tokens equal those of the same stream with eager steps."""
+    import numpy as np
+
+    from smolvision_tpu_torch.models import qwen3_decoder as tdec
+    from smolvision_tpu_torch.runtime import decode_graph
+    from smolvision_tpu_torch.runtime import stream
+
+    eng = card_stream_engine
+    eng.past_text_conditioning = True
+    rng = np.random.default_rng(7)
+    t = np.arange(20 * 16000) / 16000
+    audio = (0.25 * np.sin(2 * np.pi * 200 * t) * (0.5 + 0.5 * np.sin(2 * np.pi * 1.3 * t))
+             + 0.01 * rng.standard_normal(len(t))).astype(np.float32)
+    make = tdec.make_kv_cache
+    allocs = []
+    monkeypatch.setattr(tdec, "make_kv_cache", lambda *a, **k: allocs.append(1) or make(*a, **k))
+
+    def run():
+        eng.reset_kv()
+        allocs.clear()
+        eng.token_cb = lambda piece: None
+        state = stream.StreamState(eng, audio, None)
+        chunks = []
+        while state.active():
+            w = state.begin_chunk()
+            if w is not None:
+                stream.run_solo_chunk(state, w)
+                chunks.append((w.reused, list(state.raw_tokens)))
+        return chunks, state.finalize()
+
+    graph = run()
+    perf = eng.perf
+    assert len(graph[0]) == 10
+    assert perf.reuse_prefills >= 1 and perf.decode_steps > 0
+    assert 1 <= perf.graph_captures <= len(allocs), (perf.graph_captures, len(allocs))
+    with monkeypatch.context() as m:
+        m.setattr(decode_graph, "capture", _eager_capture)
+        eager = run()
+    assert graph == eager

@@ -6,6 +6,7 @@ id is visible text.  --f32 keeps both sides in f32: with bf16 weights torch's
 and XLA's bf16 products round at other places.
 """
 
+import json
 import os
 import struct
 import subprocess
@@ -142,11 +143,13 @@ def test_cli_stdout_byte_equal(visible_model, silent):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--moe-offload"], "--moe-offload"), (["--stream"], "--stream"),
-    (["--profile", "trace"], "--profile"), (["--thinker"], "--thinker"),
+    (["--moe-offload"], "--moe-offload"), (["--moe-preload"], "--moe-preload"),
+    (["--stream", "-i", "WAV", "WAV"], "--stream with several -i files"),
+    (["--thinker"], "--thinker"),
 ])
 def test_cli_unported_modes_exit_1(visible_model, extra, what):
     model, wav = visible_model
+    extra = [wav if a == "WAV" else a for a in extra]
     r = _cli("smolvision_tpu_torch.cli", ["-d", model, "-i", wav] + extra)
     assert r.returncode == 1
     err = r.stderr.decode().strip().splitlines()
@@ -161,3 +164,86 @@ def test_cli_bad_input_one_line(visible_model, tmp_path):
     r = _cli("smolvision_tpu_torch.cli", ["-d", model, "-i", str(bad), "--silent"])
     assert r.returncode == 1
     assert r.stderr.decode().startswith("smolvision: cannot load audio")
+
+
+@pytest.fixture(scope="module")
+def stream_model(tmp_path_factory):
+    """The untied tiny checkpoint of tests/test_torch_stream.py (its streams
+    commit text) and an 11 s clip: 6 chunks, one 8 s window cached."""
+    from tests.test_torch_stream import build_stream_model, speech
+
+    d = tmp_path_factory.mktemp("stream")
+    model = build_stream_model(str(d / "model"))
+    wav = d / "clip.wav"
+    wav.write_bytes(_wav_bytes(speech(11.0, seed=1)))
+    return model, str(wav)
+
+
+def _both_cli(args, stdin=None):
+    out = []
+    for module in ("smolvision_tpu.cli", "smolvision_tpu_torch.cli"):
+        env = dict(os.environ, PYTHONPATH=REPO, SMOLVISION_PLATFORM="cpu")
+        r = subprocess.run([sys.executable, "-m", module] + args, capture_output=True,
+                           timeout=600, env=env, cwd=REPO, input=stdin)
+        assert r.returncode == 0, r.stderr.decode()
+        out.append(r)
+    return out
+
+
+@pytest.mark.parametrize("silent", [True, False])
+def test_cli_stream_stdout_byte_equal(stream_model, silent):
+    """--stream --f32: streamed commits (or, under --silent, the one
+    full-context pass) byte-equal to the JAX CLI's."""
+    model, wav = stream_model
+    args = ["-d", model, "-i", wav, "--stream", "--f32", "--language", "English",
+            "--max-tokens", "24"] + (["--silent"] if silent else ["--debug"])
+    j, t = _both_cli(args)
+    assert len(t.stdout.strip()) > 0
+    assert t.stdout == j.stdout
+    if not silent:
+        err = t.stderr.decode()
+        assert "Prefill reuse:" in err and "Stream latency:" in err and "realtime)" in err
+
+
+def test_cli_stdin_stream_stdout_byte_equal(stream_model):
+    """--stdin --stream: the WAV piped into both CLIs, read live."""
+    model, wav = stream_model
+    with open(wav, "rb") as f:
+        data = f.read()
+    args = ["-d", model, "--stdin", "--stream", "--f32", "--enc-window-sec", "1",
+            "--stream-max-new-tokens", "8"]
+    j, t = _both_cli(args, stdin=data)
+    assert len(t.stdout.strip()) > 0
+    assert t.stdout == j.stdout
+
+
+@pytest.mark.parametrize("mode", ["offline", "stream"])
+def test_cli_enc_window_sec_byte_equal(stream_model, mode):
+    """--enc-window-sec 2: 26-token encoder windows (B1 at S 26)."""
+    model, wav = stream_model
+    args = ["-d", model, "-i", wav, "--f32", "--language", "English", "--max-tokens", "16",
+            "--enc-window-sec", "2"] + (["--stream"] if mode == "stream" else ["--silent"])
+    j, t = _both_cli(args)
+    assert len(t.stdout.strip()) > 0
+    assert t.stdout == j.stdout
+
+
+@pytest.mark.parametrize("value", ["0.5", "12"])
+def test_cli_enc_window_sec_out_of_range(visible_model, value):
+    model, wav = visible_model
+    r = _cli("smolvision_tpu_torch.cli", ["-d", model, "-i", wav, "--enc-window-sec", value])
+    assert r.returncode == 1 and r.stdout == b""
+    assert r.stderr.decode().strip() == f"Error: --enc-window-sec must be in [1, 8], got {float(value)}"
+
+
+def test_cli_profile_writes_trace(visible_model, tmp_path):
+    """--profile DIR: a torch.profiler trace in DIR, stdout unchanged."""
+    model, wav = visible_model
+    args = ["-d", model, "-i", wav, "--f32", "--language", "English", "--max-tokens", "8"]
+    plain = _cli("smolvision_tpu_torch.cli", args)
+    r = _cli("smolvision_tpu_torch.cli", args + ["--profile", str(tmp_path / "prof")])
+    assert plain.returncode == r.returncode == 0, r.stderr.decode()
+    assert r.stdout == plain.stdout and len(r.stdout.strip()) > 0
+    assert f"profile trace written to {tmp_path / 'prof'}" in r.stderr.decode()
+    trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
+    assert trace["traceEvents"]
