@@ -79,8 +79,34 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
                 --stream` fed the 20 s clip through a pipe by a feeder
                 process (it must reach EOF); `--stream --profile DIR`,
                 which must leave a trace file.  Each stream's graph
-                captures must be at most its caches (1 + growths).
-Each path that decodes greedily runs twice, in turns: first with the
+                captures must be at most its caches (1 + growths);
+ 10. multistream - `--stream -i` eight clips of 12-60 s (276 s): one
+                round per 2 s chunk for all live sessions, B 8 rows
+                compacted to 4, then 2, as sessions end; per round one
+                batched encode of the sessions' new spans (B1), one batched
+                delta prefill (B5, at start S > 0 with per-row prompt_max
+                once every row reuses 64 rows or more; each round's block
+                must be the one the reuse rule gives) and one batched
+                decode (the head at R = B); against the same clips
+                streamed solo one after another (realtime factors);
+                `--q8 --kv8` (K7, the int8 batched cache through the
+                two-part attention, no B5; compaction gathers a QuantKV);
+                `--f32` on three clips against each clip's solo run (a
+                parting must be at a near tie of the single-stream path:
+                its top-2 gap under twice the largest f32 logit difference
+                phase 4 measured between the kernel and plain paths); the
+                threaded mode (SMOLVISION_BATCH_STREAMS=0) on two, whose
+                texts must equal the batched and the solo runs'.  Decode
+                graph captures at most the caches (allocation, growths,
+                compactions) in every run; at least MSTREAM_MIN_DEEP_SHARE
+                of the bf16 run's rounds at S > 0.  Then B5 at each round
+                at S > 0 of the bf16 and --f32 runs (its B, S, W, pcap,
+                kcap and per-row prompt_max, on the run's cache type)
+                against its plain version, and timed once per distinct
+                shape, each timing row's launches the run's B5 calls at
+                that shape.
+Each path that decodes greedily (multistream's bf16 run included) runs
+twice, in turns: first with the
 decode loops' steps run eagerly on every replay, then as CUDA graphs (the
 path as it ships, runtime/decode_graph.py).  The two runs' decoded chunks
 (tokens and counts) must be equal, and every captured graph must launch
@@ -91,7 +117,8 @@ take.  Decode ms per step and the device's idle share are measured for
 graph and eager steps in turns (eager, graph, graph, eager) at each
 path's batch and weights.
 
-Prints a `{"kernels": [...]}` line, the nvidia-smi line, and as its last
+Prints the streams' and multistream runs' summaries, a `{"kernels": [...]}`
+line, the nvidia-smi line, and as its last
 line `{"ok": true, "device": {...}}`.  Without a card, or outside a
 checkout, it exits non-zero and prints no result.  Imports nothing of JAX.
 `--kernels-only` stops after phase 3 (the kernels line has no launches,
@@ -204,6 +231,26 @@ B2_DELTA_ROWS = (("causal_cache_attention_delta128", 128, 300, 421),
                  ("causal_cache_attention_delta256", 256, 300, 549))
 # per stream run (phase 9), printed as one line at the end
 STREAM_RUNS = {}
+# phase 10: multistream, one session per clip (seconds), B 8 compacted to 4, then 2
+MSTREAM_CLIP_SEC = (12, 16, 20, 24, 36, 48, 60, 60)
+MSTREAM_F32_CLIPS = 3         # --stream --f32 on the first three clips, against solo
+MSTREAM_THREADED_CLIPS = 2    # SMOLVISION_BATCH_STREAMS=0 on the first two
+# B5's phase-3 check at a synthetic multistream round: (B, W, S, pcap, kcap,
+# per-row prompt_max): a W 128 block at S 256 of a pcap 768 cache.  Its
+# checks and timings at the rounds the path runs follow phase 10
+# (`mstream_b5_table`)
+MSTREAM_B5 = (8, 128, 256, 768, 832, [600 + 14 * b for b in range(8)])
+# the least share of the bf16 multistream run's rounds at S > 0 (B5's cache
+# half); 3 of 30 rounds on the eight clips (PERF.md)
+MSTREAM_MIN_DEEP_SHARE = 0.05
+# the largest logit difference between the card's kernel and plain paths on
+# f32 weights (phase 4: offline, fresh, served and delta prefill), set there;
+# a --f32 multistream session may part from its solo run only where the solo
+# path's top-2 gap is under twice this
+F32_LOGIT_DIFF = None
+# per multistream run (phase 10), printed as one line at the end
+MSTREAM_RUNS = {}
+CARD_LINE = "not read"        # nvidia-smi's name and power limit, set in phase 1
 
 
 def fail(msg: str) -> None:
@@ -394,7 +441,7 @@ def kernel_of(name: str) -> str:
     of the shape it was timed at."""
     for suffix in ("_long", "_wide", "_segments", "_delta128", "_delta256"):
         name = name.removesuffix(suffix)
-    return name
+    return name.split("_mstream")[0]
 
 
 def window_row(lens, S=104, H=14, D=64):
@@ -647,6 +694,12 @@ def phase_kernels(shapes):
                       (3, 100, 768, 320, [5, 0, 0], [100, 7, 320], 256, dtype, heads)]
     GW, TW, lensw = shapes["wide_G"], shapes["wide_T"], shapes["wide_lens"]
     cases.append((GW, TW, TW, 0, [0] * GW, lensw, 1 << 30, "bfloat16", MAIN_HEADS))
+    # a synthetic multistream round: the cache half at S 256 (bf16 and f32
+    # caches) and the full-cap block at S 0 (the rounds phase 10 runs are
+    # checked after it, `mstream_b5_table`)
+    Bm, Wm, Sm, pcap_m, kcap_m, pm_m = MSTREAM_B5
+    for S, W, dtype in ((Sm, Wm, "bfloat16"), (Sm, Wm, "float32"), (0, pcap_m, "bfloat16")):
+        cases.append((Bm, W, kcap_m, S, [0] * Bm, pm_m, pcap_m, dtype, MAIN_HEADS))
     for B, T, K, start, kv_min, pm, rs, dtype, (H, KH, D) in cases:
         q, kn, vn = batched_case(B, T, H, KH, D)
         kc, vc = batched_cache(B, K, start, kv_min, pm, rs, KH, D, dtype=dtype)
@@ -742,16 +795,24 @@ def phase_kernels(shapes):
         f"{json.dumps(window_split_sweep(shapes))}")
     log(f"  B2 on an f32 cache: {b2_f32_timings(shapes)}")
 
+    return timed_table(rows, errs, f32_bounds)
+
+
+def timed_table(rows, errs: dict, f32_bounds: dict) -> list:
+    """The kernels line's entries of timing rows (name, source, replaces,
+    kernel, plain, library, bound): the kernel and the plain version in
+    turns, the library call, each row's max_abs_err (`errs` by row name,
+    else by its kernel)."""
     table = []
     for name, source, replaces, kern, plain, lib, (bound_ms, bound_by) in rows:
         # turns: plain, kernel, kernel, plain (noise shows as disagreement)
         p1, k1, k2_, p2 = (time_ms(f) for f in (plain, kern, kern, plain))
         table.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "max_abs_err": errs[kernel_of(name)],
+            "max_abs_err": errs[name] if name in errs else errs[kernel_of(name)],
             "ms": min(k1, k2_), "plain_ms": min(p1, p2),
             "library_ms": time_ms(lib), "bound_ms": bound_ms, "bound_by": bound_by,
-            "design": DESIGNS.get(name, "f32 CUDA cores"),
+            "design": DESIGNS.get(name) or DESIGNS.get(kernel_of(name), "f32 CUDA cores"),
         })
         f32 = (f", f32 CUDA-core bound {f32_bounds[name][0]:.4f} ms ({f32_bounds[name][1]})"
                if name in f32_bounds else "")
@@ -2083,6 +2144,448 @@ def phase_stream(model_dir: str, wavs: dict, cfg) -> dict:
     return {"launches": launches, "record": bf16}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: multistream (--stream with several -i files)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def mstream_record(prompts: bool = False):
+    """Records the multistream runs (runtime/multistream.py) the block makes:
+    the session engine views in the order they are made (source order);
+    per view its chunks (index, reused rows, the tokens and count
+    finish_chunk gets, and with `prompts` the chunk's prompt ids and audio
+    rows); each session's prefill and reused rows at its end; every B5 call
+    as (B, T, start, K).  The wrappers only record."""
+    from smolvision_tpu_torch.kernels import flash_attention as fa
+    from smolvision_tpu_torch.runtime import multistream, stream
+
+    rec = {"views": [], "chunks": {}, "prefill": {}, "b5": []}
+    clone = multistream.clone_session
+    finish, final = stream.StreamState.finish_chunk, stream.StreamState.finalize
+    b5 = fa.batched_cache_flash_attention
+
+    def rec_clone(engine):
+        view = clone(engine)
+        rec["views"].append(view)
+        return view
+
+    def rec_finish(self, w, chunk_tokens, n_generated, decode_ms):
+        entry = {"chunk": self.chunk_idx, "reused": w.reused, "tokens": list(chunk_tokens),
+                 "n": n_generated}
+        if prompts:
+            entry.update(ids=list(w.ids), audio=w.audio_block[: w.enc_seq_len].clone(),
+                         audio_start=w.audio_start, n_audio=w.enc_seq_len)
+        rec["chunks"].setdefault(id(self.engine), []).append(entry)
+        finish(self, w, chunk_tokens, n_generated, decode_ms)
+
+    def rec_final(self):
+        rec["prefill"][id(self.engine)] = (self.prefill_total, self.prefill_reused)
+        return final(self)
+
+    def rec_b5(q, k_new, v_new, k_cache, v_cache, start_pos, *args, **kwargs):
+        rec["b5"].append((q.shape[0], q.shape[1], start_pos, k_cache.shape[2]))
+        return b5(q, k_new, v_new, k_cache, v_cache, start_pos, *args, **kwargs)
+
+    with contextlib.ExitStack() as stack:
+        for obj, attr, fn in ((multistream, "clone_session", rec_clone),
+                              (stream.StreamState, "finish_chunk", rec_finish),
+                              (stream.StreamState, "finalize", rec_final),
+                              (fa, "batched_cache_flash_attention", rec_b5)):
+            stack.enter_context(mock.patch.object(obj, attr, fn))
+        yield rec
+
+
+def session_chunks(rec) -> list:
+    """Per session, in source order: (chunk index, tokens, count) per chunk."""
+    return [[(e["chunk"], e["tokens"], e["n"]) for e in rec["chunks"].get(id(v), [])]
+            for v in rec["views"]]
+
+
+def check_mstream_launches(name: str, launches: dict, eng, rec, cfg) -> None:
+    """Every kernel's launches equal the multistream run's bookkeeping: B1
+    once per layer per encoder call (the batched pre-encodes on the engine,
+    the sessions' own encodes on their views), B5 once per layer per
+    batched round (none on an int8 cache), the greedy head once per round's
+    prefill and once per decode step of the round at R = the round's B;
+    the single-stream path of the views (the threaded mode, the solo
+    fallback): B2 per prefill, B3 per step, the head at R 1."""
+    import torch
+
+    from smolvision_tpu_torch.kernels import argmax_matvec as am
+    from smolvision_tpu_torch.ops.quant import QuantW
+
+    perf, views = eng.perf, rec["views"]
+    L = cfg.dec_layers
+    head = eng.dec_params["lm_head"]
+    dtype = torch.int8 if isinstance(head, QuantW) else head.dtype
+    prefills = sum(v.perf.prefills for v in views)
+    steps = sum(v.perf.decode_steps for v in views)
+    expected = {k: 0 for k in launches}
+    expected.update({
+        "window_attention": cfg.enc_layers * (perf.encodes + sum(v.perf.encodes for v in views)),
+        "causal_cache_attention": L * prefills, "decode_attention": L * steps,
+        "batched_cache_attention": 0 if eng.kv8 else L * perf.delta_prefills})
+
+    def heads(n: int, R: int) -> None:
+        if n:
+            expected[am.launch_key(am.head_route(R, dtype), dtype)] += n
+
+    heads(prefills + steps, 1)
+    for r in (perf.multistream or {}).get("rounds", []):
+        heads(1 + r["steps"], r["B"])
+    log(f"{name}: launches {json.dumps(launches)}, expected {json.dumps(expected)}")
+    if launches != expected:
+        fail(f"{name}: launch counts {launches} != expected {expected}")
+
+
+def percentiles(values) -> list:
+    import numpy as np
+
+    return [float(np.percentile(values, 50)), float(np.percentile(values, 99))] if values else None
+
+
+def mstream_summary(name: str, eng, rec, cfg) -> dict:
+    """What a batched multistream run shows: its aggregate realtime factor,
+    round ms, the sessions' chunk latency and first commits, the reused
+    share of prefill rows, B5's launches at start > 0 by block W and the
+    (S, W, pcap) range, compactions, captures against caches, decode ms per
+    step at each B.  Fails if it captured more decode graphs than it had
+    caches, if a round's block is not the one the reuse rule gives, or if
+    B5's launches at start > 0 are not one per layer per such round."""
+    from smolvision_tpu_torch.runtime.buckets import bucket
+    from smolvision_tpu_torch.runtime.multistream import quantize_block
+
+    perf, views = eng.perf, rec["views"]
+    record = perf.multistream
+    rounds = record["rounds"] if record else []
+    if not rounds:
+        fail(f"{name}: no batched round ran")
+    if DEV == "cuda" and not 1 <= perf.graph_captures <= record["caches"]:
+        fail(f"{name}: {perf.graph_captures} decode graphs captured over {record['caches']} "
+             f"caches (at most one per cache)")
+    for i, r in enumerate(rounds):
+        S = min(r["reused"]) // 64 * 64
+        want = quantize_block(S, min(bucket(max(r["lens"]) - S, 64), r["pcap"] - S), r["pcap"])
+        if (r["S"], r["W"]) != want:
+            fail(f"{name}: round {i} prefilled [{r['S']}, {r['S'] + r['W']}), the reuse rule "
+                 f"gives {want} (reused {r['reused']})")
+    L = cfg.dec_layers
+    deep = [r for r in rounds if r["S"] > 0]
+    b5_deep = [b for b in rec["b5"] if b[2] > 0]
+    if not eng.kv8 and len(b5_deep) != L * len(deep):
+        fail(f"{name}: {len(b5_deep)} B5 calls at start > 0 over {len(deep)} rounds at S > 0")
+    chunk_ms = [ms for v in views for ms in v.perf.stream_chunk_ms]
+    totals = [rec["prefill"].get(id(v), (0, 0)) for v in views]
+    by_b = {}
+    for r in rounds:
+        ms, steps, n = by_b.get(r["B"], (0.0, 0, 0))
+        by_b[r["B"]] = (ms + r["decode_ms"], steps + r["steps"], n + 1)
+    summary = {
+        "card": CARD_LINE, "sessions": len(views), "audio_s": perf.audio_ms / 1000.0,
+        "total_ms": perf.total_ms, "realtime_factor": perf.audio_ms / perf.total_ms,
+        "rounds": len(rounds), "round_ms_p50_p99": percentiles([r["wall_ms"] for r in rounds]),
+        "round_prefill_ms_p50_p99": percentiles([r["prefill_ms"] for r in rounds]),
+        "round_pre_encode_ms_p50_p99": percentiles([r["pre_encode_ms"] for r in rounds]),
+        "chunk_ms_p50_p99": percentiles(chunk_ms),
+        "first_commit_ms": [v.perf.stream_first_commit_ms for v in views],
+        "prefill_rows": sum(t for t, _ in totals), "reused_rows": sum(u for _, u in totals),
+        "reused_share": sum(u for _, u in totals) / max(sum(t for t, _ in totals), 1),
+        "rounds_at_S_gt_0": len(deep), "share_rounds_at_S_gt_0": len(deep) / len(rounds),
+        "b5_launches_start_gt_0": len(b5_deep),
+        "b5_start_gt_0_by_W": {W: sum(1 for b in b5_deep if b[1] == W)
+                               for W in sorted({b[1] for b in b5_deep})},
+        "S_W_pcap_range": ([[min(r[k] for r in deep), max(r[k] for r in deep)]
+                            for k in ("S", "W", "pcap")] if deep else None),
+        "compactions": record["compactions"], "grows": record["grows"],
+        "caches": record["caches"], "graph_captures": perf.graph_captures,
+        "graph_capture_ms": perf.graph_capture_ms,
+        "decode_ms_per_step_by_B": {B: ms / max(st, 1) for B, (ms, st, _) in sorted(by_b.items())},
+        "rounds_by_B": {B: n for B, (_, _, n) in sorted(by_b.items())},
+        "decode_steps": perf.batch_decode_steps, "wasted_steps": perf.wasted_steps,
+        "encodes": perf.encodes + sum(v.perf.encodes for v in views),
+        "text_tokens": sum(v.perf.text_tokens for v in views),
+    }
+    MSTREAM_RUNS[name] = summary
+    log(f"  {name}: {json.dumps(summary)}")
+    return summary
+
+
+def run_mstream(argv, name: str, cfg, turns=("eager", "graph"), prompts: bool = False):
+    """One multistream run through the CLI per turn: the decode loops' steps
+    run eagerly, then as CUDA graphs (`decode_mode`).  Each turn's launches
+    must equal its bookkeeping; the turns' per-session chunk tokens and
+    counts, and their decode chunks, must be equal.  Returns the last
+    turn's (engine, launches, stdout lines, record)."""
+    import gc
+
+    out = {}
+    for mode in turns:
+        with decode_mode(mode) as drec, mstream_record(prompts) as rec:
+            eng, launches, lines, _ = run_cli(argv, f"{name} ({mode})")
+        check_mstream_launches(f"{name} ({mode})", launches, eng, rec, cfg)
+        out[mode] = (eng, launches, lines, rec, drec)
+        if mode != turns[-1]:
+            r = eng.perf.multistream["rounds"]
+            log(f"  {name} ({mode}): decode ms per step "
+                f"{sum(x['decode_ms'] for x in r) / max(sum(x['steps'] for x in r), 1):.2f}, "
+                f"realtime factor {eng.perf.audio_ms / eng.perf.total_ms:.2f}x")
+            del eng
+            out[mode] = out[mode][1:]
+            gc.collect()
+    eng, launches, lines, rec, drec = out[turns[-1]]
+    if len(turns) > 1:
+        _, elines, erec, edrec = out[turns[0]]
+        if session_chunks(erec) != session_chunks(rec) or elines != lines:
+            fail(f"{name}: the sessions' chunk tokens differ between the eager and graph turns")
+        if edrec["chunks"] != drec["chunks"]:
+            fail(f"{name}: the decode chunks differ between the eager and graph turns")
+        log(f"  {name}: eager and graph turns equal over "
+            f"{sum(len(c) for c in session_chunks(rec))} session chunks and "
+            f"{len(drec['chunks'])} decode chunks")
+    if eng.perf.multistream:
+        mstream_summary(name, eng, rec, cfg)
+    return eng, launches, lines, rec
+
+
+def solo_streams(eng, clips) -> tuple:
+    """Each clip streamed alone, one after another, on session views of the
+    warm engine (the single-stream path); (texts, wall seconds)."""
+    import torch
+
+    from smolvision_tpu_torch.runtime import multistream, stream
+
+    texts = []
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for c in clips:
+        view = multistream.clone_session(eng)
+        view.token_cb = lambda piece: None
+        texts.append(stream.transcribe_stream(view, c))
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    return texts, time.monotonic() - t0
+
+
+def parting_gap(eng, entry, tokens, i: int) -> tuple:
+    """The single-stream path's top-2 logit gap at token i of a chunk whose
+    prompt `entry` holds (prefill logits, then the chunk's tokens before i
+    fed as decode steps), and the near-tie bound on f32 weights: two paths
+    whose logits each differ by at most F32_LOGIT_DIFF (phase 4's reading)
+    can order two logits differently only where they lie within twice
+    that."""
+    import torch
+
+    bound_gap = 2.0 * F32_LOGIT_DIFF
+    with torch.inference_mode():
+        eng.reset_kv()
+        logits, pos = eng.prefill_ids(entry["ids"], entry["audio"], entry["audio_start"],
+                                      entry["n_audio"], greedy=False)
+        for t in tokens[:i]:
+            logits = eng.decode_step(t, pos, greedy=False)
+            pos += 1
+        top = torch.topk(logits.float(), 2).values
+    return float(top[0] - top[1]), bound_gap
+
+
+def f32_against_solo(eng, rec, solo_rec) -> dict:
+    """--f32 sessions against their solo runs: per session the first chunk
+    whose tokens or count differ; there, the token where they part must be
+    a near tie of the single-stream path (`parting_gap` under its bound),
+    else it is a fault.  Returns {session: parting or None}."""
+    out = {}
+    for s, (view, sview) in enumerate(zip(rec["views"], solo_rec["views"])):
+        got, want = rec["chunks"][id(view)], solo_rec["chunks"][id(sview)]
+        part = next((j for j, (a, b) in enumerate(zip(got, want))
+                     if (a["tokens"], a["n"]) != (b["tokens"], b["n"])),
+                    None if len(got) == len(want) else min(len(got), len(want)))
+        if part is None:
+            out[s] = None
+            continue
+        if part >= min(len(got), len(want)):
+            fail(f"--f32 session {s}: {len(got)} chunks batched, {len(want)} solo")
+        a, b = got[part], want[part]
+        i = next((k for k, (x, y) in enumerate(zip(a["tokens"], b["tokens"])) if x != y),
+                 min(len(a["tokens"]), len(b["tokens"])))
+        gap, bound_gap = parting_gap(eng, b, b["tokens"], i)
+        rows = float((a["audio"] - b["audio"]).abs().max()) if a["audio"].shape == \
+            b["audio"].shape else None
+        out[s] = {"chunk": part, "token": i, "gap": gap, "bound": bound_gap,
+                  "audio_rows_max_abs_diff": rows,
+                  "audio_rows_max_abs": float(b["audio"].abs().max()),
+                  "prompt_equal": a["ids"] == b["ids"]}
+        log(f"  --f32 session {s} parts from its solo run at chunk {part}, token {i}: "
+            f"top-2 gap {gap:.4g} (bound {bound_gap:.4g}), audio rows differ by {rows} "
+            f"(largest {out[s]['audio_rows_max_abs']:.4g})")
+        if not gap < bound_gap:
+            fail(f"--f32 session {s}: parts from solo at chunk {part}, token {i}, where the "
+                 f"top-2 gap {gap:.4g} >= {bound_gap:.4g}")
+    return out
+
+
+def phase_multistream(model_dir: str, wavs, cfg) -> dict:
+    """Phase 10: `--stream -i` the MSTREAM_CLIP_SEC clips, bf16 (eager and
+    graph turns) against the same clips streamed solo one after another;
+    `--q8 --kv8` (graph turn: K7 at R = B, the int8 batched cache through
+    the two-part attention, kv_rows_gather on a QuantKV); `--f32` on the
+    first MSTREAM_F32_CLIPS clips against their solo runs; the threaded
+    mode (SMOLVISION_BATCH_STREAMS=0) on the first MSTREAM_THREADED_CLIPS,
+    whose texts must equal the batched run's.  Returns the bf16 graph
+    turn's launches and record.  The solo runs read the same WAV files as
+    the CLI (16-bit samples)."""
+    from smolvision_tpu_torch.io.wav import load_wav
+
+    clips = [load_wav(w) for w in wavs]
+    base = ["-d", model_dir, "--stream", "--language", "English"]
+    n = len(wavs)
+    name = f"--stream x{n}"
+    eng, launches, lines, bf16_rec = run_mstream(base + ["-i", *wavs], name, cfg)
+    if len(lines) != n or not any(line.strip() for line in lines):
+        fail(f"{name}: {len(lines)} transcript lines for {n} clips, or all empty")
+    record = eng.perf.multistream
+    share = MSTREAM_RUNS[name]["share_rounds_at_S_gt_0"]
+    if not share >= MSTREAM_MIN_DEEP_SHARE:
+        fail(f"{name}: {MSTREAM_RUNS[name]['rounds_at_S_gt_0']} of {len(record['rounds'])} "
+             f"rounds prefilled at start > 0 ({share:.3f}, under {MSTREAM_MIN_DEEP_SHARE}: "
+             f"B5's cache half ran too little)")
+    b5_runs = [("bf16", str(eng.batched_kv_dtype).replace("torch.", ""), record["rounds"],
+                bf16_rec["b5"])]
+    if [r["B"] for r in record["rounds"]][:1] != [8] or record["compactions"] < 2:
+        fail(f"{name}: rows {sorted({r['B'] for r in record['rounds']})}, "
+             f"{record['compactions']} compactions (expected B 8 compacted to 4, then 2)")
+    with mstream_record() as solo_rec:
+        solo_texts, solo_s = solo_streams(eng, clips)
+    equal = [i for i, (a, b) in enumerate(zip(session_chunks(bf16_rec),
+                                               session_chunks(solo_rec))) if a == b]
+    audio_s = eng.perf.audio_ms / 1000.0
+    MSTREAM_RUNS[name].update(
+        solo_one_after_another_s=solo_s, solo_realtime_factor=audio_s / solo_s,
+        aggregate_speedup=solo_s * 1000.0 / eng.perf.total_ms,
+        sessions_equal_to_solo_bf16=equal,
+        texts_equal_to_solo_bf16=[i for i in range(n) if lines[i] == solo_texts[i]])
+    log(f"  {name} against the same clips streamed solo one after another [{CARD_LINE}]: "
+        f"{eng.perf.total_ms / 1000:.2f} s against {solo_s:.2f} s "
+        f"({MSTREAM_RUNS[name]['realtime_factor']:.2f}x against {audio_s / solo_s:.2f}x "
+        f"realtime); sessions whose chunks equal their solo run on bf16 (reported, not held): "
+        f"{equal}")
+    del eng
+
+    eng, _, _, _ = run_mstream(base + ["-i", *wavs, "--q8", "--kv8"], f"{name} --q8 --kv8",
+                               cfg, turns=("graph",))
+    if not (eng.kv8 and eng.q8) or eng.perf.multistream["compactions"] < 1:
+        fail(f"{name} --q8 --kv8: kv8 {eng.kv8}, q8 {eng.q8}, "
+             f"{eng.perf.multistream['compactions']} compactions of the int8 cache")
+    del eng
+
+    k = MSTREAM_F32_CLIPS
+    eng, _, f32_lines, rec = run_mstream(base + ["-i", *wavs[:k], "--f32"],
+                                         f"--stream x{k} --f32", cfg, turns=("graph",),
+                                         prompts=True)
+    with mstream_record(prompts=True) as solo_rec:
+        solo_f32, _ = solo_streams(eng, clips[:k])
+    partings = f32_against_solo(eng, rec, solo_rec)
+    log(f"  --stream x{k} --f32 against each clip's solo --stream --f32 run (near-tie bound "
+        f"{2.0 * F32_LOGIT_DIFF:.4g}): {json.dumps(partings)}")
+    b5_runs.append(("f32", str(eng.batched_kv_dtype).replace("torch.", ""),
+                    eng.perf.multistream["rounds"], rec["b5"]))
+    del eng
+
+    m = MSTREAM_THREADED_CLIPS
+    os.environ["SMOLVISION_BATCH_STREAMS"] = "0"
+    try:
+        with mstream_record() as trec:
+            eng, tlaunches, tlines, _ = run_cli(base + ["-i", *wavs[:m], "--f32"],
+                                                f"--stream x{m} --f32 threaded")
+    finally:
+        del os.environ["SMOLVISION_BATCH_STREAMS"]
+    check_mstream_launches(f"--stream x{m} --f32 threaded", tlaunches, eng, trec, cfg)
+    if tlines != [t or "" for t in solo_f32[:m]]:
+        fail(f"threaded --f32: texts {tlines} differ from the solo runs' {solo_f32[:m]}")
+    excused = [s for s in range(m) if partings[s] is not None]
+    if any(tlines[s] != f32_lines[s] for s in range(m) if s not in excused):
+        fail(f"threaded --f32: texts {tlines} differ from the batched run's {f32_lines[:m]}")
+    log(f"  threaded --f32 on {m} clips: texts equal the batched run's (sessions parted at a "
+        f"near tie and so excused: {excused}) and the solo runs'; captures per session "
+        f"{[v.perf.graph_captures for v in trec['views']]}")
+    del eng
+    return {"launches": launches, "record": bf16_rec, "b5_runs": b5_runs}
+
+
+def mstream_b5_table(b5_runs, L: int) -> list:
+    """B5 at the rounds at start > 0 of phase 10's runs (label, cache type,
+    rounds, the run's B5 calls as (B, T, start, K)).  Each such round's
+    shape -- B, S, W, pcap, kcap and its per-row prompt_max, region_start
+    = pcap, kv_min 0 -- is checked against the plain version (KERNEL_ATOL)
+    on the run's cache type; then one timing row per distinct (run, B, S,
+    W, pcap, kcap) at its first round's prompt_max, its launches the run's
+    B5 calls at that shape (one per layer per round, else it fails).  SDPA
+    gets the same rows as one key sequence per row (the cache's [0, S)
+    under prompt_max, then the block, causal, in the cache's type); the
+    bound reads q, the fresh K/V and each row's live cache rows once and
+    writes the output, and counts the products the masks keep."""
+    import torch
+    import torch.nn.functional as F
+
+    from smolvision_tpu_torch.kernels import flash_attention as fa
+
+    def ints(values):
+        return torch.tensor(values, dtype=torch.int32, device=DEV)
+
+    shapes = {}   # (label, B, S, W, pcap, kcap) -> (cache type, [prompt_max per round])
+    for label, dtype, rounds, _ in b5_runs:
+        for r in rounds:
+            if r["S"] > 0:
+                key = (label, r["B"], r["S"], r["W"], r["pcap"], r["kcap"])
+                shapes.setdefault(key, (dtype, []))[1].append(r["prompt_max"])
+    if not shapes:
+        fail("multistream: no round at start > 0 to hold B5 at")
+    errs, rows, launches = {}, [], []
+    for (label, B, S, W, pcap, kcap), (dtype, pms) in shapes.items():
+        name = f"batched_cache_attention_mstream_{label}_B{B}_S{S}_W{W}_pcap{pcap}"
+        q, kn, vn = batched_case(B, W)
+        for pm in pms:
+            kc, vc = batched_cache(B, kcap, S, [0] * B, pm, pcap, dtype=dtype)
+            args = (q, kn, vn, kc, vc, S, ints([0] * B), ints(pm), pcap)
+            err = check_close(f"B5 at a multistream round ({label}): B={B} W={W} S={S} "
+                              f"pcap={pcap} kcap={kcap} prompt_max={pm}",
+                              fa.batched_cache_flash_attention(*args),
+                              fa.batched_cache_attention_plain(*args))
+            errs[name] = max(errs.get(name, 0.0), err)
+        calls = sum(1 for b in next(run[3] for run in b5_runs if run[0] == label)
+                    if b == (B, W, S, kcap))
+        if calls != L * len(pms):
+            fail(f"{name}: {calls} B5 calls at this shape over {len(pms)} rounds")
+        pm = pms[0]
+        kc, vc = batched_cache(B, kcap, S, [0] * B, pm, pcap, dtype=dtype)
+        args = (q, kn, vn, kc, vc, S, ints([0] * B), ints(pm), pcap)
+        H, D = q.shape[2:]
+        KH = kn.shape[2]
+        live = [min(S, p) for p in pm]
+        nbytes = 4 * (2 * q.numel() + 2 * kn.numel()) + kc.element_size() * 2 * KH * D * sum(live)
+        flops = 4 * H * D * sum(n + t + 1 for n in live for t in range(W))
+        kcat, vcat = (torch.cat([c[:, :, :S], x.to(c.dtype).transpose(1, 2)], dim=2)
+                      for c, x in ((kc, kn), (vc, vn)))
+        cols = torch.arange(S + W, device=DEV)
+        mask = torch.where(cols[None, None, :] < S,
+                           cols[None, None, :] < ints(pm)[:, None, None],
+                           cols[None, None, :] <= S + torch.arange(W, device=DEV)[None, :, None])
+        qh = q.to(kc.dtype).transpose(1, 2)
+        rows.append((name, "smolvision_tpu_torch/kernels/csrc/batched_cache_attention.cu",
+                     "smolvision_tpu/kernels/flash_attention.py:412",
+                     lambda a=args: fa.batched_cache_flash_attention(*a),
+                     lambda a=args: fa.batched_cache_attention_plain(*a),
+                     lambda q=qh, k=kcat, v=vcat, m=mask[:, None]:
+                         F.scaled_dot_product_attention(q, k, v, attn_mask=m, enable_gqa=True),
+                     bound(nbytes, flops, "bfloat16")))
+        launches.append(calls)
+    log(f"B5 at phase 10's rounds at start > 0 vs plain: max_abs_err {json.dumps(errs)} "
+        f"(tolerance {KERNEL_ATOL:g})")
+    table = timed_table(rows, errs, {})
+    for entry, n in zip(table, launches):
+        entry["launches"] = n
+    return table
+
+
 def main() -> int:
     import argparse
 
@@ -2109,6 +2612,8 @@ def main() -> int:
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     smi_line = smi.stdout.strip().splitlines()[0]
+    global CARD_LINE, F32_LOGIT_DIFF
+    CARD_LINE = smi_line
     log(f"device: {kind} (count {count}); torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"nvidia-smi: {smi_line}")
 
@@ -2163,6 +2668,9 @@ def main() -> int:
                          ("on_off", STREAM_ON_OFF_CLIP_SEC), ("profile", STREAM_PROFILE_CLIP_SEC)):
             stream_wavs[key] = os.path.join(work, f"stream_{key}.wav")
             write_wav(stream_wavs[key], speech_like(sec, SEED + 300 + len(stream_wavs)))
+        mstream_wavs = [os.path.join(work, f"mstream{i}.wav") for i in range(len(MSTREAM_CLIP_SEC))]
+        for i, (path, sec) in enumerate(zip(mstream_wavs, MSTREAM_CLIP_SEC)):
+            write_wav(path, speech_like(float(sec), SEED + 400 + i))
         log(f"checkpoint: 0.6b preset, seed {SEED}, bf16, written in "
             f"{time.monotonic() - t0:.2f} s; clip {CLIP_SEC:.0f} s")
         shapes = main_path_shapes(model_dir, samples)
@@ -2200,8 +2708,10 @@ def main() -> int:
         eng.prepare_prompt()
         cmp = compare_paths(eng, clip, steps=MAX_TOKENS // 2)
         log(f"kernel path vs plain path on the card, f32 weights: {json.dumps(cmp)}")
-        cmp = compare_batched_paths(eng, shapes["seg_B"], shapes["seg_T"])
-        log(f"batched kernel path vs plain path on the card, f32 weights: {json.dumps(cmp)}")
+        bcmp = compare_batched_paths(eng, shapes["seg_B"], shapes["seg_T"])
+        log(f"batched kernel path vs plain path on the card, f32 weights: {json.dumps(bcmp)}")
+        F32_LOGIT_DIFF = max(v["max_abs_err"] for c in (cmp, bcmp) for k, v in c.items()
+                             if k.endswith("logits"))
         cmp = spec_vs_plain(eng, clip, MAX_TOKENS, exact=True)
         log(f"--spec vs plain greedy on the card, f32 weights (equal over the whole run): "
             f"{json.dumps(cmp)}")
@@ -2236,6 +2746,12 @@ def main() -> int:
         # phase 9: --stream, --stdin --stream, --enc-window-sec, --profile
         stream_run = phase_stream(model_dir, stream_wavs, cfg)
         since("phase 9 (--stream)")
+
+        # phase 10: --stream with several -i files (multistream: B1 batched
+        # over the sessions' spans, B5 at start > 0, K6 / K7 at R = B)
+        mstream_run = phase_multistream(model_dir, mstream_wavs, cfg)
+        table += mstream_b5_table(mstream_run["b5_runs"], cfg.dec_layers)
+        since("phase 10 (multistream)")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2263,6 +2779,7 @@ def main() -> int:
     keys = ("name", "route", "design", "source", "replaces", "launches", "max_abs_err", "ms",
             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"streams: {json.dumps(STREAM_RUNS)}")
+    log(f"multistream [{smi_line}]: {json.dumps(MSTREAM_RUNS)}")
     log(f"decode loops, graph vs eager per path: {json.dumps(DECODE_RUNS)}")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in table]}))
     print(smi_line)

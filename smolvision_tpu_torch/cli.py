@@ -4,8 +4,9 @@ Port of smolvision_tpu/cli.py for the offline and streaming paths: one
 file (`-i x.wav` or --stdin), whole or segmented (-S / -W / --past-text /
 --skip-silence / --no-batch-segments), streamed (--stream, from a file or
 live from stdin with --stdin; --stream-max-new-tokens, --monitor), several
--i files as one static batch or through the continuous scheduler (--serve
-SLOTS [--serve-admit N]); with --silent / --language / --prompt /
+-i files as one static batch, through the continuous scheduler (--serve
+SLOTS [--serve-admit N]) or streamed as concurrent sessions (--stream:
+multistream, runtime/multistream.py); with --silent / --language / --prompt /
 --max-tokens / --f32 / --enc-window-sec / --profile DIR (a torch.profiler
 trace of the transcription), and the decoder options --q8 / --kv8 /
 --spec (or SMOLVISION_Q8=1 / SMOLVISION_KV8=1 / SMOLVISION_SPEC=1, as the
@@ -15,6 +16,7 @@ line per file for several files); status/perf lines go to STDERR:
   Inference: ... ms, N text tokens (X tok/s, encoding: ...ms, decoding: ...ms)
   Audio: X s processed in Y s (Zx realtime)
   Batch: N files, X s audio in Y s (Zx realtime)      (several files)
+  Streams: N sessions, X s audio in Y s (Zx realtime) (several files, --stream)
   Serve: ttft p50 ... / p99 ..., completion ...       (--serve)
 Every mode not ported yet exits 1 with one `smolvision: ...` line.
 
@@ -117,10 +119,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _unported(args) -> Optional[str]:
     """The first requested mode this port does not run yet, or None."""
-    several = bool(args.input_wav) and len(args.input_wav) > 1
     checks = [
         (args.thinker, "--thinker"),
-        (args.stream and several, "--stream with several -i files (multistream)"),
         (args.moe_offload, "--moe-offload"), (args.moe_preload, "--moe-preload"),
     ]
     for on, what in checks:
@@ -296,9 +296,10 @@ def _profiled(trace_dir: Optional[str], device):
 
 
 def _run_several(args, eng: "Engine", verbosity: int) -> int:
-    """Several -i files: one static batch (runtime/batch_segments.py), or the
-    continuous scheduler under --serve (runtime/serving.py); one line per
-    file on stdout, in file order."""
+    """Several -i files: one static batch (runtime/batch_segments.py), the
+    continuous scheduler under --serve (runtime/serving.py), or one
+    streaming session per file under --stream (runtime/multistream.py);
+    one line per file on stdout, in file order, once all are done."""
     import time
 
     from smolvision_tpu_torch.config import SAMPLE_RATE
@@ -319,6 +320,19 @@ def _run_several(args, eng: "Engine", verbosity: int) -> int:
     perf.reset()
     perf.audio_ms = sum(1000.0 * len(c) / SAMPLE_RATE for c in clips)
     t0 = time.monotonic()
+    if args.stream:
+        from smolvision_tpu_torch.runtime.multistream import run_streams
+
+        texts = [text or "" for text in run_streams(eng, clips)]
+        perf.total_ms = (time.monotonic() - t0) * 1000.0
+        for text in texts:
+            sys.stdout.write(text + "\n")
+        sys.stdout.flush()
+        if verbosity >= 1:
+            print(f"Streams: {len(clips)} sessions, {perf.audio_ms / 1000:.1f} s audio in "
+                  f"{perf.total_ms / 1000:.1f} s "
+                  f"({perf.audio_ms / max(perf.total_ms, 1):.2f}x realtime)", file=sys.stderr)
+        return 0
     if args.serve > 0:
         from smolvision_tpu_torch.runtime.serving import serve_continuous
 

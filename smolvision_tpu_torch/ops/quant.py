@@ -180,6 +180,22 @@ def kv_write(cache, start, rows: torch.Tensor) -> None:
         cache[:, :, start : start + T] = rows.to(cache.dtype)
 
 
+def kv_rows_gather(kv, rows: Sequence[int], axis: int = 2):
+    """A new cache holding batch rows `rows` (static indices, repeats
+    allowed) of `kv` along `axis`, both leaves of a QuantKV: one block copy
+    per row into fresh storage, never a gather index and never a view of
+    `kv` (a decode graph captured on `kv` may still write into it)."""
+    def gather(t):
+        out = t.new_empty(t.shape[:axis] + (len(rows),) + t.shape[axis + 1:])
+        for i, r in enumerate(rows):
+            out.select(axis, i).copy_(t.select(axis, int(r)))
+        return out
+
+    if isinstance(kv, QuantKV):
+        return QuantKV(gather(kv.q), gather(kv.s))
+    return gather(kv)
+
+
 def kv_grow_k(kv, kcap_new: int, k_axis: int = 4):
     """Zero-grow the K (cache position) axis to kcap_new."""
     def grow(t):

@@ -35,3 +35,8 @@ def bucket64(n: int, minimum: int = 64) -> int:
     scales every batched decode step's KV read, so it grows in 64-row steps
     instead of pow2 jumps)."""
     return max((n + 63) // 64 * 64, minimum)
+
+
+def bucket128(n: int, minimum: int = 128) -> int:
+    """Round up to a multiple of 128 (multistream's prompt cap)."""
+    return max((n + 127) // 128 * 128, minimum)

@@ -104,6 +104,9 @@ class PerfStats:
         # continuous-serving per-clip latency (runtime/serving.py): ttft /
         # completion p50/p99 dict over the last queue, or None
         self.serving_latency = None
+        # multistream's batched coordinator (runtime/multistream.py): its
+        # caches, growths, compactions and one record per round, or None
+        self.multistream = None
 
     def stream_latency(self):
         """(first_commit_ms, p50, p99) over the recorded chunk rounds, or

@@ -2,8 +2,9 @@
 encoder window cache, degeneration recovery, and stable-frontier commits.
 
 Port of smolvision_tpu/runtime/stream.py (the behaviour of stream_impl,
-qwen_asr.c:1114-2219) for one stream, from a file (`--stream`) or live
-from stdin (`--stdin --stream`):
+qwen_asr.c:1114-2219): one stream from a file (`--stream`) or live from
+stdin (`--stdin --stream`), and the state machine each session of
+multistream (runtime/multistream.py) steps:
   * 2 s chunks; first `unfixed_chunks` chunks decode with no text prefix;
     later chunks prepend raw decoded tokens minus the last `rollback`
     (official streaming policy, MODEL.md:402-432),
@@ -27,9 +28,11 @@ from stdin (`--stdin --stream`):
     overlap dedup against EMITTED tokens,
   * --monitor heartbeat symbols on stderr.
 
-All constants preserved from qwen_asr.c:1369-1378.  The JAX package's
-multistream hooks (`nowait`, pre-encoded windows and tails) come with
-multistream.
+All constants preserved from qwen_asr.c:1369-1378.  The multistream
+coordinator drives StreamState through three hooks: `nowait` live polling
+(`begin_chunk` returns NOT_READY instead of blocking on a source whose next
+chunk has not arrived), and the single-round pre-encoded windows and tail
+(`_pre_windows`, `_pre_tail`) that its batched encode hands in.
 """
 
 from __future__ import annotations
@@ -133,10 +136,20 @@ def transcribe_stream_live(engine, live) -> Optional[str]:
     return _stream_impl(engine, None, live)
 
 
+# Sentinel returned by begin_chunk when a coordinated (nowait) live session
+# does not yet have its next chunk's audio: NO state advanced -- the caller
+# retries next round.  Distinct from None, which means the chunk was
+# consumed-and-skipped (encoder starvation) and the state DID advance.
+NOT_READY = object()
+
+
 class ChunkWork:
     """Per-chunk work order produced by StreamState.begin_chunk: everything
     the prefill+decode middle needs, plus the bookkeeping finish_chunk
-    consumes."""
+    consumes.  The middle is pluggable -- `run_solo_chunk` runs it through
+    the engine's single-sequence KV-reuse path, the multistream coordinator
+    through the batched decoder -- and must deliver the same greedy tokens
+    either way."""
 
     __slots__ = ("ids", "audio_block", "audio_start", "enc_seq_len", "reused",
                  "n_prefix", "n_prefix_full", "is_final", "full_end", "t0")
@@ -217,6 +230,12 @@ class StreamState:
         self.partial_uid = 1 << 40  # fresh ids for re-encoded partial tails
         self.prefill_total = 0
         self.prefill_reused = 0
+        # multistream hooks: poll a live source instead of waiting, and the
+        # round's pre-encoded windows {start: (arr, seq)} and tail
+        # ((full_end, cursor), arr, seq), used once and cleared
+        self.nowait = False
+        self._pre_windows = None
+        self._pre_tail = None
 
     # ------------------------------------------------------------------
 
@@ -232,11 +251,19 @@ class StreamState:
         self.stable_text = list(tail)
         self.prev_signature = None
 
-    def _ingest_live(self):
+    def _ingest_live(self) -> bool:
         """Wait for the next chunk's audio (or EOF) and mirror the producer's
-        buffer into the local one."""
+        buffer into the local one.  Under `nowait` it does not wait: False
+        when the audio is not there yet (nothing changed)."""
         engine, live = self.engine, self.live
-        self.live_eof = live.wait_for(self.audio_cursor + self.chunk_samples)
+        want = self.audio_cursor + self.chunk_samples
+        if self.nowait:
+            end, eof = live.available_through()
+            if end < want and not eof:
+                return False
+            self.live_eof = eof
+        else:
+            self.live_eof = live.wait_for(want)
         off, data, self.live_eof = live.snapshot_and_reset()
         local_end = self.local_base + len(self.local)
         if local_end < off:
@@ -252,15 +279,17 @@ class StreamState:
                 self.local = np.concatenate([self.local, data[skip:]])
         self.total_samples = self.local_base + len(self.local)
         engine.perf.audio_ms = 1000.0 * self.total_samples / SAMPLE_RATE
+        return True
 
     def begin_chunk(self) -> Optional[ChunkWork]:
         """Live ingest, cursor advance, encoder windows + partial tail,
         prompt build with prefix rollback, KV-reuse signature.  Returns None
         when the chunk is skipped (encoder starvation / empty audio) — the
-        chunk index has already advanced in that case."""
+        chunk index has already advanced in that case — and NOT_READY when
+        a `nowait` live session's audio has not arrived (nothing advanced)."""
         engine = self.engine
-        if self.live is not None:
-            self._ingest_live()
+        if self.live is not None and not self._ingest_live():
+            return NOT_READY
 
         w = ChunkWork()
         w.t0 = time.monotonic() * 1000.0
@@ -284,13 +313,17 @@ class StreamState:
             segs = [(arr, seq, self.partial_uid)]
             enc_seq_len = seq
         else:
+            pre_windows, pre_tail = self._pre_windows or {}, self._pre_tail
+            # pre-encodes are single-round: cleared on every exit path
+            self._pre_windows = self._pre_tail = None
             while self.enc_cache.next_window_start < w.full_end:
                 ws = self.enc_cache.next_window_start
                 lo = ws - self.local_base
                 if lo < 0 or lo + ews > len(self.local):
                     self.chunk_idx += 1
                     return None
-                arr, seq = _encode_span(engine, self.local[lo : lo + ews])
+                pw = pre_windows.pop(ws, None)
+                arr, seq = pw if pw is not None else _encode_span(engine, self.local[lo : lo + ews])
                 if seq <= 0:
                     self.chunk_idx += 1
                     return None
@@ -301,9 +334,12 @@ class StreamState:
 
             partial_arr, partial_seq = (None, 0)
             if w.full_end < self.audio_cursor:
-                lo = w.full_end - self.local_base
-                partial_arr, partial_seq = _encode_span(
-                    engine, self.local[lo : self.audio_cursor - self.local_base])
+                if pre_tail is not None and pre_tail[0] == (w.full_end, self.audio_cursor):
+                    partial_arr, partial_seq = pre_tail[1], pre_tail[2]
+                else:
+                    lo = w.full_end - self.local_base
+                    partial_arr, partial_seq = _encode_span(
+                        engine, self.local[lo : self.audio_cursor - self.local_base])
 
             segs = [(arr, seq, uid)
                     for (_, arr, seq, uid) in self.enc_cache.windows]

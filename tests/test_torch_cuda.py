@@ -636,3 +636,115 @@ def test_cuda_stream_captures_one_graph_per_cache(card_stream_engine, monkeypatc
         m.setattr(decode_graph, "capture", _eager_capture)
         eager = run()
     assert graph == eager
+
+
+@pytest.mark.cuda
+def test_cuda_batched_cache_attention_at_multistream_rounds():
+    """B5 as multistream's rounds run it: per-row prompt_max, region_start
+    = pcap, a cache of pcap plus the 64-row decode region.  A synthetic
+    round (B 8, pcap 768, prompt_max 600-698) with a W 128 block at S 256
+    (the cache half, on bf16 and f32 caches) and the full-cap block (S 0,
+    W 768, nothing reused); then the blocks the eight-clip run gives at
+    S > 0 (S 64, W 256 and 512, pcap 640; S 192, W 256, pcap 512 on the
+    --f32 run's cache), one with a pad row (prompt_max 0).  +-999 in every
+    cache column outside each row's window: the end pad [prompt_max, pcap),
+    the decode region, and the block's own rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels are built with nvcc for sm_90a)")
+    g = torch.Generator(device="cuda").manual_seed(8)
+    H, KH, D = 16, 8, 128
+    synthetic = [600 + 14 * b for b in range(8)]
+    cases = [(256, 128, 768, synthetic, torch.bfloat16), (256, 128, 768, synthetic, torch.float32),
+             (0, 768, 768, synthetic, torch.bfloat16),
+             (64, 256, 640, [301, 287], torch.bfloat16), (64, 512, 640, [560, 533], torch.bfloat16),
+             (64, 512, 640, [560, 533, 0, 0], torch.bfloat16),
+             (192, 256, 512, [421, 440], torch.float32)]
+    before = ffi.launch_counts["batched_cache_attention"]
+    for S, W, pcap, prompt_max, dtype in cases:
+        B, kcap = len(prompt_max), pcap + 64
+        pm = torch.tensor(prompt_max, dtype=torch.int32, device="cuda")
+        km = torch.zeros(B, dtype=torch.int32, device="cuda")
+        cols = torch.arange(kcap, device="cuda")
+        q = torch.randn(B, W, H, D, device="cuda", generator=g)
+        kn, vn = (torch.randn(B, W, KH, D, device="cuda", generator=g) for _ in range(2))
+        kv = torch.randn(2, 2, B, KH, kcap, D, device="cuda", generator=g).to(dtype)
+        kc, vc = kv[1, 0], kv[1, 1]
+        dead = ~((cols[None, :] < S) & ((cols[None, :] < pm[:, None].long())
+                                         | (cols[None, :] >= pcap)))       # [B, kcap]
+        kc[dead[:, None, :].expand(B, KH, kcap)] = 999.0
+        vc[dead[:, None, :].expand(B, KH, kcap)] = -999.0
+        args = (q, kn, vn, kc, vc, S, km, pm, pcap)
+        torch.testing.assert_close(tfa.batched_cache_flash_attention(*args),
+                                   tfa.batched_cache_attention_plain(*args), rtol=0, atol=ATOL)
+    torch.cuda.synchronize()
+    assert ffi.launch_counts["batched_cache_attention"] - before == len(cases)
+
+
+@pytest.mark.cuda
+def test_cuda_multistream_captures_one_graph_per_cache(card_stream_engine, monkeypatch):
+    """Two sessions (12 and 8 s) through the batched coordinator on the
+    card: one delta prefill (B5 per layer) and one batched decode per
+    round, the decode graph captured at most once per cache (allocation,
+    growths, compactions), never per round; the rounds' tokens equal those
+    of the same run with eager steps.  The threaded mode (a thread per
+    session, taking turns on the card a chunk at a time) gives each
+    session's solo stream, and its launches are counted."""
+    import numpy as np
+
+    from smolvision_tpu_torch.runtime import decode_graph
+    from smolvision_tpu_torch.runtime import multistream
+    from smolvision_tpu_torch.runtime import stream
+
+    eng = card_stream_engine
+    eng.past_text_conditioning = True
+    rng = np.random.default_rng(9)
+    clips = []
+    for sec, f in ((12, 200), (8, 260)):
+        t = np.arange(sec * 16000) / 16000
+        clips.append((0.25 * np.sin(2 * np.pi * f * t) * (0.5 + 0.5 * np.sin(2 * np.pi * 1.3 * t))
+                      + 0.01 * rng.standard_normal(len(t))).astype(np.float32))
+    log = []
+    finish = stream.StreamState.finish_chunk
+
+    def spy(state, w, *args):
+        finish(state, w, *args)
+        log.append((id(state.engine), state.chunk_idx - 1, list(state.raw_tokens)))
+
+    monkeypatch.setattr(stream.StreamState, "finish_chunk", spy)
+
+    def run():
+        log.clear()
+        eng.perf.reset()
+        texts = multistream.run_streams(eng, clips)
+        order = list(dict.fromkeys(v for v, _, _ in log))
+        return texts, [[c[1:] for c in log if c[0] == v] for v in order]
+
+    before = dict(ffi.launch_counts)
+    graph = run()
+    torch.cuda.synchronize()
+    perf, record = eng.perf, eng.perf.multistream
+    L = eng.cfg.dec_layers
+    assert len(record["rounds"]) == 6 and perf.delta_prefills == 6
+    assert 1 <= perf.graph_captures <= record["caches"], (perf.graph_captures, record)
+    assert ffi.launch_counts["batched_cache_attention"] - before["batched_cache_attention"] \
+        == L * perf.delta_prefills
+    with monkeypatch.context() as m:
+        m.setattr(decode_graph, "capture", _eager_capture)
+        eager = run()
+    assert graph == eager
+
+    solo = []
+    for c in clips:
+        view = multistream.clone_session(eng)
+        view.token_cb = lambda piece: None
+        solo.append(stream.transcribe_stream(view, c))
+    monkeypatch.setenv("SMOLVISION_BATCH_STREAMS", "0")
+    before = dict(ffi.launch_counts)
+    views = []
+    clone = multistream.clone_session
+    monkeypatch.setattr(multistream, "clone_session", lambda e: views.append(clone(e)) or views[-1])
+    assert multistream.run_streams(eng, clips) == solo
+    torch.cuda.synchronize()
+    steps = sum(v.perf.decode_steps for v in views)
+    assert steps > 0 and all(v.perf.graph_captures >= 1 for v in views)
+    assert ffi.launch_counts["decode_attention"] - before["decode_attention"] == L * steps

@@ -144,7 +144,6 @@ def test_cli_stdout_byte_equal(visible_model, silent):
 
 @pytest.mark.parametrize("extra,what", [
     (["--moe-offload"], "--moe-offload"), (["--moe-preload"], "--moe-preload"),
-    (["--stream", "-i", "WAV", "WAV"], "--stream with several -i files"),
     (["--thinker"], "--thinker"),
 ])
 def test_cli_unported_modes_exit_1(visible_model, extra, what):
@@ -155,6 +154,19 @@ def test_cli_unported_modes_exit_1(visible_model, extra, what):
     err = r.stderr.decode().strip().splitlines()
     assert len(err) == 1 and what in err[0] and "not yet ported" in err[0]
     assert r.stdout == b""
+
+
+def test_cli_multistream_without_card_exits_1(visible_model):
+    """--stream with several -i files without a card, and without
+    SMOLVISION_PLATFORM=cpu: one line naming the switch, exit 1, nothing on
+    stdout (no quiet fall back to the CPU)."""
+    model, wav = visible_model
+    env = {k: v for k, v in os.environ.items() if k != "SMOLVISION_PLATFORM"}
+    env.update(PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, "-m", "smolvision_tpu_torch.cli", "-d", model, "-i", wav,
+                        wav, "--stream"], capture_output=True, timeout=600, env=env, cwd=REPO)
+    assert r.returncode == 1 and r.stdout == b""
+    assert "SMOLVISION_PLATFORM=cpu" in r.stderr.decode()
 
 
 def test_cli_bad_input_one_line(visible_model, tmp_path):

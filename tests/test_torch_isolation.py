@@ -41,12 +41,14 @@ def test_port_imports_no_jax():
         "import smolvision_tpu_torch.ops.quant, smolvision_tpu_torch.kernels.argmax_matvec\n"
         "import smolvision_tpu_torch.kernels.probes\n"
         "import smolvision_tpu_torch.runtime.stream, smolvision_tpu_torch.io.live\n"
+        "import smolvision_tpu_torch.runtime.multistream\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'smolvision_tpu')\n"
         "       or m.startswith(('jax.', 'jaxlib.', 'smolvision_tpu.'))]\n"
         "assert 'smolvision_tpu_torch.runtime.engine' in sys.modules\n"
         "assert 'smolvision_tpu_torch.runtime.serving' in sys.modules\n"
         "assert 'smolvision_tpu_torch.runtime.stream' in sys.modules\n"
         "assert 'smolvision_tpu_torch.io.live' in sys.modules\n"
+        "assert 'smolvision_tpu_torch.runtime.multistream' in sys.modules\n"
         "print('BAD', bad)\n")
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
