@@ -28,7 +28,9 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
                 20 calls back to back, a CUDA-graph replay of them and one
                 graph replayed at several positions; B2 on bf16 caches -- the tensor-core route,
                 T 5 at start 300 as the --spec verify -- and on an f32
-                cache; the greedy heads K6 / K7 on both routes, the
+                cache, each with start and kv_valid host ints and device
+                tensors, and one CUDA graph of B2 replayed at four starts
+                (T 5, 128 and the main prefill's); the greedy heads K6 / K7 on both routes, the
                 CUDA-core matvec and the tensor-core tile product, at R 1
                 to 130, an exact tie across blocks, V not a multiple of any
                 block or tile), then the sweep of R that sets the heads'
@@ -39,7 +41,8 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
                 a 4096-row context, B5 also at --serve 64's admission
                 wave, B2 also on an f32 cache beside SDPA and at the
                 stream's delta shapes: start 300, T 128 and 256, checked
-                at T 64-512); K8 (read_all) over
+                at T 64-512, and at the --spec verify's T 5, start 300, each
+                at a device start, against host ints in turns); K8 (read_all) over
                 the lm_head gives the card's read bandwidth, against which
                 each head kernel's time is set;
   4. main path- a seeded Qwen3-ASR-0.6B checkpoint (full width, random
@@ -55,7 +58,10 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
   6. serving  - 8 clips of 4-24 s through `--serve 4`: admission waves
                 prefilled by kernel B5, slot reuse, TTFT percentiles;
   7. int8     - `--q8` (int8 decoder weights: head K7) and `--spec`
-                (int8 draft steps, one verify forward through B2 and K6)
+                (a CUDA graph of one speculative iteration per cache:
+                SPEC_DRAFT int8 draft steps, B3 and K7 each, one verify
+                forward through B2 at a device start and K6 at R
+                SPEC_DRAFT + 1, the accept step; one host read per chunk)
                 on the 20 s clip, `-S 20 --q8 --kv8` on the 120 s clip and
                 `--serve 4 --kv8` on the 8 clips (int8 batched cache: the
                 two-part attention, no B5); then the q8 kernel path against
@@ -79,7 +85,10 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
                 --stream` fed the 20 s clip through a pipe by a feeder
                 process (it must reach EOF); `--stream --profile DIR`,
                 which must leave a trace file.  Each stream's graph
-                captures must be at most its caches (1 + growths);
+                captures must be at most its caches (1 + growths), and its
+                prefill graphs (a (cache, block rows) key's first prefill
+                eager, its second captured, later ones replayed) at most
+                its keys;
  10. multistream - `--stream -i` eight clips of 12-60 s (276 s): one
                 round per 2 s chunk for all live sessions, B 8 rows
                 compacted to 4, then 2, as sessions end; per round one
@@ -105,12 +114,13 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
                 against its plain version, and timed once per distinct
                 shape, each timing row's launches the run's B5 calls at
                 that shape.
-Each path that decodes greedily (multistream's bf16 run included) runs
-twice, in turns: first with the
-decode loops' steps run eagerly on every replay, then as CUDA graphs (the
-path as it ships, runtime/decode_graph.py).  The two runs' decoded chunks
-(tokens and counts) must be equal, and every captured graph must launch
-its step's kernels once per replay.  Each run has the launch counts set
+Each path that decodes greedily (--spec and multistream's bf16 run
+included) runs twice, in turns: first with the decode loops' steps and
+the prefills run eagerly on every replay, then as CUDA graphs (the path as
+it ships, runtime/decode_graph.py).  The two runs' decoded chunks (tokens
+and counts) must be equal, every captured graph must launch its step's
+kernels once per replay (a decode step, a --spec iteration or a prefill),
+and a loop reads the host once per chunk.  Each run has the launch counts set
 to 0 just before it, and its counts must equal what its own bookkeeping
 (engine.perf) says, each head under the launch key of the route its rows
 take.  Decode ms per step and the device's idle share are measured for
@@ -229,6 +239,8 @@ LIVE_TIMEOUT_S = 300          # a live run that has not reached EOF by then is a
 # 256 rows at 8 s windows (64 at 2 s): (row, T, start, kv_valid)
 B2_DELTA_ROWS = (("causal_cache_attention_delta128", 128, 300, 421),
                  ("causal_cache_attention_delta256", 256, 300, 549))
+# B2's timing row at the --spec verify: SPEC_DRAFT + 1 rows at a device start
+B2_VERIFY_ROW = ("causal_cache_attention_verify", 5, 300, 305)
 # per stream run (phase 9), printed as one line at the end
 STREAM_RUNS = {}
 # phase 10: multistream, one session per clip (seconds), B 8 compacted to 4, then 2
@@ -439,7 +451,7 @@ def decode_row(K: int, start: int):
 def kernel_of(name: str) -> str:
     """The launch key of a timing row: its kernel's name without the suffix
     of the shape it was timed at."""
-    for suffix in ("_long", "_wide", "_segments", "_delta128", "_delta256"):
+    for suffix in ("_long", "_wide", "_segments", "_delta128", "_delta256", "_verify"):
         name = name.removesuffix(suffix)
     return name.split("_mstream")[0]
 
@@ -502,13 +514,16 @@ def window_split_sweep(shapes) -> dict:
     return out
 
 
-def cache_row(T: int, K: int, start: int, valid: int, dtype: str = "bfloat16"):
+def cache_row(T: int, K: int, start: int, valid: int, dtype: str = "bfloat16",
+              host_ints: bool = False):
     """B2's timing inputs: a block of T query rows at cache rows start.. of
     a K-row cache of `dtype` holding `valid` rows: (kernel, plain, SDPA,
-    bound).  SDPA gets q in the cache's type and the same causal mask over
-    the valid rows; the bound reads q and writes the output in f32, reads
-    the valid cache rows once, and counts the products the mask keeps, at
-    the tensor cores' bf16 rate."""
+    bound).  The kernel reads start and kv_valid from device tensors, as
+    the prefill graphs and the --spec verify pass them (`host_ints`: host
+    ints, filled in on the device per call).  SDPA gets q in the cache's
+    type and the same causal mask over the valid rows; the bound reads q
+    and writes the output in f32, reads the valid cache rows once, and
+    counts the products the mask keeps, at the tensor cores' bf16 rate."""
     import torch
     import torch.nn.functional as F
 
@@ -523,7 +538,11 @@ def cache_row(T: int, K: int, start: int, valid: int, dtype: str = "bfloat16"):
     kh, vh = (x[:valid].permute(1, 0, 2)[None] for x in (k, v))
     mask = (torch.arange(valid, device=DEV)[None, :]
             <= start + torch.arange(T, device=DEV)[:, None])
-    return (lambda: fa.causal_cache_flash_attention(q, k, v, start, valid),
+    at, n = start, valid
+    if not host_ints:
+        at = torch.tensor([start], dtype=torch.int64, device=DEV)
+        n = at + (valid - start)
+    return (lambda: fa.causal_cache_flash_attention(q, k, v, at, n),
             lambda: fa.causal_cache_attention_plain(q, k, v, start, valid),
             lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, enable_gqa=True),
             bound(nbytes, flops, "bfloat16"))
@@ -599,13 +618,47 @@ def phase_kernels(shapes):
     for heads in GROUP_HEADS:
         cases += [(100, 0, 97, 0, "bfloat16", heads), (256, 100, 330, 37, "bfloat16", heads),
                   (5, 300, 305, 17, "bfloat16", heads), (100, 0, 97, 0, "float32", heads)]
-    for T, start, kv_valid, kv_min, dtype, (H, KH, D) in cases:
+    # each with start and kv_valid host ints, then int32 / int64 device
+    # tensors (the prefill graphs' and the --spec verify's form)
+    for i, (T, start, kv_valid, kv_min, dtype, (H, KH, D)) in enumerate(cases):
         q, k, v = cache_case(T, 1024, start, kv_valid, H, KH, D, dtype=dtype)
-        got = fa.causal_cache_flash_attention(q, k, v, start, kv_valid, kv_min=kv_min)
         want = fa.causal_cache_attention_plain(q, k, v, start, kv_valid, kv_min)
-        err = check_close(f"B2 T={T} start={start} valid={kv_valid} kv_min={kv_min} {dtype} "
-                          f"H={H} KH={KH} D={D}", got, want)
-        errs["causal_cache_attention"] = max(errs["causal_cache_attention"], err)
+        dev_start = torch.tensor([start], dtype=(torch.int32, torch.int64)[i % 2], device=DEV)
+        for form, at, n in (("host", start, kv_valid),
+                            ("device", dev_start, dev_start + (kv_valid - start))):
+            got = fa.causal_cache_flash_attention(q, k, v, at, n, kv_min=kv_min)
+            err = check_close(f"B2 T={T} start={start} valid={kv_valid} kv_min={kv_min} {dtype} "
+                              f"H={H} KH={KH} D={D} {form} start", got, want)
+            errs["causal_cache_attention"] = max(errs["causal_cache_attention"], err)
+    # one CUDA graph of B2 at a device start, captured at start 300 and
+    # replayed at other starts by changing its two tensors alone, at the
+    # verify's T 5, a stream delta's T 128 and the main prefill's T; +-999
+    # in every row past each replay's valid rows
+    if DEV == "cuda":
+        for T in (5, 128, shapes["prefill_T"]):
+            q, k, v = cache_case(T, 1024, 300, 1024, dtype="bfloat16")
+            clean = (k.clone(), v.clone())
+            at = torch.tensor([300], dtype=torch.int32, device=DEV)
+            n = at + T
+            fa.causal_cache_flash_attention(q, k, v, at, n)   # warm-up outside the capture
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = fa.causal_cache_flash_attention(q, k, v, at, n)
+            for start, valid in ((300, 300 + T), (0, T - 1), (37, 37 + T), (1024 - T, 1024 - 2)):
+                k.copy_(clean[0])
+                v.copy_(clean[1])
+                k[valid:], v[valid:] = 999.0, -999.0
+                at.fill_(start)
+                n.fill_(valid)
+                out.fill_(float("nan"))
+                graph.replay()
+                torch.cuda.synchronize()
+                want = fa.causal_cache_attention_plain(q, k, v, start, valid)
+                errs["causal_cache_attention"] = max(
+                    errs["causal_cache_attention"],
+                    check_close(f"B2 graph T={T} replayed at start {start}", out, want))
+            del graph
 
     # B3: K 1024 / 4096, start in {0, 1, 5, 37, 300, the main path's, K-1},
     # kv_min 0 and > 0 (fewer live rows than the grid's 8 blocks, and
@@ -730,11 +783,19 @@ def phase_kernels(shapes):
     # --- B2 at the main-path shape (prefill from an empty cache), then at
     # the stream's delta prefill (start > 0 on a 1024-row cache)
     K = shapes["kv_cap"]
-    for name, T, start, valid in (("causal_cache_attention", shapes["prefill_T"], 0,
-                                   shapes["prompt_len"]), *B2_DELTA_ROWS):
+    b2_rows = (("causal_cache_attention", shapes["prefill_T"], 0, shapes["prompt_len"]),
+               *B2_DELTA_ROWS, B2_VERIFY_ROW)
+    for name, T, start, valid in b2_rows:
         rows.append((name, "smolvision_tpu_torch/kernels/csrc/causal_cache_attention.cu",
                      "smolvision_tpu/kernels/flash_attention.py:491",
                      *cache_row(T, K if start == 0 else 1024, start, valid)))
+    b2_forms = {}   # in turns: device, host, host, device
+    for name, T, start, valid in b2_rows:
+        K2 = K if start == 0 else 1024
+        kern = {h: cache_row(T, K2, start, valid, host_ints=h)[0] for h in (False, True)}
+        turns = [(h, time_ms(kern[h])) for h in (False, True, True, False)]
+        b2_forms[name] = {form: [ms for h, ms in turns if h == host]
+                          for form, host in (("device", False), ("host", True))}
 
     # --- B3 at a mid-decode shape of the main path, and at a long context
     for name, K3, start in (("decode_attention", K, shapes["decode_pos"]),
@@ -794,6 +855,8 @@ def phase_kernels(shapes):
         f"{' / '.join(name for name, _ in WINDOW_ROWS)}; the plan's pick): "
         f"{json.dumps(window_split_sweep(shapes))}")
     log(f"  B2 on an f32 cache: {b2_f32_timings(shapes)}")
+    log(f"  B2 with start / kv_valid device tensors against host ints (ms, in turns "
+        f"device, host, host, device): {json.dumps(b2_forms)}")
 
     return timed_table(rows, errs, f32_bounds)
 
@@ -1255,29 +1318,50 @@ def compare_paths(eng, samples, steps: int) -> dict:
 
 @contextlib.contextmanager
 def decode_mode(mode: str):
-    """The decode loops (runtime/decode_graph.py) as they ship ("graph": one
-    CUDA graph of the step, replayed) or with every replay running the step
-    eagerly ("eager": decode_graph.capture returns the step itself).  Yields
-    a record of every chunk's tokens and count and the launches per replay
-    of every captured graph (not the graph: it holds its loop's cache and
+    """The device loops and prefill graphs (runtime/decode_graph.py) as they
+    ship ("graph": one CUDA graph of the step, replayed; a prefill's first
+    call per (cache, block rows) eager, then captured) or with every replay
+    and prefill running the step eagerly ("eager": decode_graph.capture
+    returns the step itself).  Yields a record of every loop chunk's tokens
+    and count, the chunks' host reads, the prefill graphs made (one per
+    key), and the kind ("decode", "spec", "prefill") and launches per replay
+    of every captured graph (not the graph: it holds its owner's cache and
     weights)."""
     from smolvision_tpu_torch.runtime import decode_graph
 
-    rec = {"chunks": [], "graphs": []}   # graphs: each graph's launches per replay
-    run = decode_graph.DecodeLoop.run
+    rec = {"chunks": [], "graphs": [], "reads": 0, "prefill_keys": 0}
 
-    def recording_run(self, *args, **kwargs):
-        out = run(self, *args, **kwargs)
-        rec["chunks"].append((out[0].tolist(), out[1]))
-        return out
+    def recording(run):
+        def recording_run(self, *args, **kwargs):
+            out = run(self, *args, **kwargs)
+            rec["chunks"].append((out[0].tolist(), out[1]))
+            return out
+        return recording_run
+
+    read = decode_graph._ChunkLoop._read
+
+    def counting_read(*args):
+        rec["reads"] += 1
+        return read(*args)
+
+    init = decode_graph.PrefillGraph.__init__
+
+    def counting_init(self, *args, **kwargs):
+        rec["prefill_keys"] += 1
+        init(self, *args, **kwargs)
 
     class RecordingGraph(decode_graph.StepGraph):
         def __init__(self, *args, **kwargs):
             super().__init__(*args, **kwargs)
-            rec["graphs"].append(self.launches)
+            rec["graphs"].append((self.kind, self.launches))
 
     with contextlib.ExitStack() as stack:
-        stack.enter_context(mock.patch.object(decode_graph.DecodeLoop, "run", recording_run))
+        for cls in (decode_graph.DecodeLoop, decode_graph.SpecLoop):
+            stack.enter_context(mock.patch.object(cls, "run", recording(cls.run)))
+        stack.enter_context(mock.patch.object(decode_graph._ChunkLoop, "_read",
+                                              staticmethod(counting_read)))
+        stack.enter_context(mock.patch.object(decode_graph.PrefillGraph, "__init__",
+                                              counting_init))
         stack.enter_context(mock.patch.object(decode_graph, "StepGraph", RecordingGraph))
         if mode == "eager":
             stack.enter_context(mock.patch.object(decode_graph, "capture",
@@ -1365,18 +1449,34 @@ def profile_decode(eng, samples) -> dict:
 
 
 def replay_launches(eng, cfg, batch: int) -> dict:
-    """The launches one replay of a decode step makes: single stream (batch
-    0) B3 once per layer and the head once; batched the head once (its
-    attention is plain torch)."""
+    """The launches one replay makes, by graph kind: a single-stream decode
+    step (batch 0) B3 once per layer and the head once; a --spec iteration
+    SPEC_DRAFT int8 steps (B3 per layer, K7 at R 1 each), the verify (B2
+    per layer) and its head at R SPEC_DRAFT + 1; a prefill B2 per layer and
+    the head at R 1; a batched step the head once at R B (its attention is
+    plain torch)."""
     import torch
 
     from smolvision_tpu_torch.kernels import argmax_matvec as am
     from smolvision_tpu_torch.ops.quant import QuantW
+    from smolvision_tpu_torch.runtime import engine as eng_mod
 
     head = eng.dec_params["lm_head"]
     dtype = torch.int8 if isinstance(head, QuantW) else head.dtype
-    key = am.launch_key(am.head_route(max(batch, 1), dtype), dtype)
-    return {key: 1} if batch else {"decode_attention": cfg.dec_layers, key: 1}
+
+    def key(R: int, w_dtype=dtype) -> str:
+        return am.launch_key(am.head_route(R, w_dtype), w_dtype)
+
+    L, n = cfg.dec_layers, eng_mod.SPEC_DRAFT
+    out = {"prefill": {"causal_cache_attention": L, key(1): 1}}
+    if batch:
+        out["decode"] = {key(batch): 1}
+    else:
+        out["decode"] = {"decode_attention": L, key(1): 1}
+        spec = {"decode_attention": n * L, key(1, torch.int8): n, "causal_cache_attention": L}
+        spec[key(n + 1)] = spec.get(key(n + 1), 0) + 1
+        out["spec"] = spec
+    return out
 
 
 def decode_ms_per_step(perf) -> float:
@@ -1386,11 +1486,13 @@ def decode_ms_per_step(perf) -> float:
 
 
 def run_path(argv, name: str, cfg, batch: int = 0, wave: int = 0):
-    """One path through the CLI twice, in turns: the decode loops' steps run
-    eagerly, then as CUDA graphs.  Each run's launches must equal its own
-    bookkeeping; the two runs' decoded chunks (tokens and counts) must be
-    equal; every graph must launch its step's kernels once per replay.
-    Returns the graph run's (engine, launches, stdout lines, wall s)."""
+    """One path through the CLI twice, in turns: the decode loops' steps and
+    the prefills run eagerly, then as CUDA graphs.  Each run's launches must
+    equal its own bookkeeping; the two runs' decoded chunks (tokens and
+    counts) must be equal; every graph must launch its step's kernels once
+    per replay; the loops read the host once per chunk; the prefill graphs
+    captured are at most their (cache, block rows) keys.  Returns the graph
+    run's (engine, launches, stdout lines, wall s)."""
     import gc
 
     import torch
@@ -1403,13 +1505,30 @@ def run_path(argv, name: str, cfg, batch: int = 0, wave: int = 0):
             eng, launches, lines, wall_s = run_cli(argv, f"{name} ({mode})")
         check_launches(f"{name} ({mode})", launches, eng, cfg, batch, wave)
         perf = eng.perf
+        if rec["reads"] != len(rec["chunks"]):
+            fail(f"{name} ({mode}): {rec['reads']} host reads over {len(rec['chunks'])} chunks")
+        if perf.prefill_captures > rec["prefill_keys"]:
+            fail(f"{name} ({mode}): {perf.prefill_captures} prefill graphs captured over "
+                 f"{rec['prefill_keys']} (cache, block rows) keys")
         runs[mode] = {"rec": rec, "lines": lines,
                       "decode_ms_per_step": decode_ms_per_step(perf),
                       "steps": perf.decode_steps + perf.batch_decode_steps,
                       "wasted_steps": perf.wasted_steps, "captures": perf.graph_captures,
                       "capture_ms": perf.graph_capture_ms, "wall_s": wall_s,
+                      "host_reads": rec["reads"], "prefills": perf.prefills,
+                      "prefill_ms": perf.prefill_ms,
+                      "prefill_ms_per_call": perf.prefill_ms / max(perf.prefills, 1),
+                      "prefill_keys": rec["prefill_keys"],
+                      "prefill_captures": perf.prefill_captures,
+                      "prefill_capture_ms": perf.prefill_capture_ms,
+                      "prefill_replays": perf.prefill_replays,
+                      "realtime_factor": perf.audio_ms / max(perf.total_ms, 1e-9),
                       "max_memory_allocated_gib":
                           torch.cuda.max_memory_allocated() / 2**30 if DEV == "cuda" else 0.0}
+        if perf.spec_iters:
+            runs[mode].update(spec_iters=perf.spec_iters, spec_tokens=perf.spec_tokens,
+                              decode_ms_per_token=(perf.decode_ms - perf.prefill_ms)
+                              / perf.spec_tokens)
         if mode == "eager":
             del eng
             gc.collect()
@@ -1423,15 +1542,23 @@ def run_path(argv, name: str, cfg, batch: int = 0, wave: int = 0):
              f"chunk {first} of {len(graph['rec']['chunks'])} / {len(eager['rec']['chunks'])})")
     want = replay_launches(eng, cfg, batch)
     graphs = graph["rec"]["graphs"]
-    if DEV == "cuda" and (not graphs or any(g != want for g in graphs)):
+    loop_kind = "spec" if eng.spec and not batch else "decode"
+    if DEV == "cuda" and (not any(k == loop_kind for k, _ in graphs)
+                          or any(launched != want.get(k) for k, launched in graphs)):
         fail(f"{name}: launches per replay {graphs}, expected {want}")
-    if any(eager["rec"]["graphs"]):
+    if any(launched for _, launched in eager["rec"]["graphs"]):
         fail(f"{name}: an eager step was captured as a graph")
     summary = {"tokens_equal_chunks": len(graph["rec"]["chunks"]),
-               "launches_per_replay": want, "graphs": len(graphs)}
+               "launches_per_replay": want[loop_kind],
+               "graphs": sum(1 for k, _ in graphs if k != "prefill"),
+               "prefill_graphs": sum(1 for k, _ in graphs if k == "prefill")}
     for key in ("decode_ms_per_step", "steps", "wasted_steps", "captures", "capture_ms",
-                "wall_s", "max_memory_allocated_gib"):
-        summary[key] = {"eager": eager[key], "graph": graph[key]}
+                "wall_s", "host_reads", "prefills", "prefill_ms", "prefill_ms_per_call",
+                "prefill_keys", "prefill_captures", "prefill_capture_ms", "prefill_replays",
+                "realtime_factor", "spec_iters", "spec_tokens", "decode_ms_per_token",
+                "max_memory_allocated_gib"):
+        if key in graph:
+            summary[key] = {"eager": eager[key], "graph": graph[key]}
     DECODE_RUNS[name] = summary
     log(f"  {name}: graph vs eager: {json.dumps(summary)}")
     return eng, launches, graph["lines"], graph["wall_s"]
@@ -1488,7 +1615,8 @@ def run_cli(argv, name: str, stdin=None):
 
 def check_launches(name: str, launches: dict, eng, cfg, batch: int = 0, wave: int = 0) -> None:
     """Every kernel's launches equal the path's own bookkeeping: one per
-    layer per encoder call, single prefill, --spec verify, decode step,
+    layer per encoder call, single prefill, --spec verify (the iterations
+    replayed past a chunk's end included), decode step,
     batched fresh prefill and batched delta prefill (none on an int8
     cache, which runs the two-part attention), and one greedy head per
     prefill, decode step, verify and batched step -- int8 (K7) under --q8
@@ -1506,10 +1634,13 @@ def check_launches(name: str, launches: dict, eng, cfg, batch: int = 0, wave: in
     L = cfg.dec_layers
     head = eng.dec_params["lm_head"]
     dtype = torch.int8 if isinstance(head, QuantW) else head.dtype
+    # --spec: replays past a chunk's end (wasted_steps) are whole iterations
+    wasted = perf.wasted_steps if eng.spec else 0
+    iters, drafts = perf.spec_iters + wasted, perf.decode_steps + eng_mod.SPEC_DRAFT * wasted
     expected = {k: 0 for k in launches}
     expected.update({"window_attention": cfg.enc_layers * perf.encodes,
-                     "causal_cache_attention": L * (perf.prefills + perf.spec_iters),
-                     "decode_attention": L * perf.decode_steps,
+                     "causal_cache_attention": L * (perf.prefills + iters),
+                     "decode_attention": L * drafts,
                      "batched_causal_attention": L * perf.fresh_prefills,
                      "batched_cache_attention": 0 if eng.kv8 else L * perf.delta_prefills})
 
@@ -1518,8 +1649,8 @@ def check_launches(name: str, launches: dict, eng, cfg, batch: int = 0, wave: in
             expected[am.launch_key(am.head_route(R, w_dtype), w_dtype)] += n
 
     heads(perf.prefills, 1, dtype)
-    heads(perf.decode_steps, 1, torch.int8 if eng.spec else dtype)   # --spec: the draft
-    heads(perf.spec_iters, eng_mod.SPEC_DRAFT + 1, dtype)
+    heads(drafts, 1, torch.int8 if eng.spec else dtype)   # --spec: the draft
+    heads(iters, eng_mod.SPEC_DRAFT + 1, dtype)
     heads(perf.fresh_prefills + perf.batch_decode_steps, batch, dtype)
     heads(perf.delta_prefills, wave, dtype)
     log(f"{name}: launches {json.dumps(launches)}, expected {json.dumps(expected)}")
@@ -1810,11 +1941,13 @@ def spec_vs_plain(eng, samples, max_tokens: int, exact: bool) -> dict:
 
 
 def phase_int8(model_dir: str, wav: str, long_wav: str, serve_wavs, cfg, shapes) -> dict:
-    """--q8 and --spec on the 20 s clip, -S 20 --q8 --kv8 on the 120 s clip
-    and --serve 4 --kv8 on the 8 clips, each checked against engine.perf
-    (--spec keeps its per-token host loop: one run); then the q8 kernel
-    path against its plain path and --spec against plain greedy on bf16
-    weights.  Returns the launches of each run."""
+    """--q8 and --spec on the 20 s clip (each eager then graph, `run_path`:
+    --spec's graph is one speculative iteration, replayed), -S 20 --q8
+    --kv8 on the 120 s clip and --serve 4 --kv8 on the 8 clips, each
+    checked against engine.perf; then the q8 kernel path against its plain
+    path and --spec against plain greedy on bf16 weights.  Returns the
+    launches of each run, and the --spec run's B2 launches at the verify's
+    T (`--spec verify`)."""
     from smolvision_tpu_torch.io.wav import load_wav
     from smolvision_tpu_torch.runtime import engine as eng_mod
 
@@ -1823,11 +1956,7 @@ def phase_int8(model_dir: str, wav: str, long_wav: str, serve_wavs, cfg, shapes)
     base = ["-d", model_dir, "-i", wav, "--silent", "--language", "English", "--max-tokens",
             str(MAX_TOKENS)]
     for flag in ("--q8", "--spec"):
-        if flag == "--q8":
-            eng, launches, lines, wall_s = run_path(base + [flag], f"{flag} run", cfg)
-        else:
-            eng, launches, lines, wall_s = run_cli(base + [flag], f"{flag} run")
-            check_launches(f"{flag} run", launches, eng, cfg)
+        eng, launches, lines, wall_s = run_path(base + [flag], f"{flag} run", cfg)
         perf = eng.perf
         log(f"{flag} run: {wall_s:.2f} s wall incl. load ({perf.decode_steps} decode steps, "
             f"{perf.spec_iters} verify iterations)")
@@ -1846,9 +1975,17 @@ def phase_int8(model_dir: str, wav: str, long_wav: str, serve_wavs, cfg, shapes)
             cmp = compare_paths(eng, clip, steps=MAX_TOKENS // 2)
             log(f"kernel path vs plain path on the card, --q8 weights: {json.dumps(cmp)}")
         else:
+            run = DECODE_RUNS[f"{flag} run"]
+            if not run["host_reads"]["graph"] < perf.spec_iters:
+                fail(f"--spec run: {run['host_reads']['graph']} host reads for "
+                     f"{perf.spec_iters} iterations (one per chunk expected)")
+            runs["--spec verify"] = cfg.dec_layers * (perf.spec_iters + perf.wasted_steps)
             log(f"  accepted tokens per verify: {perf.spec_tokens / perf.spec_iters:.3f} "
                 f"({perf.spec_tokens} tokens / {perf.spec_iters} verifies, draft "
-                f"{eng_mod.SPEC_DRAFT})")
+                f"{eng_mod.SPEC_DRAFT}; {perf.wasted_steps} iterations replayed past a "
+                f"chunk's end; {run['host_reads']['graph']} host reads); decode ms per token "
+                f"graph {run['decode_ms_per_token']['graph']:.3f}, eager "
+                f"{run['decode_ms_per_token']['eager']:.3f}")
             cmp = spec_vs_plain(eng, clip, MAX_TOKENS, exact=False)
             log(f"--spec vs plain greedy on the card, bf16 weights: {json.dumps(cmp)}")
         runs[flag] = launches
@@ -1894,25 +2031,28 @@ def stream_record(audio: bool = False):
     """Records each stream (runtime/stream.py) the block runs: per chunk its
     index, reused rows and raw tokens (and with `audio` its audio rows, on
     the host); the session's prefill rows and reused rows; the KV caches
-    allocated (the first and each growth); and the (T, start) of every B2
-    call at start > 0 (the KV-reuse deltas).  The wrappers only record; the
+    allocated (the first and each growth); and every single-stream prefill
+    as (cache, block rows T, start): those at start > 0 are the KV-reuse
+    deltas (B2 once per layer each, eager or replayed), and the distinct
+    (cache, T) are the prefill graphs' keys.  The wrappers only record; the
     calls they wrap run as they ship."""
-    from smolvision_tpu_torch.kernels import flash_attention as fa
     from smolvision_tpu_torch.models import qwen3_decoder as dec_mod
     from smolvision_tpu_torch.runtime import stream
+    from smolvision_tpu_torch.runtime.engine import Engine
 
     runs = []
     init, finish, final = (stream.StreamState.__init__, stream.StreamState.finish_chunk,
                            stream.StreamState.finalize)
-    make_kv, b2 = dec_mod.make_kv_cache, fa.causal_cache_flash_attention
+    make_kv, prefill = dec_mod.make_kv_cache, Engine._prefill
 
     def rec_init(self, *args, **kwargs):
-        runs.append({"chunks": [], "allocs": 0, "b2_deltas": [], "audio": []})
+        runs.append({"chunks": [], "allocs": 0, "prefills": [], "audio": []})
         init(self, *args, **kwargs)
 
     def rec_finish(self, w, *args, **kwargs):
         finish(self, w, *args, **kwargs)
         runs[-1]["chunks"].append((self.chunk_idx - 1, w.reused, list(self.raw_tokens)))
+        runs[-1]["last_work"] = w
         if audio:
             runs[-1]["audio"].append(w.audio_block[: w.enc_seq_len].float().cpu())
 
@@ -1925,55 +2065,70 @@ def stream_record(audio: bool = False):
             runs[-1]["allocs"] += 1
         return make_kv(*args, **kwargs)
 
-    def rec_b2(q, k_cache, v_cache, start_pos, *args, **kwargs):
-        if runs and start_pos > 0:
-            runs[-1]["b2_deltas"].append((q.shape[0], start_pos))
-        return b2(q, k_cache, v_cache, start_pos, *args, **kwargs)
+    def rec_prefill(self, embeds, start_pos, *args, **kwargs):
+        out = prefill(self, embeds, start_pos, *args, **kwargs)
+        if runs:   # after the call: a first prefill allocates its cache
+            runs[-1]["prefills"].append((runs[-1]["allocs"], embeds.shape[0], start_pos))
+        return out
 
     with contextlib.ExitStack() as stack:
         for obj, attr, fn in ((stream.StreamState, "__init__", rec_init),
                               (stream.StreamState, "finish_chunk", rec_finish),
                               (stream.StreamState, "finalize", rec_final),
                               (dec_mod, "make_kv_cache", rec_make_kv),
-                              (fa, "causal_cache_flash_attention", rec_b2)):
+                              (Engine, "_prefill", rec_prefill)):
             stack.enter_context(mock.patch.object(obj, attr, fn))
         yield runs
+
+
+def b2_deltas(run: dict) -> list:
+    """A stream record's prefills at start > 0, as (T, start)."""
+    return [(T, start) for _, T, start in run["prefills"] if start > 0]
 
 
 def stream_summary(name: str, eng, run: dict, cfg, wall_s: float) -> dict:
     """What a stream run shows (its realtime factor, chunk latency, the
     phase times, the reused share of prefill rows, graph captures against
-    caches, decode ms per step, B2's launches at start > 0); fails if it
-    captured more graphs than it had caches, or if a chunk after a reused
-    prefix ran no B2 at start > 0."""
+    caches, prefill graphs against their (cache, T) keys, prefill ms per
+    chunk, decode ms per step, B2's launches at start > 0); fails if it
+    captured more decode graphs than it had caches or more prefill graphs
+    than keys, or if a chunk after a reused prefix ran no B2 at start > 0."""
     perf = eng.perf
     lat = perf.stream_latency()
     if lat is None or not run["chunks"]:
         fail(f"{name}: no chunk ran")
     first, p50, p99 = lat
     L = cfg.dec_layers
-    deltas = run["b2_deltas"]
-    if len(deltas) != L * perf.reuse_prefills:
-        fail(f"{name}: {len(deltas)} B2 calls at start > 0, expected {L} x "
-             f"{perf.reuse_prefills} reuse prefills")
+    deltas = b2_deltas(run)
+    keys = len({(cache, T) for cache, T, _ in run["prefills"]})
+    if len(deltas) != perf.reuse_prefills or len(run["prefills"]) != perf.prefills:
+        fail(f"{name}: {len(deltas)} prefills at start > 0 of {len(run['prefills'])}, the "
+             f"engine counts {perf.reuse_prefills} of {perf.prefills}")
     if DEV == "cuda" and not 1 <= perf.graph_captures <= run["allocs"]:
         fail(f"{name}: {perf.graph_captures} decode graphs captured over {run['allocs']} "
              f"caches (at most one per cache)")
+    if perf.prefill_captures > keys:
+        fail(f"{name}: {perf.prefill_captures} prefill graphs captured over {keys} "
+             f"(cache, T) keys")
     Ts = sorted({T for T, _ in deltas})
     summary = {
         "chunks": len(run["chunks"]), "wall_s": wall_s,
         "realtime_factor": perf.audio_ms / perf.total_ms,
         "chunk_ms_p50": p50, "chunk_ms_p99": p99, "first_commit_ms": first,
         "encode_ms": perf.encode_ms, "prefill_ms": perf.prefill_ms,
+        "prefill_ms_per_chunk": perf.prefill_ms / len(run["chunks"]),
         "decode_ms": perf.decode_ms - perf.prefill_ms, "total_ms": perf.total_ms,
         "encodes": perf.encodes, "prefill_rows": run["prefill_total"],
         "reused_rows": run["prefill_reused"],
         "reused_share": run["prefill_reused"] / max(run["prefill_total"], 1),
         "graph_captures": perf.graph_captures, "graph_capture_ms": perf.graph_capture_ms,
-        "kv_caches": run["allocs"], "decode_steps": perf.decode_steps,
+        "kv_caches": run["allocs"], "prefill_keys": keys,
+        "prefill_captures": perf.prefill_captures,
+        "prefill_capture_ms": perf.prefill_capture_ms, "prefill_replays": perf.prefill_replays,
+        "decode_steps": perf.decode_steps,
         "wasted_steps": perf.wasted_steps, "decode_ms_per_step": decode_ms_per_step(perf),
-        "reuse_prefills": perf.reuse_prefills, "b2_launches_start_gt_0": len(deltas),
-        "b2_delta_T": {T: sum(1 for t, _ in deltas if t == T) for T in Ts},
+        "reuse_prefills": perf.reuse_prefills, "b2_launches_start_gt_0": L * len(deltas),
+        "b2_delta_T": {T: L * sum(1 for t, _ in deltas if t == T) for T in Ts},
         "b2_delta_start_range": ([min(st for _, st in deltas), max(st for _, st in deltas)]
                                  if deltas else None),
         "text_tokens": perf.text_tokens,
@@ -1981,6 +2136,46 @@ def stream_summary(name: str, eng, run: dict, cfg, wall_s: float) -> dict:
     STREAM_RUNS[name] = summary
     log(f"  {name}: {json.dumps(summary)}")
     return summary
+
+
+def prefill_breakdown(eng, w) -> dict:
+    """Where a stream chunk's prefill time goes, replayed on the warm engine
+    after the run with the last chunk's prompt `w`: the whole
+    `prefill_with_reuse` and its two parts -- the embeddings built eagerly,
+    the prefill graph's run (copies in, replay, the token out) -- each on
+    the host clock, synchronised after every call; then the device time of
+    one replay and of the same prefill run eagerly (CUDA events over 50
+    calls issued back to back)."""
+    import torch
+
+    from smolvision_tpu_torch.runtime.buckets import bucket
+
+    def wall(fn, n: int = 10) -> float:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(n):
+            fn()
+            torch.cuda.synchronize()
+        return (time.monotonic() - t0) * 1e3 / n
+
+    total = len(w.ids)
+    reused = max(0, min(w.reused, total - 1))
+    delta_cap = bucket(total - reused, 64)
+    tcap = bucket(max(total, reused + delta_cap), 64)
+    with torch.inference_mode():
+        whole = wall(lambda: eng.prefill_with_reuse(w.ids, w.audio_block, w.audio_start,
+                                                    w.enc_seq_len, w.reused))
+        embeds = wall(lambda: eng._embeds(w.ids, tcap, w.audio_block, w.audio_start,
+                                          w.enc_seq_len))
+        delta = eng._embeds(w.ids, tcap, w.audio_block, w.audio_start,
+                            w.enc_seq_len)[reused: reused + delta_cap]
+        graph = eng._prefills[delta_cap]
+        run = wall(lambda: graph.run(delta, reused, total - reused))
+        out = {"T": delta_cap, "start": reused, "prefill_with_reuse_ms": whole,
+               "embeds_ms": embeds, "graph_run_ms": run,
+               "replay_device_ms": eager_ms(graph.graph.replay),
+               "eager_step_ms": eager_ms(graph._step)}
+    return out
 
 
 def run_stream(argv, name: str, cfg, stdin=None, audio: bool = False):
@@ -2117,6 +2312,10 @@ def phase_stream(model_dir: str, wavs: dict, cfg) -> dict:
         eng, launches, lines, wall_s = run_path(base + ["-i", wavs["stream"]], "--stream", cfg)
     stream_summary("--stream", eng, runs[-1], cfg, wall_s)
     bf16 = runs[-1]
+    if DEV == "cuda":
+        STREAM_RUNS["--stream"]["prefill_breakdown"] = prefill_breakdown(eng, bf16["last_work"])
+        log(f"  --stream prefill of the last chunk, replayed on the warm engine: "
+            f"{json.dumps(STREAM_RUNS['--stream']['prefill_breakdown'])}")
     if not "".join(lines).strip():
         fail("--stream: empty transcript")
     log(f"  --stream transcript ({eng.perf.text_tokens} text tokens): {''.join(lines)[:120]}")
@@ -2772,7 +2971,9 @@ def main() -> int:
                     argmax_matvec_q8_tc=wide_runs["--q8"]["argmax_matvec_q8_tc"],
                     probe_mm=cache["probe_mm_launches"])
     for name, T, _, _ in B2_DELTA_ROWS:   # the bf16 stream's delta prefills of T rows
-        launches[name] = sum(1 for t, _ in stream_run["record"]["b2_deltas"] if t == T)
+        launches[name] = cfg.dec_layers * sum(1 for t, _ in b2_deltas(stream_run["record"])
+                                              if t == T)
+    launches[B2_VERIFY_ROW[0]] = int8_runs["--spec verify"]
     for row in table:
         row.setdefault("launches", launches.get(row["name"]))
         row["kernel_ms"] = row["ms"]

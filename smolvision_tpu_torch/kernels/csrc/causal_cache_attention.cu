@@ -6,6 +6,12 @@
 // column c is attended by row r iff kv_min <= c <= r and c < kv_valid.
 // Online softmax in f32; a row with no key in range returns 0.
 //
+// `start` and `kv_valid` are read from device memory, as the Pallas kernel
+// takes them as scalar-prefetch operands: a prefill or the --spec verify
+// keeps its start on the device, and one CUDA graph of it replays at every
+// start (runtime/decode_graph.py).  The grid, ceil(T / P) x KH blocks,
+// depends on T alone.
+//
 // Bound on the card: bytes at the 0.6B prefill shape (T 512, H 16, KH 8,
 // D 128, bf16 cache: a few MB against ~0.9 GFLOP).  One route, on the
 // tensor-core core of mma_attention.cuh: one causal key segment of the
@@ -26,7 +32,8 @@
 //
 // Layout: q [T, H, D] f32 contiguous; k/v cache [K, KH, D] (bf16 or f32) with
 // unit element stride, head stride D and row stride `row_stride` elements;
-// out [T, H, D] f32.  1 <= G <= 64, 16-byte aligned rows.
+// start and kv_valid one int32 each; out [T, H, D] f32.  1 <= G <= 64,
+// 16-byte aligned rows.
 
 #include "mma_attention.cuh"
 
@@ -40,8 +47,10 @@ template <int D, typename KV>
 __global__ void __launch_bounds__(128 * kGroups)
 causal_cache_kernel(const float* __restrict__ q, const KV* __restrict__ k,
                     const KV* __restrict__ v, float* __restrict__ out, int T, int H, int KH,
-                    long long row_stride, int start, int kv_valid, int kv_min, float scale) {
+                    long long row_stride, const int* __restrict__ start_ptr,
+                    const int* __restrict__ kv_valid_ptr, int kv_min, float scale) {
     extern __shared__ __align__(16) unsigned char smem[];
+    const int start = __ldg(start_ptr), kv_valid = __ldg(kv_valid_ptr);
     const int G = H / KH, P = sv::kMmaRows / G;
     const int n_qtiles = (T + P - 1) / P;
     const int qtile = n_qtiles - 1 - static_cast<int>(blockIdx.x) / KH;  // heaviest first
@@ -57,8 +66,8 @@ causal_cache_kernel(const float* __restrict__ q, const KV* __restrict__ k,
 
 template <int D, typename KV>
 int launch(const float* q, const void* k, const void* v, float* out, int T, int H, int KH,
-           long long row_stride, int start, int kv_valid, int kv_min, float scale,
-           cudaStream_t stream) {
+           long long row_stride, const int* start, const int* kv_valid, int kv_min,
+           float scale, cudaStream_t stream) {
     const int G = H / KH;
     if (G < 1 || G > sv::kMmaRows) return (int)cudaErrorInvalidValue;
     const size_t smem = sv::mma_smem_bytes(D, kGroups);
@@ -77,8 +86,9 @@ int launch(const float* q, const void* k, const void* v, float* out, int T, int 
 // kv_bf16: 1 for a bf16 cache (two products), 0 for f32 (three).
 extern "C" int sv_causal_cache_attention(const float* q, const void* k, const void* v,
                                          float* out, int T, int H, int KH, int D,
-                                         long long row_stride, int start, int kv_valid,
-                                         int kv_min, int kv_bf16, float scale, void* stream) {
+                                         long long row_stride, const int* start,
+                                         const int* kv_valid, int kv_min, int kv_bf16,
+                                         float scale, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (T <= 0) return 0;
     switch ((kv_bf16 ? 1000 : 0) + D) {

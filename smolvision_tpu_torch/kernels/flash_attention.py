@@ -50,7 +50,7 @@ WINDOW_ROW_BLOCKS = None
 # C argument types, one letter each (kernels/ffi.py)
 _SIGNATURES = {
     "sv_window_attention": ("window_attention", "pppppiiiiifp"),
-    "sv_causal_cache_attention": ("causal_cache_attention", "ppppiiiiliiiifp"),
+    "sv_causal_cache_attention": ("causal_cache_attention", "ppppiiiilppiifp"),
     "sv_decode_attention": ("decode_attention", "ppppppiiilppiifp"),
     "sv_batched_causal_attention": ("batched_causal_attention", "pppppiiiiifp"),
     "sv_batched_cache_attention": ("batched_cache_attention", "ppppppppipiiiiillliifp"),
@@ -146,31 +146,46 @@ def window_flash_attention(q, k, v, kv_valid_lens):
 # B2: prefill causal attention against the cache
 # ---------------------------------------------------------------------------
 
-def causal_cache_attention_plain(q, k_cache, v_cache, start_pos: int,
-                                 kv_valid_len: int, kv_min: int = 0):
+def causal_cache_attention_plain(q, k_cache, v_cache, start_pos, kv_valid_len, kv_min: int = 0):
     """q: [T, H, D] at cache rows start_pos + t; k/v_cache: [K, KH, D] already
     holding the block.  Column c is attended by row r iff kv_min <= c <= r and
-    c < kv_valid_len.  Only rows [kv_min, min(start_pos + T, kv_valid_len))
-    are read.  Returns [T, H, D] f32."""
+    c < kv_valid_len.  Returns [T, H, D] f32.
+
+    With host ints it reads only rows [kv_min, min(start_pos + T,
+    kv_valid_len)).  With a device start (a one-element int tensor, as a
+    prefill graph or the --spec verify keeps it; kv_valid_len an int or such
+    a tensor) it is the fixed-shape form: every row of the [K] cache under a
+    mask built from the tensors, with no host read."""
     T, H, D = q.shape
     KH = k_cache.shape[1]
     G = H // KH
-    lo = kv_min
-    hi = max(min(start_pos + T, kv_valid_len), lo)
+    if isinstance(start_pos, torch.Tensor):
+        lo, hi = 0, k_cache.shape[0]
+        rows = start_pos.reshape(1) + torch.arange(T, device=q.device)
+        valid = (kv_valid_len.reshape(1) if isinstance(kv_valid_len, torch.Tensor)
+                 else kv_valid_len)
+    else:
+        lo = kv_min
+        hi = max(min(start_pos + T, kv_valid_len), lo)
+        rows = start_pos + torch.arange(T, device=q.device)
+        valid = kv_valid_len
     kf = k_cache[lo:hi].float()
     vf = v_cache[lo:hi].float()
     qc = (q.float() * (1.0 / math.sqrt(D))).reshape(T, KH, G, D)
     s = torch.einsum("tkgd,skd->kgts", qc, kf)
-    rows = start_pos + torch.arange(T, device=q.device)
     cols = lo + torch.arange(hi - lo, device=q.device)
-    mask = (cols[None, :] <= rows[:, None]) & (cols[None, :] < kv_valid_len)
+    mask = (cols[None, :] <= rows[:, None]) & (cols[None, :] < valid) & (cols[None, :] >= kv_min)
     return torch.einsum("kgts,skd->tkgd", _masked_probs(s, mask), vf).reshape(T, H, D)
 
 
-def causal_cache_flash_attention(q, k_cache, v_cache, start_pos: int,
-                                 kv_valid_len: int, *, kv_min: int = 0):
+def causal_cache_flash_attention(q, k_cache, v_cache, start_pos, kv_valid_len, *,
+                                 kv_min: int = 0):
     """Causal GQA attention of a query block against the cache (kernel B2 on
-    CUDA).  start_pos / kv_valid_len / kv_min are host ints.
+    CUDA).  The kernel reads start_pos and kv_valid_len from device memory:
+    pass them as one-element int32 / int64 device tensors (a prefill graph's
+    or the --spec verify's start, which a CUDA graph holds) or host ints
+    (filled in on the device here, and checked against the cache; a device
+    start is checked by its owner).  kv_min is a host int.
 
     On the tensor cores (csrc/mma_attention.cuh: bf16 mma.sync with f32
     accumulation on hi / lo splits; any G = H / KH up to 64): two products
@@ -191,12 +206,18 @@ def causal_cache_flash_attention(q, k_cache, v_cache, start_pos: int,
                 and v_cache.data_ptr() % 16 == 0
                 and (k_cache.stride(0) * k_cache.element_size()) % 16 == 0,
                 "q and cache rows must be 16-byte aligned")
-    ffi.require(0 <= kv_min and start_pos >= 0 and start_pos + T <= K
-                and 0 <= kv_valid_len <= K, "positions out of the cache")
+    ffi.require(0 <= kv_min, "positions out of the cache")
+    if not isinstance(start_pos, torch.Tensor):
+        ffi.require(start_pos >= 0 and start_pos + T <= K, "positions out of the cache")
+    if not isinstance(kv_valid_len, torch.Tensor):
+        ffi.require(0 <= kv_valid_len <= K, "positions out of the cache")
+    start = _position_i32(start_pos, q.device)
+    valid = _position_i32(kv_valid_len, q.device)
+    ffi.check_cuda(q, start, valid)
     out = torch.empty_like(q)
     _call("sv_causal_cache_attention", q.data_ptr(), k_cache.data_ptr(),
           v_cache.data_ptr(), out.data_ptr(), T, H, KH, D, k_cache.stride(0),
-          start_pos, kv_valid_len, kv_min, kv_bf16, 1.0 / math.sqrt(D), ffi.stream())
+          start.data_ptr(), valid.data_ptr(), kv_min, kv_bf16, 1.0 / math.sqrt(D), ffi.stream())
     ffi.launch_counts["causal_cache_attention"] += 1
     return out
 

@@ -8,13 +8,14 @@ Port of the dense paths of smolvision_tpu/models/qwen3_decoder.py
   * prefill writes the whole padded block's K/V rows into the cache (pad
     rows too, as the JAX package does) and then runs kernel B2, which masks
     every column >= start_pos + valid_len,
-  * every decode step runs kernel B3 over the live rows [0, pos) plus
-    the fresh row, then writes that row into the cache; there is no
-    cache-size crossover (the JAX package's FLASH_DECODE_MIN_KCAP is a TPU
-    measurement and does not apply here).  The step takes its token and
-    position as device tensors (B3 reads the position from device memory,
-    the row is written with index_copy_), so one CUDA graph of it replays at
-    every position (runtime/decode_graph.py),
+  * every decode step writes its row and runs kernel B3 over the live rows
+    [0, pos) plus the fresh row; there is no cache-size crossover (the JAX
+    package's FLASH_DECODE_MIN_KCAP is a TPU measurement and does not apply
+    here),
+  * a block's start may be a device tensor (the decode step's position, a
+    prefill graph's start, the --spec verify's): B2 and B3 read it from
+    device memory and the rows are written with index_copy_, so one CUDA
+    graph replays at every start (runtime/decode_graph.py),
   * the batched decoder (segments, serving) keeps a [L, 2, B, KH, K, D]
     cache: fresh prefill runs kernel B4, delta prefill of a block of T > 1
     rows kernel B5, at every size (the JAX package's BATCHED_FLASH_MIN_T /
@@ -79,13 +80,13 @@ def _split_gate_up(gate_up: torch.Tensor):
     return gate_up[..., :I], gate_up[..., I:]
 
 
-def _attn_block(lp, h, kv, layer: int, cfg: ModelConfig, cos, sin, start_pos,
-                valid_len: int, pos32=None):
+def _attn_block(lp, h, kv, layer: int, cfg: ModelConfig, cos, sin, rows, start_pos, kv_valid):
     """One layer's attention half: input RMSNorm -> fused QKV -> per-head Q/K
     norm -> RoPE -> causal GQA attention vs the cache -> o-proj residual.
-    Writes this block's K/V rows into kv[layer].  A decode step (T == 1)
-    has start_pos as an int64 device tensor [1] and pos32 as its int32 copy,
-    which kernel B3 reads."""
+    Writes this block's K/V rows into kv[layer] at `rows` (int64 [T], by
+    index_copy_).  A decode step (T == 1, kernel B3) has start_pos as its
+    int32 device copy [1]; a longer block (kernel B2) has start_pos and
+    kv_valid as host ints or device tensors."""
     T = h.shape[0]
     H, KH, D = cfg.dec_heads, cfg.dec_kv_heads, cfg.dec_head_dim
     eps = cfg.rms_norm_eps
@@ -100,16 +101,14 @@ def _attn_block(lp, h, kv, layer: int, cfg: ModelConfig, cos, sin, start_pos,
     k = apply_rope_neox(k, cos, sin)
 
     k_cache, v_cache = kv[layer, 0], kv[layer, 1]
+    k_cache.index_copy_(0, rows, k.to(kv.dtype))   # B3 reads only the rows before them
+    v_cache.index_copy_(0, rows, v.to(kv.dtype))
     if T == 1:
         attn = fa.decode_flash_attention(q[0].contiguous(), k[0].contiguous(),
-                                         v[0].contiguous(), k_cache, v_cache, pos32)[None]
-        k_cache.index_copy_(0, start_pos, k.to(kv.dtype))
-        v_cache.index_copy_(0, start_pos, v.to(kv.dtype))
+                                         v[0].contiguous(), k_cache, v_cache, start_pos)[None]
     else:
-        k_cache[start_pos : start_pos + T] = k.to(kv.dtype)
-        v_cache[start_pos : start_pos + T] = v.to(kv.dtype)
         attn = fa.causal_cache_flash_attention(q.contiguous(), k_cache, v_cache, start_pos,
-                                               start_pos + valid_len)
+                                               kv_valid)
     return h + linear(attn.reshape(T, H * D), lp["wo"])
 
 
@@ -120,11 +119,16 @@ def _dense_ffn(xn, lp):
 
 
 def decoder_forward(params, cfg: ModelConfig, embeds: torch.Tensor, start_pos,
-                    valid_len: int, kv: torch.Tensor):
+                    valid_len, kv: torch.Tensor):
     """Run the layer stack over `embeds` [T, H] written into cache rows
-    start_pos..start_pos+T-1; T == 1 is a decode step (kernel B3) at a
-    device position (an int64 tensor [1]; a host int is moved there),
-    longer blocks are prefill (kernel B2) at a host int start_pos.
+    start_pos..start_pos+T-1; T == 1 is a decode step (kernel B3), longer
+    blocks are prefill (kernel B2).  start_pos is a host int or an int64
+    device tensor [1] (the decode loop's position, a prefill graph's start,
+    the --spec verify's), and valid_len a host int or such a tensor: a
+    device start takes its RoPE angles, cache rows and B2's kv_valid =
+    start + valid on the device, so one CUDA graph replays at every start
+    (its owner checks the rows against the cache).  A decode step's host
+    int is moved to the device.
 
     Returns (hidden [T, H] f32 pre-final-norm, kv) — kv is updated in place.
     Rows >= valid_len are junk; their cache rows are masked until overwritten.
@@ -132,19 +136,23 @@ def decoder_forward(params, cfg: ModelConfig, embeds: torch.Tensor, start_pos,
     if isinstance(kv, QuantKV):
         raise ValueError("the int8 KV cache (--kv8) is batched-path only (make_batched_kv)")
     T = embeds.shape[0]
-    pos32 = None
-    if T == 1:
-        if not isinstance(start_pos, torch.Tensor):
-            start_pos = torch.full((1,), start_pos, dtype=torch.int64, device=embeds.device)
+    if T == 1 and not isinstance(start_pos, torch.Tensor):
+        start_pos = torch.full((1,), start_pos, dtype=torch.int64, device=embeds.device)
+    if isinstance(start_pos, torch.Tensor):
         start_pos = start_pos.reshape(1)
-        pos32 = start_pos.to(torch.int32)
-    positions = start_pos + torch.arange(T, device=embeds.device)
-    cos, sin = rope_tables(positions, cfg.dec_head_dim, cfg.rope_theta)
+    elif start_pos < 0 or start_pos + T > kv.shape[2]:
+        raise ValueError(f"cache rows {start_pos}..{start_pos + T} past its {kv.shape[2]}")
+    rows = start_pos + torch.arange(T, device=embeds.device)
+    cos, sin = rope_tables(rows, cfg.dec_head_dim, cfg.rope_theta)
+    kv_valid = start_pos + valid_len if T > 1 else None
+    if isinstance(start_pos, torch.Tensor):   # B2 / B3 read int32s from device memory
+        start_pos = start_pos.to(torch.int32)
+        kv_valid = None if kv_valid is None else kv_valid.to(torch.int32)
     layers = params["layers"]
     h = embeds.float()
     for i in range(layers["wqkv"].shape[0]):
         lp = {key: take(val, i) for key, val in layers.items()}
-        h = _attn_block(lp, h, kv, i, cfg, cos, sin, start_pos, valid_len, pos32)
+        h = _attn_block(lp, h, kv, i, cfg, cos, sin, rows, start_pos, kv_valid)
         h = h + _dense_ffn(rms_norm(h, lp["post_ln"], cfg.rms_norm_eps), lp)
     return h, kv
 
@@ -170,12 +178,20 @@ def greedy_head(params, cfg: ModelConfig, hidden_rows: torch.Tensor) -> torch.Te
     return am.argmax_matvec(h, w)
 
 
-def prefill(params, cfg: ModelConfig, embeds, start_pos: int, valid_len: int, kv,
-            greedy: bool = True):
-    """Prefill the bucket; return (first token | logits of the last valid row, kv)."""
+def last_row(hidden: torch.Tensor, valid_len) -> torch.Tensor:
+    """Row valid_len - 1 of hidden [T, H] as [1, H], by index_select: valid_len
+    a host int or a device tensor (a prefill graph's), never read back."""
+    if not isinstance(valid_len, torch.Tensor):
+        return hidden[valid_len - 1 : valid_len]
+    return hidden.index_select(0, (valid_len.reshape(1) - 1).long())
+
+
+def prefill(params, cfg: ModelConfig, embeds, start_pos, valid_len, kv, greedy: bool = True):
+    """Prefill the bucket; return (first token | logits of the last valid row, kv).
+    start_pos / valid_len are host ints or (greedy only) device tensors."""
     hidden, kv = decoder_forward(params, cfg, embeds, start_pos, valid_len, kv)
     if greedy:
-        return greedy_head(params, cfg, hidden[valid_len - 1 : valid_len])[0], kv
+        return greedy_head(params, cfg, last_row(hidden, valid_len))[0], kv
     return logits_at(params, cfg, hidden, valid_len - 1), kv
 
 

@@ -14,13 +14,15 @@ engine owns:
   * host-side text logic (prompt tokens, <asr_text> gating, callbacks),
   * perf counters matching the reference's stderr contract.
 
-PyTorch runs eagerly, so there are no jitted programs.  Greedy decode is
-the reference's device loop in the form the card offers: one decode step
-captured as a CUDA graph and replayed per token, the token, position and
-EOS flag on the device, one host read per chunk of DECODE_CHUNK steps
-(runtime/decode_graph.py); --spec keeps a per-token host loop.  Phases are
-synchronised at their ends on the card so the per-phase times are the
-device's, not the enqueue's.
+PyTorch runs eagerly, so there are no jitted programs.  The reference's
+compiled programs take the form the card offers (runtime/decode_graph.py):
+greedy decode is one decode step captured as a CUDA graph and replayed per
+token, the token, position and EOS flag on the device, one host read per
+chunk of DECODE_CHUNK steps; --spec is one speculative iteration (draft
+steps, verify, accept) captured and replayed the same way; a greedy
+prefill is captured per (cache, block bucket) on its second call and
+replayed.  Phases are synchronised at their ends on the card so the
+per-phase times are the device's, not the enqueue's.
 """
 
 from __future__ import annotations
@@ -29,8 +31,7 @@ import dataclasses
 import os
 import sys
 import time
-from collections import deque
-from typing import Callable, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -50,7 +51,8 @@ from smolvision_tpu_torch.ops.mel import log_mel
 from smolvision_tpu_torch.ops.quant import embed_rows
 from smolvision_tpu_torch.runtime import prompt as prompt_mod
 from smolvision_tpu_torch.runtime.buckets import bucket, window_bucket
-from smolvision_tpu_torch.runtime.decode_graph import DECODE_CHUNK, DecodeLoop
+from smolvision_tpu_torch.runtime.decode_graph import (DECODE_CHUNK, DecodeLoop, PrefillGraph,
+                                                       SpecLoop)
 from smolvision_tpu_torch.text.tokenizer import Tokenizer, load_tokenizer
 
 KV_HEADROOM = 256
@@ -85,9 +87,16 @@ class PerfStats:
         # (runtime/decode_graph.py: the host learns of the end DONE_LAG
         # replays late); their outputs are never read
         self.wasted_steps = 0
-        # CUDA graphs of a decode step captured, and the host ms they took
+        # CUDA graphs of a decode step (or --spec iteration) captured, and
+        # the host ms they took
         self.graph_captures = 0
         self.graph_capture_ms = 0.0
+        # CUDA graphs of a greedy prefill captured (one per cache and block
+        # bucket, on its second call), their host ms, and the prefills
+        # replayed from them
+        self.prefill_captures = 0
+        self.prefill_capture_ms = 0.0
+        self.prefill_replays = 0
         # launches of the other kernels follow these counts, one per layer each:
         self.encodes = 0          # encoder stack calls (B1), single clips or batches
         self.prefills = 0         # single-stream prefills (B2)
@@ -212,9 +221,11 @@ class Engine:
 
         self._kv: Optional[torch.Tensor] = None
         self._kv_cap = 0
-        # the single-stream decode loop of the current cache (its CUDA graph
-        # holds the cache tensor): dropped whenever the cache is
-        self._loop: Optional[DecodeLoop] = None
+        # the single-stream decode loop of the current cache (a SpecLoop
+        # under --spec) and its greedy prefills by block rows (their CUDA
+        # graphs hold the cache tensor): dropped whenever the cache is
+        self._loop: Optional[Union[DecodeLoop, SpecLoop]] = None
+        self._prefills: Dict[int, PrefillGraph] = {}
 
     @property
     def batched_kv_dtype(self) -> torch.dtype:
@@ -287,6 +298,7 @@ class Engine:
         self._kv = None
         self._kv_cap = 0
         self._loop = None
+        self._prefills = {}   # a new dict: a session view (multistream) shares none
 
     def _ensure_kv(self, needed: int) -> torch.Tensor:
         """Cache sized to a pow2 bucket; grows by copy when exceeded."""
@@ -300,6 +312,7 @@ class Engine:
             self._kv = new
             self._kv_cap = cap
             self._loop = None
+            self._prefills = {}
         return self._kv
 
     # ------------------------------------------------------------------
@@ -366,10 +379,23 @@ class Engine:
 
     def _prefill(self, embeds: torch.Tensor, start_pos: int, valid_len: int, greedy: bool):
         """Kernel B2 over `embeds` written into cache rows start_pos.. (the
-        rows below start_pos are kept); the first token or logits."""
-        kv = self._ensure_kv(start_pos + embeds.shape[0] + KV_HEADROOM)
-        out, self._kv = dec_mod.prefill(self.dec_params, self.cfg, embeds, start_pos,
-                                        valid_len, kv, greedy=greedy)
+        rows below start_pos are kept); the first token or logits.  A greedy
+        prefill goes through the cache's PrefillGraph for its block rows
+        (captured on its second call), the logits path runs eagerly."""
+        T = embeds.shape[0]
+        kv = self._ensure_kv(start_pos + T + KV_HEADROOM)
+        if greedy:
+            graph = self._prefills.get(T)
+            if graph is None:
+                p, cfg = self.dec_params, self.cfg
+                graph = PrefillGraph(
+                    lambda e, at, n, kv=kv: dec_mod.prefill(p, cfg, e, at, n, kv)[0],
+                    embeds, self.perf)
+                self._prefills[T] = graph
+            out = graph.run(embeds, start_pos, valid_len)
+        else:
+            out, self._kv = dec_mod.prefill(self.dec_params, self.cfg, embeds, start_pos,
+                                            valid_len, kv, greedy=False)
         self.perf.prefills += 1
         self.perf.reuse_prefills += int(start_pos > 0)
         return out
@@ -413,50 +439,37 @@ class Engine:
         self.perf.decode_steps += 1
         return out
 
-    @torch.inference_mode()
-    def spec_iteration(self, token: int, pos: int, budget: int) -> List[int]:
-        """One speculative iteration (--spec) from `token` at cache row
-        `pos`: the next 1..min(SPEC_DRAFT + 1, budget) greedy tokens.
+    def _decode_loop(self, pos: int, steps: int) -> Union[DecodeLoop, SpecLoop]:
+        """The decode loop of the cache a chunk of `steps` tokens at cache
+        row `pos` needs (a SpecLoop under --spec, whose last verify block
+        writes up to SPEC_DRAFT + 1 rows past the last accepted position,
+        as the reference's sizing at :723-726), made anew when the cache
+        or the mode changed."""
+        kv = self._ensure_kv(pos + steps + 1 + (SPEC_DRAFT + 1 if self.spec else 0))
+        loop = self._loop
+        if self.spec:
+            if not isinstance(loop, SpecLoop) or loop.n_draft != SPEC_DRAFT:
+                p, pd, cfg = self.dec_params, self.dec_params_draft, self.cfg
 
-        SPEC_DRAFT int8 decode steps draft d_0..d_{n-1} on the shared cache;
-        one full-precision forward over the n + 1 rows [token, d_0..d_{n-1}]
-        (kernel B2) rewrites their cache rows exactly, and the greedy head
-        over those rows gives g_i, the exact greedy successor of the prefix
-        through row i.  The longest draft prefix with d_i == g_i is accepted,
-        plus the verify's own next token; an EOS ends the iteration.  Every
-        emitted token is a g_i, so the draft decides only how many positions
-        share one forward.  Cache rows past the accepted prefix are rewritten
-        before anything attends them.  Host loop with the contract of the
-        JAX engine's spec chunk (runtime/engine.py _get_spec_chunk)."""
-        n = SPEC_DRAFT
-        cfg, p = self.cfg, self.dec_params
-        kv = self._ensure_kv(pos + n + 1)   # the verify block writes rows pos..pos+n
-        tok = torch.tensor([token], dtype=torch.long, device=self.device)
-        drafts = []
-        td = tok
-        for j in range(n):
-            td, kv = dec_mod.decode_step(self.dec_params_draft, cfg, td, pos + j, kv)
-            drafts.append(td.reshape(1))
-        self.perf.decode_steps += n
-        seq = torch.cat([tok, *(d.long() for d in drafts)])
-        hidden, kv = dec_mod.decoder_forward(p, cfg, embed_rows(p["embed"], seq), pos, n + 1, kv)
-        g_dev = dec_mod.greedy_head(p, cfg, hidden)
-        self._kv = kv
-        both = torch.cat([torch.cat(drafts), g_dev]).tolist()
-        d, g = both[:n], both[n:]
-        a = 0
-        while a < n and d[a] == g[a]:
-            a += 1
-        eos_pos = next((i for i in range(a + 1) if g[i] in EOS_TOKEN_IDS), n + 1)
-        e = max(min(a + 1, eos_pos + 1, budget), 1)
-        self.perf.spec_iters += 1
-        self.perf.spec_tokens += e
-        return g[:e]
+                def verify(seq, at, kv=kv):
+                    hidden, _ = dec_mod.decoder_forward(p, cfg, embed_rows(p["embed"], seq.long()),
+                                                        at, seq.shape[0], kv)
+                    return dec_mod.greedy_head(p, cfg, hidden)
+
+                loop = SpecLoop(lambda tok, at, kv=kv: dec_mod.decode_step(pd, cfg, tok, at, kv)[0],
+                                verify, SPEC_DRAFT, kv, self._kv_cap, self.device, self.perf)
+        elif not isinstance(loop, DecodeLoop):
+            p, cfg = self.dec_params, self.cfg
+            loop = DecodeLoop(
+                lambda tok, at, kv=kv: dec_mod.decode_step(p, cfg, tok, at, kv)[0].reshape(1),
+                1, kv, self._kv_cap, self.device, self.perf)
+        self._loop = loop
+        return loop
 
     def decode_greedy(self, first_token, start_pos: int, max_tokens: int,
                       on_token: Callable[[int], bool]) -> int:
-        """Greedy loop in device chunks of DECODE_CHUNK tokens (per-token
-        spec iterations under --spec).
+        """Greedy loop in device chunks of DECODE_CHUNK tokens (of
+        speculative iterations under --spec).
 
         `on_token(tid) -> keep_going` sees every token in order (the prefill
         token first); EOS tokens end the loop before the callback, like the C
@@ -471,19 +484,19 @@ class Engine:
         n = 1
         if cur in EOS_TOKEN_IDS or not on_token(cur) or n >= max_tokens:
             return n
-        if self.spec:
-            return self._decode_greedy_spec(cur, start_pos, max_tokens, on_token)
         pos = start_pos
         while True:
             steps = min(DECODE_CHUNK, max_tokens - n)
-            kv = self._ensure_kv(pos + steps + 1)
-            if self._loop is None:
-                p, cfg = self.dec_params, self.cfg
-                self._loop = DecodeLoop(
-                    lambda tok, at, kv=kv: dec_mod.decode_step(p, cfg, tok, at, kv)[0].reshape(1),
-                    1, kv, self._kv_cap, self.device, self.perf)
-            buf, count, replays = self._loop.run(cur, pos, steps)
-            self.perf.decode_steps += replays
+            loop = self._decode_loop(pos, steps)
+            buf, count, replays = loop.run(cur, pos, steps)
+            if isinstance(loop, SpecLoop):
+                # only live iterations count; replays past the chunk's end
+                # are wasted_steps
+                self.perf.spec_iters += loop.iterations
+                self.perf.spec_tokens += count
+                self.perf.decode_steps += loop.n_draft * loop.iterations
+            else:
+                self.perf.decode_steps += replays
             for t in buf[0].tolist():
                 n += 1
                 if t in EOS_TOKEN_IDS or not on_token(t) or n >= max_tokens:
@@ -492,22 +505,6 @@ class Engine:
                 return n
             cur = int(buf[0, -1])
             pos += count
-
-    def _decode_greedy_spec(self, cur: int, pos: int, max_tokens: int,
-                            on_token: Callable[[int], bool]) -> int:
-        """decode_greedy under --spec, past the prefill token: a host loop of
-        speculative iterations, each giving the next 1..SPEC_DRAFT + 1
-        tokens.  No iteration runs past the last token the caller sees."""
-        pending = deque()
-        n = 1
-        while True:
-            if not pending:
-                pending.extend(self.spec_iteration(cur, pos, max_tokens - n))
-            cur = pending.popleft()
-            pos += 1
-            n += 1
-            if cur in EOS_TOKEN_IDS or not on_token(cur) or n >= max_tokens:
-                return n
 
     # ------------------------------------------------------------------
     # segment transcription (the core ASR path)

@@ -17,7 +17,9 @@ multistream (runtime/multistream.py) steps:
     positions survive; the delta runs kernel B2 at start_pos = reused
     (`Engine.prefill_with_reuse`).  The cache is never reset between
     chunks, so the decode loop's CUDA graph (runtime/decode_graph.py) is
-    captured once per cache and replayed by every chunk,
+    captured once per cache and replayed by every chunk, and the delta's
+    prefill graph once per (cache, block rows) and replayed by the chunks
+    whose delta takes that bucket again,
   * bounded decode (stream_max_new_tokens, default 32),
   * repeat-run suppression (>12 identical tokens dropped),
   * degeneration recovery: repeated tail blocks (period<=6, reps>=4),

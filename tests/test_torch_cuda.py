@@ -558,12 +558,12 @@ def test_cuda_probe_mm_ragged_shapes():
     assert ffi.launch_counts["probe_mm"] - before == len(shapes)
 
 
-@pytest.fixture
-def card_stream_engine(tmp_path, monkeypatch):
-    """The card checkpoint (full vocab) with a separate random lm_head: a
-    tied random head greedy-decodes one token over and over, which the
-    stream's recovery reset swallows; an untied one decodes varied tokens,
-    so the prefix conditioning and the KV reuse run."""
+def _untied_card_model(tmp_path, monkeypatch, **preset) -> str:
+    """The card checkpoint (full vocab; `preset` overrides CARD_PRESET) with
+    a separate random lm_head: a tied random head greedy-decodes one token
+    over and over, which the stream's recovery reset swallows; an untied
+    one decodes varied tokens, so the prefix conditioning and the KV reuse
+    run."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (kernels are built with nvcc for sm_90a)")
     import json
@@ -571,9 +571,8 @@ def card_stream_engine(tmp_path, monkeypatch):
 
     from smolvision_tpu_torch.io.safetensors import MultiSafetensors, write_safetensors
     from smolvision_tpu_torch.models import synthetic
-    from smolvision_tpu_torch.runtime.engine import Engine
 
-    monkeypatch.setitem(synthetic.PRESETS, "card", CARD_PRESET)
+    monkeypatch.setitem(synthetic.PRESETS, "card", dict(CARD_PRESET, **preset))
     model = synthetic.build("card", str(tmp_path / "model"), seed=3, full_vocab=True)
     with MultiSafetensors(model) as r:
         tensors = {k: r.get(k).clone() for k in r.names()}
@@ -588,7 +587,15 @@ def card_stream_engine(tmp_path, monkeypatch):
     cfg["thinker_config"]["text_config"]["tie_word_embeddings"] = False
     with open(path, "w") as f:
         json.dump(cfg, f)
-    return Engine(model, device="cuda")
+    return model
+
+
+@pytest.fixture
+def card_stream_engine(tmp_path, monkeypatch):
+    """An engine on the untied card checkpoint (`_untied_card_model`)."""
+    from smolvision_tpu_torch.runtime.engine import Engine
+
+    return Engine(_untied_card_model(tmp_path, monkeypatch), device="cuda")
 
 
 @pytest.mark.cuda
@@ -748,3 +755,180 @@ def test_cuda_multistream_captures_one_graph_per_cache(card_stream_engine, monke
     steps = sum(v.perf.decode_steps for v in views)
     assert steps > 0 and all(v.perf.graph_captures >= 1 for v in views)
     assert ffi.launch_counts["decode_attention"] - before["decode_attention"] == L * steps
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_attention_at_a_device_start():
+    """B2 reading start and kv_valid from device memory (int32 and int64
+    tensors), at the --spec verify's shape (T 5) and the stream's delta
+    shapes (T 128, 256), on bf16 and f32 caches: against its plain version
+    at the same host ints; then one CUDA graph of each, captured at one
+    start, replayed at four by changing the two tensors alone, with +-999
+    in every row past each replay's valid rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels are built with nvcc for sm_90a)")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    before = ffi.launch_counts["causal_cache_attention"]
+    n = 0
+    for T in (5, 128, 256):
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn(T, 16, 128, device="cuda", generator=g)
+            k = torch.randn(1024, 8, 128, device="cuda", generator=g).to(dtype)
+            v = torch.randn(1024, 8, 128, device="cuda", generator=g).to(dtype)
+            clean_k, clean_v = k.clone(), v.clone()
+
+            def junk(valid):
+                k.copy_(clean_k)
+                v.copy_(clean_v)
+                k[valid:], v[valid:] = 999.0, -999.0
+
+            for itype in (torch.int32, torch.int64):
+                start, valid = 300, 300 + T - 3
+                junk(valid)
+                at = torch.tensor([start], dtype=itype, device="cuda")
+                torch.testing.assert_close(
+                    tfa.causal_cache_flash_attention(q, k, v, at, at + (T - 3)),
+                    tfa.causal_cache_attention_plain(q, k, v, start, valid), rtol=0, atol=ATOL)
+                n += 1
+            at = torch.tensor([300], dtype=torch.int32, device="cuda")
+            vt = at + T
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                tfa.causal_cache_flash_attention(q, k, v, at, vt)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = tfa.causal_cache_flash_attention(q, k, v, at, vt)
+            n += 2
+            for start, valid in ((300, 300 + T), (0, T - 1), (17, 17 + T), (1024 - T, 1000)):
+                junk(valid)
+                at.fill_(start)
+                vt.fill_(valid)
+                out.fill_(float("nan"))
+                graph.replay()
+                torch.cuda.synchronize()
+                torch.testing.assert_close(
+                    out, tfa.causal_cache_attention_plain(q, k, v, start, valid), rtol=0,
+                    atol=ATOL)
+            del graph
+    torch.cuda.synchronize()
+    assert ffi.launch_counts["causal_cache_attention"] - before == n
+
+
+@pytest.mark.cuda
+def test_cuda_spec_graph_tokens_equal_eager_across_cache_growth(tmp_path, monkeypatch):
+    """--spec as one CUDA graph per cache, a replay per speculative
+    iteration: 130 tokens (three chunks) from a 150-id prompt with no
+    headroom past the prefill block, so the cache grows 256 -> 512 rows
+    before the second chunk (a second capture).  The tokens equal the eager
+    iterations' and plain greedy's (f32 weights; a 512-wide decoder, which
+    the int8 draft head K7 takes); a replay launches the
+    iteration's kernels once: SPEC_DRAFT x (L B3 + 1 K7) + L B2 + 1 K6 at
+    R SPEC_DRAFT + 1; the counters and launches agree, wasted replays
+    included."""
+    from smolvision_tpu_torch.kernels import argmax_matvec as tam_
+    from smolvision_tpu_torch.runtime import decode_graph
+    from smolvision_tpu_torch.runtime import engine as engine_mod
+    from smolvision_tpu_torch.runtime.engine import Engine
+
+    model = _untied_card_model(tmp_path, monkeypatch, dec_h=512, enc_out=512)
+    eng = Engine(model, param_dtype=torch.float32, kv_dtype=torch.float32, device="cuda",
+                 spec=True)
+    monkeypatch.setattr(engine_mod, "KV_HEADROOM", 0)
+    ids = list(range(2000, 2150))
+    caps = []
+    run = decode_graph.SpecLoop.run
+
+    def spy(self, *args):
+        caps.append(self.capacity)
+        return run(self, *args)
+
+    monkeypatch.setattr(decode_graph.SpecLoop, "run", spy)
+
+    def greedy(spec=True):
+        eng.spec = spec
+        eng.reset_kv()
+        first, pos = eng.prefill_ids(ids, None, -1, 0)
+        out = []
+        eng.decode_greedy(first, pos, 131, lambda t: out.append(t) or True)
+        return out
+
+    eng.perf.reset()
+    before = dict(ffi.launch_counts)
+    graph = greedy()
+    torch.cuda.synchronize()
+    perf, L, n = eng.perf, eng.cfg.dec_layers, engine_mod.SPEC_DRAFT
+    assert len(graph) == 131, "an EOS cut the run short of three chunks"
+    assert caps == [256, 512, 512] and perf.graph_captures == 2
+    head = tam_.launch_key(tam_.head_route(n + 1, torch.float32), torch.float32)
+    draft_head = tam_.launch_key(tam_.head_route(1, torch.int8), torch.int8)
+    assert eng._loop.graph.launches == {"decode_attention": n * L, draft_head: n,
+                                        "causal_cache_attention": L, head: 1}
+    iters = perf.spec_iters + perf.wasted_steps
+    delta = {k: ffi.launch_counts[k] - before[k] for k in before if ffi.launch_counts[k] != before[k]}
+    prefill_head = tam_.launch_key(tam_.head_route(1, torch.float32), torch.float32)
+    want = {"decode_attention": n * L * iters, draft_head: n * iters,
+            "causal_cache_attention": L * (perf.prefills + iters)}
+    want[head] = want.get(head, 0) + iters
+    want[prefill_head] = want.get(prefill_head, 0) + perf.prefills
+    assert delta == want
+    assert perf.decode_steps == n * perf.spec_iters and perf.spec_tokens == 130
+    assert perf.wasted_steps <= 3 * (decode_graph.DONE_LAG - 1)
+    with monkeypatch.context() as m:
+        m.setattr(decode_graph, "capture", _eager_capture)
+        eager = greedy()
+    assert graph == eager == greedy(spec=False)
+
+
+@pytest.mark.cuda
+def test_cuda_stream_prefill_graphs_equal_eager(card_stream_engine, monkeypatch):
+    """A 20 s stream whose greedy prefills go through PrefillGraph: a (cache,
+    block rows) key's first prefill eager, its second captured, later ones
+    replayed.  Chunks and the cache rows the stream leaves equal those of
+    the same stream run eagerly throughout; captures at most the distinct
+    keys, and some chunk replays a prefill graph."""
+    import numpy as np
+
+    from smolvision_tpu_torch.runtime import decode_graph
+    from smolvision_tpu_torch.runtime import stream
+
+    eng = card_stream_engine
+    eng.past_text_conditioning = True
+    rng = np.random.default_rng(7)
+    t = np.arange(20 * 16000) / 16000
+    audio = (0.25 * np.sin(2 * np.pi * 200 * t) * (0.5 + 0.5 * np.sin(2 * np.pi * 1.3 * t))
+             + 0.01 * rng.standard_normal(len(t))).astype(np.float32)
+    keys = []
+    init = decode_graph.PrefillGraph.__init__
+
+    def spy(self, forward, embeds, perf):
+        keys.append(embeds.shape[0])
+        init(self, forward, embeds, perf)
+
+    monkeypatch.setattr(decode_graph.PrefillGraph, "__init__", spy)
+
+    def run():
+        eng.reset_kv()
+        eng.perf.reset()
+        keys.clear()
+        eng.token_cb = lambda piece: None
+        state = stream.StreamState(eng, audio, None)
+        chunks = []
+        while state.active():
+            w = state.begin_chunk()
+            if w is not None:
+                stream.run_solo_chunk(state, w)
+                chunks.append((w.reused, list(state.raw_tokens)))
+        torch.cuda.synchronize()
+        return chunks, state.finalize(), eng._kv.clone()
+
+    graph = run()
+    perf = eng.perf
+    assert 1 <= perf.prefill_captures <= len(keys), (perf.prefill_captures, keys)
+    assert perf.prefill_replays >= 1 and perf.prefills == len(graph[0])
+    with monkeypatch.context() as m:
+        m.setattr(decode_graph, "capture", _eager_capture)
+        eager = run()
+    assert graph[:2] == eager[:2]
+    torch.testing.assert_close(graph[2], eager[2])

@@ -208,6 +208,43 @@ def test_cache_half_of_b5_matches_jax_and_solo(model_dir, monkeypatch):
         assert r["S"] <= min(r["lens"])
 
 
+def test_bf16_sessions_match_jax_and_their_solo_streams(model_dir, monkeypatch):
+    """bf16 weights and cache (the CLI's default), 2 s encoder windows, 5 / 7
+    / 9 s: rounds at S 0 (B5 at start 0 on a 4-row cache) and at S 64 (B5's
+    cache half, after a compaction to 2 rows).  Per session and chunk the
+    port's coordinator equals the JAX package's (every field), and each
+    package's batched run equals its own solo streams (tokens and pieces):
+    on the CPU, where every attention is its plain f32 version over the
+    bf16 cache, nothing parts.  A card run whose sessions part from their
+    solo streams on bf16 owes it to the kernels' rounding (B5 and the
+    batched step against B2 / B3), not to the coordinator."""
+    engs = {"jax": JEngine(model_dir, param_dtype=jnp.bfloat16, kv_dtype=jnp.bfloat16,
+                           enc_window_sec=2.0),
+            "torch": Engine(model_dir, param_dtype=torch.bfloat16, kv_dtype=torch.bfloat16,
+                            device="cpu", enc_window_sec=2.0)}
+    for eng in engs.values():
+        eng.stream_max_new_tokens = 6
+        eng.max_tokens = 16
+        eng.past_text_conditioning = True
+    sources = clips((5, 7, 9), seed=60)
+    texts, per = check_against_jax_and_solo(monkeypatch, engs, sources)
+    nonvacuous(per, texts)
+    rounds = engs["torch"].perf.multistream["rounds"]
+    assert [r["S"] for r in rounds] == [0, 0, 0, 64, 64], rounds
+    assert [r["B"] for r in rounds] == [4, 4, 4, 2, 2], rounds
+    rec = Recorder(monkeypatch)
+    jbatched = rec.run(lambda: batched("jax", engs["jax"], sources))
+    jsolo = []
+    for src in sources:
+        def one(src=src):
+            view = jms.clone_session(engs["jax"])
+            view.token_cb = lambda piece: None
+            return [jstream.transcribe_stream(view, src)]
+        jsolo.append(rec.run(one))
+    assert tokens_and_pieces(jbatched[1]) == tokens_and_pieces([p[0] for _, p in jsolo])
+    assert jbatched[0] == [t[0] for t, _ in jsolo] == texts
+
+
 def test_deep_compaction_matches_jax_and_solo(engines, monkeypatch):
     """8 sessions draining to 1 (four end after 1 chunk, two after 2, one
     after 3, one after 4): compactions 8 -> 4 -> 2, the cache re-gathered
