@@ -44,7 +44,12 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
                 at T 64-512, and at the --spec verify's T 5, start 300, each
                 at a device start, against host ints in turns); K8 (read_all) over
                 the lm_head gives the card's read bandwidth, against which
-                each head kernel's time is set;
+                each head kernel's time is set; then the kernels at phase
+                11's Qwen2.5-Omni-7B shapes: B3 at G 7 (H 28, KH 4) at its
+                decode start, the cluster plan's edges and long, with a
+                graph replayed at four starts; B1 at its 100-token windows
+                (H 20, D 64), a one-row last window; B2 at its prefill
+                block; K6 over its untied [152064, 3584] head;
   4. main path- a seeded Qwen3-ASR-0.6B checkpoint (full width, random
                 weights) transcribes a 20 s synthetic clip through
                 `smolvision_tpu_torch.cli`; every kernel's launch count must
@@ -114,6 +119,27 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
                 against its plain version, and timed once per distinct
                 shape, each timing row's launches the run's B5 calls at
                 that shape.
+ 11. thinker  - on the 0.6B checkpoint: `--thinker --text` greedy (the
+                decode loop's graph, K6) and `--thinker -i` the 20 s clip
+                sampled at the defaults (temperature 0.7, top-k 40, penalty
+                1.1, seed 0: the first token drawn on the host, the rest
+                by one CUDA graph of a sampled step per cache, B3 per
+                layer; `runtime/decode_graph.SampleLoop`), each eager then
+                as graphs with equal tokens; sampled again to 2048 tokens
+                (graph only: B3 to about 2330 rows); `--top-k 1
+                --repeat-penalty 1.0` sampled against greedy on --f32
+                (equal stdout); `--sampler cref` on 16 tokens (ms per
+                token).  Then Qwen2.5-Omni-7B (the q25-7b preset: full
+                width and depth, seeded bf16, ~16.5 GB, written by a child
+                process while phases 2-10 run; each engine's load timed):
+                the 20 s clip with no --thinker (the ASR route: the
+                thinker with the default system prompt at temperature 0.7)
+                to 512 tokens and `--thinker --temperature 0` to 64 tokens,
+                each eager then as graphs with equal tokens, and
+                `--thinker --text` sampled; each run's captures at most
+                its caches.  Then B1, B2 and B3 at the q25 runs' shapes,
+                B3 at the 2048-token run's deepest row and K6 over the q25
+                head are timed, each row's launches its run's.
 Each path that decodes greedily (--spec and multistream's bf16 run
 included) runs twice, in turns: first with the decode loops' steps and
 the prefills run eagerly on every replay, then as CUDA graphs (the path as
@@ -127,7 +153,7 @@ take.  Decode ms per step and the device's idle share are measured for
 graph and eager steps in turns (eager, graph, graph, eager) at each
 path's batch and weights.
 
-Prints the streams' and multistream runs' summaries, a `{"kernels": [...]}`
+Prints the streams', multistream and thinker runs' summaries, a `{"kernels": [...]}`
 line, the nvidia-smi line, and as its last
 line `{"ok": true, "device": {...}}`.  Without a card, or outside a
 checkout, it exits non-zero and prints no result.  Imports nothing of JAX.
@@ -263,6 +289,22 @@ F32_LOGIT_DIFF = None
 # per multistream run (phase 10), printed as one line at the end
 MSTREAM_RUNS = {}
 CARD_LINE = "not read"        # nvidia-smi's name and power limit, set in phase 1
+# phase 11: the thinker on the 0.6B checkpoint, then Qwen2.5-Omni-7B (the
+# q25-7b preset: full width and depth, seeded bf16, written by a child
+# process while phases 2-10 run)
+THINKER_TEXT = "Tell me a long story about the sea, the wind and a small boat."
+THINKER_MAX_TOKENS = 128
+THINKER_LONG_TOKENS = 2048    # B3 to about 2330 cache rows after the 20 s clip's prompt
+THINKER_CREF_TOKENS = 16
+Q25_PRESET = "q25-7b"
+Q25_ASR_MAX_TOKENS = 512
+Q25_GREEDY_MAX_TOKENS = 64
+Q25_TEXT_MAX_TOKENS = 256
+Q25_HEADS = (28, 4, 128)      # (H, KH, D) of its decoder: G 7
+Q25_WINDOW_HEADS = (20, 64)   # (H, D) of its audio tower, at 100-token windows
+Q25_BUILD_TIMEOUT_S = 900
+# per thinker run (phase 11), printed as one line at the end
+THINKER_RUNS = {}
 
 
 def fail(msg: str) -> None:
@@ -421,8 +463,9 @@ def batched_cache(B, K, start, kv_min, prompt_max=None, region_start=None, KH=8,
     return kv[0, 0], kv[0, 1]
 
 
-def decode_row(K: int, start: int):
-    """B3's timing inputs at (K, start): (kernel, plain, SDPA, bound).  The
+def decode_row(K: int, start: int, heads=MAIN_HEADS):
+    """B3's timing inputs at (K, start) and `heads` (H, KH, D): (kernel,
+    plain, SDPA, bound).  The
     kernel reads start from a device tensor, as the decode step passes it.
     SDPA gets the same rows in bf16 with the fresh row written into the
     cache at `start`; the bound reads the live bf16 rows once, q, the fresh
@@ -432,7 +475,7 @@ def decode_row(K: int, start: int):
 
     from smolvision_tpu_torch.kernels import flash_attention as fa
 
-    q, kn, vn, k, v = decode_case(K, start)
+    q, kn, vn, k, v = decode_case(K, start, *heads)
     H, D = q.shape
     KH = kn.shape[0]
     nbytes = 4 * (2 * q.numel() + 2 * kn.numel()) + 2 * 2 * start * KH * D
@@ -451,7 +494,8 @@ def decode_row(K: int, start: int):
 def kernel_of(name: str) -> str:
     """The launch key of a timing row: its kernel's name without the suffix
     of the shape it was timed at."""
-    for suffix in ("_long", "_wide", "_segments", "_delta128", "_delta256", "_verify"):
+    for suffix in ("_long", "_wide", "_segments", "_delta128", "_delta256", "_verify", "_q25",
+                   "_thinker"):
         name = name.removesuffix(suffix)
     return name.split("_mstream")[0]
 
@@ -515,7 +559,7 @@ def window_split_sweep(shapes) -> dict:
 
 
 def cache_row(T: int, K: int, start: int, valid: int, dtype: str = "bfloat16",
-              host_ints: bool = False):
+              host_ints: bool = False, heads=MAIN_HEADS):
     """B2's timing inputs: a block of T query rows at cache rows start.. of
     a K-row cache of `dtype` holding `valid` rows: (kernel, plain, SDPA,
     bound).  The kernel reads start and kv_valid from device tensors, as
@@ -529,7 +573,7 @@ def cache_row(T: int, K: int, start: int, valid: int, dtype: str = "bfloat16",
 
     from smolvision_tpu_torch.kernels import flash_attention as fa
 
-    q, k, v = cache_case(T, K, start, valid, dtype=dtype)
+    q, k, v = cache_case(T, K, start, valid, *heads, dtype=dtype)
     H, D = q.shape[1:]
     KH = k.shape[1]
     nbytes = 4 * 2 * q.numel() + k.element_size() * 2 * valid * KH * D
@@ -1324,19 +1368,31 @@ def decode_mode(mode: str):
     and prefill running the step eagerly ("eager": decode_graph.capture
     returns the step itself).  Yields a record of every loop chunk's tokens
     and count, the chunks' host reads, the prefill graphs made (one per
-    key), and the kind ("decode", "spec", "prefill") and launches per replay
-    of every captured graph (not the graph: it holds its owner's cache and
-    weights)."""
+    key), the kind ("decode", "spec", "sample", "prefill") and launches per
+    replay of every captured graph (not the graph: it holds its owner's
+    cache and weights), the single-stream caches allocated (the first and
+    each growth) and the deepest cache row a single-stream loop step
+    wrote."""
+    from smolvision_tpu_torch.models import qwen3_decoder as dec_mod
     from smolvision_tpu_torch.runtime import decode_graph
 
-    rec = {"chunks": [], "graphs": [], "reads": 0, "prefill_keys": 0}
+    rec = {"chunks": [], "graphs": [], "reads": 0, "prefill_keys": 0, "caches": 0,
+           "last_row": -1}
 
     def recording(run):
-        def recording_run(self, *args, **kwargs):
-            out = run(self, *args, **kwargs)
+        def recording_run(self, tokens, pos, *args, **kwargs):
+            out = run(self, tokens, pos, *args, **kwargs)
             rec["chunks"].append((out[0].tolist(), out[1]))
+            if not isinstance(self, decode_graph.DecodeLoop) or self.tok.shape[0] == 1:
+                rec["last_row"] = max(rec["last_row"], pos + out[1] - 1)
             return out
         return recording_run
+
+    make_kv = dec_mod.make_kv_cache
+
+    def counting_make_kv(*args, **kwargs):
+        rec["caches"] += 1
+        return make_kv(*args, **kwargs)
 
     read = decode_graph._ChunkLoop._read
 
@@ -1356,8 +1412,9 @@ def decode_mode(mode: str):
             rec["graphs"].append((self.kind, self.launches))
 
     with contextlib.ExitStack() as stack:
-        for cls in (decode_graph.DecodeLoop, decode_graph.SpecLoop):
+        for cls in (decode_graph.DecodeLoop, decode_graph.SpecLoop, decode_graph.SampleLoop):
             stack.enter_context(mock.patch.object(cls, "run", recording(cls.run)))
+        stack.enter_context(mock.patch.object(dec_mod, "make_kv_cache", counting_make_kv))
         stack.enter_context(mock.patch.object(decode_graph._ChunkLoop, "_read",
                                               staticmethod(counting_read)))
         stack.enter_context(mock.patch.object(decode_graph.PrefillGraph, "__init__",
@@ -1454,7 +1511,7 @@ def replay_launches(eng, cfg, batch: int) -> dict:
     SPEC_DRAFT int8 steps (B3 per layer, K7 at R 1 each), the verify (B2
     per layer) and its head at R SPEC_DRAFT + 1; a prefill B2 per layer and
     the head at R 1; a batched step the head once at R B (its attention is
-    plain torch)."""
+    plain torch); a sampled thinker step B3 once per layer and no head."""
     import torch
 
     from smolvision_tpu_torch.kernels import argmax_matvec as am
@@ -1473,6 +1530,7 @@ def replay_launches(eng, cfg, batch: int) -> dict:
         out["decode"] = {key(batch): 1}
     else:
         out["decode"] = {"decode_attention": L, key(1): 1}
+        out["sample"] = {"decode_attention": L}   # the logits and the draw are plain torch
         spec = {"decode_attention": n * L, key(1, torch.int8): n, "causal_cache_attention": L}
         spec[key(n + 1)] = spec.get(key(n + 1), 0) + 1
         out["spec"] = spec
@@ -1485,20 +1543,24 @@ def decode_ms_per_step(perf) -> float:
     return (perf.decode_ms - perf.prefill_ms) / max(perf.decode_steps, 1)
 
 
-def run_path(argv, name: str, cfg, batch: int = 0, wave: int = 0):
+def run_path(argv, name: str, cfg, batch: int = 0, wave: int = 0, loop_kind: str = "",
+             turns=("eager", "graph")):
     """One path through the CLI twice, in turns: the decode loops' steps and
     the prefills run eagerly, then as CUDA graphs.  Each run's launches must
     equal its own bookkeeping; the two runs' decoded chunks (tokens and
     counts) must be equal; every graph must launch its step's kernels once
     per replay; the loops read the host once per chunk; the prefill graphs
-    captured are at most their (cache, block rows) keys.  Returns the graph
-    run's (engine, launches, stdout lines, wall s)."""
+    captured are at most their (cache, block rows) keys, and a single-stream
+    loop's captures at most its caches.  `loop_kind` names the loop's graph
+    kind where it is not the path's default ("sample": the sampled
+    thinker); `turns` ("graph",) runs the graph turn alone.  Returns the
+    graph run's (engine, launches, stdout lines, wall s)."""
     import gc
 
     import torch
 
     runs = {}
-    for mode in ("eager", "graph"):
+    for mode in turns:
         if DEV == "cuda":
             torch.cuda.reset_peak_memory_stats()
         with decode_mode(mode) as rec:
@@ -1510,6 +1572,9 @@ def run_path(argv, name: str, cfg, batch: int = 0, wave: int = 0):
         if perf.prefill_captures > rec["prefill_keys"]:
             fail(f"{name} ({mode}): {perf.prefill_captures} prefill graphs captured over "
                  f"{rec['prefill_keys']} (cache, block rows) keys")
+        if rec["caches"] and perf.graph_captures > rec["caches"]:
+            fail(f"{name} ({mode}): {perf.graph_captures} loop graphs captured over "
+                 f"{rec['caches']} caches")
         runs[mode] = {"rec": rec, "lines": lines,
                       "decode_ms_per_step": decode_ms_per_step(perf),
                       "steps": perf.decode_steps + perf.batch_decode_steps,
@@ -1523,6 +1588,10 @@ def run_path(argv, name: str, cfg, batch: int = 0, wave: int = 0):
                       "prefill_capture_ms": perf.prefill_capture_ms,
                       "prefill_replays": perf.prefill_replays,
                       "realtime_factor": perf.audio_ms / max(perf.total_ms, 1e-9),
+                      "encode_ms": perf.encode_ms,
+                      "loop_decode_ms": perf.decode_ms - perf.prefill_ms,
+                      "caches": rec["caches"], "last_row": rec["last_row"],
+                      "chunks": len(rec["chunks"]),
                       "max_memory_allocated_gib":
                           torch.cuda.max_memory_allocated() / 2**30 if DEV == "cuda" else 0.0}
         if perf.spec_iters:
@@ -1532,7 +1601,8 @@ def run_path(argv, name: str, cfg, batch: int = 0, wave: int = 0):
         if mode == "eager":
             del eng
             gc.collect()
-    eager, graph = runs["eager"], runs["graph"]
+    graph = runs["graph"]
+    eager = runs.get("eager", graph)
     if not graph["rec"]["chunks"]:
         fail(f"{name}: no decode chunk ran")
     if graph["rec"]["chunks"] != eager["rec"]["chunks"] or graph["lines"] != eager["lines"]:
@@ -1542,13 +1612,13 @@ def run_path(argv, name: str, cfg, batch: int = 0, wave: int = 0):
              f"chunk {first} of {len(graph['rec']['chunks'])} / {len(eager['rec']['chunks'])})")
     want = replay_launches(eng, cfg, batch)
     graphs = graph["rec"]["graphs"]
-    loop_kind = "spec" if eng.spec and not batch else "decode"
+    loop_kind = loop_kind or ("spec" if eng.spec and not batch else "decode")
     if DEV == "cuda" and (not any(k == loop_kind for k, _ in graphs)
                           or any(launched != want.get(k) for k, launched in graphs)):
         fail(f"{name}: launches per replay {graphs}, expected {want}")
-    if any(launched for _, launched in eager["rec"]["graphs"]):
+    if "eager" in runs and any(launched for _, launched in eager["rec"]["graphs"]):
         fail(f"{name}: an eager step was captured as a graph")
-    summary = {"tokens_equal_chunks": len(graph["rec"]["chunks"]),
+    summary = {"tokens_equal_chunks": len(graph["rec"]["chunks"]) if "eager" in runs else None,
                "launches_per_replay": want[loop_kind],
                "graphs": sum(1 for k, _ in graphs if k != "prefill"),
                "prefill_graphs": sum(1 for k, _ in graphs if k == "prefill")}
@@ -1556,9 +1626,10 @@ def run_path(argv, name: str, cfg, batch: int = 0, wave: int = 0):
                 "wall_s", "host_reads", "prefills", "prefill_ms", "prefill_ms_per_call",
                 "prefill_keys", "prefill_captures", "prefill_capture_ms", "prefill_replays",
                 "realtime_factor", "spec_iters", "spec_tokens", "decode_ms_per_token",
+                "encode_ms", "loop_decode_ms", "caches", "last_row", "chunks",
                 "max_memory_allocated_gib"):
         if key in graph:
-            summary[key] = {"eager": eager[key], "graph": graph[key]}
+            summary[key] = {mode: runs[mode][key] for mode in turns}
     DECODE_RUNS[name] = summary
     log(f"  {name}: graph vs eager: {json.dumps(summary)}")
     return eng, launches, graph["lines"], graph["wall_s"]
@@ -1619,7 +1690,8 @@ def check_launches(name: str, launches: dict, eng, cfg, batch: int = 0, wave: in
     replayed past a chunk's end included), decode step,
     batched fresh prefill and batched delta prefill (none on an int8
     cache, which runs the two-part attention), and one greedy head per
-    prefill, decode step, verify and batched step -- int8 (K7) under --q8
+    prefill, decode step, verify and batched step (none for the thinker's
+    logits prefill and sampled steps) -- int8 (K7) under --q8
     and for the --spec draft steps, else K6 -- each under the launch key of
     the route `head_route` gives its rows: 1 for the single-stream heads,
     SPEC_DRAFT + 1 for a verify, `batch` for a batched fresh prefill or
@@ -1648,8 +1720,9 @@ def check_launches(name: str, launches: dict, eng, cfg, batch: int = 0, wave: in
         if n:
             expected[am.launch_key(am.head_route(R, w_dtype), w_dtype)] += n
 
-    heads(perf.prefills, 1, dtype)
-    heads(drafts, 1, torch.int8 if eng.spec else dtype)   # --spec: the draft
+    # the thinker's sampled prefill and steps give logits: no head
+    heads(perf.prefills - perf.logits_prefills, 1, dtype)
+    heads(drafts - perf.logits_steps, 1, torch.int8 if eng.spec else dtype)   # --spec: the draft
     heads(iters, eng_mod.SPEC_DRAFT + 1, dtype)
     heads(perf.fresh_prefills + perf.batch_decode_steps, batch, dtype)
     heads(perf.delta_prefills, wave, dtype)
@@ -2785,6 +2858,399 @@ def mstream_b5_table(b5_runs, L: int) -> list:
     return table
 
 
+
+# ---------------------------------------------------------------------------
+# phase 11: the thinker and Qwen2.5-Omni-7B
+# ---------------------------------------------------------------------------
+
+class CheckpointBuild:
+    """A seeded checkpoint written by a child process (one thread) while the
+    earlier phases run; `wait` joins it and gives its build seconds.  The
+    child is killed if the script ends first."""
+
+    def __init__(self, preset: str, path: str, seed: int):
+        import atexit
+
+        self.preset, self.path = preset, path
+        code = ("import sys, time\n"
+                f"sys.path.insert(0, {ROOT!r})\n"
+                "import torch\n"
+                "torch.set_num_threads(1)\n"
+                "from smolvision_tpu_torch.models.synthetic import build\n"
+                "t0 = time.monotonic()\n"
+                f"build({preset!r}, {path!r}, seed={seed}, dtype='bf16', full_vocab=True)\n"
+                "print(time.monotonic() - t0)\n")
+        env = dict(os.environ, OMP_NUM_THREADS="1")
+        self.t0 = time.monotonic()
+        self.proc = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+        atexit.register(self.stop)
+
+    def wait(self) -> dict:
+        try:
+            out, err = self.proc.communicate(timeout=Q25_BUILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            self.stop()
+            fail(f"{self.preset}: the checkpoint was not written in {Q25_BUILD_TIMEOUT_S} s")
+        if self.proc.returncode != 0:
+            fail(f"{self.preset}: the checkpoint build failed: {err.strip()[-2000:]}")
+        size = sum(os.path.getsize(os.path.join(self.path, f)) for f in os.listdir(self.path))
+        return {"build_s": float(out.strip().splitlines()[-1]), "bytes": size,
+                "waited_s": time.monotonic() - self.t0}
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def q25_path_shapes(model_dir: str, samples) -> dict:
+    """The attention shapes the Qwen2.5-Omni ASR route runs on this clip
+    (the thinker's audio prompt with the default system prompt; the 0.6B
+    checkpoint's synthetic vocab is the q25 one's): the tower's windows,
+    the prefill block and its cache."""
+    from smolvision_tpu_torch.config import QWEN25_OMNI_7B
+    from smolvision_tpu_torch.models.q25_encoder import q25_conv_out_len
+    from smolvision_tpu_torch.ops.mel import num_frames
+    from smolvision_tpu_torch.runtime.buckets import bucket, window_bucket
+    from smolvision_tpu_torch.runtime.engine import KV_HEADROOM
+    from smolvision_tpu_torch.runtime.prompt import build_thinker_audio_prompt
+    from smolvision_tpu_torch.text.tokenizer import load_tokenizer
+
+    cfg = QWEN25_OMNI_7B
+    n_tok = q25_conv_out_len(num_frames(len(samples)))
+    S = cfg.q25_token_window
+    W = window_bucket(n_tok, S) // S
+    system = load_tokenizer(model_dir).encode("You are a helpful assistant.")
+    ids, _ = build_thinker_audio_prompt(cfg, n_tok + 2, system)
+    T = bucket(len(ids), 64)
+    return {"q25_window_lens": [min(max(n_tok - w * S, 0), S) for w in range(W)],
+            "q25_prompt_len": len(ids), "q25_prefill_T": T,
+            "q25_kv_cap": bucket(T + KV_HEADROOM, 256)}
+
+
+def phase_q25_kernels(shapes) -> dict:
+    """Phase 3 at the shapes of phase 11's Qwen2.5-Omni-7B runs, against the
+    plain versions (KERNEL_ATOL): B3 at G 7 (H 28, KH 4, D 128; the kernel
+    rounds G up to 8, a dead eighth head per KV head) on a bf16 cache at
+    the ASR route's decode start, at starts on and one past the cluster's
+    8-block plan, and long, the position a host int and a device tensor,
+    then one graph replayed at four starts; B1 at the tower's 100-token
+    windows (H 20, D 64) of the 20 s clip and at a T2 of 101 (a one-row
+    last window) and an all-pad window; B2 at the q25 prefill block (G 7)
+    on a bf16 cache, start and kv_valid host ints and device tensors; K6 at
+    the untied [152064, 3584] bf16 head, both routes, a planted winner and
+    random rows.  Returns the largest error per kernel."""
+    import torch
+
+    from smolvision_tpu_torch.config import QWEN25_OMNI_7B
+    from smolvision_tpu_torch.kernels import argmax_matvec as am
+    from smolvision_tpu_torch.kernels import flash_attention as fa
+
+    H, KH, D = Q25_HEADS
+    errs = {"decode_attention": 0.0, "window_attention": 0.0, "causal_cache_attention": 0.0,
+            "argmax_matvec": 0.0}
+
+    def at(x):
+        return torch.tensor([x], dtype=torch.int32, device=DEV)
+
+    start0 = shapes["q25_prompt_len"]
+    for K, start, kv_min in ((2048, 0, 0), (2048, 1, 0), (2048, 7, 0), (2048, 64, 0),
+                             (2048, 65, 0), (2048, start0, 0), (2048, start0 + 1, 13),
+                             (4096, 2330, 0), (4096, 4095, 0)):
+        q, kn, vn, k, v = decode_case(K, start, H, KH, D)
+        want = fa.decode_attention_plain(q, kn, vn, k, v, start, kv_min)
+        for pos, lo in ((start, kv_min), (at(start), at(kv_min))):
+            errs["decode_attention"] = max(errs["decode_attention"], check_close(
+                f"B3 G 7 K={K} start={start} kv_min={kv_min} {type(pos).__name__} position",
+                fa.decode_flash_attention(q, kn, vn, k, v, pos, lo), want))
+    if DEV == "cuda":
+        q, kn, vn, k, v = decode_case(2048, 2047, H, KH, D)
+        pos = at(start0)
+        fa.decode_flash_attention(q, kn, vn, k, v, pos)   # warm-up outside the capture
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fa.decode_flash_attention(q, kn, vn, k, v, pos)
+        for start in (0, start0, 2047, 65):
+            pos.fill_(start)
+            out.fill_(float("nan"))
+            graph.replay()
+            torch.cuda.synchronize()
+            errs["decode_attention"] = max(errs["decode_attention"], check_close(
+                f"B3 G 7 graph replayed at start {start}", out,
+                fa.decode_attention_plain(q, kn, vn, k, v, start, 0)))
+        del graph
+
+    S = QWEN25_OMNI_7B.q25_token_window
+    WH, WD = Q25_WINDOW_HEADS
+    for lens in (shapes["q25_window_lens"], [100, 1], [100, 37, 0, 0]):
+        q, k, v, lens_t = window_case(len(lens), lens, S=S, H=WH, D=WD, garbage=True)
+        want = fa.window_attention_plain(q, k, v, lens_t)
+        for split in window_splits(S):
+            with window_split(split):
+                got = fa.window_flash_attention(q, k, v, lens_t)
+            errs["window_attention"] = max(errs["window_attention"], check_close(
+                f"B1 q25 S={S} H={WH} lens={lens[:8]} split={split}", got, want))
+            for w in (w for w, n in enumerate(lens) if n == 0):
+                if float(got[w].abs().max()) != 0.0:
+                    fail(f"B1 q25 lens={lens}: all-pad window {w} is not exactly 0")
+
+    T, valid, K = shapes["q25_prefill_T"], shapes["q25_prompt_len"], shapes["q25_kv_cap"]
+    for start, kv_valid in ((0, valid), (300, 300 + 117)):
+        q, k, v = cache_case(T, K + 512, start, kv_valid, H, KH, D)
+        want = fa.causal_cache_attention_plain(q, k, v, start, kv_valid)
+        dev_start = torch.tensor([start], dtype=torch.int64, device=DEV)
+        for form, s0, n in (("host", start, kv_valid),
+                            ("device", dev_start, dev_start + (kv_valid - start))):
+            errs["causal_cache_attention"] = max(errs["causal_cache_attention"], check_close(
+                f"B2 q25 T={T} start={start} valid={kv_valid} {form} start",
+                fa.causal_cache_flash_attention(q, k, v, s0, n), want))
+
+    V, Hd = QWEN25_OMNI_7B.vocab_size, QWEN25_OMNI_7B.dec_hidden
+    for i, (planted, route) in enumerate(((True, "cuda_core"), (False, "cuda_core"),
+                                          (True, "tensor_core"), (False, "tensor_core"))):
+        h, w, scale, winners = head_case(V, Hd, 1, "bfloat16", 600 + i, planted)
+        errs["argmax_matvec"] = max(errs["argmax_matvec"], check_head(
+            f"K6 q25 [{V}, {Hd}] planted={planted} {route}", h, w, scale, winners, route))
+        del h, w
+    log(f"Qwen2.5-Omni shapes vs plain: max_abs_err {json.dumps(errs)} (tolerance "
+        f"{KERNEL_ATOL:g}; K6: shortfall, tolerance {HEAD_RTOL:g} of max |logit|)")
+    return errs
+
+
+def cli_ms(eng) -> dict:
+    """A thinker run's phase times (engine.perf) and decode ms per step."""
+    perf = eng.perf
+    loop_ms = perf.decode_ms - perf.prefill_ms
+    return {"encode_ms": perf.encode_ms, "prefill_ms": perf.prefill_ms,
+            "decode_ms": loop_ms, "decode_steps": perf.decode_steps,
+            "decode_ms_per_step": loop_ms / max(perf.decode_steps, 1),
+            "text_tokens": perf.text_tokens, "wasted_steps": perf.wasted_steps,
+            "realtime_factor": perf.audio_ms / max(perf.total_ms, 1e-9)}
+
+
+def thinker_summary(name: str, eng) -> None:
+    """THINKER_RUNS[name]: the graph turn's phase times (`cli_ms`), and per
+    turn of the run_path summary of `name` its captures against caches,
+    host reads against chunks, peak memory, realtime factor, decode ms per
+    step and deepest cache row."""
+    run = DECODE_RUNS[name]
+    out = dict(cli_ms(eng))
+    for key in ("captures", "caches", "host_reads", "chunks", "max_memory_allocated_gib",
+                "realtime_factor", "decode_ms_per_step", "last_row"):
+        out[f"{key}_turns"] = run[key]
+    THINKER_RUNS[name] = out
+    log(f"  {name}: {json.dumps(out)}")
+
+
+@contextlib.contextmanager
+def load_timer():
+    """Records the seconds of every Engine construction in the block (the
+    checkpoint's load onto the card)."""
+    from smolvision_tpu_torch.runtime.engine import Engine
+
+    times = []
+    init = Engine.__init__
+
+    def timed(self, *args, **kwargs):
+        if DEV == "cuda":
+            import torch
+
+            torch.cuda.synchronize()
+        t0 = time.monotonic()
+        init(self, *args, **kwargs)
+        if DEV == "cuda":
+            import torch
+
+            torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+
+    with mock.patch.object(Engine, "__init__", timed):
+        yield times
+
+
+def phase_thinker(model_dir: str, wav: str, cfg) -> dict:
+    """The thinker through the CLI on the 0.6B checkpoint: greedy on text
+    (K6, B3 in the decode loop's graph) and sampled on the 20 s clip at the
+    defaults (temperature 0.7, top-k 40, penalty 1.1, seed 0: SampleLoop,
+    one graph of a sampled step per cache, B3 per layer), each eager then
+    as CUDA graphs with equal tokens; sampled again at --max-tokens 2048
+    (graph only: B3 to about 2330 rows); `--top-k 1 --repeat-penalty 1.0`
+    sampled against greedy on --f32 (equal stdout); `--sampler cref` on 16
+    tokens (ms per token).  Returns the launches and shapes the kernels line
+    takes from it."""
+    import gc
+
+    base = ["-d", model_dir, "--silent"]
+    eng = run_path(base + ["--thinker", "--text", THINKER_TEXT, "--temperature", "0",
+                           "--max-tokens", str(THINKER_MAX_TOKENS)],
+                   "thinker greedy --text", cfg)[0]
+    thinker_summary("thinker greedy --text", eng)
+    del eng
+    gc.collect()
+    eng = run_path(base + ["--thinker", "-i", wav, "--max-tokens", str(THINKER_MAX_TOKENS)],
+                   "thinker sampled -i", cfg, loop_kind="sample")[0]
+    thinker_summary("thinker sampled -i", eng)
+    del eng
+    gc.collect()
+    eng, launches, _, _ = run_path(
+        base + ["--thinker", "-i", wav, "--max-tokens", str(THINKER_LONG_TOKENS)],
+        "thinker sampled 2048", cfg, loop_kind="sample", turns=("graph",))
+    thinker_summary("thinker sampled 2048", eng)
+    long = {"K": eng._kv_cap, "start": DECODE_RUNS["thinker sampled 2048"]["last_row"]["graph"],
+            "launches": launches["decode_attention"]}
+    del eng
+    gc.collect()
+
+    lines = {}
+    for name, extra in (("top-k 1", ["--top-k", "1", "--repeat-penalty", "1.0"]),
+                        ("greedy", ["--temperature", "0"])):
+        eng, launches, lines[name], _ = run_cli(
+            base + ["--thinker", "-i", wav, "--f32", "--max-tokens", str(THINKER_MAX_TOKENS)]
+            + extra, f"thinker {name} --f32")
+        check_launches(f"thinker {name} --f32", launches, eng, cfg)
+        del eng
+        gc.collect()
+    if lines["top-k 1"] != lines["greedy"] or not "".join(lines["greedy"]).strip():
+        fail(f"thinker --f32: --top-k 1 --repeat-penalty 1.0 sampled {lines['top-k 1']} != "
+             f"greedy {lines['greedy']}")
+    log(f"  thinker --f32: --top-k 1 --repeat-penalty 1.0 sampled equals greedy "
+        f"({len(''.join(lines['greedy']))} characters)")
+
+    eng, launches, _, wall_s = run_cli(
+        base + ["--thinker", "-i", wav, "--sampler", "cref", "--max-tokens",
+                str(THINKER_CREF_TOKENS)], "thinker --sampler cref")
+    check_launches("thinker --sampler cref", launches, eng, cfg)
+    ms = cli_ms(eng)
+    ms["ms_per_token"] = ms["decode_ms"] / max(eng.perf.decode_steps, 1)
+    THINKER_RUNS["thinker --sampler cref"] = ms
+    log(f"  thinker --sampler cref ({THINKER_CREF_TOKENS} tokens, libm expf per element "
+        f"through ctypes): {json.dumps(ms)}")
+    del eng
+    gc.collect()
+    return long
+
+
+def phase_q25(q25_dir: str, wav: str, build: dict) -> dict:
+    """Qwen2.5-Omni-7B (seeded bf16, full geometry) through the CLI: the 20 s
+    clip with no --thinker (the ASR route: the thinker with the default
+    system prompt at temperature 0.7, SampleLoop) at --max-tokens 512,
+    `--thinker --temperature 0 --max-tokens 64` on the clip (the greedy loop,
+    K6 at [152064, 3584]), each eager then as CUDA graphs with equal
+    tokens, and `--thinker --text` (sampled, graph).  Every Engine
+    construction (the checkpoint's load onto the card) is timed."""
+    import gc
+
+    from smolvision_tpu_torch.config import detect_config
+    from smolvision_tpu_torch.models.synthetic import PRESETS
+
+    qcfg = detect_config(q25_dir)
+    p = PRESETS[Q25_PRESET]
+    if ((qcfg.family, qcfg.dec_layers, qcfg.dec_hidden, qcfg.enc_layers, qcfg.vocab_size)
+            != ("q25", p["dec_L"], p["dec_h"], p["enc_L"], p["vocab"])):
+        fail(f"{Q25_PRESET}: detected {qcfg}")
+    base = ["-d", q25_dir, "--silent"]
+    out = {"build": build}
+    with load_timer() as loads:
+        eng, launches, lines, _ = run_path(
+            base + ["-i", wav, "--max-tokens", str(Q25_ASR_MAX_TOKENS)], "q25 ASR route", qcfg,
+            loop_kind="sample")
+        if eng.prompt_text != "You are a helpful assistant." or eng.temperature != 0.7:
+            fail(f"q25 ASR route: prompt {eng.prompt_text!r}, temperature {eng.temperature}")
+        thinker_summary("q25 ASR route", eng)
+        out["asr"] = {"launches": launches, "K": eng._kv_cap,
+                      "start": DECODE_RUNS["q25 ASR route"]["last_row"]["graph"]}
+        del eng
+        gc.collect()
+        eng, launches, _, _ = run_path(
+            base + ["--thinker", "-i", wav, "--temperature", "0", "--max-tokens",
+                    str(Q25_GREEDY_MAX_TOKENS)], "q25 thinker greedy", qcfg)
+        thinker_summary("q25 thinker greedy", eng)
+        out["greedy"] = {"launches": launches}
+        del eng
+        gc.collect()
+        eng, launches, _, _ = run_path(
+            base + ["--thinker", "--text", THINKER_TEXT, "--max-tokens",
+                    str(Q25_TEXT_MAX_TOKENS)], "q25 thinker --text", qcfg, loop_kind="sample",
+            turns=("graph",))
+        thinker_summary("q25 thinker --text", eng)
+        del eng
+        gc.collect()
+    out["load_s"] = loads
+    log(f"  {Q25_PRESET}: built in {build['build_s']:.1f} s ({build['bytes'] / 1e9:.2f} GB; "
+        f"waited for {build['waited_s']:.1f} s since its start), loaded in "
+        f"{', '.join(f'{t:.1f}' for t in loads)} s")
+    return out
+
+
+def q25_kernel_table(shapes, q25_run: dict, long: dict, errs: dict) -> list:
+    """The kernels line's rows at phase 11's shapes, each checked again on
+    its timing inputs and timed (turns plain, kernel, kernel, plain) beside
+    its library call and its bound, its launches those of the run that
+    carries it: B1 at the q25 tower's windows of the 20 s clip (H 20, D 64;
+    the ASR route's graph turn), B2 at the q25 prefill (G 7; the same run),
+    B3 at G 7 at that run's deepest decode row and cache, B3 at the 0.6B
+    sampled 2048-token run's deepest row and cache (0.6B heads), and K6 at
+    the q25 head [152064, 3584] bf16, R 1 (the greedy q25 run's graph
+    turn)."""
+    import torch
+
+    from smolvision_tpu_torch.config import QWEN25_OMNI_7B
+    from smolvision_tpu_torch.kernels import argmax_matvec as am
+
+    asr = q25_run["asr"]["launches"]
+    H, KH, D = Q25_HEADS
+    WH, WD = Q25_WINDOW_HEADS
+    S = QWEN25_OMNI_7B.q25_token_window
+    B1_SRC = "smolvision_tpu_torch/kernels/csrc/window_attention.cu"
+    rows = [("window_attention_q25", B1_SRC, "smolvision_tpu/kernels/flash_attention.py:60",
+             *window_row(shapes["q25_window_lens"], S=S, H=WH, D=WD)[:4]),
+            ("causal_cache_attention_q25",
+             "smolvision_tpu_torch/kernels/csrc/causal_cache_attention.cu",
+             "smolvision_tpu/kernels/flash_attention.py:491",
+             *cache_row(shapes["q25_prefill_T"], shapes["q25_kv_cap"], 0,
+                        shapes["q25_prompt_len"], heads=Q25_HEADS)),
+            ("decode_attention_q25", "smolvision_tpu_torch/kernels/csrc/decode_attention.cu",
+             "smolvision_tpu/kernels/flash_attention.py:184",
+             *decode_row(q25_run["asr"]["K"], q25_run["asr"]["start"], heads=Q25_HEADS)),
+            ("decode_attention_thinker_long",
+             "smolvision_tpu_torch/kernels/csrc/decode_attention.cu",
+             "smolvision_tpu/kernels/flash_attention.py:184",
+             *decode_row(long["K"], long["start"]))]
+    row_errs = dict(errs)
+    for name, _, _, kern, plain, _, _ in rows:
+        row_errs[name] = max(errs[kernel_of(name)], check_close(f"{name} timing inputs",
+                                                                kern(), plain()))
+    table = timed_table(rows, row_errs, {})
+    launches = {"window_attention_q25": asr["window_attention"],
+                "causal_cache_attention_q25": asr["causal_cache_attention"],
+                "decode_attention_q25": asr["decode_attention"],
+                "decode_attention_thinker_long": long["launches"]}
+    V, Hd = QWEN25_OMNI_7B.vocab_size, QWEN25_OMNI_7B.dec_hidden
+    h, w, _, _ = head_case(V, Hd, 1, "bfloat16", 700)
+    err = max(errs["argmax_matvec"], check_head("argmax_matvec_q25 timing inputs", h, w))
+    hb = h.to(torch.bfloat16)
+    kern = lambda: am.argmax_matvec(h, w)   # noqa: E731
+    plain = lambda: am.argmax_matvec_plain(h, w)   # noqa: E731
+    p1, k1, k2, p2 = (time_ms(f) for f in (plain, kern, kern, plain))
+    lib_ms = time_ms(lambda: torch.argmax(torch.mm(hb, w.t(), out_dtype=torch.float32), dim=-1))
+    nbytes = w.numel() * w.element_size() + 4 * (Hd + 1)
+    bound_ms, bound_by = bound(nbytes, 2.0 * V * Hd, "bfloat16")
+    table.append({"name": "argmax_matvec_q25", "route": "cuda",
+                  "source": "smolvision_tpu_torch/kernels/csrc/argmax_matvec.cu",
+                  "replaces": "tools/profile_decode2.py:127", "max_abs_err": err,
+                  "ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": lib_ms,
+                  "bound_ms": bound_ms, "bound_by": bound_by,
+                  "design": am.head_route(1, w.dtype).replace("_", " ") + "s"})
+    log(f"  argmax_matvec_q25: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+        f"library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    launches["argmax_matvec_q25"] = q25_run["greedy"]["launches"]["argmax_matvec"]
+    for row in table:
+        row["launches"] = launches[row["name"]]
+    return table
+
+
 def main() -> int:
     import argparse
 
@@ -2815,6 +3281,13 @@ def main() -> int:
     CARD_LINE = smi_line
     log(f"device: {kind} (count {count}); torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"nvidia-smi: {smi_line}")
+    q25_dir = os.path.join(ROOT, "build", "chip_smoke_q25", Q25_PRESET)
+    shutil.rmtree(os.path.dirname(q25_dir), ignore_errors=True)
+    q25_build = None
+    if not args.kernels_only:
+        # phase 11's checkpoint, written while phases 2-10 run
+        q25_build = CheckpointBuild(Q25_PRESET, q25_dir, SEED)
+        log(f"{Q25_PRESET}: writing a seeded bf16 checkpoint in a child process")
 
     # phase 2: build
     from smolvision_tpu_torch.kernels import build
@@ -2874,6 +3347,7 @@ def main() -> int:
             f"{time.monotonic() - t0:.2f} s; clip {CLIP_SEC:.0f} s")
         shapes = main_path_shapes(model_dir, samples)
         shapes.update(batched_path_shapes(model_dir, long_clip, serve_clips, wide_clips))
+        shapes.update(q25_path_shapes(model_dir, samples))
         log(f"attention shapes of the paths: {json.dumps(shapes)}")
 
         # phase 3: kernels vs plain versions
@@ -2881,6 +3355,7 @@ def main() -> int:
 
         cfg = detect_config(model_dir)
         table = phase_kernels(shapes) + phase_heads(cfg, shapes["seg_B"])
+        q25_errs = phase_q25_kernels(shapes)
         since("phase 3 (kernels)")
         if args.kernels_only:
             print(json.dumps({"kernels": table}))
@@ -2951,8 +3426,19 @@ def main() -> int:
         mstream_run = phase_multistream(model_dir, mstream_wavs, cfg)
         table += mstream_b5_table(mstream_run["b5_runs"], cfg.dec_layers)
         since("phase 10 (multistream)")
+
+        # phase 11: the thinker (0.6B: greedy, sampled, cref) and
+        # Qwen2.5-Omni-7B (the ASR route, the greedy and the text thinker)
+        long = phase_thinker(model_dir, wav, cfg)
+        since("phase 11, 0.6B thinker")
+        q25_run = phase_q25(q25_dir, wav, q25_build.wait())
+        table += q25_kernel_table(shapes, q25_run, long, q25_errs)
+        since("phase 11 (thinker, Qwen2.5-Omni-7B)")
     finally:
+        if q25_build is not None:
+            q25_build.stop()
         shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(os.path.dirname(q25_dir), ignore_errors=True)
 
     # launches: each kernel's count from the path that carries it at the
     # shape its row was timed at
@@ -2981,6 +3467,7 @@ def main() -> int:
             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"streams: {json.dumps(STREAM_RUNS)}")
     log(f"multistream [{smi_line}]: {json.dumps(MSTREAM_RUNS)}")
+    log(f"thinker runs [{smi_line}]: {json.dumps(THINKER_RUNS)}")
     log(f"decode loops, graph vs eager per path: {json.dumps(DECODE_RUNS)}")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in table]}))
     print(smi_line)

@@ -1,7 +1,7 @@
 """CLI — the JAX package's parser and stdout/stderr contract, on the port.
 
-Port of smolvision_tpu/cli.py for the offline and streaming paths: one
-file (`-i x.wav` or --stdin), whole or segmented (-S / -W / --past-text /
+Port of smolvision_tpu/cli.py for the offline, streaming and thinker paths:
+one file (`-i x.wav` or --stdin), whole or segmented (-S / -W / --past-text /
 --skip-silence / --no-batch-segments), streamed (--stream, from a file or
 live from stdin with --stdin; --stream-max-new-tokens, --monitor), several
 -i files as one static batch, through the continuous scheduler (--serve
@@ -10,7 +10,11 @@ multistream, runtime/multistream.py); with --silent / --language / --prompt /
 --max-tokens / --f32 / --enc-window-sec / --profile DIR (a torch.profiler
 trace of the transcription), and the decoder options --q8 / --kv8 /
 --spec (or SMOLVISION_Q8=1 / SMOLVISION_KV8=1 / SMOLVISION_SPEC=1, as the
-JAX CLI reads them).  The transcript goes to STDOUT
+JAX CLI reads them); free-form generation from audio or --text under
+--thinker (--max-tokens / --temperature / --repeat-penalty / --top-k /
+--seed / --sampler), which is also where a Qwen2.5-Omni checkpoint's ASR
+goes (with the default system prompt and temperature 0.7).  The transcript
+goes to STDOUT
 (tokens streamed as decoded in normal mode; one final line in --silent; one
 line per file for several files); status/perf lines go to STDERR:
   Inference: ... ms, N text tokens (X tok/s, encoding: ...ms, decoding: ...ms)
@@ -119,10 +123,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _unported(args) -> Optional[str]:
     """The first requested mode this port does not run yet, or None."""
-    checks = [
-        (args.thinker, "--thinker"),
-        (args.moe_offload, "--moe-offload"), (args.moe_preload, "--moe-preload"),
-    ]
+    checks = [(args.moe_offload, "--moe-offload"), (args.moe_preload, "--moe-preload")]
     for on, what in checks:
         if on:
             return what
@@ -135,6 +136,9 @@ def run(argv=None) -> Tuple[int, Optional["Engine"]]:
 
     if not args.thinker and not args.input_wav and not args.stdin:
         print("Error: need -i, --stdin, or --thinker --text", file=sys.stderr)
+        return 1, None
+    if args.thinker and not args.input_wav and not args.stdin and not args.thinker_text:
+        print("Error: --thinker requires -i, --stdin, or --text", file=sys.stderr)
         return 1, None
     if args.input_wav and args.stdin:
         print("Error: -i and --stdin are mutually exclusive", file=sys.stderr)
@@ -192,7 +196,17 @@ def run(argv=None) -> Tuple[int, Optional["Engine"]]:
     if args.skip_silence:
         eng.skip_silence = True
     if args.max_tokens > 0:
+        eng.thinker_max_tokens = args.max_tokens
         eng.max_tokens = args.max_tokens
+    if args.temperature >= 0:
+        eng.temperature = args.temperature
+    if args.repeat_penalty >= 0:
+        eng.repetition_penalty = args.repeat_penalty
+    if args.top_k >= 0:
+        eng.top_k = args.top_k
+    eng.seed = args.seed
+    if args.sampler == "cref":
+        eng.sampler_mode = "cref"
     if args.no_batch_segments:
         eng.batch_segments = False
     if args.prompt:
@@ -214,28 +228,48 @@ def run(argv=None) -> Tuple[int, Optional["Engine"]]:
     eng.token_cb = stream_token if emit_tokens else None
 
     if args.input_wav and len(args.input_wav) > 1:
+        if args.thinker or eng.cfg.family == "q25":
+            print("Error: multiple -i files only supported in plain Qwen3 ASR mode",
+                  file=sys.stderr)
+            return 1, eng
         return _run_several(args, eng, verbosity), eng
+
+    # Qwen2.5-Omni has no <asr_text> ASR head: ASR requests go through the
+    # thinker with a default system prompt (q25_transcribe_audio,
+    # qwen25_omni.c:590-607), --stream included
+    if eng.cfg.family == "q25" and not args.thinker:
+        args.thinker = True
+        if not eng.prompt_text:
+            eng.set_prompt("You are a helpful assistant.")
+        if args.temperature < 0:
+            eng.temperature = 0.7
 
     from smolvision_tpu_torch.runtime import segment as segment_mod
     from smolvision_tpu_torch.runtime import stream as stream_mod
 
     live = None
     samples = None
-    if args.stream and args.stdin:
+    if args.stream and args.stdin and not args.thinker:
         from smolvision_tpu_torch.io.live import LiveAudio
 
         live = LiveAudio.start_stdin()
-    else:
+    elif args.input_wav or args.stdin:
         try:
             samples = load_wav(args.input_wav[0]) if args.input_wav else read_pcm_stdin()
         except (OSError, ValueError) as e:
             print(f"smolvision: cannot load audio: {e}", file=sys.stderr)
-            return 1, eng
-        samples = np.asarray(samples, dtype=np.float32)
+            # the reference goes on text-only when the audio fails to load
+            # but --text is given (main.c:242-245)
+            if not (args.thinker and args.thinker_text):
+                return 1, eng
+        if samples is not None:
+            samples = np.asarray(samples, dtype=np.float32)
 
     try:
         with _profiled(args.profile, eng.device):
-            if live is not None:
+            if args.thinker:
+                text = eng.thinker_generate(samples, args.thinker_text)
+            elif live is not None:
                 text = stream_mod.transcribe_stream_live(eng, live)
             elif args.stream:
                 text = stream_mod.transcribe_stream(eng, samples)

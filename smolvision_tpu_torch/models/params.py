@@ -1,13 +1,18 @@
 """Weight loading: mmap'd safetensors -> stacked parameter dictionaries.
 
-Port of the dense loaders of smolvision_tpu/models/params.py with the same
-layout, so the two packages can be compared leaf by leaf:
+Port of the dense loaders of smolvision_tpu/models/params.py (Qwen3-ASR and
+Qwen2.5-Omni) with the same layout, so the two packages can be compared
+leaf by leaf:
   * per-layer weights are stacked along a leading layer axis [L, ...]
     (the model code takes views `w[i]`, no copies),
   * q/k/v are fused into `wqkv` (rows of q; k; v) and gate/up into
     `w_gate_up` ([gate; up]),
   * matmul weights take `param_dtype`; norms, biases and the conv stem
-    stay f32; a tied lm_head is the embedding tensor itself.
+    stay f32; a tied lm_head is the embedding tensor itself,
+  * Qwen2.5-Omni: a Conv1D stem, an encoder K projection without bias
+    (zeros substituted), one `proj`, the learned audio bos / eos rows; its
+    decoder has a QKV bias `bqkv` (f32, rows of q; k; v), no q/k norms and
+    an untied lm_head.
 `params_from_jax` turns the JAX loaders' pytrees (as numpy arrays) into
 the same dictionaries; `quantize_decoder` makes the int8 (--q8) decoder.
 """
@@ -28,7 +33,7 @@ DEC_PREFIX = "thinker.model"
 
 # leaves that take param_dtype; every other leaf is f32
 ENC_WEIGHTS = frozenset({"wq", "wk", "wv", "wo", "fc1", "fc2", "conv_out_w",
-                         "proj1_w", "proj2_w"})
+                         "proj1_w", "proj2_w", "proj_w"})
 DEC_WEIGHTS = frozenset({"wqkv", "wo", "w_gate_up", "w_down", "embed", "lm_head"})
 
 _ENC_LAYER_NAMES = {
@@ -58,9 +63,20 @@ def _put(t: torch.Tensor, dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype, copy=True)
 
 
+def _stack_parts(n: int, part, dtype, device) -> torch.Tensor:
+    """part(0..n-1), host tensors of one shape made one at a time, copied
+    into one [n, ...] tensor allocated on `device`: no stacked host copy,
+    which at 7B widths would be gigabytes."""
+    first = part(0)
+    out = torch.empty((n, *first.shape), dtype=dtype, device=device)
+    out[0].copy_(first)
+    for i in range(1, n):
+        out[i].copy_(part(i))
+    return out
+
+
 def _stack(reader, template: str, n: int, dtype, device) -> torch.Tensor:
-    return _put(torch.stack([reader.get(template.format(i=i)) for i in range(n)]),
-                dtype, device)
+    return _stack_parts(n, lambda i: reader.get(template.format(i=i)), dtype, device)
 
 
 def load_qwen3_encoder(reader, cfg: ModelConfig, param_dtype=torch.bfloat16,
@@ -84,39 +100,78 @@ def load_qwen3_encoder(reader, cfg: ModelConfig, param_dtype=torch.bfloat16,
     return out
 
 
+_Q25_ENC_TOP_NAMES = {
+    "conv1_w": "conv1.weight", "conv1_b": "conv1.bias",
+    "conv2_w": "conv2.weight", "conv2_b": "conv2.bias",
+    "ln_post_w": "ln_post.weight", "ln_post_b": "ln_post.bias",
+    "proj_w": "proj.weight", "proj_b": "proj.bias",
+    "audio_bos_eos": "audio_bos_eos_token.weight",
+}
+
+
+def load_q25_encoder(reader, cfg: ModelConfig, param_dtype=torch.bfloat16,
+                     device=None) -> Dict[str, Any]:
+    """The Qwen2.5-Omni audio tower's weights on `device` (the card unless
+    the caller names the CPU): the Qwen3 layer layout with a zero K bias
+    (the checkpoint has none), the Conv1D stem, `proj` and the learned
+    audio bos / eos rows (qwen25_omni_encoder.c)."""
+    device = resolve_device(device)
+    p = ENC_PREFIX
+    L = cfg.enc_layers
+    layers = {
+        key: _stack(reader, p + ".layers.{i}." + name, L,
+                    param_dtype if key in ENC_WEIGHTS else torch.float32, device)
+        for key, name in _ENC_LAYER_NAMES.items() if key != "bk"
+    }
+    layers["bk"] = torch.zeros((L, cfg.enc_d_model), dtype=torch.float32, device=device)
+    out: Dict[str, Any] = {
+        key: _put(reader.get(f"{p}.{name}"),
+                  param_dtype if key in ENC_WEIGHTS else torch.float32, device)
+        for key, name in _Q25_ENC_TOP_NAMES.items()
+    }
+    out["layers"] = layers
+    return out
+
+
 def load_decoder(reader, cfg: ModelConfig, param_dtype=torch.bfloat16,
                  device=None) -> Dict[str, Any]:
-    """Dense Qwen3 decoder weights (q/k norms, no QKV bias, tied or separate
-    lm_head) on `device` (the card unless the caller names the CPU).  MoE
-    and biased-QKV checkpoints are not ported yet."""
+    """Dense decoder weights on `device` (the card unless the caller names
+    the CPU): Qwen3's (q/k norms, no QKV bias, tied or separate lm_head) or
+    Qwen2.5-Omni's (a QKV bias `bqkv`, no q/k norms, an untied lm_head).
+    MoE checkpoints are not ported yet."""
     device = resolve_device(device)
-    if cfg.is_moe or cfg.dec_qkv_bias or not cfg.dec_qk_norm:
-        raise ValueError(f"{cfg.name}: only dense Qwen3 decoders are ported "
-                         "to smolvision_tpu_torch")
+    if cfg.is_moe:
+        raise ValueError(f"{cfg.name}: only dense Qwen3 and Qwen2.5-Omni decoders are ported "
+                         "to smolvision_tpu_torch (MoE is not yet)")
     p = DEC_PREFIX
     L = cfg.dec_layers
     f32 = torch.float32
 
-    def _cat(i, names):
-        return torch.cat([reader.get(f"{p}.layers.{i}.{n}.weight") for n in names])
+    def _cat(names, dtype, kind="weight"):
+        """Each layer's tensors `names` concatenated, stacked over layers."""
+        return _stack_parts(L, lambda i: torch.cat(
+            [reader.get(f"{p}.layers.{i}.{n}.{kind}") for n in names]), dtype, device)
+
+    qkv = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj")
 
     layers = {
         "input_ln": _stack(reader, p + ".layers.{i}.input_layernorm.weight", L, f32, device),
         "post_ln": _stack(reader, p + ".layers.{i}.post_attention_layernorm.weight", L,
                           f32, device),
-        "wqkv": _put(torch.stack([
-            _cat(i, ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"))
-            for i in range(L)]), param_dtype, device),
+        "wqkv": _cat(qkv, param_dtype),
         "wo": _stack(reader, p + ".layers.{i}.self_attn.o_proj.weight", L, param_dtype,
                      device),
-        "q_norm": _stack(reader, p + ".layers.{i}.self_attn.q_norm.weight", L, f32, device),
-        "k_norm": _stack(reader, p + ".layers.{i}.self_attn.k_norm.weight", L, f32, device),
-        "w_gate_up": _put(torch.stack([
-            _cat(i, ("mlp.gate_proj", "mlp.up_proj")) for i in range(L)]),
-            param_dtype, device),
+        "w_gate_up": _cat(("mlp.gate_proj", "mlp.up_proj"), param_dtype),
         "w_down": _stack(reader, p + ".layers.{i}.mlp.down_proj.weight", L, param_dtype,
                          device),
     }
+    if cfg.dec_qkv_bias:
+        layers["bqkv"] = _cat(qkv, f32, "bias")
+    if cfg.dec_qk_norm:
+        layers["q_norm"] = _stack(reader, p + ".layers.{i}.self_attn.q_norm.weight", L, f32,
+                                  device)
+        layers["k_norm"] = _stack(reader, p + ".layers.{i}.self_attn.k_norm.weight", L, f32,
+                                  device)
     embed = _put(reader.get(p + ".embed_tokens.weight"), param_dtype, device)
     lm_head = embed if cfg.tied_embeddings else _put(
         reader.get("thinker.lm_head.weight"), param_dtype, device)
@@ -164,10 +219,11 @@ def _quant_from_numpy(val, device) -> QuantW:
 
 def params_from_jax(enc_np: Mapping[str, Any], dec_np: Mapping[str, Any], device=None,
                     dtype=torch.bfloat16):
-    """The JAX loaders' (load_qwen3_encoder, load_decoder) pytrees, given as
-    numpy arrays with stacked [L, ...] leaves, as the port's parameters:
-    (encoder params, decoder params).  Leaves the dense port does not use
-    (None entries, MoE/bias slots) are dropped; a quantized leaf (the JAX
+    """The JAX loaders' (load_qwen3_encoder or load_q25_encoder, and
+    load_decoder) pytrees, given as numpy arrays with stacked [L, ...]
+    leaves, as the port's parameters: (encoder params, decoder params).
+    Leaves the family has not (None entries: MoE slots, Qwen3's `bqkv`,
+    Qwen2.5-Omni's q/k norms) are dropped; a quantized leaf (the JAX
     package's QuantW under --q8, a (q, s) pair) becomes the port's QuantW;
     a tied lm_head stays one object with the embedding.  On `device`: the
     card unless the caller names the CPU."""

@@ -1,7 +1,10 @@
 """Dense Qwen3 LLM decoder in torch: prefill + decode step, single and batched.
 
 Port of the dense paths of smolvision_tpu/models/qwen3_decoder.py
-(reference semantics: qwen_asr_decoder.c, MODEL.md:156-227).
+(reference semantics: qwen_asr_decoder.c, MODEL.md:156-227), also for the
+Qwen2.5-Omni decoder (qwen25_omni_decoder.c: a QKV bias, no q/k norms, an
+untied lm_head) on the single-stream paths; the batched forwards refuse it,
+as the JAX package's serving does (Qwen2.5-Omni runs through the thinker).
 
   * one KV cache [L, 2, Kcap, KH, D] (bf16, or f32 under --f32), updated in
     place: torch runs eagerly, so there is no donated functional update,
@@ -81,8 +84,9 @@ def _split_gate_up(gate_up: torch.Tensor):
 
 
 def _attn_block(lp, h, kv, layer: int, cfg: ModelConfig, cos, sin, rows, start_pos, kv_valid):
-    """One layer's attention half: input RMSNorm -> fused QKV -> per-head Q/K
-    norm -> RoPE -> causal GQA attention vs the cache -> o-proj residual.
+    """One layer's attention half: input RMSNorm -> fused QKV (+ its bias,
+    Qwen2.5-Omni) -> per-head Q/K norm (Qwen3) -> RoPE -> causal GQA
+    attention vs the cache -> o-proj residual.
     Writes this block's K/V rows into kv[layer] at `rows` (int64 [T], by
     index_copy_).  A decode step (T == 1, kernel B3) has start_pos as its
     int32 device copy [1]; a longer block (kernel B2) has start_pos and
@@ -91,12 +95,13 @@ def _attn_block(lp, h, kv, layer: int, cfg: ModelConfig, cos, sin, rows, start_p
     H, KH, D = cfg.dec_heads, cfg.dec_kv_heads, cfg.dec_head_dim
     eps = cfg.rms_norm_eps
     xn = rms_norm(h, lp["input_ln"], eps)
-    qkv = linear(xn, lp["wqkv"])
+    qkv = linear(xn, lp["wqkv"], lp.get("bqkv"))
     q = qkv[:, : H * D].reshape(T, H, D)
     k = qkv[:, H * D : (H + KH) * D].reshape(T, KH, D)
     v = qkv[:, (H + KH) * D :].reshape(T, KH, D)
-    q = rms_norm(q, lp["q_norm"], eps)
-    k = rms_norm(k, lp["k_norm"], eps)
+    if "q_norm" in lp:
+        q = rms_norm(q, lp["q_norm"], eps)
+        k = rms_norm(k, lp["k_norm"], eps)
     q = apply_rope_neox(q, cos, sin)
     k = apply_rope_neox(k, cos, sin)
 
@@ -259,6 +264,9 @@ def batched_decoder_forward(params, cfg: ModelConfig, embeds: torch.Tensor, star
     on the widened rows.  There is no size crossover.
     Returns (hidden [B, T, H] f32, kv) -- kv updated in place.
     """
+    if cfg.family == "q25":
+        raise ValueError("continuous serving supports the qwen3 family only "
+                         "(q25 checkpoints route through the thinker path)")
     B, T, _ = embeds.shape
     H, KH, D = cfg.dec_heads, cfg.dec_kv_heads, cfg.dec_head_dim
     eps = cfg.rms_norm_eps

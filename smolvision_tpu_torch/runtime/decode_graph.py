@@ -6,7 +6,8 @@ Port of the JAX package's compiled device programs: `Engine._decode_chunk`
 DECODE_CHUNK greedy steps), `batched_decode_chunk`
 (smolvision_tpu/models/qwen3_decoder.py, the same for a batch),
 `Engine._get_spec_chunk` (--spec: a jitted `while_loop` of draft, verify and
-accept) and `_prefill_greedy` (prefill jit-compiled once per bucket).
+accept), `sample_chunk` (the thinker's sampled `while_loop`) and
+`_prefill_greedy` (prefill jit-compiled once per bucket).
 PyTorch runs eagerly; the nearest form of a compiled device program is a
 CUDA graph of one step, replayed:
 
@@ -53,6 +54,7 @@ import torch
 
 from smolvision_tpu_torch.config import EOS_TOKEN_IDS
 from smolvision_tpu_torch.kernels import ffi
+from smolvision_tpu_torch.runtime import sampling
 
 DECODE_CHUNK = 64   # steps per host read, as the JAX engine's
 DONE_LAG = 3        # replays in flight past the one whose flag the host reads
@@ -72,7 +74,7 @@ def capture(step, stream):
 class StepGraph:
     """One step captured for replay, with the kernel launches one replay
     makes (`launches`, by `ffi.launch_counts` key) and the kind of its
-    owner ("decode", "spec" or "prefill")."""
+    owner ("decode", "spec", "sample" or "prefill")."""
 
     def __init__(self, step, stream, kind: str = "decode"):
         self.kind = kind
@@ -334,6 +336,87 @@ class SpecLoop(_ChunkLoop):
         (count, self.iterations), buf = self._read(self.buf, self.out, self.it)
         if self.perf is not None:
             self.perf.wasted_steps += replays - self.iterations
+        return buf[None, :count], count, replays
+
+
+class SampleLoop(_ChunkLoop):
+    """The thinker's sampled decode loop (the JAX engine's `sample_chunk`)
+    on one cache, its state on the device; one replay is one sampled step.
+
+    `forward(tok, pos)` is one decoder step at cache row pos (int64 [1])
+    from tok (int32 [1]) -> the logits [V], f32.  A step observes the
+    current token in the repetition window (`recent`, a ring of REP_WINDOW
+    ids, `n_recent` observed so far), runs `forward`, transforms the logits
+    (`sampling.transform_logits`: penalty, temperature, the static top_k)
+    and draws (`sampling.draw`, keyed by seed and the cache row), then
+    writes the token under the live mask and stops after an EOS.  The
+    window advances only while live, so it carries over to the next chunk
+    exactly; temperature, penalty and seed are device scalars that `run`
+    refreshes, so one loop serves every setting of one top_k."""
+
+    kind = "sample"
+
+    def __init__(self, forward, top_k: int, kv, capacity: int, device, perf):
+        super().__init__(kv, capacity, device, perf)
+        dev = torch.device(device)
+        self.forward = forward
+        self.top_k = int(top_k)
+        self.tok = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.pos = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.i = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.buf = torch.zeros(DECODE_CHUNK, dtype=torch.int32, device=dev)
+        self.done = torch.zeros(1, dtype=torch.bool, device=dev)
+        self.recent = torch.zeros(sampling.REP_WINDOW, dtype=torch.int32, device=dev)
+        self.n_recent = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.temp = torch.zeros((), dtype=torch.float32, device=dev)
+        self.penalty = torch.zeros((), dtype=torch.float32, device=dev)
+        self.seed = torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def _step(self) -> None:
+        live = ~self.stop
+        slot = self.n_recent % self.recent.shape[0]
+        kept = self.recent.index_select(0, slot)
+        self.recent.index_copy_(0, slot, torch.where(live, self.tok, kept))
+        self.n_recent += live
+        logits = self.forward(self.tok, self.pos)
+        logits = sampling.transform_logits(logits, self.recent, self.n_recent, self.penalty,
+                                           self.temp, self.top_k)
+        nxt = sampling.draw(logits, self.seed, self.pos)
+        kept = self.buf.index_select(0, self.i)
+        self.buf.index_copy_(0, self.i, torch.where(live, nxt, kept))
+        self.done |= (nxt[:, None] == self.eos[None, :]).any(-1)
+        self.tok.copy_(torch.where(live, nxt, self.tok))
+        self.i += live
+        self.pos += live
+        self.stop.copy_(self.done)
+
+    @torch.inference_mode()
+    def run(self, token: int, pos: int, steps: int, recent: torch.Tensor,
+            n_recent: torch.Tensor, temp: float, penalty: float, seed: int):
+        """Up to `steps` (<= DECODE_CHUNK) sampled steps from `token` at
+        cache row `pos`, stopping after an EOS (counted).  recent
+        [REP_WINDOW] int32 and n_recent int64 [1] are the caller's
+        repetition window on the device, read before the chunk and written
+        back after it (device copies).  Returns (buf, count, replays) as
+        DecodeLoop.run does (buf [1, count])."""
+        self._check(pos, steps, steps)
+        self.tok.fill_(int(token))
+        self.pos.fill_(int(pos))
+        self.i.zero_()
+        self.buf.zero_()
+        self.done.zero_()
+        self.stop.zero_()
+        self.recent.copy_(recent)
+        self.n_recent.copy_(n_recent)
+        self.temp.fill_(float(temp))
+        self.penalty.fill_(float(penalty))
+        self.seed.fill_(int(seed))
+        replays = self._replays(steps)
+        recent.copy_(self.recent)
+        n_recent.copy_(self.n_recent)
+        (count,), buf = self._read(self.buf, self.i)
+        if self.perf is not None:
+            self.perf.wasted_steps += replays - count
         return buf[None, :count], count, replays
 
 

@@ -6,9 +6,12 @@ segmented, batched, serving and streaming modules read (runtime/segment.py,
 runtime/batch_segments.py, runtime/serving.py, runtime/stream.py), with the
 JAX engine's options --q8 (int8 decoder weights), --kv8 (int8 batched KV
 cache), --spec (speculative decoding with an int8 draft) and
---enc-window-sec (the encoder's attention window), and streaming's prefill
-with KV reuse (`prefill_with_reuse`: kernel B2 at a start > 0).  The
-engine owns:
+--enc-window-sec (the encoder's attention window), streaming's prefill
+with KV reuse (`prefill_with_reuse`: kernel B2 at a start > 0), the
+thinker (`thinker_generate`: free-form generation, greedy or sampled) and
+the Qwen2.5-Omni family (its Conv1D audio tower, models/q25_encoder.py;
+its decoder's QKV bias and untied lm_head).  MoE checkpoints are refused.
+The engine owns:
   * the parameter dictionaries on its device (bf16 weights by default),
   * the KV cache (grow-by-copy to pow2 buckets, as in the JAX engine),
   * host-side text logic (prompt tokens, <asr_text> gating, callbacks),
@@ -19,10 +22,11 @@ compiled programs take the form the card offers (runtime/decode_graph.py):
 greedy decode is one decode step captured as a CUDA graph and replayed per
 token, the token, position and EOS flag on the device, one host read per
 chunk of DECODE_CHUNK steps; --spec is one speculative iteration (draft
-steps, verify, accept) captured and replayed the same way; a greedy
-prefill is captured per (cache, block bucket) on its second call and
-replayed.  Phases are synchronised at their ends on the card so the
-per-phase times are the device's, not the enqueue's.
+steps, verify, accept) captured and replayed the same way, and so is the
+thinker's sampled step (logits, penalty, temperature, top-k and draw on
+the device); a greedy prefill is captured per (cache, block bucket) on its
+second call and replayed.  Phases are synchronised at their ends on the
+card so the per-phase times are the device's, not the enqueue's.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from smolvision_tpu_torch.config import (
 from smolvision_tpu_torch.device import resolve_device
 from smolvision_tpu_torch.io.safetensors import MultiSafetensors
 from smolvision_tpu_torch.models import params as params_mod
+from smolvision_tpu_torch.models import q25_encoder as q25e
 from smolvision_tpu_torch.models import qwen3_decoder as dec_mod
 from smolvision_tpu_torch.models import qwen3_encoder as enc_mod
 from smolvision_tpu_torch.ops.mel import log_mel
@@ -52,7 +57,8 @@ from smolvision_tpu_torch.ops.quant import embed_rows
 from smolvision_tpu_torch.runtime import prompt as prompt_mod
 from smolvision_tpu_torch.runtime.buckets import bucket, window_bucket
 from smolvision_tpu_torch.runtime.decode_graph import (DECODE_CHUNK, DecodeLoop, PrefillGraph,
-                                                       SpecLoop)
+                                                       SampleLoop, SpecLoop)
+from smolvision_tpu_torch.runtime.sampling import REP_WINDOW, CRefSampler, Sampler
 from smolvision_tpu_torch.text.tokenizer import Tokenizer, load_tokenizer
 
 KV_HEADROOM = 256
@@ -100,6 +106,10 @@ class PerfStats:
         # launches of the other kernels follow these counts, one per layer each:
         self.encodes = 0          # encoder stack calls (B1), single clips or batches
         self.prefills = 0         # single-stream prefills (B2)
+        # of the prefills and decode steps, those whose output is the logits
+        # (the sampled thinker's): no greedy head
+        self.logits_prefills = 0
+        self.logits_steps = 0
         self.reuse_prefills = 0   # of which at a cache row > 0 (streaming's KV reuse)
         self.fresh_prefills = 0   # batched fresh prefills (B4): one per length group
         self.delta_prefills = 0   # batched delta prefills (B5): one per admission wave
@@ -144,9 +154,9 @@ class Engine:
         self.verbose = verbose
         self.reader = MultiSafetensors(model_dir)
         cfg = detect_config(model_dir, self.reader)
-        if cfg.family != "qwen3" or cfg.is_moe:
-            raise ValueError(f"{cfg.name}: Qwen2.5-Omni and MoE checkpoints are not yet "
-                             "ported to smolvision_tpu_torch")
+        if cfg.is_moe:
+            raise ValueError(f"{cfg.name}: MoE checkpoints are not yet ported to "
+                             "smolvision_tpu_torch")
         if enc_window_sec is not None:
             frames = int(enc_window_sec * 100.0 + 0.5)
             frames = min(max(frames, 100), 800)
@@ -158,8 +168,9 @@ class Engine:
         if verbose >= 1:
             print(f"Detected: {cfg.name} ({cfg.family})", file=sys.stderr, flush=True)
 
-        self.enc_params = params_mod.load_qwen3_encoder(self.reader, cfg, param_dtype,
-                                                        self.device)
+        load_encoder = (params_mod.load_q25_encoder if cfg.family == "q25"
+                        else params_mod.load_qwen3_encoder)
+        self.enc_params = load_encoder(self.reader, cfg, param_dtype, self.device)
         self.dec_params = params_mod.load_decoder(self.reader, cfg, param_dtype, self.device)
         # int8 KV cache (--kv8): batched paths only; the single-stream cache
         # keeps kv_dtype, as in the JAX engine
@@ -203,6 +214,16 @@ class Engine:
         self.stream_max_new_tokens = 32
         self.past_text_conditioning = False
         self.skip_silence = False
+        self.thinker_max_tokens = 2048
+        self.temperature = 0.7
+        self.repetition_penalty = 1.1
+        self.top_k = 40
+        self.seed = 0
+        # "np": the reproducible default (the host Sampler's first token,
+        # then device sampled chunks); "cref": the reference C engine's
+        # exact sampled stream (CRefSampler) in a per-token host loop, the
+        # sampled parity arm (CLI --sampler cref)
+        self.sampler_mode = "np"
         self.max_tokens = 2048
         # decode independent -S segments as one batch (runtime/batch_segments.py)
         self.batch_segments = True
@@ -222,9 +243,10 @@ class Engine:
         self._kv: Optional[torch.Tensor] = None
         self._kv_cap = 0
         # the single-stream decode loop of the current cache (a SpecLoop
-        # under --spec) and its greedy prefills by block rows (their CUDA
-        # graphs hold the cache tensor): dropped whenever the cache is
-        self._loop: Optional[Union[DecodeLoop, SpecLoop]] = None
+        # under --spec, a SampleLoop for the sampled thinker) and its greedy
+        # prefills by block rows (their CUDA graphs hold the cache tensor):
+        # dropped whenever the cache is
+        self._loop: Optional[Union[DecodeLoop, SpecLoop, SampleLoop]] = None
         self._prefills: Dict[int, PrefillGraph] = {}
 
     @property
@@ -324,6 +346,8 @@ class Engine:
         return self.encode_mel(log_mel(samples))
 
     def encode_mel(self, mel: np.ndarray) -> Tuple[torch.Tensor, int]:
+        if self.cfg.family == "q25":
+            return self._encode_mel_q25(mel)
         return self._encode_mel_qwen3(mel)
 
     @torch.inference_mode()
@@ -361,6 +385,29 @@ class Engine:
         self.perf.encodes += 1
         return enc, n_tokens
 
+    @torch.inference_mode()
+    def _encode_mel_q25(self, mel: np.ndarray) -> Tuple[torch.Tensor, int]:
+        """The Qwen2.5-Omni tower: the Conv1D stem over the whole mel, tokens
+        padded to a pow2 number of 100-token windows, then the learned bos /
+        eos rows around the valid tokens (outside the padded bucket), the
+        result padded to bucket(n + 2, 16) rows."""
+        cfg = self.cfg
+        x = q25e.q25_conv_stem(self.enc_params,
+                               torch.from_numpy(np.asarray(mel, np.float32)).to(self.device), cfg)
+        n_tokens = x.shape[0]
+        tcap = window_bucket(n_tokens, cfg.q25_token_window)
+        if tcap > n_tokens:
+            x = torch.cat([x, x.new_zeros((tcap - n_tokens, x.shape[1]))])
+        proj = q25e.q25_encoder_transformer(self.enc_params, x, n_tokens, cfg)
+        self.perf.encodes += 1
+        bos_eos = self.enc_params["audio_bos_eos"].float()
+        out = torch.cat([bos_eos[0:1], proj[:n_tokens], bos_eos[1:2]])
+        n_audio = n_tokens + 2
+        acap = bucket(n_audio, 16)
+        if acap > n_audio:
+            out = torch.cat([out, out.new_zeros((acap - n_audio, out.shape[1]))])
+        return out, n_audio
+
     # ------------------------------------------------------------------
     # decoder primitives
     # ------------------------------------------------------------------
@@ -396,6 +443,7 @@ class Engine:
         else:
             out, self._kv = dec_mod.prefill(self.dec_params, self.cfg, embeds, start_pos,
                                             valid_len, kv, greedy=False)
+            self.perf.logits_prefills += 1
         self.perf.prefills += 1
         self.perf.reuse_prefills += int(start_pos > 0)
         return out
@@ -437,6 +485,7 @@ class Engine:
         out, self._kv = dec_mod.decode_step(self.dec_params, self.cfg, token, pos, kv,
                                             greedy=greedy)
         self.perf.decode_steps += 1
+        self.perf.logits_steps += int(not greedy)
         return out
 
     def _decode_loop(self, pos: int, steps: int) -> Union[DecodeLoop, SpecLoop]:
@@ -579,3 +628,137 @@ class Engine:
                       f"tokens/iter (draft {SPEC_DRAFT}, max "
                       f"{SPEC_DRAFT + 1})", file=sys.stderr, flush=True)
         return text, state["n_text"]
+
+    # ------------------------------------------------------------------
+    # thinker mode
+    # ------------------------------------------------------------------
+
+    def _sample_loop(self, pos: int, steps: int) -> SampleLoop:
+        """The sampled decode loop of the cache a chunk of `steps` steps at
+        cache row `pos` needs, made anew when the cache, the mode or top_k
+        changed."""
+        kv = self._ensure_kv(pos + steps + 1)
+        loop = self._loop
+        if not isinstance(loop, SampleLoop) or loop.top_k != self.top_k:
+            p, cfg = self.dec_params, self.cfg
+            loop = SampleLoop(
+                lambda tok, at, kv=kv: dec_mod.decode_step(p, cfg, tok, at, kv, greedy=False)[0],
+                self.top_k, kv, self._kv_cap, self.device, self.perf)
+        self._loop = loop
+        return loop
+
+    def thinker_generate(self, samples: Optional[np.ndarray],
+                         user_text: Optional[str]) -> Optional[str]:
+        """Free-form generation (qwen_asr.c:2319-2612): an audio or a text
+        prompt, temperature / top-k / repetition-penalty sampling, no
+        <asr_text> gate.  Greedy at temperature 0 (decode_greedy);
+        --sampler cref: a per-token host loop of logits steps and
+        CRefSampler; otherwise the host Sampler draws the first token and
+        SampleLoop chunks the rest on the device."""
+        if samples is None and not user_text:
+            return None
+        cfg = self.cfg
+        self.perf.reset()
+        total_t0 = _now_ms()
+        self.prepare_prompt()
+        tok = self.tokenizer
+        self.perf.audio_ms = (len(samples) / 16.0) if samples is not None else 0.0
+
+        enc_ms = 0.0
+        if samples is not None and len(samples) > 0:
+            t0 = _now_ms()
+            audio, n_audio = self.encode(samples)
+            self._sync()
+            enc_ms = _now_ms() - t0
+            ids, audio_start = prompt_mod.build_thinker_audio_prompt(
+                cfg, n_audio, self._prompt_tokens)
+        else:
+            audio, n_audio, audio_start = None, 0, -1
+            user_tokens = tok.encode(user_text or "")
+            ids = prompt_mod.build_thinker_text_prompt(cfg, user_tokens, self._prompt_tokens)
+
+        sampler_cls = CRefSampler if self.sampler_mode == "cref" else Sampler
+        sampler = sampler_cls(self.temperature, self.repetition_penalty, self.top_k, self.seed)
+        use_sampling = not sampler.greedy
+
+        t0 = _now_ms()
+        self.reset_kv()
+        out, pos = self.prefill_ids(ids, audio, audio_start, n_audio, greedy=not use_sampling)
+        if use_sampling:
+            out = out.float().cpu().numpy()
+        self._sync()
+        prefill_ms = _now_ms() - t0
+
+        pieces: List[bytes] = []
+        n_text = 0
+
+        def emit(tid: int) -> bool:
+            nonlocal n_text
+            piece = tok.decode_piece(tid)
+            if piece:
+                pieces.append(piece)
+                n_text += 1
+                if self.token_cb:
+                    self.token_cb(piece)
+            return True
+
+        t0 = _now_ms()
+        max_tokens = self.thinker_max_tokens
+        if use_sampling and self.sampler_mode == "cref":
+            # the parity arm: every logits vector comes to the host and
+            # CRefSampler replays the C engine's sample_token arithmetic and
+            # drand48 stream
+            token = sampler.sample(out)
+            n = 0
+            while n < max_tokens:
+                n += 1
+                if token in EOS_TOKEN_IDS:
+                    break
+                emit(token)
+                sampler.observe(token)
+                logits = self.decode_step(token, pos, greedy=False)
+                pos += 1
+                token = sampler.sample(logits.float().cpu().numpy())
+        elif use_sampling:
+            # the first token drawn on the host (one logits read); the rest
+            # in device chunks, one host read each
+            token = sampler.sample(out)
+            pending = [token]
+            recent = torch.zeros(REP_WINDOW, dtype=torch.int32, device=self.device)
+            n_recent = torch.zeros(1, dtype=torch.int64, device=self.device)
+            cur = token
+            n = 0
+            while n < max_tokens:
+                if not pending:
+                    steps = min(DECODE_CHUNK, max_tokens - n)
+                    loop = self._sample_loop(pos, steps)
+                    buf, count, replays = loop.run(cur, pos, steps, recent, n_recent,
+                                                   self.temperature, self.repetition_penalty,
+                                                   self.seed)
+                    self.perf.decode_steps += replays
+                    self.perf.logits_steps += replays
+                    if count == 0:
+                        break
+                    pos += count
+                    pending = buf[0].tolist()
+                    cur = pending[-1]
+                tid = pending.pop(0)
+                n += 1
+                if tid in EOS_TOKEN_IDS:
+                    break
+                emit(tid)
+        else:
+            self.decode_greedy(out, pos, max_tokens, emit)
+        self._sync()
+        decode_ms = _now_ms() - t0
+
+        self.perf.total_ms = _now_ms() - total_t0
+        self.perf.text_tokens = n_text
+        self.perf.encode_ms = enc_ms
+        self.perf.prefill_ms = prefill_ms
+        self.perf.decode_ms = prefill_ms + decode_ms
+        if self.verbose >= 2:
+            print(f"  Thinker: {len(ids)} prompt tokens ({prefill_ms:.0f} ms prefill); "
+                  f"{n_text} text tokens ({decode_ms:.0f} ms decode)",
+                  file=sys.stderr, flush=True)
+        return b"".join(pieces).decode("utf-8", errors="replace")

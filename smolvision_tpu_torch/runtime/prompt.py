@@ -1,7 +1,7 @@
 """Chat-template prompt assembly (host side, token ids only).
 
-Port of smolvision_tpu/runtime/prompt.py: the ASR and streaming layouts
-(the thinker layouts come with that mode).
+Port of smolvision_tpu/runtime/prompt.py: the ASR, streaming and thinker
+layouts.
 
 Token constants from qwen_asr.c:388-409 and qwen25_omni.c:78-93.  Layout
 (qwen_asr.c transcribe_segment / stream_impl / thinker paths):
@@ -10,6 +10,8 @@ Token constants from qwen_asr.c:388-409 and qwen25_omni.c:78-93.  Layout
            [force-lang + <asr_text>] [past-text + <asr_text>]
   stream:  PREFIX_HEAD [prompt] PREFIX_TAIL [audio x N] SUFFIX_BASE
            [force-lang + <asr_text>] [rolled-back raw tokens]
+  Thinker audio: PREFIX_HEAD [prompt] PREFIX_TAIL [audio] SUFFIX_BASE
+  Thinker text:  PREFIX_HEAD [prompt] USER_HEAD [user] USER_TAIL
 """
 
 from __future__ import annotations
@@ -24,6 +26,10 @@ PREFIX_HEAD = [151644, 8948, 198]
 PREFIX_TAIL = [151645, 198, 151644, 872, 198, 151669]
 # <|audio_end|> <|im_end|> \n <|im_start|> assistant \n
 SUFFIX_BASE = [151670, 151645, 198, 151644, 77091, 198]
+# <|im_end|> \n <|im_start|> user \n
+THINKER_USER_HEAD = [151645, 198, 151644, 872, 198]
+# <|im_end|> \n <|im_start|> assistant \n
+THINKER_USER_TAIL = [151645, 198, 151644, 77091, 198]
 # Qwen2.5-Omni variants: different audio boundary token ids
 Q25_PREFIX_TAIL = [151645, 198, 151644, 872, 198, 151647]
 Q25_SUFFIX_BASE = [151648, 151645, 198, 151644, 77091, 198]
@@ -78,3 +84,24 @@ def build_stream_prompt(
     ids += list(force_tokens)
     ids += list(prefix_tokens)
     return ids, audio_start
+
+
+def build_thinker_audio_prompt(
+    cfg: ModelConfig, n_audio: int, prompt_tokens: Sequence[int] = ()
+) -> Tuple[List[int], int]:
+    """Thinker audio path: no <asr_text> gating suffix (qwen_asr.c:2404-2448)."""
+    prefix_tail, suffix_base = _tails(cfg)
+    ids = list(PREFIX_HEAD) + list(prompt_tokens) + list(prefix_tail)
+    audio_start = len(ids)
+    ids += [cfg.audio_pad_token] * n_audio
+    ids += list(suffix_base)
+    return ids, audio_start
+
+
+def build_thinker_text_prompt(
+    cfg: ModelConfig, user_tokens: Sequence[int], prompt_tokens: Sequence[int] = ()
+) -> List[int]:
+    return (
+        list(PREFIX_HEAD) + list(prompt_tokens)
+        + THINKER_USER_HEAD + list(user_tokens) + THINKER_USER_TAIL
+    )

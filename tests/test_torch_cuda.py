@@ -932,3 +932,168 @@ def test_cuda_stream_prefill_graphs_equal_eager(card_stream_engine, monkeypatch)
         eager = run()
     assert graph[:2] == eager[:2]
     torch.testing.assert_close(graph[2], eager[2])
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_at_group_7():
+    """B3 at Qwen2.5-Omni's decoder heads (H 28, KH 4, D 128: G 7, which the
+    kernel rounds up to 8 with a dead eighth head per KV head) on a bf16
+    cache: at the 20 s clip's decode start (about 1090 rows), at a cluster
+    plan boundary (a multiple of the 8 blocks and one past it), a long
+    context, with the position a host int and a device tensor; then one
+    CUDA graph of it replayed at four starts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels are built with nvcc for sm_90a)")
+    g = torch.Generator(device="cuda").manual_seed(17)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, device="cuda", generator=g).to(dtype)
+
+    def dev(x):
+        return torch.tensor([x], dtype=torch.int32, device="cuda")
+
+    H, KH, D, K = 28, 4, 128, 4096
+    before = ffi.launch_counts["decode_attention"]
+    n = 0
+    for start, kv_min in ((0, 0), (1, 0), (7, 0), (64, 0), (65, 0), (1089, 0), (1090, 13),
+                          (2330, 0), (4095, 0)):
+        q, kn, vn = randn(H, D), randn(KH, D), randn(KH, D)
+        k, v = randn(K, KH, D, dtype=torch.bfloat16), randn(K, KH, D, dtype=torch.bfloat16)
+        k[start:], v[start:] = 999.0, -999.0
+        want = tfa.decode_attention_plain(q, kn, vn, k, v, start, kv_min)
+        for at, lo in ((start, kv_min), (dev(start), dev(kv_min))):
+            torch.testing.assert_close(tfa.decode_flash_attention(q, kn, vn, k, v, at, lo), want,
+                                       rtol=0, atol=ATOL)
+            n += 1
+    q, kn, vn = randn(H, D), randn(KH, D), randn(KH, D)
+    k, v = randn(K, KH, D, dtype=torch.bfloat16), randn(K, KH, D, dtype=torch.bfloat16)
+    at = dev(1089)
+    tfa.decode_flash_attention(q, kn, vn, k, v, at)
+    n += 1
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tfa.decode_flash_attention(q, kn, vn, k, v, at)
+    n += 1
+    for start in (0, 1089, 4095, 65):
+        at.fill_(start)
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, tfa.decode_attention_plain(q, kn, vn, k, v, start, 0),
+                                   rtol=0, atol=ATOL)
+    assert ffi.launch_counts["decode_attention"] - before == n
+
+
+def _thinker_tokens(eng, **settings):
+    """The token ids one thinker run on `eng` emits, by its text prompt."""
+    ids = []
+    real = eng.tokenizer
+
+    class Recorder:
+        def encode(self, text):
+            return real.encode(text)
+
+        def decode_piece(self, tid):
+            ids.append(int(tid))
+            return real.decode_piece(tid)
+
+    for k, v in settings.items():
+        setattr(eng, k, v)
+    eng._tokenizer = Recorder()
+    try:
+        eng.thinker_generate(None, "tell me a long story")
+    finally:
+        eng._tokenizer = real
+    torch.cuda.synchronize()
+    return ids
+
+
+@pytest.mark.cuda
+def test_cuda_sample_graph_tokens_equal_eager_across_cache_growth(card_stream_engine,
+                                                                   monkeypatch):
+    """The sampled thinker at its defaults (temperature 0.7, top-k 40,
+    penalty 1.1, seed 0) over 300 tokens, which grow the cache from 256 to
+    512 rows (no headroom past the prefill block): the graph replays give
+    the eager steps' tokens (the draw is keyed by seed and cache row, so a
+    capture moves nothing), two captures, one per cache, each replay L B3
+    launches and no head; another seed gives other tokens."""
+    from smolvision_tpu_torch.runtime import decode_graph
+    from smolvision_tpu_torch.runtime import engine as engine_mod
+
+    eng = card_stream_engine
+    monkeypatch.setattr(engine_mod, "KV_HEADROOM", 0)
+    settings = dict(thinker_max_tokens=300, temperature=0.7, top_k=40,
+                    repetition_penalty=1.1, seed=0)
+    before = dict(ffi.launch_counts)
+    graph = _thinker_tokens(eng, **settings)
+    perf = eng.perf
+    assert len(graph) == 300, "an EOS cut the run short of the cache growth"
+    assert eng._kv_cap == 512 and isinstance(eng._loop, decode_graph.SampleLoop)
+    assert perf.graph_captures == 2 and perf.wasted_steps <= 5 * (decode_graph.DONE_LAG - 1)
+    assert eng._loop.graph.launches == {"decode_attention": eng.cfg.dec_layers}
+    delta = {k: ffi.launch_counts[k] - before[k] for k in before if ffi.launch_counts[k] != before[k]}
+    assert delta == {"decode_attention": eng.cfg.dec_layers * perf.decode_steps,
+                     "causal_cache_attention": eng.cfg.dec_layers}
+    assert perf.decode_steps == perf.logits_steps == 299 + perf.wasted_steps
+    with monkeypatch.context() as m:
+        m.setattr(decode_graph, "capture", _eager_capture)
+        eager = _thinker_tokens(eng, **settings)
+    assert graph == eager
+    assert _thinker_tokens(eng, **dict(settings, seed=1)) != graph
+
+
+@pytest.mark.cuda
+def test_cuda_q25_thinker_graph_equals_eager(tmp_path, monkeypatch):
+    """A tiny Qwen2.5-Omni-shaped checkpoint on the card (a QKV bias, no q/k
+    norms, an untied head; G 7 in the decoder, head dim 128; the Conv1D
+    tower at 100-token windows, head dim 64): the greedy thinker on a 3 s
+    clip and the sampled one on text, each as CUDA graphs equal to the
+    eager steps; the encoder runs B1 once per layer."""
+    import numpy as np
+
+    from smolvision_tpu_torch.models import synthetic
+    from smolvision_tpu_torch.runtime import decode_graph
+    from smolvision_tpu_torch.runtime.engine import Engine
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels are built with nvcc for sm_90a)")
+    monkeypatch.setitem(synthetic.PRESETS, "card-q25", dict(
+        enc_d=128, enc_L=2, enc_heads=2, enc_ffn=256, enc_out=256, conv_hidden=0, dec_h=256,
+        dec_L=2, dec_heads=7, dec_kv=1, head_dim=128, dec_inter=512, vocab=152064, q25=True))
+    eng = Engine(synthetic.build("card-q25", str(tmp_path / "model"), seed=4, full_vocab=True),
+                 device="cuda")
+    t = np.arange(3 * 16000) / 16000
+    audio = (0.3 * np.sin(2 * np.pi * 220 * t)).astype(np.float32)
+
+    def run(temperature, samples, text):
+        ids = []
+        real = eng.tokenizer
+
+        class Recorder:
+            def encode(self, s):
+                return real.encode(s)
+
+            def decode_piece(self, tid):
+                ids.append(int(tid))
+                return real.decode_piece(tid)
+
+        eng.temperature, eng.thinker_max_tokens = temperature, 80
+        eng._tokenizer = Recorder()
+        try:
+            eng.thinker_generate(samples, text)
+        finally:
+            eng._tokenizer = real
+        torch.cuda.synchronize()
+        return ids
+
+    for temperature, samples, text in ((0.0, audio, None), (0.7, None, "hi")):
+        before = ffi.launch_counts["window_attention"]
+        graph = run(temperature, samples, text)
+        assert ffi.launch_counts["window_attention"] - before == (
+            eng.cfg.enc_layers if samples is not None else 0)
+        assert eng.perf.graph_captures == 1 and len(graph) > 0
+        with monkeypatch.context() as m:
+            m.setattr(decode_graph, "capture", _eager_capture)
+            eager = run(temperature, samples, text)
+        assert graph == eager

@@ -144,11 +144,14 @@ def test_cli_stdout_byte_equal(visible_model, silent):
 
 @pytest.mark.parametrize("extra,what", [
     (["--moe-offload"], "--moe-offload"), (["--moe-preload"], "--moe-preload"),
-    (["--thinker"], "--thinker"),
+    ("moe checkpoint", "MoE"),
 ])
-def test_cli_unported_modes_exit_1(visible_model, extra, what):
+def test_cli_unported_modes_exit_1(visible_model, request, extra, what):
+    """An unported option, or an MoE checkpoint (refused when the engine
+    loads it): one `smolvision: ...` line, exit 1, nothing on stdout."""
     model, wav = visible_model
-    extra = [wav if a == "WAV" else a for a in extra]
+    if extra == "moe checkpoint":
+        model, extra = request.getfixturevalue("tiny_moe_model_dir"), []
     r = _cli("smolvision_tpu_torch.cli", ["-d", model, "-i", wav] + extra)
     assert r.returncode == 1
     err = r.stderr.decode().strip().splitlines()

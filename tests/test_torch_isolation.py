@@ -42,6 +42,7 @@ def test_port_imports_no_jax():
         "import smolvision_tpu_torch.kernels.probes\n"
         "import smolvision_tpu_torch.runtime.stream, smolvision_tpu_torch.io.live\n"
         "import smolvision_tpu_torch.runtime.multistream\n"
+        "import smolvision_tpu_torch.runtime.sampling, smolvision_tpu_torch.models.q25_encoder\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'smolvision_tpu')\n"
         "       or m.startswith(('jax.', 'jaxlib.', 'smolvision_tpu.'))]\n"
         "assert 'smolvision_tpu_torch.runtime.engine' in sys.modules\n"
@@ -49,6 +50,8 @@ def test_port_imports_no_jax():
         "assert 'smolvision_tpu_torch.runtime.stream' in sys.modules\n"
         "assert 'smolvision_tpu_torch.io.live' in sys.modules\n"
         "assert 'smolvision_tpu_torch.runtime.multistream' in sys.modules\n"
+        "assert 'smolvision_tpu_torch.runtime.sampling' in sys.modules\n"
+        "assert 'smolvision_tpu_torch.models.q25_encoder' in sys.modules\n"
         "print('BAD', bad)\n")
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
@@ -80,6 +83,7 @@ def test_engine_without_card_raises(tiny_model_dir):
 _FACTORY_CALLS = {
     "load_qwen3_encoder": "P.load_qwen3_encoder(MultiSafetensors(d), cfg)",
     "load_decoder": "P.load_decoder(MultiSafetensors(d), cfg)",
+    "load_q25_encoder": "P.load_q25_encoder(MultiSafetensors(d), cfg)",
     "params_from_jax": "P.params_from_jax({}, {})",
     "make_kv_cache": "D.make_kv_cache(cfg, 64)",
     "make_batched_kv": "D.make_batched_kv(cfg, 2, 64)",
