@@ -140,6 +140,22 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
                 its caches.  Then B1, B2 and B3 at the q25 runs' shapes,
                 B3 at the 2048-token run's deepest row and K6 over the q25
                 head are timed, each row's launches its run's.
+ 12. omni     - Qwen3-Omni-30B-A3B (the omni-30b preset: full width, 128
+                experts top-8 in every decoder layer, seeded bf16, drawn on
+                the card by a child process once phase 11 has deleted
+                q25-7b; its decoder cut to OMNI_LAYERS of 48 layers by the
+                disk a call may write), resident, loaded once and shared
+                by every run: B1, B2, B3, B4 and K6 first checked at its
+                shapes (G 8, encoder H 20) while it is written; then
+                offline on the 20 s clip, `-S 20` on the 120 s clip (B 6:
+                the batched step, dense in its graph), `--stream` on the 20
+                s clip (the prefill graphs) and `--thinker --text` sampled,
+                each eager then as graphs with equal tokens; the offline
+                decode loop profiled; one MoE layer at T 64 with its
+                router forced to overflow, captured and eager equal; each
+                run's decode ms per step beside its weight-read bound and
+                the gather's copied bytes; then the kernels timed at its
+                shapes, each row's launches its run's.
 Each path that decodes greedily (--spec and multistream's bf16 run
 included) runs twice, in turns: first with the decode loops' steps and
 the prefills run eagerly on every replay, then as CUDA graphs (the path as
@@ -153,7 +169,7 @@ take.  Decode ms per step and the device's idle share are measured for
 graph and eager steps in turns (eager, graph, graph, eager) at each
 path's batch and weights.
 
-Prints the streams', multistream and thinker runs' summaries, a `{"kernels": [...]}`
+Prints the streams', multistream, thinker and 30B runs' summaries, a `{"kernels": [...]}`
 line, the nvidia-smi line, and as its last
 line `{"ok": true, "device": {...}}`.  Without a card, or outside a
 checkout, it exits non-zero and prints no result.  Imports nothing of JAX.
@@ -305,6 +321,22 @@ Q25_WINDOW_HEADS = (20, 64)   # (H, D) of its audio tower, at 100-token windows
 Q25_BUILD_TIMEOUT_S = 900
 # per thinker run (phase 11), printed as one line at the end
 THINKER_RUNS = {}
+# phase 12: Qwen3-Omni-30B-A3B (the omni-30b preset: full width and depth,
+# 48 MoE layers of 128 experts, top-8; seeded bf16, ~62 GB, drawn on the
+# card by a child process after phase 11 frees the disk of q25-7b)
+OMNI_PRESET = "omni-30b"
+# its decoder cut to 16 of 48 layers (config.json): a call on the card may
+# write 45 GiB to its disk in all, deleted files included; phases 2-11
+# write ~19 GB (the 0.6B and q25-7b checkpoints), the 48-layer checkpoint
+# alone is 61.7 GB; 16 layers make 21.9 GB
+OMNI_LAYERS = 16
+OMNI_HEADS = (32, 4, 128)     # (H, KH, D) of its decoder: G 8
+OMNI_WINDOW_HEADS = (20, 64)  # (H, D) of its encoder, at 104-token windows
+OMNI_TEXT_MAX_TOKENS = 256
+OMNI_OVERFLOW_T = 64          # rows of the forced-overflow forward
+OMNI_BUILD_TIMEOUT_S = 600
+# per 30B run (phase 12), printed as one line at the end
+OMNI_RUNS = {}
 
 
 def fail(msg: str) -> None:
@@ -491,11 +523,39 @@ def decode_row(K: int, start: int, heads=MAIN_HEADS):
             bound(nbytes, flops, "bfloat16"))
 
 
+def batched_causal_row(B: int, T: int, pads, heads=MAIN_HEADS):
+    """B4's timing inputs at B rows of T with left pads `pads` and `heads`
+    (H, KH, D): (source, replaces, kernel, plain, SDPA, bound, f32 CUDA-core
+    bound).  The bound reads q, k, v and writes the output in f32 once and
+    counts the products the causal and pad masks keep."""
+    import torch
+    import torch.nn.functional as F
+
+    from smolvision_tpu_torch.kernels import flash_attention as fa
+
+    q4, k4, v4 = batched_case(B, T, *heads)
+    km4 = torch.tensor(pads, dtype=torch.int32, device=DEV)
+    H4, D4 = q4.shape[2:]
+    attended = sum(max(t + 1 - lo, 0) for lo in pads for t in range(T))
+    nbytes = 4 * (2 * q4.numel() + 2 * k4.numel())
+    flops = 4 * H4 * D4 * attended
+    ar = torch.arange(T, device=DEV)
+    mask4 = ((ar[None, :] <= ar[:, None])[None] & (ar[None, None, :] >= km4[:, None, None]))
+    q4h, k4h, v4h = (x.transpose(1, 2) for x in (q4, k4, v4))
+    return ("smolvision_tpu_torch/kernels/csrc/batched_causal_attention.cu",
+            "smolvision_tpu/kernels/flash_attention.py:286",
+            lambda: fa.batched_causal_flash_attention(q4, k4, v4, km4),
+            lambda: fa.batched_causal_attention_plain(q4, k4, v4, km4),
+            lambda: F.scaled_dot_product_attention(q4h, k4h, v4h, attn_mask=mask4[:, None],
+                                                   enable_gqa=True),
+            bound(nbytes, flops, "bfloat16"), bound(nbytes, flops, "float32"))
+
+
 def kernel_of(name: str) -> str:
     """The launch key of a timing row: its kernel's name without the suffix
     of the shape it was timed at."""
     for suffix in ("_long", "_wide", "_segments", "_delta128", "_delta256", "_verify", "_q25",
-                   "_thinker"):
+                   "_thinker", "_omni_batched", "_omni"):
         name = name.removesuffix(suffix)
     return name.split("_mstream")[0]
 
@@ -851,24 +911,9 @@ def phase_kernels(shapes):
     # --- B4 at the -S run's shape (fresh prefill of one length group); the
     # bound is the tensor cores' (bf16 operands, as B2's); the f32 CUDA-core
     # bound of the earlier design is logged beside it
-    q4, k4, v4 = batched_case(B4, T4)
-    km4 = ints(pads4)
-    H4, D4 = q4.shape[2:]
-    attended = sum(max(t + 1 - lo, 0) for lo in pads4 for t in range(T4))
-    nbytes = 4 * (2 * q4.numel() + 2 * k4.numel())
-    flops = 4 * H4 * D4 * attended
-    ar = torch.arange(T4, device=DEV)
-    mask4 = ((ar[None, :] <= ar[:, None])[None] & (ar[None, None, :] >= km4[:, None, None]))
-    q4h, k4h, v4h = (x.transpose(1, 2) for x in (q4, k4, v4))
-    rows.append(("batched_causal_attention",
-                 "smolvision_tpu_torch/kernels/csrc/batched_causal_attention.cu",
-                 "smolvision_tpu/kernels/flash_attention.py:286",
-                 lambda: fa.batched_causal_flash_attention(q4, k4, v4, km4),
-                 lambda: fa.batched_causal_attention_plain(q4, k4, v4, km4),
-                 lambda: F.scaled_dot_product_attention(q4h, k4h, v4h, attn_mask=mask4[:, None],
-                                                        enable_gqa=True),
-                 bound(nbytes, flops, "bfloat16")))
-    f32_bounds["batched_causal_attention"] = bound(nbytes, flops, "float32")
+    row = batched_causal_row(B4, T4, pads4)
+    rows.append(("batched_causal_attention", *row[:-1]))
+    f32_bounds["batched_causal_attention"] = row[-1]
 
     # --- B5 at serving's group prefill (start 0: the cache is not read),
     # at --serve 4's wave and at --serve 64's (one wave of 64 clips)
@@ -2864,21 +2909,25 @@ def mstream_b5_table(b5_runs, L: int) -> list:
 # ---------------------------------------------------------------------------
 
 class CheckpointBuild:
-    """A seeded checkpoint written by a child process (one thread) while the
-    earlier phases run; `wait` joins it and gives its build seconds.  The
-    child is killed if the script ends first."""
+    """A seeded checkpoint written by a child process (one thread; a
+    `torch_draw` preset drawn on `device`) while other work runs; `wait`
+    joins it and gives its build seconds.  The child is killed if the
+    script ends first."""
 
-    def __init__(self, preset: str, path: str, seed: int):
+    def __init__(self, preset: str, path: str, seed: int, device: str = "cpu",
+                 timeout_s: float = None, dec_layers: int = None):
         import atexit
 
         self.preset, self.path = preset, path
+        self.timeout_s = timeout_s or Q25_BUILD_TIMEOUT_S
         code = ("import sys, time\n"
                 f"sys.path.insert(0, {ROOT!r})\n"
                 "import torch\n"
                 "torch.set_num_threads(1)\n"
                 "from smolvision_tpu_torch.models.synthetic import build\n"
                 "t0 = time.monotonic()\n"
-                f"build({preset!r}, {path!r}, seed={seed}, dtype='bf16', full_vocab=True)\n"
+                f"build({preset!r}, {path!r}, seed={seed}, dtype='bf16', full_vocab=True, "
+                f"device={device!r}, dec_layers={dec_layers!r})\n"
                 "print(time.monotonic() - t0)\n")
         env = dict(os.environ, OMP_NUM_THREADS="1")
         self.t0 = time.monotonic()
@@ -2888,10 +2937,10 @@ class CheckpointBuild:
 
     def wait(self) -> dict:
         try:
-            out, err = self.proc.communicate(timeout=Q25_BUILD_TIMEOUT_S)
+            out, err = self.proc.communicate(timeout=self.timeout_s)
         except subprocess.TimeoutExpired:
             self.stop()
-            fail(f"{self.preset}: the checkpoint was not written in {Q25_BUILD_TIMEOUT_S} s")
+            fail(f"{self.preset}: the checkpoint was not written in {self.timeout_s} s")
         if self.proc.returncode != 0:
             fail(f"{self.preset}: the checkpoint build failed: {err.strip()[-2000:]}")
         size = sum(os.path.getsize(os.path.join(self.path, f)) for f in os.listdir(self.path))
@@ -3250,6 +3299,382 @@ def q25_kernel_table(shapes, q25_run: dict, long: dict, errs: dict) -> list:
         row["launches"] = launches[row["name"]]
     return table
 
+# ---------------------------------------------------------------------------
+# phase 12: Qwen3-Omni-30B-A3B, resident (the MoE decoder)
+# ---------------------------------------------------------------------------
+
+def omni_step_bytes(cfg) -> dict:
+    """Bytes one 30B decode step must read (bf16 weights, the f32 router):
+    attention, router and the K chosen experts of every layer, then the
+    head (the tied embedding); and what the gather copies per step (K
+    expert blocks of each of the three matrices per layer, read and
+    written once each)."""
+    H, D, KH, hid = cfg.dec_heads, cfg.dec_head_dim, cfg.dec_kv_heads, cfg.dec_hidden
+    attn = 2 * ((H * D + 2 * KH * D) * hid + hid * H * D)
+    router = 4 * cfg.num_experts * hid
+    experts = 2 * 3 * cfg.num_experts_per_tok * cfg.moe_intermediate * hid
+    layers = cfg.dec_layers * (attn + router + experts)
+    head = 2 * cfg.vocab_size * hid
+    return {"weights_gb": (layers + head) / 1e9, "attention_router_gb":
+            cfg.dec_layers * (attn + router) / 1e9, "experts_gb": cfg.dec_layers * experts / 1e9,
+            "head_gb": head / 1e9, "bound_ms": (layers + head) / HBM_BYTES_PER_S * 1e3,
+            "gather_copy_gb": cfg.dec_layers * experts / 1e9,
+            "all_experts_gb": cfg.dec_layers * 3 * 2 * cfg.num_experts * cfg.moe_intermediate
+            * hid / 1e9}
+
+
+def phase_omni_kernels(shapes) -> dict:
+    """Phase 3 at the 30B's shapes against the plain versions
+    (KERNEL_ATOL): B1 at its encoder's 104-token windows (H 20, D 64) of
+    the 20 s clip, under each split, and an all-pad window; B2 at the
+    offline prefill block (H 32 over 4 KV heads: G 8) on a bf16 cache,
+    start and kv_valid host ints and device tensors; B3 at G 8 at starts on
+    and off the cluster plan, the position a host int and a device tensor,
+    and one graph replayed at four starts; B4 at the -S run's batch (B 6)
+    and an all-pad row at G 8; K6 over the [151936, 2048] head at R 1 and
+    the -S batch, both routes, planted winners and random rows.  Returns
+    the largest error per kernel."""
+    import torch
+
+    from smolvision_tpu_torch.config import QWEN3_OMNI_30B
+    from smolvision_tpu_torch.kernels import flash_attention as fa
+
+    H, KH, D = OMNI_HEADS
+    WH, WD = OMNI_WINDOW_HEADS
+    errs = {k: 0.0 for k in ("window_attention", "causal_cache_attention", "decode_attention",
+                             "batched_causal_attention", "argmax_matvec")}
+
+    def ints(values):
+        return torch.tensor(values, dtype=torch.int32, device=DEV)
+
+    for lens in (shapes["window_lens"], [104, 104, 3, 0]):
+        q, k, v, lens_t = window_case(len(lens), lens, S=104, H=WH, D=WD, garbage=True)
+        want = fa.window_attention_plain(q, k, v, lens_t)
+        for split in window_splits(104):
+            with window_split(split):
+                got = fa.window_flash_attention(q, k, v, lens_t)
+            errs["window_attention"] = max(errs["window_attention"], check_close(
+                f"B1 omni H={WH} lens={lens} split={split}", got, want))
+
+    T, valid, K = shapes["prefill_T"], shapes["prompt_len"], shapes["kv_cap"]
+    for start, kv_valid in ((0, valid), (300, 300 + 117)):
+        q, k, v = cache_case(T, K + 512, start, kv_valid, H, KH, D)
+        want = fa.causal_cache_attention_plain(q, k, v, start, kv_valid)
+        dev_start = torch.tensor([start], dtype=torch.int64, device=DEV)
+        for form, s0, n in (("host", start, kv_valid),
+                            ("device", dev_start, dev_start + (kv_valid - start))):
+            errs["causal_cache_attention"] = max(errs["causal_cache_attention"], check_close(
+                f"B2 omni T={T} start={start} valid={kv_valid} {form} start",
+                fa.causal_cache_flash_attention(q, k, v, s0, n), want))
+
+    pos0 = shapes["decode_pos"]
+    for K3, start, kv_min in ((1024, 0, 0), (1024, 7, 0), (1024, 65, 0), (1024, pos0, 0),
+                              (1024, pos0 + 1, 13), (4096, 4095, 0)):
+        q, kn, vn, k, v = decode_case(K3, start, H, KH, D)
+        want = fa.decode_attention_plain(q, kn, vn, k, v, start, kv_min)
+        for p0, lo in ((start, kv_min), (ints([start]), ints([kv_min]))):
+            errs["decode_attention"] = max(errs["decode_attention"], check_close(
+                f"B3 omni K={K3} start={start} kv_min={kv_min} {type(p0).__name__} position",
+                fa.decode_flash_attention(q, kn, vn, k, v, p0, lo), want))
+    if DEV == "cuda":
+        q, kn, vn, k, v = decode_case(1024, 1023, H, KH, D)
+        at = ints([pos0])
+        fa.decode_flash_attention(q, kn, vn, k, v, at)   # warm-up outside the capture
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fa.decode_flash_attention(q, kn, vn, k, v, at)
+        for start in (0, pos0, 1023, 65):
+            at.fill_(start)
+            out.fill_(float("nan"))
+            graph.replay()
+            torch.cuda.synchronize()
+            errs["decode_attention"] = max(errs["decode_attention"], check_close(
+                f"B3 omni graph replayed at start {start}", out,
+                fa.decode_attention_plain(q, kn, vn, k, v, start, 0)))
+        del graph
+
+    B4, T4 = shapes["seg_B"], shapes["seg_T"]
+    for B, kv_min in ((B4, shapes["seg_pads"]), (3, [T4, 1, 200])):
+        q, k, v = batched_case(B, T4, H, KH, D)
+        got = fa.batched_causal_flash_attention(q, k, v, ints(kv_min))
+        errs["batched_causal_attention"] = max(errs["batched_causal_attention"], check_close(
+            f"B4 omni B={B} T={T4} kv_min={kv_min}", got,
+            fa.batched_causal_attention_plain(q, k, v, ints(kv_min))))
+
+    V, Hd = QWEN3_OMNI_30B.vocab_size, QWEN3_OMNI_30B.dec_hidden
+    for i, (R, planted, route) in enumerate((r, p, route) for r in (1, B4) for p in (True, False)
+                                            for route in ("cuda_core", "tensor_core")):
+        h, w, scale, winners = head_case(V, Hd, R, "bfloat16", 800 + i, planted)
+        errs["argmax_matvec"] = max(errs["argmax_matvec"], check_head(
+            f"K6 omni [{V}, {Hd}] R={R} planted={planted} {route}", h, w, scale, winners, route))
+        del h, w
+    log(f"Qwen3-Omni-30B shapes vs plain: max_abs_err {json.dumps(errs)} (tolerance "
+        f"{KERNEL_ATOL:g}; K6: shortfall, tolerance {HEAD_RTOL:g} of max |logit|)")
+    return errs
+
+
+@contextlib.contextmanager
+def resident_weights():
+    """Every Engine built in the block shares the first one's weights on
+    the card: the port's loaders are called once per (loader, parameter
+    dtype) and their tensors kept, so the 30B (62 GB) is read from disk
+    once, not once per CLI run.  Yields the kept tensors."""
+    from smolvision_tpu_torch.models import params as params_mod
+
+    kept = {}
+
+    def keep(name):
+        real = getattr(params_mod, name)
+
+        def load(reader, cfg, param_dtype, device=None):
+            if (name, param_dtype) not in kept:
+                kept[(name, param_dtype)] = real(reader, cfg, param_dtype, device)
+            return kept[(name, param_dtype)]
+        return load
+
+    with mock.patch.object(params_mod, "load_qwen3_encoder", keep("load_qwen3_encoder")), \
+            mock.patch.object(params_mod, "load_decoder", keep("load_decoder")):
+        yield kept
+
+
+def omni_summary(name: str, eng, step: dict, dense: bool = False) -> None:
+    """OMNI_RUNS[name]: the graph turn's phase times (`cli_ms`), per turn
+    its decode ms per step, captures against caches, peak memory and
+    realtime factor (run_path's summary of `name`), and the step's bytes:
+    its weight-read bound and what the gather copies, or, for a `dense`
+    step (above moe.GATHER_MAX_T rows), every expert's bytes."""
+    run = DECODE_RUNS[name]
+    out = dict(cli_ms(eng))
+    if eng.perf.batch_decode_steps:
+        out["decode_ms_per_step"] = eng.perf.batch_decode_ms / eng.perf.batch_decode_steps
+    for key in ("decode_ms_per_step", "captures", "caches", "prefill_captures", "prefill_keys",
+                "host_reads", "chunks", "max_memory_allocated_gib", "realtime_factor",
+                "last_row"):
+        if key in run:
+            out[f"{key}_turns"] = run[key]
+    out["step_weight_read_bound_ms"] = step["bound_ms"]
+    if dense:
+        out["all_experts_gb_per_step"] = step["all_experts_gb"]
+    else:
+        out["gather_copy_gb_per_step"] = step["gather_copy_gb"]
+    OMNI_RUNS[name] = out
+    log(f"  {name}: {json.dumps(out)}")
+
+
+def omni_overflow_forward(eng) -> dict:
+    """One MoE layer of the 30B (layer 0's router and experts, bf16) at T 64
+    with its router forced to overflow: rows 0-7 of a copy of the router
+    raised by 1.0, and positive activations, so every token picks experts
+    0-7 (queues of C = ceil(64 * 8 / 128 * 2) = 8 rows: 448 of the 512
+    (token, expert) pairs past capacity).  The eager forward dispatches,
+    reads the drop count on the host and falls back to dense; the same
+    forward as a graph step's (graph_safe), captured as a CUDA graph, runs
+    dense with no host read.  Their outputs must be equal."""
+    import torch
+
+    from smolvision_tpu_torch.models import moe
+    from smolvision_tpu_torch.models.qwen3_decoder import MOE_KEYS, layer_params
+
+    cfg = eng.cfg
+    lp = {k: v for k, v in layer_params(eng.dec_params)[0].items() if k in MOE_KEYS}
+    lp["router"] = lp["router"].clone()
+    lp["router"][:8] += 1.0
+    T = OMNI_OVERFLOW_T
+    g = torch.Generator(device=DEV).manual_seed(900)
+    x = torch.randn(T, cfg.dec_hidden, device=DEV, generator=g).abs() + 0.1
+    top_idx, top_w = moe.route(x, lp["router"], cfg)
+    _, n_dropped = moe.capacity_dispatch(x.to(lp["e_gate"].dtype), lp, top_idx, top_w,
+                                         torch.ones(T, dtype=torch.bool, device=DEV))
+    if int(n_dropped) == 0:
+        fail("omni overflow forward: the forced routing did not overflow")
+    eager = moe.moe_ffn(x, lp, cfg)
+    if DEV == "cuda":
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            moe.moe_ffn(x, lp, cfg, graph_safe=True)   # warm-up outside the capture
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = moe.moe_ffn(x, lp, cfg, graph_safe=True)
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        del graph
+    else:   # a CPU rehearsal: the graph-safe forward run eagerly
+        out = moe.moe_ffn(x, lp, cfg, graph_safe=True)
+    err = check_close("omni overflow forward: captured vs eager", out, eager)
+    result = {"T": T, "n_dropped": int(n_dropped), "pairs": T * cfg.num_experts_per_tok,
+              "capacity": moe.capacity(T, cfg.num_experts_per_tok, cfg.num_experts),
+              "max_abs_err": err, "max_abs_out": float(eager.abs().max()),
+              "eager_ms": eager_ms(lambda: moe.moe_ffn(x, lp, cfg), iters=5, warmup=1),
+              "graph_ms": time_ms(lambda: moe.moe_ffn(x, lp, cfg, graph_safe=True), iters=5)}
+    log(f"  omni overflow forward (T {T}, forced routing), captured vs eager: "
+        f"{json.dumps(result)}")
+    return result
+
+
+def omni_preflight(path: str) -> None:
+    """The 30B checkpoint's size against the free disk and host memory
+    (the disk must hold it; the page cache holds what the load reads)."""
+    import numpy as np
+
+    from smolvision_tpu_torch.models.synthetic import PRESETS, _specs
+
+    need = sum(int(np.prod(shape)) * (2 if len(shape) >= 2 and "norm" not in name else 4)
+               for name, shape, _, _ in _specs(dict(PRESETS[OMNI_PRESET], dec_L=OMNI_LAYERS)))
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    free = shutil.disk_usage(os.path.dirname(path)).free
+    with open("/proc/meminfo") as f:
+        mem = {line.split(":")[0]: int(line.split()[1]) * 1024 for line in f}
+    log(f"  {OMNI_PRESET}: {need / 1e9:.2f} GB to write; disk free {free / 1e9:.2f} GB, "
+        f"host memory available {mem.get('MemAvailable', 0) / 1e9:.2f} GB")
+    if need > free:
+        fail(f"{OMNI_PRESET}: {need / 1e9:.2f} GB does not fit the {free / 1e9:.2f} GB free")
+
+
+def phase_omni(omni_dir: str, wav: str, long_wav: str, shapes, build: dict) -> dict:
+    """Qwen3-Omni-30B-A3B (seeded bf16, full geometry, resident) through the
+    CLI: offline on the 20 s clip, `-S 20` on the 120 s clip (B 6: the
+    batched step, dense in its graph), `--stream` on the 20 s clip (the
+    prefill graphs, B2 at start > 0) and `--thinker --text` sampled to
+    OMNI_TEXT_MAX_TOKENS, each eager then as CUDA graphs with equal tokens
+    (`run_path`); the offline decode loop profiled, eager and graph in
+    turns; then the forced-overflow forward.  The weights are loaded once
+    (`resident_weights`), the load timed."""
+    import gc
+
+    from smolvision_tpu_torch.config import detect_config
+    from smolvision_tpu_torch.io.wav import load_wav
+    from smolvision_tpu_torch.models.synthetic import PRESETS
+
+    ocfg = detect_config(omni_dir)
+    p = PRESETS[OMNI_PRESET]
+    if ((ocfg.is_moe, ocfg.dec_layers, ocfg.dec_hidden, ocfg.num_experts, ocfg.enc_layers)
+            != (True, OMNI_LAYERS, p["dec_h"], p["moe"]["num_experts"], p["enc_L"])):
+        fail(f"{OMNI_PRESET}: detected {ocfg}")
+    step = omni_step_bytes(ocfg)
+    log(f"  {OMNI_PRESET} decode step bytes: {json.dumps(step)}")
+    base = ["-d", omni_dir, "--silent", "--language", "English"]
+    out = {"build": build, "step": step}
+    with load_timer() as loads, resident_weights():
+        eng, launches, lines, _ = run_path(base + ["-i", wav, "--max-tokens", str(MAX_TOKENS)],
+                                           "omni offline", ocfg)
+        if not eng.dec_params.get("moe_layers") or not all(eng.dec_params["moe_layers"]):
+            fail("omni offline: the decoder was not loaded as 48 MoE layers")
+        omni_summary("omni offline", eng, step)
+        out["offline"] = {"launches": launches, "K": eng._kv_cap,
+                          "start": DECODE_RUNS["omni offline"]["last_row"]["graph"]}
+        log(f"  omni offline transcript: {' '.join(lines)[:120]}")
+        prof = profile_decode(eng, load_wav(wav))
+        OMNI_RUNS["omni offline"]["profile"] = {k: v for k, v in prof.items() if k != "windows"}
+        log(f"  omni offline decode loop, eager and graph in turns: "
+            f"{json.dumps(OMNI_RUNS['omni offline']['profile'])}")
+        del eng
+        gc.collect()
+        eng, launches, lines, _ = run_path(
+            base + ["-i", long_wav, "-S", str(SEGMENT_SEC), "--max-tokens", str(MAX_TOKENS)],
+            "omni -S 20", ocfg, batch=shapes["seg_B"])
+        if eng.perf.fresh_prefills == 0 or eng.perf.batch_decode_steps == 0:
+            fail("omni -S 20: no batched prefill or decode step ran")
+        omni_summary("omni -S 20", eng, step, dense=True)
+        out["segments"] = {"launches": launches}
+        del eng
+        gc.collect()
+        with stream_record() as runs:
+            eng, launches, lines, wall_s = run_path(
+                ["-d", omni_dir, "--language", "English", "--stream", "-i", wav],
+                "omni --stream", ocfg)   # not --silent: that is one offline pass
+        stream_summary("omni --stream", eng, runs[-1], ocfg, wall_s)
+        omni_summary("omni --stream", eng, step)
+        del eng
+        gc.collect()
+        eng, launches, lines, _ = run_path(
+            ["-d", omni_dir, "--silent", "--thinker", "--text", THINKER_TEXT, "--max-tokens",
+             str(OMNI_TEXT_MAX_TOKENS)], "omni thinker --text", ocfg, loop_kind="sample")
+        omni_summary("omni thinker --text", eng, step)
+        out["overflow"] = omni_overflow_forward(eng)
+        del eng
+        gc.collect()
+    out["load_s"] = loads[0]
+    log(f"  {OMNI_PRESET}: written in {build['build_s']:.1f} s ({build['bytes'] / 1e9:.2f} GB; "
+        f"waited for {build['waited_s']:.1f} s since its start), loaded onto the card once in "
+        f"{loads[0]:.1f} s (later engines share its weights: "
+        f"{', '.join(f'{t:.1f}' for t in loads[1:])} s)")
+    return out
+
+
+def omni_kernel_table(shapes, run: dict, errs: dict) -> list:
+    """The kernels line's rows at phase 12's shapes, each checked again on
+    its timing inputs and timed (turns plain, kernel, kernel, plain) beside
+    its library call and its bound, its launches those of the graph turn of
+    the run that carries it: B1 at the 30B encoder's windows of the 20 s
+    clip (H 20, D 64), B2 at the offline prefill (G 8), B3 at G 8 at the
+    offline run's deepest decode row and cache (all three from the offline
+    run), B4 at the -S run's batch (G 8) and K6 over the [151936, 2048]
+    head at R 1 (offline) and R 6 (the -S run)."""
+    import torch
+
+    from smolvision_tpu_torch.config import QWEN3_OMNI_30B
+    from smolvision_tpu_torch.kernels import argmax_matvec as am
+
+    off, seg = run["offline"]["launches"], run["segments"]["launches"]
+    WH, WD = OMNI_WINDOW_HEADS
+    rows = [("window_attention_omni", "smolvision_tpu_torch/kernels/csrc/window_attention.cu",
+             "smolvision_tpu/kernels/flash_attention.py:60",
+             *window_row(shapes["window_lens"], H=WH, D=WD)[:4]),
+            ("causal_cache_attention_omni",
+             "smolvision_tpu_torch/kernels/csrc/causal_cache_attention.cu",
+             "smolvision_tpu/kernels/flash_attention.py:491",
+             *cache_row(shapes["prefill_T"], shapes["kv_cap"], 0, shapes["prompt_len"],
+                        heads=OMNI_HEADS)),
+            ("decode_attention_omni", "smolvision_tpu_torch/kernels/csrc/decode_attention.cu",
+             "smolvision_tpu/kernels/flash_attention.py:184",
+             *decode_row(run["offline"]["K"], run["offline"]["start"], heads=OMNI_HEADS)),
+            ("batched_causal_attention_omni",
+             *batched_causal_row(shapes["seg_B"], shapes["seg_T"], shapes["seg_pads"],
+                                 OMNI_HEADS)[:-1])]
+    row_errs = dict(errs)
+    for name, _, _, kern, plain, _, _ in rows:
+        row_errs[name] = max(errs[kernel_of(name)], check_close(f"{name} timing inputs",
+                                                                kern(), plain()))
+    table = timed_table(rows, row_errs, {})
+    launches = {"window_attention_omni": off["window_attention"],
+                "causal_cache_attention_omni": off["causal_cache_attention"],
+                "decode_attention_omni": off["decode_attention"],
+                "batched_causal_attention_omni": seg["batched_causal_attention"]}
+    V, Hd = QWEN3_OMNI_30B.vocab_size, QWEN3_OMNI_30B.dec_hidden
+    for name, R, source_run in (("argmax_matvec_omni", 1, off),
+                                ("argmax_matvec_omni_batched", shapes["seg_B"], seg)):
+        h, w, _, _ = head_case(V, Hd, R, "bfloat16", 900 + R)
+        err = max(errs["argmax_matvec"], check_head(f"{name} timing inputs", h, w))
+        hb = h.to(torch.bfloat16)
+        kern = lambda h=h, w=w: am.argmax_matvec(h, w)   # noqa: E731
+        plain = lambda h=h, w=w: am.argmax_matvec_plain(h, w)   # noqa: E731
+        p1, k1, k2, p2 = (time_ms(f) for f in (plain, kern, kern, plain))
+        lib_ms = time_ms(lambda hb=hb, w=w: torch.argmax(
+            torch.mm(hb, w.t(), out_dtype=torch.float32), dim=-1))
+        nbytes = w.numel() * w.element_size() + 4 * R * (Hd + 1)
+        bound_ms, bound_by = bound(nbytes, 2.0 * R * V * Hd, "bfloat16")
+        route = am.head_route(R, w.dtype)
+        table.append({"name": name, "route": "cuda",
+                      "source": "smolvision_tpu_torch/kernels/csrc/argmax_matvec.cu",
+                      "replaces": "tools/profile_decode2.py:127" if R == 1
+                      else "tools/profile_decode3.py:145",
+                      "max_abs_err": err, "ms": min(k1, k2), "plain_ms": min(p1, p2),
+                      "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                      "design": route.replace("_", " ") + "s"})
+        launches[name] = source_run[am.launch_key(route, w.dtype)]
+        log(f"  {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+            f"library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        del h, w, hb
+    for row in table:
+        row["launches"] = launches[row["name"]]
+    return table
+
+
 
 def main() -> int:
     import argparse
@@ -3282,8 +3707,10 @@ def main() -> int:
     log(f"device: {kind} (count {count}); torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"nvidia-smi: {smi_line}")
     q25_dir = os.path.join(ROOT, "build", "chip_smoke_q25", Q25_PRESET)
-    shutil.rmtree(os.path.dirname(q25_dir), ignore_errors=True)
-    q25_build = None
+    omni_dir = os.path.join(ROOT, "build", "chip_smoke_omni", OMNI_PRESET)
+    for d in (q25_dir, omni_dir):
+        shutil.rmtree(os.path.dirname(d), ignore_errors=True)
+    q25_build = omni_build = None
     if not args.kernels_only:
         # phase 11's checkpoint, written while phases 2-10 run
         q25_build = CheckpointBuild(Q25_PRESET, q25_dir, SEED)
@@ -3434,11 +3861,27 @@ def main() -> int:
         q25_run = phase_q25(q25_dir, wav, q25_build.wait())
         table += q25_kernel_table(shapes, q25_run, long, q25_errs)
         since("phase 11 (thinker, Qwen2.5-Omni-7B)")
+
+        # phase 12: Qwen3-Omni-30B-A3B resident; its checkpoint is written
+        # once q25-7b's is gone (the disk does not hold both), while the
+        # kernels are checked at its shapes
+        shutil.rmtree(os.path.dirname(q25_dir), ignore_errors=True)
+        omni_preflight(omni_dir)
+        omni_build = CheckpointBuild(OMNI_PRESET, omni_dir, SEED, device=DEV,
+                                     timeout_s=OMNI_BUILD_TIMEOUT_S, dec_layers=OMNI_LAYERS)
+        log(f"{OMNI_PRESET}: writing a seeded bf16 checkpoint in a child process (drawn on the "
+            f"card)")
+        omni_errs = phase_omni_kernels(shapes)
+        omni_run = phase_omni(omni_dir, wav, long_wav, shapes, omni_build.wait())
+        table += omni_kernel_table(shapes, omni_run, omni_errs)
+        since("phase 12 (Qwen3-Omni-30B-A3B)")
     finally:
-        if q25_build is not None:
-            q25_build.stop()
+        for child in (q25_build, omni_build):
+            if child is not None:
+                child.stop()
         shutil.rmtree(work, ignore_errors=True)
         shutil.rmtree(os.path.dirname(q25_dir), ignore_errors=True)
+        shutil.rmtree(os.path.dirname(omni_dir), ignore_errors=True)
 
     # launches: each kernel's count from the path that carries it at the
     # shape its row was timed at
@@ -3468,6 +3911,7 @@ def main() -> int:
     log(f"streams: {json.dumps(STREAM_RUNS)}")
     log(f"multistream [{smi_line}]: {json.dumps(MSTREAM_RUNS)}")
     log(f"thinker runs [{smi_line}]: {json.dumps(THINKER_RUNS)}")
+    log(f"omni-30b runs [{smi_line}]: {json.dumps(OMNI_RUNS)}")
     log(f"decode loops, graph vs eager per path: {json.dumps(DECODE_RUNS)}")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in table]}))
     print(smi_line)

@@ -1,0 +1,155 @@
+"""The MoE FFN of the Qwen3 decoder (Qwen3-Omni-30B-A3B): router, top-k and
+the expert SwiGLU mix, in three formulations.
+
+Port of `_moe_ffn` and its helpers in smolvision_tpu/models/qwen3_decoder.py
+(reference semantics: moe_forward_single, qwen_asr_decoder.c:362-451):
+
+  * the router runs in f32 whatever the weights' dtype (the JAX loader
+    keeps it f32): scores, `topk`, a softmax over the top-k values and,
+    with norm_topk_prob, their renormalisation (+ 1e-20).  In bf16 expert
+    choices would flip;
+  * `moe_apply_gathered` (T <= GATHER_MAX_T, every decode step): copies the
+    chosen experts' blocks ([T, K, MI, H]) and runs each token through its
+    own K experts;
+  * `capacity_dispatch` (a longer block, E >= MOE_DISPATCH_MIN_EXPERTS):
+    per-expert queues of C = min(T, ceil(T*K/E * MOE_CAPACITY_FACTOR))
+    rows, each expert one [C, H] block; pad rows take no rank; it returns
+    the count of valid (token, expert) pairs past capacity;
+  * `moe_dense` (E < MOE_DISPATCH_MIN_EXPERTS, and the fallback whenever
+    the dispatch drops): every expert over the whole block, weighted by
+    the one-hot routing -- exact.
+
+The choice for a block of T > GATHER_MAX_T rows depends on who runs it.
+An eager forward (a host start: batched prefills, serving waves,
+multistream rounds, the thinker's logits prefill) follows the JAX package
+step for step: dispatch, read the drop count on the host, fall back to
+dense.  A graph step's forward (a device start: the prefill graphs, the
+batched decode step, the --spec verify; runtime/decode_graph.py) may never
+read the device, and its control flow may not depend on the routing, so it
+takes `moe_dense` directly: the same bytes (every expert read once) and
+operations (E x T rows) as a dispatch that cannot drop (C = T), without the
+scatter and the gather.  It runs the same formulation whether the step is
+captured or run eagerly, so a graph's tokens equal its eager run's.  At
+T <= GATHER_MAX_T both run the gather: a dense decode step would read all
+E experts (58 GB at the 30B, ~17 ms a token).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from smolvision_tpu_torch.config import ModelConfig
+from smolvision_tpu_torch.ops.common import bmm, linear, silu
+
+MOE_DISPATCH_MIN_EXPERTS = 16
+MOE_CAPACITY_FACTOR = 2.0
+GATHER_MAX_T = 4
+
+
+def route(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
+    """x [T, H] f32 and the f32 router [E, H] -> (top_idx int64 [T, K],
+    top_w f32 [T, K]): f32 scores, top-k, softmax over the top-k values,
+    norm_topk_prob's renormalisation."""
+    scores = x.float() @ router.float().t()
+    top_vals, top_idx = torch.topk(scores, cfg.num_experts_per_tok, dim=-1)
+    top_w = torch.softmax(top_vals, dim=-1)
+    if cfg.norm_topk_prob:
+        top_w = top_w / (top_w.sum(dim=-1, keepdim=True) + 1e-20)
+    return top_idx, top_w
+
+
+def moe_apply_gathered(xc: torch.Tensor, g_w: torch.Tensor, u_w: torch.Tensor,
+                       d_w: torch.Tensor, top_w: torch.Tensor) -> torch.Tensor:
+    """Per-token gathered expert SwiGLU mix: xc [T, H] in the weights' dtype,
+    expert blocks g_w / u_w [T, K, MI, H] and d_w [T, K, H, MI], router
+    weights top_w [T, K] -> [T, H] f32."""
+    T, K, MI, H = g_w.shape
+    x3 = xc[:, :, None]
+    gate = bmm(g_w.reshape(T, K * MI, H), x3).reshape(T, K, MI)
+    up = bmm(u_w.reshape(T, K * MI, H), x3).reshape(T, K, MI)
+    act = (silu(gate) * up).to(xc.dtype)
+    down = bmm(d_w.reshape(T * K, H, MI), act.reshape(T * K, MI, 1)).reshape(T, K, H)
+    return torch.einsum("tk,tkh->th", top_w, down)
+
+
+def _gathered(xc, lp, top_idx, top_w) -> torch.Tensor:
+    T, K = top_idx.shape
+    flat = top_idx.reshape(-1)
+
+    def take(w):   # [E, A, B] -> [T, K, A, B]: a copy of the chosen blocks
+        return w.index_select(0, flat).reshape(T, K, *w.shape[1:])
+
+    return moe_apply_gathered(xc, take(lp["e_gate"]), take(lp["e_up"]), take(lp["e_down"]),
+                              top_w)
+
+
+def capacity(T: int, K: int, E: int) -> int:
+    """Rows of each expert's queue for a block of T tokens."""
+    return min(T, int(math.ceil(T * K / E * MOE_CAPACITY_FACTOR)))
+
+
+def capacity_dispatch(xc: torch.Tensor, lp, top_idx: torch.Tensor, top_w: torch.Tensor,
+                      valid: torch.Tensor):
+    """Scatter tokens into per-expert queues [E, C, H] and run each expert
+    over its one block.  valid [T] bool: pad rows get no rank (they take no
+    capacity and receive nothing).  Returns (out [T, H] f32, n_dropped: a
+    0-dim int64 tensor, the valid (token, expert) pairs past capacity)."""
+    T, K = top_idx.shape
+    E, _, H = lp["e_gate"].shape
+    C = capacity(T, K, E)
+    flat_e = top_idx.reshape(-1)                                     # [TK]
+    oh = torch.nn.functional.one_hot(flat_e, E) * valid.repeat_interleave(K)[:, None].long()
+    pos = (torch.cumsum(oh, dim=0) * oh).sum(dim=-1) - 1             # rank; -1 for pads
+    keep = (pos >= 0) & (pos < C)
+    n_dropped = (pos >= C).sum()
+    slot = torch.where(keep, pos, C)                                 # C: the drop slot
+    tok_of = torch.arange(T, device=xc.device).repeat_interleave(K)
+    disp = xc.new_zeros((E, C + 1, H))
+    disp[flat_e, slot] = xc[tok_of]      # kept (expert, slot) pairs are unique
+    disp = disp[:, :C]
+    gate = bmm(disp, lp["e_gate"].transpose(1, 2))                   # [E, C, MI]
+    up = bmm(disp, lp["e_up"].transpose(1, 2))
+    act = (silu(gate) * up).to(xc.dtype)
+    down = bmm(act, lp["e_down"].transpose(1, 2))                    # [E, C, H]
+    gathered = down[flat_e, slot.clamp(max=C - 1)]
+    gathered = torch.where(keep[:, None], gathered, 0.0)
+    out = (gathered.reshape(T, K, H) * top_w[..., None]).sum(dim=1)
+    return out, n_dropped
+
+
+def moe_dense(xc: torch.Tensor, lp, top_idx: torch.Tensor, top_w: torch.Tensor) -> torch.Tensor:
+    """Exact one-hot routing: every expert over the whole block [T, H]."""
+    T = xc.shape[0]
+    E, MI, H = lp["e_gate"].shape
+    route_w = (torch.nn.functional.one_hot(top_idx, E).float() * top_w[..., None]).sum(dim=1)
+    gate = linear(xc, lp["e_gate"].reshape(E * MI, H)).reshape(T, E, MI)
+    up = linear(xc, lp["e_up"].reshape(E * MI, H)).reshape(T, E, MI)
+    act = (silu(gate) * up).to(xc.dtype)
+    down = bmm(act.transpose(0, 1), lp["e_down"].transpose(1, 2))     # [E, T, H]
+    return torch.einsum("te,eth->th", route_w, down)
+
+
+def moe_ffn(x: torch.Tensor, lp, cfg: ModelConfig, valid=None,
+            graph_safe: bool = False) -> torch.Tensor:
+    """The MoE FFN of one layer: x [T, H] f32 -> [T, H] f32.  lp holds the
+    layer's `router` [E, H] (f32) and `e_gate` / `e_up` [E, MI, H], `e_down`
+    [E, H, MI].  valid [T] bool marks the rows that may take expert
+    capacity (None: all).  graph_safe: a graph step's forward, which reads
+    nothing back and takes the dense path above GATHER_MAX_T rows (see the
+    module notes); otherwise a dispatch that drops reads its count on the
+    host and falls back to dense."""
+    top_idx, top_w = route(x, lp["router"], cfg)
+    xc = x.to(lp["e_gate"].dtype)
+    T = x.shape[0]
+    if T <= GATHER_MAX_T:
+        return _gathered(xc, lp, top_idx, top_w)
+    if graph_safe or cfg.num_experts < MOE_DISPATCH_MIN_EXPERTS:
+        return moe_dense(xc, lp, top_idx, top_w)
+    if valid is None:
+        valid = torch.ones(T, dtype=torch.bool, device=x.device)
+    out, n_dropped = capacity_dispatch(xc, lp, top_idx, top_w, valid)
+    if int(n_dropped) > 0:   # the host read of an eager forward
+        return moe_dense(xc, lp, top_idx, top_w)
+    return out

@@ -13,8 +13,18 @@ leaf by leaf:
     (zeros substituted), one `proj`, the learned audio bos / eos rows; its
     decoder has a QKV bias `bqkv` (f32, rows of q; k; v), no q/k norms and
     an untied lm_head.
+  * an MoE decoder (Qwen3-Omni-30B-A3B): a layer is MoE when its router
+    tensor exists; `router` [Lm, E, H] stays f32 whatever param_dtype is
+    (a bf16 router flips expert choices), `e_gate` / `e_up` [Lm, E, MI, H]
+    and `e_down` [Lm, E, H, MI] have one row per MoE layer, a mixed stack's
+    `w_gate_up` / `w_down` one per dense layer (no zero-filled blocks), and
+    the decoder's "moe_layers" holds one bool per layer
+    (models/qwen3_decoder.layer_params).  Each expert is copied into device
+    tensors allocated beforehand: the JAX loader's host `np.stack` of the
+    experts would be 58 GB at the 30B.
 `params_from_jax` turns the JAX loaders' pytrees (as numpy arrays) into
-the same dictionaries; `quantize_decoder` makes the int8 (--q8) decoder.
+the same dictionaries; `quantize_decoder` makes the int8 (--q8) decoder of
+a dense checkpoint.
 """
 
 from __future__ import annotations
@@ -34,7 +44,8 @@ DEC_PREFIX = "thinker.model"
 # leaves that take param_dtype; every other leaf is f32
 ENC_WEIGHTS = frozenset({"wq", "wk", "wv", "wo", "fc1", "fc2", "conv_out_w",
                          "proj1_w", "proj2_w", "proj_w"})
-DEC_WEIGHTS = frozenset({"wqkv", "wo", "w_gate_up", "w_down", "embed", "lm_head"})
+DEC_WEIGHTS = frozenset({"wqkv", "wo", "w_gate_up", "w_down", "embed", "lm_head",
+                         "e_gate", "e_up", "e_down"})
 
 _ENC_LAYER_NAMES = {
     "attn_ln_w": "self_attn_layer_norm.weight",
@@ -77,6 +88,19 @@ def _stack_parts(n: int, part, dtype, device) -> torch.Tensor:
 
 def _stack(reader, template: str, n: int, dtype, device) -> torch.Tensor:
     return _stack_parts(n, lambda i: reader.get(template.format(i=i)), dtype, device)
+
+
+def _stack_experts(reader, template: str, layers, n_experts: int, dtype,
+                   device) -> torch.Tensor:
+    """[len(layers), E, ...]: the tensor `template` of every expert of each of
+    `layers`, copied one expert at a time into a tensor allocated on
+    `device` beforehand."""
+    first = reader.get(template.format(i=layers[0], e=0))
+    out = torch.empty((len(layers), n_experts, *first.shape), dtype=dtype, device=device)
+    for j, i in enumerate(layers):
+        for e in range(n_experts):
+            out[j, e].copy_(reader.get(template.format(i=i, e=e)))
+    return out
 
 
 def load_qwen3_encoder(reader, cfg: ModelConfig, param_dtype=torch.bfloat16,
@@ -135,22 +159,19 @@ def load_q25_encoder(reader, cfg: ModelConfig, param_dtype=torch.bfloat16,
 
 def load_decoder(reader, cfg: ModelConfig, param_dtype=torch.bfloat16,
                  device=None) -> Dict[str, Any]:
-    """Dense decoder weights on `device` (the card unless the caller names
-    the CPU): Qwen3's (q/k norms, no QKV bias, tied or separate lm_head) or
-    Qwen2.5-Omni's (a QKV bias `bqkv`, no q/k norms, an untied lm_head).
-    MoE checkpoints are not ported yet."""
+    """Decoder weights on `device` (the card unless the caller names the
+    CPU): Qwen3's (q/k norms, no QKV bias, tied or separate lm_head; dense,
+    MoE or mixed) or Qwen2.5-Omni's (a QKV bias `bqkv`, no q/k norms, an
+    untied lm_head)."""
     device = resolve_device(device)
-    if cfg.is_moe:
-        raise ValueError(f"{cfg.name}: only dense Qwen3 and Qwen2.5-Omni decoders are ported "
-                         "to smolvision_tpu_torch (MoE is not yet)")
     p = DEC_PREFIX
     L = cfg.dec_layers
     f32 = torch.float32
 
-    def _cat(names, dtype, kind="weight"):
-        """Each layer's tensors `names` concatenated, stacked over layers."""
-        return _stack_parts(L, lambda i: torch.cat(
-            [reader.get(f"{p}.layers.{i}.{n}.{kind}") for n in names]), dtype, device)
+    def _cat(names, dtype, kind="weight", rows=range(L)):
+        """Each layer's (of `rows`) tensors `names` concatenated, stacked."""
+        return _stack_parts(len(rows), lambda j: torch.cat(
+            [reader.get(f"{p}.layers.{rows[j]}.{n}.{kind}") for n in names]), dtype, device)
 
     qkv = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj")
 
@@ -161,10 +182,23 @@ def load_decoder(reader, cfg: ModelConfig, param_dtype=torch.bfloat16,
         "wqkv": _cat(qkv, param_dtype),
         "wo": _stack(reader, p + ".layers.{i}.self_attn.o_proj.weight", L, param_dtype,
                      device),
-        "w_gate_up": _cat(("mlp.gate_proj", "mlp.up_proj"), param_dtype),
-        "w_down": _stack(reader, p + ".layers.{i}.mlp.down_proj.weight", L, param_dtype,
-                         device),
     }
+    # a layer is MoE iff its router exists (the JAX loader's per-layer probe)
+    is_moe = tuple(cfg.is_moe and reader.has(f"{p}.layers.{i}.mlp.gate.weight")
+                   for i in range(L))
+    dense_rows = [i for i in range(L) if not is_moe[i]]
+    moe_rows = [i for i in range(L) if is_moe[i]]
+    if dense_rows:
+        layers["w_gate_up"] = _cat(("mlp.gate_proj", "mlp.up_proj"), param_dtype,
+                                   rows=dense_rows)
+        layers["w_down"] = _cat(("mlp.down_proj",), param_dtype, rows=dense_rows)
+    if moe_rows:
+        layers["router"] = _cat(("mlp.gate",), f32, rows=moe_rows)
+        for key, name in (("e_gate", "gate_proj"), ("e_up", "up_proj"),
+                          ("e_down", "down_proj")):
+            layers[key] = _stack_experts(
+                reader, p + ".layers.{i}.mlp.experts.{e}." + name + ".weight", moe_rows,
+                cfg.num_experts, param_dtype, device)
     if cfg.dec_qkv_bias:
         layers["bqkv"] = _cat(qkv, f32, "bias")
     if cfg.dec_qk_norm:
@@ -175,19 +209,26 @@ def load_decoder(reader, cfg: ModelConfig, param_dtype=torch.bfloat16,
     embed = _put(reader.get(p + ".embed_tokens.weight"), param_dtype, device)
     lm_head = embed if cfg.tied_embeddings else _put(
         reader.get("thinker.lm_head.weight"), param_dtype, device)
-    return {
+    out = {
         "embed": embed,
         "layers": layers,
         "final_norm": _put(reader.get(p + ".norm.weight"), f32, device),
         "lm_head": lm_head,
     }
+    if moe_rows:
+        out["moe_layers"] = is_moe
+    return out
 
 
 def quantize_decoder(params: Dict[str, Any]) -> Dict[str, Any]:
     """int8 quantization (--q8) of the dense decoder's matrices: wqkv, wo,
     w_gate_up, w_down and embed / lm_head, which stay ONE QuantW when tied
     (the embedding gather and the lm_head read the same int8 table).  Norms
-    stay f32; the KV cache is untouched.  See ops/quant.py for the numerics."""
+    stay f32; the KV cache is untouched.  See ops/quant.py for the numerics.
+    Int8 experts are not ported: an MoE decoder is refused."""
+    if params.get("moe_layers"):
+        raise ValueError("int8 weights of an MoE decoder (int8 experts) are not yet ported "
+                         "to smolvision_tpu_torch")
     out = dict(params)
     layers = dict(params["layers"])
     for k in ("wqkv", "wo", "w_gate_up", "w_down"):
@@ -217,17 +258,40 @@ def _quant_from_numpy(val, device) -> QuantW:
                   _from_numpy(val.s, torch.float32, device))
 
 
+def _moe_rows_from_jax(dec_np: Mapping[str, Any]) -> Mapping[str, Any]:
+    """The JAX decoder pytree with the port's MoE layout (see
+    params_from_jax); a dense decoder's unchanged."""
+    layers = dec_np["layers"]
+    if layers.get("router") is None:
+        return dec_np
+    n = len(layers["router"])
+    mask = layers.get("moe_mask")
+    is_moe = tuple(bool(m) for m in np.asarray(mask)) if mask is not None else (True,) * n
+    moe_rows = [i for i in range(n) if is_moe[i]]
+    dense_rows = [i for i in range(n) if not is_moe[i]]
+    out = {k: v for k, v in layers.items() if k != "moe_mask"}
+    for k in ("router", "e_gate", "e_up", "e_down"):
+        out[k] = np.asarray(layers[k])[moe_rows]
+    for k in ("w_gate_up", "w_down"):
+        out[k] = np.asarray(layers[k])[dense_rows] if dense_rows else None
+    return dict(dec_np, layers=out, moe_layers=is_moe)
+
+
 def params_from_jax(enc_np: Mapping[str, Any], dec_np: Mapping[str, Any], device=None,
                     dtype=torch.bfloat16):
     """The JAX loaders' (load_qwen3_encoder or load_q25_encoder, and
     load_decoder) pytrees, given as numpy arrays with stacked [L, ...]
     leaves, as the port's parameters: (encoder params, decoder params).
-    Leaves the family has not (None entries: MoE slots, Qwen3's `bqkv`,
-    Qwen2.5-Omni's q/k norms) are dropped; a quantized leaf (the JAX
-    package's QuantW under --q8, a (q, s) pair) becomes the port's QuantW;
-    a tied lm_head stays one object with the embedding.  On `device`: the
-    card unless the caller names the CPU."""
+    Leaves the family has not (None entries: a dense decoder's MoE slots,
+    Qwen3's `bqkv`, Qwen2.5-Omni's q/k norms) are dropped; a quantized leaf
+    (the JAX package's QuantW under --q8, a (q, s) pair) becomes the port's
+    QuantW; a tied lm_head stays one object with the embedding.  An MoE
+    decoder's stacks keep the rows of their own layers (the JAX package's
+    zero-filled blocks of a mixed stack and its `moe_mask` go; the mask
+    becomes "moe_layers").  On `device`: the card unless the caller names
+    the CPU."""
     device = resolve_device(device)
+    dec_np = _moe_rows_from_jax(dec_np)
 
     def conv(tree, weights):
         out = {}
@@ -252,7 +316,10 @@ def params_from_jax(enc_np: Mapping[str, Any], dec_np: Mapping[str, Any], device
     enc = conv(enc_np, ENC_WEIGHTS)
     lm_head = dec_np["lm_head"]
     tied = lm_head is dec_np["embed"] or same(lm_head, dec_np["embed"])
-    dec = conv({k: v for k, v in dec_np.items() if k != "lm_head"}, DEC_WEIGHTS)
+    dec = conv({k: v for k, v in dec_np.items() if k not in ("lm_head", "moe_layers")},
+               DEC_WEIGHTS)
+    if "moe_layers" in dec_np:
+        dec["moe_layers"] = dec_np["moe_layers"]
     if tied:
         dec["lm_head"] = dec["embed"]
     elif _is_quant_pair(lm_head):

@@ -1,7 +1,7 @@
-"""Dense Qwen3 LLM decoder in torch: prefill + decode step, single and batched.
+"""Qwen3 LLM decoder in torch: prefill + decode step, single and batched.
 
-Port of the dense paths of smolvision_tpu/models/qwen3_decoder.py
-(reference semantics: qwen_asr_decoder.c, MODEL.md:156-227), also for the
+Port of smolvision_tpu/models/qwen3_decoder.py (reference semantics:
+qwen_asr_decoder.c, MODEL.md:156-227), dense and MoE, also for the
 Qwen2.5-Omni decoder (qwen25_omni_decoder.c: a QKV bias, no q/k norms, an
 untied lm_head) on the single-stream paths; the batched forwards refuse it,
 as the JAX package's serving does (Qwen2.5-Omni runs through the thinker).
@@ -39,6 +39,14 @@ as the JAX package's serving does (Qwen2.5-Omni runs through the thinker).
     their scales, as the JAX package does (it sends the --kv8 delta prefill
     away from B5 as well).
     The single-stream cache stays bf16 / f32.
+  * an MoE decoder (Qwen3-Omni-30B-A3B) runs models/moe.py's FFN in its
+    MoE layers; a mixed stack (decoder_sparse_step > 1) picks the FFN per
+    layer with a plain Python branch (`layer_params`).  Rows that may take
+    expert capacity are the JAX package's `row_valid`: below valid_len in a
+    single block; at or above kv_min in a batched one and, with the
+    natural layout, outside [prompt_max, region_start).  A forward at a
+    device start (a graph step's) takes the MoE formulation that reads
+    nothing back (`moe.moe_ffn`'s graph_safe).
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from smolvision_tpu_torch.config import ModelConfig
 from smolvision_tpu_torch.device import resolve_device
 from smolvision_tpu_torch.kernels import argmax_matvec as am
 from smolvision_tpu_torch.kernels import flash_attention as fa
+from smolvision_tpu_torch.models import moe
 from smolvision_tpu_torch.ops.common import apply_rope_neox, linear, rms_norm, rope_tables, silu
 from smolvision_tpu_torch.ops.quant import (QuantKV, QuantW, embed_rows, kv_read, kv_write,
                                             kv_zeros, take)
@@ -123,6 +132,39 @@ def _dense_ffn(xn, lp):
     return linear(silu(gate) * up, lp["w_down"])
 
 
+MOE_KEYS = ("router", "e_gate", "e_up", "e_down")
+DENSE_FFN_KEYS = ("w_gate_up", "w_down")
+
+
+def layer_params(params):
+    """Each layer's weights as views of the stacks, in order.  The attention
+    and norm stacks have one row per layer.  In an MoE decoder
+    params["moe_layers"] (one bool per layer) says which layers are MoE:
+    the expert stacks (MOE_KEYS) have one row per MoE layer, and a mixed
+    stack's dense FFN (DENSE_FFN_KEYS) one per dense layer; a dense decoder
+    has no "moe_layers"."""
+    layers = params["layers"]
+    n = layers["wqkv"].shape[0]
+    is_moe = params.get("moe_layers") or (False,) * n
+    shared = {k: v for k, v in layers.items() if k not in MOE_KEYS + DENSE_FFN_KEYS}
+    out, rows = [], {True: 0, False: 0}
+    for i in range(n):
+        lp = {k: take(v, i) for k, v in shared.items()}
+        j = rows[is_moe[i]]
+        rows[is_moe[i]] += 1
+        for k in MOE_KEYS if is_moe[i] else DENSE_FFN_KEYS:
+            lp[k] = take(layers[k], j)
+        out.append(lp)
+    return out
+
+
+def _ffn(xn, lp, cfg: ModelConfig, row_valid, graph_safe: bool):
+    """The layer's FFN on [T, H] activations: MoE where the layer has a router."""
+    if "router" in lp:
+        return moe.moe_ffn(xn, lp, cfg, row_valid, graph_safe)
+    return _dense_ffn(xn, lp)
+
+
 def decoder_forward(params, cfg: ModelConfig, embeds: torch.Tensor, start_pos,
                     valid_len, kv: torch.Tensor):
     """Run the layer stack over `embeds` [T, H] written into cache rows
@@ -136,11 +178,15 @@ def decoder_forward(params, cfg: ModelConfig, embeds: torch.Tensor, start_pos,
     int is moved to the device.
 
     Returns (hidden [T, H] f32 pre-final-norm, kv) — kv is updated in place.
-    Rows >= valid_len are junk; their cache rows are masked until overwritten.
+    Rows >= valid_len are junk; their cache rows are masked until overwritten,
+    and they take no MoE expert capacity.
     """
     if isinstance(kv, QuantKV):
         raise ValueError("the int8 KV cache (--kv8) is batched-path only (make_batched_kv)")
     T = embeds.shape[0]
+    graph_safe = isinstance(start_pos, torch.Tensor)
+    row_valid = (torch.arange(T, device=embeds.device) < valid_len
+                 if params.get("moe_layers") else None)
     if T == 1 and not isinstance(start_pos, torch.Tensor):
         start_pos = torch.full((1,), start_pos, dtype=torch.int64, device=embeds.device)
     if isinstance(start_pos, torch.Tensor):
@@ -153,12 +199,11 @@ def decoder_forward(params, cfg: ModelConfig, embeds: torch.Tensor, start_pos,
     if isinstance(start_pos, torch.Tensor):   # B2 / B3 read int32s from device memory
         start_pos = start_pos.to(torch.int32)
         kv_valid = None if kv_valid is None else kv_valid.to(torch.int32)
-    layers = params["layers"]
     h = embeds.float()
-    for i in range(layers["wqkv"].shape[0]):
-        lp = {key: take(val, i) for key, val in layers.items()}
+    for i, lp in enumerate(layer_params(params)):
         h = _attn_block(lp, h, kv, i, cfg, cos, sin, rows, start_pos, kv_valid)
-        h = h + _dense_ffn(rms_norm(h, lp["post_ln"], cfg.rms_norm_eps), lp)
+        h = h + _ffn(rms_norm(h, lp["post_ln"], cfg.rms_norm_eps), lp, cfg, row_valid,
+                     graph_safe)
     return h, kv
 
 
@@ -243,6 +288,20 @@ def build_embeds_batched(params, ids: torch.Tensor, audio: torch.Tensor,
     return torch.where(in_audio[..., None], audio_rows, emb)
 
 
+def _batched_row_valid(start_pos, T: int, kv_min, prompt_max, region_start) -> torch.Tensor:
+    """[B * T] bool: the block's rows that may take MoE expert capacity --
+    not left pads (below kv_min) and, in the natural layout, not end pads
+    in [prompt_max, region_start)."""
+    pos = (start_pos.reshape(1) if isinstance(start_pos, torch.Tensor) else start_pos) + \
+        torch.arange(T, device=kv_min.device)
+    valid = pos[None] >= kv_min[:, None]
+    if prompt_max is not None:
+        rs = torch.as_tensor(region_start, device=kv_min.device)
+        rs = rs[:, None] if rs.dim() == 1 else rs
+        valid = valid & ((pos[None] < prompt_max[:, None]) | (pos[None] >= rs))
+    return valid.reshape(-1)
+
+
 def batched_decoder_forward(params, cfg: ModelConfig, embeds: torch.Tensor, start_pos,
                             kv, rope_start: torch.Tensor, kv_min: torch.Tensor,
                             fresh_prefill: bool = False, prompt_max=None, region_start=None):
@@ -261,7 +320,8 @@ def batched_decoder_forward(params, cfg: ModelConfig, embeds: torch.Tensor, star
     kernel B5 against the cache (with the natural-layout mask prompt_max /
     region_start when given), and a decode step (T == 1) the plain two-part
     attention; on an int8 cache (QuantKV) both run the two-part attention
-    on the widened rows.  There is no size crossover.
+    on the widened rows.  There is no size crossover.  An MoE layer's FFN
+    takes the B * T rows as one block (graph-safe at a device position).
     Returns (hidden [B, T, H] f32, kv) -- kv updated in place.
     """
     if cfg.family == "q25":
@@ -278,10 +338,10 @@ def batched_decoder_forward(params, cfg: ModelConfig, embeds: torch.Tensor, star
     kv8 = isinstance(kv, QuantKV)
     positions = rope_start[:, None] + torch.arange(T, device=embeds.device)[None, :]
     cos, sin = rope_tables(positions, D, cfg.rope_theta)       # [B, T, D]
-    layers = params["layers"]
+    row_valid = (_batched_row_valid(start_pos, T, kv_min, prompt_max, region_start)
+                 if params.get("moe_layers") else None)
     h = embeds.float()
-    for i in range(layers["wqkv"].shape[0]):
-        lp = {key: take(val, i) for key, val in layers.items()}
+    for i, lp in enumerate(layer_params(params)):
         xn = rms_norm(h, lp["input_ln"], eps)
         qkv = linear(xn, lp["wqkv"])
         q = qkv[..., : H * D].reshape(B, T, H, D)
@@ -312,7 +372,8 @@ def batched_decoder_forward(params, cfg: ModelConfig, embeds: torch.Tensor, star
             attn = fa.batched_cache_attention_plain(q, k, v, k_cache, v_cache, start_pos,
                                                     kv_min, prompt_max, region_start)
         h = h + linear(attn.reshape(B, T, H * D), lp["wo"])
-        h = h + _dense_ffn(rms_norm(h, lp["post_ln"], eps), lp)
+        xn = rms_norm(h, lp["post_ln"], eps).reshape(B * T, -1)
+        h = h + _ffn(xn, lp, cfg, row_valid, device_pos).reshape(B, T, -1)
         kv_write(kv[i, 0], rows if device_pos else start_pos, k.transpose(1, 2))
         kv_write(kv[i, 1], rows if device_pos else start_pos, v.transpose(1, 2))
     return h, kv

@@ -1,7 +1,7 @@
 """Seeded random checkpoints in the reference layout (no real weights needed).
 
-Port of tools/make_tiny_model.build for the dense Qwen3-ASR and the
-Qwen2.5-Omni presets: the exact tensor names, shapes and dtypes of a real
+Port of tools/make_tiny_model.build for the dense Qwen3-ASR, the MoE and
+the Qwen2.5-Omni presets: the exact tensor names, shapes and dtypes of a real
 checkpoint (MODEL.md:285-330; qwen25_omni_{encoder,decoder}.c), a
 thinker-layout config.json and a synthetic byte-level BPE vocab.json +
 merges.txt.  The random stream is drawn in the same order as the tool's,
@@ -9,10 +9,17 @@ so the same preset and seed give the same checkpoint bytes.  Tensors are
 drawn and written one at a time (the header first, from their shapes), so
 a checkpoint never sits in host memory whole.
 
-`tiny` and `tiny-q25` are seconds-fast models for tests; `0.6b` is the full
-Qwen3-ASR-0.6B geometry (QWEN3_ASR_06B) with random values, ~1.9 GB in
-bf16; `q25-7b` the full Qwen2.5-Omni-7B geometry (QWEN25_OMNI_7B), ~16.5
-GB in bf16.
+`tiny`, `tiny-moe` (4 experts, top-2), `tiny-moe-mixed` (MoE in every
+second layer: decoder_sparse_step 2) and `tiny-q25` are seconds-fast
+models for tests; `0.6b` is the full Qwen3-ASR-0.6B geometry
+(QWEN3_ASR_06B) with random values, ~1.9 GB in bf16; `q25-7b` the full
+Qwen2.5-Omni-7B geometry (QWEN25_OMNI_7B), ~16.5 GB in bf16; `omni-30b`
+the full Qwen3-Omni-30B-A3B geometry (QWEN3_OMNI_30B: 48 MoE layers of 128
+experts, top-8), ~62 GB in bf16.  `omni-30b` is drawn by torch's
+generator on the `device` build() is given (the card draws 62 GB in
+seconds; numpy's generator would take minutes on one core), so no tool
+preset matches it byte for byte; the other presets are drawn with numpy
+in the tool's order.
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ from __future__ import annotations
 import json
 import os
 import struct
-from typing import Callable, List, Tuple
+from typing import Any, Callable, List, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +49,24 @@ PRESETS = {
                    enc_out=3584, conv_hidden=0, dec_h=3584, dec_L=28,
                    dec_heads=28, dec_kv=4, head_dim=128, dec_inter=18944,
                    vocab=152064, q25=True),
+    "tiny-moe": dict(enc_d=64, enc_L=2, enc_heads=2, enc_ffn=128, enc_out=48,
+                     conv_hidden=16, dec_h=48, dec_L=2, dec_heads=4, dec_kv=2,
+                     head_dim=16, dec_inter=96, vocab=151936,
+                     moe=dict(num_experts=4, top_k=2, moe_inter=32)),
+    # decoder_sparse_step 2: layers 1 and 3 are MoE, 0 and 2 dense (layer i
+    # is MoE iff (i + 1) % sparse_step == 0)
+    "tiny-moe-mixed": dict(enc_d=64, enc_L=2, enc_heads=2, enc_ffn=128,
+                           enc_out=48, conv_hidden=16, dec_h=48, dec_L=4,
+                           dec_heads=4, dec_kv=2, head_dim=16, dec_inter=96,
+                           vocab=151936,
+                           moe=dict(num_experts=4, top_k=2, moe_inter=32,
+                                    sparse_step=2)),
+    # the full Qwen3-Omni-30B-A3B geometry (QWEN3_OMNI_30B, qwen_asr.c:152-171)
+    "omni-30b": dict(enc_d=1280, enc_L=32, enc_heads=20, enc_ffn=5120,
+                     enc_out=2048, conv_hidden=480, dec_h=2048, dec_L=48,
+                     dec_heads=32, dec_kv=4, head_dim=128, dec_inter=768,
+                     vocab=151936, moe=dict(num_experts=128, top_k=8, moe_inter=768),
+                     torch_draw=True),
 }
 
 _MERGES = [("t", "h"), ("th", "e"), ("Ġ", "a"), ("a", "n"), ("an", "d"),
@@ -80,9 +105,28 @@ def make_vocab(model_dir: str, full: bool = False) -> None:
         f.write("\n".join(merges) + "\n")
 
 
-# a tensor's recipe: (name, shape, draw), draw(rng) -> f32 numpy values;
-# drawn in list order, which is the tool's order
-Spec = Tuple[str, Tuple[int, ...], Callable[[np.random.Generator], np.ndarray]]
+# a tensor's recipe: (name, shape, kind, value): kind "rand" (normal values
+# of std `value`), "norm" (1 + normal values of std 0.02) or "const" (all
+# `value`); drawn in list order, which is the tool's order
+Spec = Tuple[str, Tuple[int, ...], str, float]
+
+
+def _draw_numpy(rng: np.random.Generator, shape, kind: str, value: float) -> np.ndarray:
+    """f32 values of one recipe, drawn as the tool draws them."""
+    if kind == "rand":
+        return (rng.standard_normal(shape) * value).astype(np.float32)
+    if kind == "norm":
+        return np.ones(shape, np.float32) + (rng.standard_normal(shape) * 0.02).astype(
+            np.float32)
+    return np.full(shape, value, np.float32)
+
+
+def _draw_torch(gen: torch.Generator, shape, kind: str, value: float) -> torch.Tensor:
+    """f32 values of one recipe from torch's generator (on its device)."""
+    if kind == "const":
+        return torch.full(shape, value, device=gen.device)
+    x = torch.randn(shape, generator=gen, device=gen.device)
+    return x * value if kind == "rand" else 1.0 + x * 0.02
 
 
 def _specs(p: dict) -> List[Spec]:
@@ -90,15 +134,13 @@ def _specs(p: dict) -> List[Spec]:
     out: List[Spec] = []
 
     def rand(name, *shape, std=0.05):
-        out.append((name, shape, lambda rng: (rng.standard_normal(shape) * std).astype(
-            np.float32)))
+        out.append((name, shape, "rand", std))
 
     def norm(name, n):
-        out.append((name, (n,), lambda rng: np.ones(n, np.float32) + (
-            rng.standard_normal((n,)) * 0.02).astype(np.float32)))
+        out.append((name, (n,), "norm", 0.0))
 
     def const(name, n, value):
-        out.append((name, (n,), lambda rng: np.full(n, value, np.float32)))
+        out.append((name, (n,), "const", value))
 
     q25 = p.get("q25", False)
     ep, dp = "thinker.audio_tower", "thinker.model"
@@ -163,21 +205,32 @@ def _specs(p: dict) -> List[Spec]:
         else:
             norm(f"{lp}.self_attn.q_norm.weight", hd)
             norm(f"{lp}.self_attn.k_norm.weight", hd)
-        rand(f"{lp}.mlp.gate_proj.weight", inter, dec_h)
-        rand(f"{lp}.mlp.up_proj.weight", inter, dec_h)
-        rand(f"{lp}.mlp.down_proj.weight", dec_h, inter)
+        moe = p.get("moe")
+        if moe and (i + 1) % moe.get("sparse_step", 1) == 0:
+            E, mi = moe["num_experts"], moe["moe_inter"]
+            rand(f"{lp}.mlp.gate.weight", E, dec_h)
+            for e in range(E):
+                rand(f"{lp}.mlp.experts.{e}.gate_proj.weight", mi, dec_h)
+                rand(f"{lp}.mlp.experts.{e}.up_proj.weight", mi, dec_h)
+                rand(f"{lp}.mlp.experts.{e}.down_proj.weight", dec_h, mi)
+        else:
+            rand(f"{lp}.mlp.gate_proj.weight", inter, dec_h)
+            rand(f"{lp}.mlp.up_proj.weight", inter, dec_h)
+            rand(f"{lp}.mlp.down_proj.weight", dec_h, inter)
     return out
 
 
-def _write(path: str, specs: List[Spec], rng: np.random.Generator, out_dtype) -> None:
+def _write(path: str, specs: List[Spec], draw: Callable[[Tuple[int, ...], str, float], Any],
+           out_dtype) -> None:
     """The safetensors file of `specs` (layout of io/safetensors.py's
-    writer: header in list order, data back to back), each tensor drawn,
-    cast and written before the next is drawn.  Matmul weights (2-D and up,
-    not norms) take out_dtype; vectors and norms stay f32."""
+    writer: header in list order, data back to back), each tensor drawn
+    (`draw(shape, kind, value)`: numpy or torch f32 values), cast and written
+    before the next is drawn.  Matmul weights (2-D and up, not norms) take
+    out_dtype; vectors and norms stay f32."""
     dtypes = [out_dtype if len(shape) >= 2 and "norm" not in name else torch.float32
-              for name, shape, _ in specs]
+              for name, shape, _, _ in specs]
     header, offset = {}, 0
-    for (name, shape, _), dt in zip(specs, dtypes):
+    for (name, shape, _, _), dt in zip(specs, dtypes):
         nbytes = int(np.prod(shape)) * (2 if dt == torch.bfloat16 else 4)
         header[name] = {"dtype": "BF16" if dt == torch.bfloat16 else "F32",
                         "shape": list(shape), "data_offsets": [offset, offset + nbytes]}
@@ -187,20 +240,30 @@ def _write(path: str, specs: List[Spec], rng: np.random.Generator, out_dtype) ->
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(hjson)))
         f.write(hjson)
-        for (_, _, fill), dt in zip(specs, dtypes):
-            t = torch.from_numpy(fill(rng)).to(dt)
+        for (_, shape, kind, value), dt in zip(specs, dtypes):
+            t = torch.as_tensor(draw(shape, kind, value)).to(dt).cpu()
             f.write(t.reshape(-1).view(torch.uint8).numpy())
             del t
 
 
 def build(preset: str, model_dir: str, seed: int = 0, dtype: str = "bf16",
-          full_vocab: bool = False) -> str:
-    """Write a `preset` checkpoint drawn from `seed` into model_dir."""
-    p = PRESETS[preset]
+          full_vocab: bool = False, device: str = "cpu", dec_layers: int = None) -> str:
+    """Write a `preset` checkpoint drawn from `seed` into model_dir; a
+    `torch_draw` preset is drawn on `device`.  dec_layers cuts the decoder's
+    depth (its first layers, and config.json's num_hidden_layers) where a
+    host cannot take the whole checkpoint."""
+    p = PRESETS[preset] if dec_layers is None else dict(PRESETS[preset], dec_L=dec_layers)
     q25 = p.get("q25", False)
+    moe = p.get("moe")
     os.makedirs(model_dir, exist_ok=True)
-    _write(os.path.join(model_dir, "model.safetensors"), _specs(p),
-           np.random.default_rng(seed), torch.bfloat16 if dtype == "bf16" else torch.float32)
+    if p.get("torch_draw"):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        draw = lambda shape, kind, value: _draw_torch(gen, shape, kind, value)  # noqa: E731
+    else:
+        rng = np.random.default_rng(seed)
+        draw = lambda shape, kind, value: _draw_numpy(rng, shape, kind, value)  # noqa: E731
+    _write(os.path.join(model_dir, "model.safetensors"), _specs(p), draw,
+           torch.bfloat16 if dtype == "bf16" else torch.float32)
     config = {
         "model_type": "qwen2_5_omni" if q25 else f"qwen3_asr_{preset}",
         "thinker_config": {
@@ -230,6 +293,12 @@ def build(preset: str, model_dir: str, seed: int = 0, dtype: str = "bf16",
                 "tie_word_embeddings": not q25,
                 "attention_bias": bool(q25),
                 "qk_norm": not q25,
+                **({"num_experts": moe["num_experts"],
+                    "num_experts_per_tok": moe["top_k"],
+                    "moe_intermediate_size": moe["moe_inter"],
+                    "norm_topk_prob": True,
+                    "decoder_sparse_step": moe.get("sparse_step", 1)}
+                   if moe else {}),
             },
             "audio_start_token_id": 151647 if q25 else 151669,
             "audio_end_token_id": 151648 if q25 else 151670,

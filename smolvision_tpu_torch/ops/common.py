@@ -96,3 +96,15 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -
         y = x2.float() @ w.float().t()
     y = y.reshape(*lead, w.shape[0])
     return y if b is None else y + b
+
+
+def bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [N, M, K] @ b [N, K, P] -> f32 [N, M, P], `linear`'s rule for a
+    batch of products (the MoE experts'): operands of one dtype, f32
+    accumulation and output; bf16 on the card through
+    `torch.bmm(..., out_dtype=float32)`, on the CPU widened first (exact)."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b.float())
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())

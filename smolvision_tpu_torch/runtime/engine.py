@@ -10,7 +10,9 @@ cache), --spec (speculative decoding with an int8 draft) and
 with KV reuse (`prefill_with_reuse`: kernel B2 at a start > 0), the
 thinker (`thinker_generate`: free-form generation, greedy or sampled) and
 the Qwen2.5-Omni family (its Conv1D audio tower, models/q25_encoder.py;
-its decoder's QKV bias and untied lm_head).  MoE checkpoints are refused.
+its decoder's QKV bias and untied lm_head) and MoE decoders (Qwen3-Omni-
+30B-A3B, resident: models/moe.py), except under --q8 and --spec, which
+need int8 experts and are refused on an MoE checkpoint.
 The engine owns:
   * the parameter dictionaries on its device (bf16 weights by default),
   * the KV cache (grow-by-copy to pow2 buckets, as in the JAX engine),
@@ -154,9 +156,10 @@ class Engine:
         self.verbose = verbose
         self.reader = MultiSafetensors(model_dir)
         cfg = detect_config(model_dir, self.reader)
-        if cfg.is_moe:
-            raise ValueError(f"{cfg.name}: MoE checkpoints are not yet ported to "
-                             "smolvision_tpu_torch")
+        for on, what in ((q8, "--q8"), (spec, "--spec")):
+            if on and cfg.is_moe:
+                raise ValueError(f"{what} on an MoE checkpoint ({cfg.name}: int8 experts) is "
+                                 "not yet ported to smolvision_tpu_torch")
         if enc_window_sec is not None:
             frames = int(enc_window_sec * 100.0 + 0.5)
             frames = min(max(frames, 100), 800)

@@ -44,8 +44,8 @@ and streaming state).  Two modes:
 Left out of the port, as in the JAX package off its TPU backend or by
 choice (ROADMAP.md): the compile prewarm ladder (`_prewarm_batched`, a
 no-op off the TPU), the opt-in stratified reset-row prefill
-(SMOLVISION_MSTREAM_STRAT=1), the device mesh rows (`serving_mesh`), the
-device-mel pre-encode, and MoE sessions.
+(SMOLVISION_MSTREAM_STRAT=1), the device mesh rows (`serving_mesh`) and
+the device-mel pre-encode.
 
 Switches, as the JAX package reads them, each the degraded path a test
 compares the default against: SMOLVISION_MSTREAM_NO_REUSE=1 (full prefill

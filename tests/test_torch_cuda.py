@@ -1097,3 +1097,144 @@ def test_cuda_q25_thinker_graph_equals_eager(tmp_path, monkeypatch):
             m.setattr(decode_graph, "capture", _eager_capture)
             eager = run(temperature, samples, text)
         assert graph == eager
+
+
+# a card-shaped MoE decoder: G 8 (16 heads over 2 KV heads), head dim 128,
+# hidden 512, 16 experts top-8 in both layers
+CARD_MOE = dict(dec_h=512, dec_heads=16, dec_kv=2, enc_out=512,
+                moe=dict(num_experts=16, top_k=8, moe_inter=128))
+
+
+@pytest.fixture
+def card_moe_engine(tmp_path, monkeypatch):
+    """An engine on the untied card-shaped MoE checkpoint."""
+    from smolvision_tpu_torch.runtime.engine import Engine
+
+    return Engine(_untied_card_model(tmp_path, monkeypatch, **CARD_MOE), device="cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_moe_decode_graphs_equal_eager(card_moe_engine, monkeypatch):
+    """The MoE decoder's graph steps against the same steps run eagerly:
+    the single-stream loop (the gather of the chosen experts) over 200
+    tokens after a prefill whose graph (the dense form above 4 rows) is
+    captured on its second call, and the sampled thinker; each replay adds
+    its step's launches (L B3, one head; B2 L times per prefill)."""
+    from smolvision_tpu_torch.runtime import decode_graph
+
+    eng = card_moe_engine
+    L = eng.cfg.dec_layers
+    assert eng.dec_params["moe_layers"] == (True, True)
+    ids = list(range(1000, 1100))
+
+    def greedy():
+        eng.reset_kv()
+        for _ in range(2):   # the prefill graph is captured on its second call
+            first, pos = eng.prefill_ids(ids, None, -1, 0)
+        out = []
+        eng.decode_greedy(first, pos, 201, lambda t: out.append(t) or True)
+        torch.cuda.synchronize()
+        return out
+
+    eng.perf.reset()
+    before = dict(ffi.launch_counts)
+    graph = greedy()
+    perf = eng.perf
+    assert len(graph) > 20 and len(set(graph)) > 5
+    assert perf.prefill_captures == 1 and perf.graph_captures == 1
+    assert eng._loop.graph.launches == {"decode_attention": L, "argmax_matvec": 1}
+    delta = {k: ffi.launch_counts[k] - before[k] for k in before}
+    assert delta["decode_attention"] == L * perf.decode_steps
+    assert delta["causal_cache_attention"] == L * perf.prefills
+    assert delta["argmax_matvec"] == perf.prefills + perf.decode_steps
+    with monkeypatch.context() as m:
+        m.setattr(decode_graph, "capture", _eager_capture)
+        eager = greedy()
+    assert graph == eager
+    settings = dict(temperature=0.7, top_k=40, repetition_penalty=1.1, seed=0,
+                    thinker_max_tokens=80)
+    sampled = _thinker_tokens(eng, **settings)
+    with monkeypatch.context() as m:
+        m.setattr(decode_graph, "capture", _eager_capture)
+        assert _thinker_tokens(eng, **settings) == sampled
+    assert len(sampled) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_moe_batched_step_at_b6_graph_equals_eager(card_moe_engine, monkeypatch):
+    """The batched decode step at B 6 (the dense form: above 4 rows a graph
+    step reads every expert): two chunks of graph replays give the eager
+    step's tokens; one head launch per replay."""
+    from smolvision_tpu_torch.kernels import argmax_matvec as am
+    from smolvision_tpu_torch.models import qwen3_decoder as tdec
+    from smolvision_tpu_torch.parallel import batch as tbatch
+    from smolvision_tpu_torch.runtime import decode_graph
+
+    eng = card_moe_engine
+    cfg, p = eng.cfg, eng.dec_params
+    B, T, K = 6, 64, 256
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    ids = torch.randint(0, 150000, (B, T), generator=gen).cuda()
+    pads = torch.tensor([0, 12, 40, 3, 0, 7], dtype=torch.int32, device="cuda")
+
+    def run():
+        kv = tdec.make_batched_kv(cfg, B, K, torch.bfloat16, "cuda")
+        tok, kv = tdec.batched_prefill(p, cfg, p["embed"][ids].float(), kv, -pads, pads)
+        loop = tbatch.batched_decode_loop(p, cfg, kv, B)
+        out, pos = [], T
+        for steps in (40, 24):
+            buf, count, _ = loop.run(tok, pos, steps, rope_offset=pads, kv_min=pads)
+            out.append((buf.tolist(), count, loop.tok.tolist()))
+            tok, pos = loop.tok, pos + count
+        torch.cuda.synchronize()
+        return out, loop
+
+    graph, loop = run()
+    head = am.launch_key(am.head_route(B, torch.bfloat16), torch.bfloat16)
+    assert loop.graph.launches == {head: 1}
+    with monkeypatch.context() as m:
+        m.setattr(decode_graph, "capture", _eager_capture)
+        eager, _ = run()
+    assert graph == eager
+
+
+@pytest.mark.cuda
+def test_cuda_moe_captured_forward_with_overflow_equals_eager():
+    """An MoE FFN of the 30B's routing (128 experts, top-8) at T 64, its
+    router biased so every token picks the same eight experts: the eager
+    forward dispatches (queues of 8), reads the drop count and falls back
+    to dense; the same forward captured as a CUDA graph (graph-safe) runs
+    dense with no host read.  Equal outputs."""
+    import dataclasses
+
+    from smolvision_tpu_torch.config import QWEN3_OMNI_30B
+    from smolvision_tpu_torch.models import moe
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels are built with nvcc for sm_90a)")
+    E, H, MI, T = 128, 512, 128, 64
+    cfg = dataclasses.replace(QWEN3_OMNI_30B, dec_hidden=H, moe_intermediate=MI)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    lp = {"router": torch.randn(E, H, device="cuda", generator=g) * 0.05,
+          "e_gate": (torch.randn(E, MI, H, device="cuda", generator=g) * 0.05).bfloat16(),
+          "e_up": (torch.randn(E, MI, H, device="cuda", generator=g) * 0.05).bfloat16(),
+          "e_down": (torch.randn(E, H, MI, device="cuda", generator=g) * 0.05).bfloat16()}
+    x = torch.randn(T, H, device="cuda", generator=g).abs() + 0.1
+    lp["router"][:8] += 1.0
+    top_idx, top_w = moe.route(x, lp["router"], cfg)
+    _, n_dropped = moe.capacity_dispatch(x.bfloat16(), lp, top_idx, top_w,
+                                         torch.ones(T, dtype=torch.bool, device="cuda"))
+    assert int(n_dropped) == T * 8 - 8 * moe.capacity(T, 8, E)
+    eager = moe.moe_ffn(x, lp, cfg)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        moe.moe_ffn(x, lp, cfg, graph_safe=True)   # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = moe.moe_ffn(x, lp, cfg, graph_safe=True)
+    out.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, eager, rtol=1e-5, atol=1e-5)

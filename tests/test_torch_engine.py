@@ -147,11 +147,12 @@ def test_cli_stdout_byte_equal(visible_model, silent):
     ("moe checkpoint", "MoE"),
 ])
 def test_cli_unported_modes_exit_1(visible_model, request, extra, what):
-    """An unported option, or an MoE checkpoint (refused when the engine
-    loads it): one `smolvision: ...` line, exit 1, nothing on stdout."""
+    """An unported option, or --q8 on an MoE checkpoint (int8 experts,
+    refused when the engine reads the checkpoint's config): one
+    `smolvision: ...` line, exit 1, nothing on stdout."""
     model, wav = visible_model
     if extra == "moe checkpoint":
-        model, extra = request.getfixturevalue("tiny_moe_model_dir"), []
+        model, extra = request.getfixturevalue("tiny_moe_model_dir"), ["--q8"]
     r = _cli("smolvision_tpu_torch.cli", ["-d", model, "-i", wav] + extra)
     assert r.returncode == 1
     err = r.stderr.decode().strip().splitlines()

@@ -56,13 +56,6 @@ def test_params_from_jax_equals_own_loader(tiny_model_dir, jdt, tdt):
     assert dec_b["layers"]["q_norm"].dtype == torch.float32
 
 
-def test_loader_refuses_unported_decoders(tiny_moe_model_dir):
-    with MultiSafetensors(tiny_moe_model_dir) as r:
-        cfg = detect_config(tiny_moe_model_dir, r)
-        with pytest.raises(ValueError, match="dense Qwen3"):
-            tpm.load_decoder(r, cfg, torch.float32, "cpu")
-
-
 @pytest.mark.parametrize("dtype,full_vocab", [("bf16", False), ("f32", True)])
 def test_synthetic_checkpoint_is_byte_identical(tmp_path, dtype, full_vocab):
     from tools.make_tiny_model import build
