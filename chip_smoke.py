@@ -154,8 +154,25 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
                 decode loop profiled; one MoE layer at T 64 with its
                 router forced to overflow, captured and eager equal; each
                 run's decode ms per step beside its weight-read bound and
-                the gather's copied bytes; then the kernels timed at its
-                shapes, each row's launches its run's.
+                the gather's copied bytes; then int8 experts: `--q8` and
+                `--spec` (its int8 draft gathers them inside the
+                iteration's graph; its 5-row verify reads every bf16
+                expert) offline and `-S 20 --q8` (the dense step over
+                the int8 stacks), eager then as graphs, --spec's tokens
+                against plain greedy; then, the resident weights freed,
+                host offload on the same checkpoint: the link timed by
+                one pinned 1 GB copy, `--moe-offload` offline with and
+                without `--moe-preload` (tokens against the resident
+                run's; per token the router reads, host gather, uploaded
+                bytes and their rate, device time by torch.profiler; the
+                prefill's whole-stack stream; peak device memory with no
+                expert stack on the card) and `--thinker --text
+                --moe-offload` sampled twice with one seed (equal); then
+                `--spec --f32` on a small untied MoE (tiny-moe's routing
+                at card head dims: equal to plain greedy); then the
+                kernels timed at its shapes (also B2 at the --spec verify,
+                K6 at its R 5, K7 over the int8 head at R 1 and R 6), each
+                row's launches its run's.
 Each path that decodes greedily (--spec and multistream's bf16 run
 included) runs twice, in turns: first with the decode loops' steps and
 the prefills run eagerly on every replay, then as CUDA graphs (the path as
@@ -335,6 +352,17 @@ OMNI_WINDOW_HEADS = (20, 64)  # (H, D) of its encoder, at 104-token windows
 OMNI_TEXT_MAX_TOKENS = 256
 OMNI_OVERFLOW_T = 64          # rows of the forced-overflow forward
 OMNI_BUILD_TIMEOUT_S = 600
+OMNI_OFFLOAD_THINKER_TOKENS = 32   # --thinker --text --moe-offload (host sampler), twice
+OMNI_OFFLOAD_PROFILE_STEPS = 4     # offload decode steps under torch.profiler
+# --spec --f32 on an untied full-vocab checkpoint: tiny-moe's routing (4
+# experts top-2, 2 layers) at widths the kernels take (head dims 64 in the
+# encoder and 128 in the decoder; K7's int8 draft head needs a hidden size
+# that is a multiple of 512)
+OMNI_TINY_PRESET = "tiny-moe-card"
+OMNI_TINY = dict(enc_d=128, enc_L=1, enc_heads=2, enc_ffn=256, enc_out=512, conv_hidden=16,
+                 dec_h=512, dec_L=2, dec_heads=4, dec_kv=2, head_dim=128, dec_inter=1024,
+                 vocab=151936, moe=dict(num_experts=4, top_k=2, moe_inter=64))
+LINK_COPY_BYTES = 1 << 30          # the pinned host-to-device copy that times the link
 # per 30B run (phase 12), printed as one line at the end
 OMNI_RUNS = {}
 
@@ -3303,24 +3331,28 @@ def q25_kernel_table(shapes, q25_run: dict, long: dict, errs: dict) -> list:
 # phase 12: Qwen3-Omni-30B-A3B, resident (the MoE decoder)
 # ---------------------------------------------------------------------------
 
-def omni_step_bytes(cfg) -> dict:
-    """Bytes one 30B decode step must read (bf16 weights, the f32 router):
-    attention, router and the K chosen experts of every layer, then the
-    head (the tied embedding); and what the gather copies per step (K
-    expert blocks of each of the three matrices per layer, read and
-    written once each)."""
+def omni_step_bytes(cfg, int8: bool = False) -> dict:
+    """Bytes one 30B decode step must read (bf16 weights, or int8 with one
+    f32 scale per output row under --q8; the f32 router): attention,
+    router and the K chosen experts of every layer, then the head (the
+    tied embedding); and what the gather copies per step (K expert blocks
+    of each of the three matrices per layer, read and written once
+    each)."""
     H, D, KH, hid = cfg.dec_heads, cfg.dec_head_dim, cfg.dec_kv_heads, cfg.dec_hidden
-    attn = 2 * ((H * D + 2 * KH * D) * hid + hid * H * D)
-    router = 4 * cfg.num_experts * hid
-    experts = 2 * 3 * cfg.num_experts_per_tok * cfg.moe_intermediate * hid
+    K, E, MI = cfg.num_experts_per_tok, cfg.num_experts, cfg.moe_intermediate
+    wb, sb = (1, 4) if int8 else (2, 0)   # bytes per weight, per output row's scale
+    attn = wb * ((H * D + 2 * KH * D) * hid + hid * H * D) + sb * (H * D + 2 * KH * D + hid)
+    router = 4 * E * hid
+    expert = wb * 3 * MI * hid + sb * (2 * MI + hid)   # one expert's three matrices
+    experts = K * expert
     layers = cfg.dec_layers * (attn + router + experts)
-    head = 2 * cfg.vocab_size * hid
-    return {"weights_gb": (layers + head) / 1e9, "attention_router_gb":
-            cfg.dec_layers * (attn + router) / 1e9, "experts_gb": cfg.dec_layers * experts / 1e9,
+    head = wb * cfg.vocab_size * hid + sb * cfg.vocab_size
+    return {"weights_gb": (layers + head) / 1e9, "attention_gb": cfg.dec_layers * attn / 1e9,
+            "attention_router_gb": cfg.dec_layers * (attn + router) / 1e9,
+            "experts_gb": cfg.dec_layers * experts / 1e9,
             "head_gb": head / 1e9, "bound_ms": (layers + head) / HBM_BYTES_PER_S * 1e3,
             "gather_copy_gb": cfg.dec_layers * experts / 1e9,
-            "all_experts_gb": cfg.dec_layers * 3 * 2 * cfg.num_experts * cfg.moe_intermediate
-            * hid / 1e9}
+            "all_experts_gb": cfg.dec_layers * E * expert / 1e9}
 
 
 def phase_omni_kernels(shapes) -> dict:
@@ -3427,10 +3459,11 @@ def resident_weights():
     def keep(name):
         real = getattr(params_mod, name)
 
-        def load(reader, cfg, param_dtype, device=None):
-            if (name, param_dtype) not in kept:
-                kept[(name, param_dtype)] = real(reader, cfg, param_dtype, device)
-            return kept[(name, param_dtype)]
+        def load(reader, cfg, param_dtype, device=None, **kw):
+            key = (name, param_dtype, *sorted(kw.items()))
+            if key not in kept:
+                kept[key] = real(reader, cfg, param_dtype, device, **kw)
+            return kept[key]
         return load
 
     with mock.patch.object(params_mod, "load_qwen3_encoder", keep("load_qwen3_encoder")), \
@@ -3516,6 +3549,382 @@ def omni_overflow_forward(eng) -> dict:
     return result
 
 
+def phase_omni_int8(omni_dir: str, wav: str, long_wav: str, shapes, ocfg) -> dict:
+    """--q8 (int8 experts) and --spec (their int8 draft) offline on the 20 s
+    clip, and `-S 20 --q8` on the 120 s clip (the batched step dense over
+    the int8 stacks at B 6), each eager then as graphs with equal tokens
+    (`run_path`), beside the int8 step's weight-read bound; --spec's tokens
+    against plain greedy on the same engine (bf16: equal up to the first
+    near tie).  Returns each run's launches, the verify's B2 launches and
+    its cache shape."""
+    import gc
+
+    from smolvision_tpu_torch.io.wav import load_wav
+    from smolvision_tpu_torch.ops.quant import QuantW
+    from smolvision_tpu_torch.runtime import engine as eng_mod
+
+    clip = load_wav(wav)
+    step8 = omni_step_bytes(ocfg, int8=True)
+    log(f"  {OMNI_PRESET} int8 decode step bytes: {json.dumps(step8)}")
+    base = ["-d", omni_dir, "--silent", "--language", "English", "--max-tokens", str(MAX_TOKENS)]
+    runs = {}
+    eng, runs["--q8"], _, _ = run_path(base + ["-i", wav, "--q8"], "omni --q8", ocfg)
+    if not (eng.q8 and all(isinstance(eng.dec_params["layers"][k], QuantW)
+                           for k in ("e_gate", "e_up", "e_down"))):
+        fail("omni --q8: the expert stacks are not int8")
+    omni_summary("omni --q8", eng, step8)
+    del eng
+    gc.collect()
+    eng, runs["--spec"], _, _ = run_path(base + ["-i", wav, "--spec"], "omni --spec", ocfg)
+    perf = eng.perf
+    if not (eng.spec and isinstance(eng.dec_params_draft["layers"]["e_gate"], QuantW)
+            and perf.spec_iters and perf.decode_steps == eng_mod.SPEC_DRAFT * perf.spec_iters):
+        fail(f"omni --spec: {perf.spec_iters} verifies, {perf.decode_steps} draft steps")
+    run = DECODE_RUNS["omni --spec"]
+    runs["--spec verify"] = ocfg.dec_layers * (perf.spec_iters + perf.wasted_steps)
+    runs["verify_at"] = (eng._kv_cap, run["last_row"]["graph"] - eng_mod.SPEC_DRAFT)
+    plain_ms = OMNI_RUNS["omni offline"]["decode_ms_per_step_turns"]["graph"]
+    summary = {"spec_iters": perf.spec_iters, "spec_tokens": perf.spec_tokens,
+               "tokens_per_verify": perf.spec_tokens / perf.spec_iters,
+               "decode_ms_per_token_turns": run["decode_ms_per_token"],
+               "plain_offline_ms_per_step": plain_ms,
+               "verify_rows_dense_gb": omni_step_bytes(ocfg)["all_experts_gb"],
+               "vs_plain_greedy": spec_vs_plain(eng, clip, MAX_TOKENS, exact=False)}
+    OMNI_RUNS["omni --spec"] = summary
+    log(f"  omni --spec: {json.dumps(summary)}")
+    del eng
+    gc.collect()
+    eng, runs["-S q8"], _, _ = run_path(
+        base + ["-i", long_wav, "-S", str(SEGMENT_SEC), "--q8"], "omni -S 20 --q8", ocfg,
+        batch=shapes["seg_B"])
+    if eng.perf.batch_decode_steps == 0:
+        fail("omni -S 20 --q8: no batched decode step ran")
+    omni_summary("omni -S 20 --q8", eng, step8, dense=True)
+    del eng
+    gc.collect()
+    return runs
+
+
+@contextlib.contextmanager
+def offload_record():
+    """The host-offload engines the block builds, each with its uploads'
+    CUDA events recorded (HostExpertStore.copy_events), and the tokens
+    every decode_greedy call shows its caller."""
+    from smolvision_tpu_torch.models import moe_offload
+    from smolvision_tpu_torch.runtime.engine import Engine
+
+    rec = {"stores": [], "tokens": [], "preloads": []}
+    init = moe_offload.HostExpertStore.__init__
+    preload = moe_offload.HostExpertStore.preload
+    greedy = Engine.decode_greedy
+
+    def recording_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        self.copy_events = [] if DEV == "cuda" else None
+        rec["stores"].append(self)
+
+    def timed_preload(self):
+        t0 = time.monotonic()
+        n = preload(self)
+        rec["preloads"].append({"bytes": n, "s": time.monotonic() - t0})
+        return n
+
+    def recording_greedy(self, first, pos, max_tokens, on_token):
+        toks = []
+        rec["tokens"].append(toks)
+        return greedy(self, first, pos, max_tokens, lambda t: toks.append(t) or on_token(t))
+
+    with mock.patch.object(moe_offload.HostExpertStore, "__init__", recording_init), \
+            mock.patch.object(moe_offload.HostExpertStore, "preload", timed_preload), \
+            mock.patch.object(Engine, "decode_greedy", recording_greedy):
+        yield rec
+
+
+def link_rate() -> dict:
+    """One pinned LINK_COPY_BYTES host-to-device copy, timed by CUDA events
+    (the best of three after a warm-up)."""
+    import torch
+
+    if DEV != "cuda":
+        return {"bytes": 0, "ms": "not measured", "gb_per_s": "not measured"}
+    src = torch.ones(LINK_COPY_BYTES, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(LINK_COPY_BYTES, dtype=torch.uint8, device=DEV)
+    dst.copy_(src, non_blocking=True)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        dst.copy_(src, non_blocking=True)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    ms = min(times)
+    return {"bytes": LINK_COPY_BYTES, "ms": ms, "gb_per_s": LINK_COPY_BYTES / ms / 1e6}
+
+
+def host_memory() -> dict:
+    """This process's resident and peak resident host memory (GB)."""
+    with open("/proc/self/status") as f:
+        status = {line.split(":")[0]: line.split()[1:] for line in f}
+    return {k: int(status[k][0]) * 1024 / 1e9 for k in ("VmRSS", "VmHWM") if k in status}
+
+
+def offload_summary(name: str, eng, store, samples, resident_tokens, tokens,
+                    step: dict) -> dict:
+    """Per decoded token of an offload run: wall ms, the router reads' host
+    wait (the device's work up to each read, and the read), the host
+    gather, the uploads' bytes, ms (CUDA events) and GB/s; the prefill's
+    whole-stack stream; peak device memory; the tokens against the
+    resident run's (equal, or parting where the offload engine's top-2
+    logit gap is a near tie: under PATH_RTOL of its largest prefill
+    logit)."""
+    import torch
+
+    perf, st = eng.perf, store.stats
+    steps = max(perf.decode_steps, 1)
+    ev = {"gather": 0.0, "full": 0.0}
+    for kind, a, b in store.copy_events or ():
+        ev[kind] += a.elapsed_time(b)
+    n_moe = sum(store.is_moe)
+    if st["router_reads"] != n_moe * perf.decode_steps:
+        fail(f"{name}: {st['router_reads']} router reads over {perf.decode_steps} steps of "
+             f"{n_moe} MoE layers (one per layer per token expected)")
+    if any(eng.dec_params["layers"].get(k) is not None for k in ("e_gate", "e_up", "e_down")):
+        fail(f"{name}: an expert stack is resident")
+    peak = torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda" else 0.0
+    if peak >= step["all_experts_gb"]:
+        fail(f"{name}: {peak:.2f} GB allocated at the peak, as much as the expert stacks")
+    out = {"tokens": len(tokens), "decode_steps": perf.decode_steps,
+           "decode_ms_per_token": (perf.decode_ms - perf.prefill_ms) / steps,
+           "router_reads_per_token": st["router_reads"] / steps,
+           "router_read_wait_ms_per_token": st["router_read_s"] * 1e3 / steps,
+           "host_gather_ms_per_token": st["gather_host_s"] * 1e3 / steps,
+           "h2d_bytes_per_token": st["gather_bytes"] / steps,
+           "h2d_ms_per_token": ev["gather"] / steps if DEV == "cuda" else "not measured",
+           "h2d_gb_per_s": (st["gather_bytes"] / ev["gather"] / 1e6 if ev["gather"]
+                            else "not measured"),
+           "prefill_ms": perf.prefill_ms, "prefill_stream_gb": st["full_bytes"] / 1e9,
+           "prefill_stream_host_ms": st["full_host_s"] * 1e3,
+           "prefill_stream_h2d_ms": ev["full"] if DEV == "cuda" else "not measured",
+           "encode_ms": perf.encode_ms, "realtime_factor": perf.audio_ms / max(perf.total_ms, 1),
+           "max_memory_allocated_gb": peak, "resident_experts": 0}
+    n = min(len(tokens), len(resident_tokens))
+    part = next((i for i in range(n) if tokens[i] != resident_tokens[i]),
+                None if len(tokens) == len(resident_tokens) else n)
+    out["equal_prefix"] = n if part is None else part
+    if part is not None:
+        _, logits0, _, gaps = path_trace(eng, samples, part + 1, forced=resident_tokens + [0])
+        tol = PATH_RTOL[str(eng.param_dtype).replace("torch.", "")] * float(logits0.abs().max())
+        out.update(parting_gap=gaps[part], gap_bound=tol)
+        if not gaps[part] < tol:
+            fail(f"{name}: tokens part from the resident run's at {part} where the top-2 gap "
+                 f"{gaps[part]:.4g} >= {tol:.4g}")
+    return out
+
+
+def offload_steps(eng, samples, n: int):
+    """A prefill of the clip on the offload engine, then a callable that runs
+    the next n greedy decode steps (for `profile_window`)."""
+    import torch
+
+    from smolvision_tpu_torch.ops.mel import log_mel
+    from smolvision_tpu_torch.runtime.prompt import build_asr_prompt
+
+    with torch.inference_mode():
+        enc, n_audio = eng.encode_mel(log_mel(samples))
+        ids, a0 = build_asr_prompt(eng.cfg, n_audio, eng._prompt_tokens, eng._force_tokens)
+        eng.reset_kv()
+        tok, pos = eng.prefill_ids(ids, enc, a0, n_audio)
+    state = {"tok": int(tok), "pos": pos}
+
+    def run() -> int:
+        for _ in range(n):
+            state["tok"] = int(eng.decode_step(state["tok"], state["pos"]))
+            state["pos"] += 1
+        return n
+    return run
+
+
+def phase_omni_offload(omni_dir: str, wav: str, resident_tokens, ocfg) -> dict:
+    """The 30B with its experts on the host (--moe-offload), after the
+    resident weights are freed: the link's rate once (a pinned 1 GB copy);
+    offline on the 20 s clip to MAX_TOKENS tokens, without and with
+    --moe-preload, each through the CLI with the launch counts checked,
+    its tokens against the resident offline run's, per token the router
+    reads, host gather, uploads and device time (torch.profiler over
+    OMNI_OFFLOAD_PROFILE_STEPS steps of the first), the prefill's
+    whole-stack stream and the peak device memory (no expert stack on the
+    card); then `--thinker --text --moe-offload` sampled (the host Sampler
+    per token, no CUDA graph) twice with the same seed: equal output.  Ends
+    with the host's resident memory."""
+    import gc
+
+    import torch
+
+    from smolvision_tpu_torch.io.wav import load_wav
+
+    clip = load_wav(wav)
+    step = omni_step_bytes(ocfg)
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    out = {"link": link_rate()}
+    log(f"  host-to-device link, one pinned {LINK_COPY_BYTES} B copy: {json.dumps(out['link'])}")
+    base = ["-d", omni_dir, "--silent", "--language", "English", "-i", wav, "--max-tokens",
+            str(MAX_TOKENS), "--moe-offload"]
+    for name, extra in (("omni --moe-offload", []),
+                        ("omni --moe-offload --moe-preload", ["--moe-preload"])):
+        if DEV == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        with offload_record() as rec:
+            eng, launches, _, wall_s = run_cli(base + extra, name)
+        check_launches(name, launches, eng, ocfg)
+        if not eng.moe_offload or len(rec["stores"]) != 1 or len(rec["tokens"]) != 1:
+            fail(f"{name}: not one offload engine and one greedy decode")
+        if bool(extra) != bool(rec["preloads"]):
+            fail(f"{name}: preloads {rec['preloads']}")
+        summary = offload_summary(name, eng, rec["stores"][0], clip, resident_tokens,
+                                  rec["tokens"][0], step)
+        summary.update(wall_s=wall_s, launches=launches, preload=rec["preloads"])
+        if not extra and DEV == "cuda":
+            window = profile_window(offload_steps(eng, clip, OMNI_OFFLOAD_PROFILE_STEPS))
+            summary["profile"] = window
+        OMNI_RUNS[name] = summary
+        log(f"  {name}: {json.dumps(summary)}")
+        out[name] = summary
+        del eng
+        gc.collect()
+    argv = ["-d", omni_dir, "--silent", "--thinker", "--text", THINKER_TEXT, "--max-tokens",
+            str(OMNI_OFFLOAD_THINKER_TOKENS), "--moe-offload"]
+    texts = []
+    for turn in range(2):
+        name = f"omni thinker --text --moe-offload ({turn + 1})"
+        eng, launches, lines, wall_s = run_cli(argv, name)
+        check_launches(name, launches, eng, ocfg)
+        perf = eng.perf
+        if perf.graph_captures or perf.logits_steps != perf.decode_steps or not perf.decode_steps:
+            fail(f"{name}: {perf.graph_captures} graphs, {perf.logits_steps} logits steps of "
+                 f"{perf.decode_steps} (the host sampler per token expected)")
+        texts.append(lines)
+        OMNI_RUNS[name] = dict(cli_ms(eng), wall_s=wall_s,
+                               router_reads=eng.expert_store.stats["router_reads"])
+        log(f"  {name}: {json.dumps(OMNI_RUNS[name])}")
+        del eng
+        gc.collect()
+    if texts[0] != texts[1] or not "".join(texts[0]).strip():
+        fail(f"omni thinker --moe-offload: the same seed gave {texts[0]!r} then {texts[1]!r}")
+    out["host_memory_gb"] = host_memory()
+    log(f"  host memory after the offload runs: {json.dumps(out['host_memory_gb'])}")
+    return out
+
+
+def untied_checkpoint(preset: str, path: str, seed: int) -> str:
+    """`preset` written f32 with the full vocab, then given a separate seeded
+    lm_head: a tied random head greedy-decodes one token over and over."""
+    import torch
+
+    from smolvision_tpu_torch.io.safetensors import MultiSafetensors, write_safetensors
+    from smolvision_tpu_torch.models import synthetic
+
+    with mock.patch.dict(synthetic.PRESETS, {OMNI_TINY_PRESET: OMNI_TINY}):
+        synthetic.build(preset, path, seed=seed, dtype="f32", full_vocab=True)
+    with MultiSafetensors(path) as r:
+        tensors = {k: r.get(k).clone() for k in r.names()}
+    embed = tensors["thinker.model.embed_tokens.weight"]
+    g = torch.Generator().manual_seed(seed + 1000)
+    tensors["thinker.lm_head.weight"] = torch.randn(embed.shape, generator=g) * 0.1
+    write_safetensors(os.path.join(path, "model.safetensors"), tensors)
+    with open(os.path.join(path, "config.json")) as f:
+        cfg = json.load(f)
+    cfg["thinker_config"]["text_config"]["tie_word_embeddings"] = False
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def phase_tiny_moe_spec(work: str, wav: str) -> dict:
+    """--spec --f32 on an untied full-vocab tiny MoE (OMNI_TINY: tiny-moe's
+    4 experts top-2 at card head dims; its int8 draft's gathers in the
+    iteration's CUDA graph): tokens equal to plain greedy over the whole
+    run."""
+    import torch
+
+    from smolvision_tpu_torch.io.wav import load_wav
+    from smolvision_tpu_torch.runtime.engine import Engine
+
+    path = untied_checkpoint(OMNI_TINY_PRESET, os.path.join(work, OMNI_TINY_PRESET), SEED)
+    eng = Engine(path, param_dtype=torch.float32, kv_dtype=torch.float32, device=DEV, spec=True)
+    eng.set_force_language("English")
+    eng.prepare_prompt()
+    cmp = spec_vs_plain(eng, load_wav(wav), MAX_TOKENS, exact=True)
+    if cmp["spec_iters"] == 0:
+        fail(f"{OMNI_TINY_PRESET} --spec --f32: no verify ran")
+    OMNI_RUNS[f"{OMNI_TINY_PRESET} --spec --f32"] = cmp
+    log(f"  {OMNI_TINY_PRESET} --spec vs plain greedy, f32 (equal over the whole run): "
+        f"{json.dumps(cmp)}")
+    shutil.rmtree(path, ignore_errors=True)
+    return cmp
+
+
+def omni_int8_kernel_table(shapes, runs: dict) -> list:
+    """The kernels line's rows of phase 12's int8 and --spec runs, each
+    checked against its plain version on its timing inputs and timed
+    (turns plain, kernel, kernel, plain) beside its library call and its
+    bound, its launches those of the graph turn of the run that carries
+    it: B2 at the 30B --spec verify (T SPEC_DRAFT + 1 at a device start,
+    G 8, on the spec run's cache at its last verify's row), K7 over the
+    int8 [151936, 2048] head at R 1 (--q8) and at the -S run's batch (-S 20
+    --q8), K6 over the bf16 head at the verify's R (--spec)."""
+    import torch
+
+    from smolvision_tpu_torch.config import QWEN3_OMNI_30B
+    from smolvision_tpu_torch.kernels import argmax_matvec as am
+    from smolvision_tpu_torch.runtime import engine as eng_mod
+
+    T = eng_mod.SPEC_DRAFT + 1
+    K, start = runs["verify_at"]
+    rows = [("causal_cache_attention_omni_verify",
+             "smolvision_tpu_torch/kernels/csrc/causal_cache_attention.cu",
+             "smolvision_tpu/kernels/flash_attention.py:491",
+             *cache_row(T, K, start, start + T, heads=OMNI_HEADS))]
+    errs = {rows[0][0]: check_close("causal_cache_attention_omni_verify timing inputs",
+                                    rows[0][3](), rows[0][4]())}
+    table = timed_table(rows, errs, {})
+    table[0]["launches"] = runs["--spec verify"]
+    V, Hd = QWEN3_OMNI_30B.vocab_size, QWEN3_OMNI_30B.dec_hidden
+    for name, R, kind, run in (("argmax_matvec_q8_omni", 1, "int8", runs["--q8"]),
+                               ("argmax_matvec_omni_verify", T, "bfloat16", runs["--spec"]),
+                               ("argmax_matvec_q8_omni_batched", shapes["seg_B"], "int8",
+                                runs["-S q8"])):
+        h, w, scale, _ = head_case(V, Hd, R, kind, 950 + R)
+        err = check_head(f"{name} timing inputs", h, w, scale)
+        kern = lambda h=h, w=w, s=scale: am.argmax_matvec(h, w, s)   # noqa: E731
+        plain = lambda h=h, w=w, s=scale: am.argmax_matvec_plain(h, w, s)   # noqa: E731
+        p1, k1, k2, p2 = (time_ms(f) for f in (plain, kern, kern, plain))
+        lib_ms = None
+        if kind == "bfloat16":
+            hb = h.to(torch.bfloat16)
+            lib_ms = time_ms(lambda hb=hb, w=w: torch.argmax(
+                torch.mm(hb, w.t(), out_dtype=torch.float32), dim=-1))
+        nbytes = w.numel() * w.element_size() + (0 if scale is None else 4 * V) + 4 * R * (Hd + 1)
+        bound_ms, bound_by = bound(nbytes, 2.0 * R * V * Hd, kind)
+        route = am.head_route(R, w.dtype)
+        table.append({"name": name, "route": "cuda",
+                      "source": "smolvision_tpu_torch/kernels/csrc/argmax_matvec.cu",
+                      "replaces": "tools/probe_int8.py:110" if kind == "int8"
+                      else "tools/profile_decode3.py:145",
+                      "max_abs_err": err, "ms": min(k1, k2), "plain_ms": min(p1, p2),
+                      "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                      "design": route.replace("_", " ") + "s",
+                      "launches": run[am.launch_key(route, w.dtype)]})
+        log(f"  {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, library "
+            + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none (no one PyTorch call)")
+            + f", bound {bound_ms:.4f} ms ({bound_by}); launches {table[-1]['launches']}")
+        del h, w
+    return table
+
+
 def omni_preflight(path: str) -> None:
     """The 30B checkpoint's size against the free disk and host memory
     (the disk must hold it; the page cache holds what the load reads)."""
@@ -3542,8 +3951,12 @@ def phase_omni(omni_dir: str, wav: str, long_wav: str, shapes, build: dict) -> d
     prefill graphs, B2 at start > 0) and `--thinker --text` sampled to
     OMNI_TEXT_MAX_TOKENS, each eager then as CUDA graphs with equal tokens
     (`run_path`); the offline decode loop profiled, eager and graph in
-    turns; then the forced-overflow forward.  The weights are loaded once
-    (`resident_weights`), the load timed."""
+    turns; then the forced-overflow forward; then the int8 runs
+    (`phase_omni_int8`: --q8, --spec, -S 20 --q8).  The weights are loaded
+    once (`resident_weights`), the load timed.  Then, the resident weights
+    freed, the host-offload runs (`phase_omni_offload`) on the same
+    checkpoint, and --spec --f32 on a small tiny-moe
+    (`phase_tiny_moe_spec`)."""
     import gc
 
     from smolvision_tpu_torch.config import detect_config
@@ -3572,6 +3985,7 @@ def phase_omni(omni_dir: str, wav: str, long_wav: str, shapes, build: dict) -> d
         OMNI_RUNS["omni offline"]["profile"] = {k: v for k, v in prof.items() if k != "windows"}
         log(f"  omni offline decode loop, eager and graph in turns: "
             f"{json.dumps(OMNI_RUNS['omni offline']['profile'])}")
+        resident_tokens = greedy_run(eng, load_wav(wav), MAX_TOKENS, spec=False)
         del eng
         gc.collect()
         eng, launches, lines, _ = run_path(
@@ -3598,6 +4012,9 @@ def phase_omni(omni_dir: str, wav: str, long_wav: str, shapes, build: dict) -> d
         out["overflow"] = omni_overflow_forward(eng)
         del eng
         gc.collect()
+        out["int8"] = phase_omni_int8(omni_dir, wav, long_wav, shapes, ocfg)
+    out["offload"] = phase_omni_offload(omni_dir, wav, resident_tokens, ocfg)
+    out["tiny_spec"] = phase_tiny_moe_spec(os.path.dirname(omni_dir), wav)
     out["load_s"] = loads[0]
     log(f"  {OMNI_PRESET}: written in {build['build_s']:.1f} s ({build['bytes'] / 1e9:.2f} GB; "
         f"waited for {build['waited_s']:.1f} s since its start), loaded onto the card once in "
@@ -3874,6 +4291,7 @@ def main() -> int:
         omni_errs = phase_omni_kernels(shapes)
         omni_run = phase_omni(omni_dir, wav, long_wav, shapes, omni_build.wait())
         table += omni_kernel_table(shapes, omni_run, omni_errs)
+        table += omni_int8_kernel_table(shapes, omni_run["int8"])
         since("phase 12 (Qwen3-Omni-30B-A3B)")
     finally:
         for child in (q25_build, omni_build):
@@ -3912,6 +4330,11 @@ def main() -> int:
     log(f"multistream [{smi_line}]: {json.dumps(MSTREAM_RUNS)}")
     log(f"thinker runs [{smi_line}]: {json.dumps(THINKER_RUNS)}")
     log(f"omni-30b runs [{smi_line}]: {json.dumps(OMNI_RUNS)}")
+    omni_int8 = {k: v for k, v in OMNI_RUNS.items()
+                 if any(f in k for f in ("--q8", "--spec", "--moe-offload"))}
+    omni_int8["link"] = omni_run["offload"]["link"]
+    omni_int8["host_memory_gb"] = omni_run["offload"]["host_memory_gb"]
+    log(f"omni-30b --q8 / --spec / --moe-offload [{smi_line}]: {json.dumps(omni_int8)}")
     log(f"decode loops, graph vs eager per path: {json.dumps(DECODE_RUNS)}")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in table]}))
     print(smi_line)

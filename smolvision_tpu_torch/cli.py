@@ -13,7 +13,10 @@ trace of the transcription), and the decoder options --q8 / --kv8 /
 JAX CLI reads them); free-form generation from audio or --text under
 --thinker (--max-tokens / --temperature / --repeat-penalty / --top-k /
 --seed / --sampler), which is also where a Qwen2.5-Omni checkpoint's ASR
-goes (with the default system prompt and temperature 0.7).  The transcript
+goes (with the default system prompt and temperature 0.7); an MoE
+checkpoint's experts resident or on the host (--moe-offload, with
+--moe-preload touching their pages first: one stream at a time, so several
+-i files exit 1).  The transcript
 goes to STDOUT
 (tokens streamed as decoded in normal mode; one final line in --silent; one
 line per file for several files); status/perf lines go to STDERR:
@@ -22,8 +25,6 @@ line per file for several files); status/perf lines go to STDERR:
   Batch: N files, X s audio in Y s (Zx realtime)      (several files)
   Streams: N sessions, X s audio in Y s (Zx realtime) (several files, --stream)
   Serve: ttft p50 ... / p99 ..., completion ...       (--serve)
-Every mode not ported yet exits 1 with one `smolvision: ...` line.
-
 Runs on the card; SMOLVISION_PLATFORM=cpu selects the CPU.
 """
 
@@ -121,15 +122,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _unported(args) -> Optional[str]:
-    """The first requested mode this port does not run yet, or None."""
-    checks = [(args.moe_offload, "--moe-offload"), (args.moe_preload, "--moe-preload")]
-    for on, what in checks:
-        if on:
-            return what
-    return None
-
-
 def run(argv=None) -> Tuple[int, Optional["Engine"]]:
     """`main`, also returning the Engine it ran (None when none was built)."""
     args = build_parser().parse_args(argv)
@@ -147,12 +139,6 @@ def run(argv=None) -> Tuple[int, Optional["Engine"]]:
         print(f"Error: --enc-window-sec must be in [1, 8], got {args.enc_window_sec}",
               file=sys.stderr)
         return 1, None
-    missing = _unported(args)
-    if missing:
-        print(f"smolvision: {missing} is not yet ported to smolvision_tpu_torch",
-              file=sys.stderr)
-        return 1, None
-
     verbosity = 0 if args.silent else (2 if args.debug else 1)
 
     import torch
@@ -174,6 +160,7 @@ def run(argv=None) -> Tuple[int, Optional["Engine"]]:
             q8=args.q8 or os.environ.get("SMOLVISION_Q8", "") == "1",
             kv8=args.kv8 or os.environ.get("SMOLVISION_KV8", "") == "1",
             spec=args.spec or os.environ.get("SMOLVISION_SPEC", "") == "1",
+            moe_offload=args.moe_offload,
         )
     except Exception as e:
         # mirror the reference's one-line load failure (main.c:292-296)
@@ -181,6 +168,8 @@ def run(argv=None) -> Tuple[int, Optional["Engine"]]:
               f"{type(e).__name__}: {e}", file=sys.stderr)
         return 1, None
     eng.monitor = args.monitor
+    if args.moe_offload and not eng.moe_offload and verbosity >= 1:
+        print("--moe-offload: model is not MoE; ignored", file=sys.stderr)
 
     if args.segment_sec >= 0:
         eng.segment_sec = args.segment_sec
@@ -209,6 +198,18 @@ def run(argv=None) -> Tuple[int, Optional["Engine"]]:
         eng.sampler_mode = "cref"
     if args.no_batch_segments:
         eng.batch_segments = False
+    if args.moe_preload:
+        if eng.moe_offload:
+            gb = eng.expert_store.preload() / 1e9
+            if verbosity >= 1:
+                # the reference's preload report (qwen_asr_decoder.c:354)
+                print(f"MoE preload: touched {gb:.1f} GB of host expert pages",
+                      file=sys.stderr)
+        elif verbosity >= 1:
+            note = ("MoE experts are device-resident (loaded at startup); "
+                    "--moe-preload is implicit on the card"
+                    if eng.cfg.is_moe else "--moe-preload: model is not MoE")
+            print(note, file=sys.stderr)
     if args.prompt:
         eng.set_prompt(args.prompt)
     if args.language:
@@ -231,6 +232,11 @@ def run(argv=None) -> Tuple[int, Optional["Engine"]]:
         if args.thinker or eng.cfg.family == "q25":
             print("Error: multiple -i files only supported in plain Qwen3 ASR mode",
                   file=sys.stderr)
+            return 1, eng
+        if eng.moe_offload:
+            # the batched forwards read the expert stacks, which stay on the host
+            print("smolvision: --moe-offload decodes one stream at a time: several -i files "
+                  "(a batch, --serve, multistream) are not supported with it", file=sys.stderr)
             return 1, eng
         return _run_several(args, eng, verbosity), eng
 

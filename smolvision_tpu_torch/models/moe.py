@@ -32,6 +32,13 @@ scatter and the gather.  It runs the same formulation whether the step is
 captured or run eagerly, so a graph's tokens equal its eager run's.  At
 T <= GATHER_MAX_T both run the gather: a dense decode step would read all
 E experts (58 GB at the 30B, ~17 ms a token).
+
+The expert stacks may be int8 (--q8, the --spec draft: ops/quant.QuantW
+with one scale per output row).  Every product of the three formulations
+goes through `_emm`, which widens them (ops/quant.qbmm) and puts the scales
+on the output axis: trailing for the gather's and the dense path's rows,
+s[:, None, :] for the dispatch's per-expert queues (the JAX `_emm`).  The
+gather copies the chosen blocks of both leaves (ops/quant.take).
 """
 
 from __future__ import annotations
@@ -41,48 +48,63 @@ import math
 import torch
 
 from smolvision_tpu_torch.config import ModelConfig
-from smolvision_tpu_torch.ops.common import bmm, linear, silu
+from smolvision_tpu_torch.ops.common import bmm, silu
+from smolvision_tpu_torch.ops.quant import QuantW, qbmm, reshape_out, take
 
 MOE_DISPATCH_MIN_EXPERTS = 16
 MOE_CAPACITY_FACTOR = 2.0
 GATHER_MAX_T = 4
 
 
+def router_scores(x: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
+    """x [T, H] and the f32 router [E, H] -> f32 scores [T, E]."""
+    return x.float() @ router.float().t()
+
+
+def topk_weights(top_vals: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The chosen experts' weights from their scores [T, K]: a softmax, then
+    norm_topk_prob's renormalisation."""
+    top_w = torch.softmax(top_vals.float(), dim=-1)
+    if cfg.norm_topk_prob:
+        top_w = top_w / (top_w.sum(dim=-1, keepdim=True) + 1e-20)
+    return top_w
+
+
 def route(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
     """x [T, H] f32 and the f32 router [E, H] -> (top_idx int64 [T, K],
     top_w f32 [T, K]): f32 scores, top-k, softmax over the top-k values,
     norm_topk_prob's renormalisation."""
-    scores = x.float() @ router.float().t()
-    top_vals, top_idx = torch.topk(scores, cfg.num_experts_per_tok, dim=-1)
-    top_w = torch.softmax(top_vals, dim=-1)
-    if cfg.norm_topk_prob:
-        top_w = top_w / (top_w.sum(dim=-1, keepdim=True) + 1e-20)
-    return top_idx, top_w
+    top_vals, top_idx = torch.topk(router_scores(x, router), cfg.num_experts_per_tok, dim=-1)
+    return top_idx, topk_weights(top_vals, cfg)
 
 
-def moe_apply_gathered(xc: torch.Tensor, g_w: torch.Tensor, u_w: torch.Tensor,
-                       d_w: torch.Tensor, top_w: torch.Tensor) -> torch.Tensor:
+def _emm(a: torch.Tensor, w) -> torch.Tensor:
+    """a [N, M, H] @ w[N, O, H]^T -> f32 [N, M, O]; w a plain or an int8
+    (QuantW, scales [N, O]) block stack."""
+    if isinstance(w, QuantW):
+        return qbmm(a, w)
+    return bmm(a, w.transpose(1, 2))
+
+
+def moe_apply_gathered(xc: torch.Tensor, g_w, u_w, d_w, top_w: torch.Tensor) -> torch.Tensor:
     """Per-token gathered expert SwiGLU mix: xc [T, H] in the weights' dtype,
-    expert blocks g_w / u_w [T, K, MI, H] and d_w [T, K, H, MI], router
-    weights top_w [T, K] -> [T, H] f32."""
+    expert blocks g_w / u_w [T, K, MI, H] and d_w [T, K, H, MI] (plain or
+    QuantW), router weights top_w [T, K] -> [T, H] f32.  Shared by the
+    resident decode step and the host-offload engine
+    (models/moe_offload.py), which passes the blocks it copied up."""
     T, K, MI, H = g_w.shape
-    x3 = xc[:, :, None]
-    gate = bmm(g_w.reshape(T, K * MI, H), x3).reshape(T, K, MI)
-    up = bmm(u_w.reshape(T, K * MI, H), x3).reshape(T, K, MI)
+    x3 = xc[:, None, :]
+    gate = _emm(x3, reshape_out(g_w, T, K * MI)).reshape(T, K, MI)
+    up = _emm(x3, reshape_out(u_w, T, K * MI)).reshape(T, K, MI)
     act = (silu(gate) * up).to(xc.dtype)
-    down = bmm(d_w.reshape(T * K, H, MI), act.reshape(T * K, MI, 1)).reshape(T, K, H)
+    down = _emm(act.reshape(T * K, 1, MI), reshape_out(d_w, T * K, H)).reshape(T, K, H)
     return torch.einsum("tk,tkh->th", top_w, down)
 
 
 def _gathered(xc, lp, top_idx, top_w) -> torch.Tensor:
-    T, K = top_idx.shape
-    flat = top_idx.reshape(-1)
-
-    def take(w):   # [E, A, B] -> [T, K, A, B]: a copy of the chosen blocks
-        return w.index_select(0, flat).reshape(T, K, *w.shape[1:])
-
-    return moe_apply_gathered(xc, take(lp["e_gate"]), take(lp["e_up"]), take(lp["e_down"]),
-                              top_w)
+    """[E, A, B] stacks -> the chosen [T, K, A, B] blocks (a copy), mixed."""
+    return moe_apply_gathered(xc, take(lp["e_gate"], top_idx), take(lp["e_up"], top_idx),
+                              take(lp["e_down"], top_idx), top_w)
 
 
 def capacity(T: int, K: int, E: int) -> int:
@@ -109,10 +131,10 @@ def capacity_dispatch(xc: torch.Tensor, lp, top_idx: torch.Tensor, top_w: torch.
     disp = xc.new_zeros((E, C + 1, H))
     disp[flat_e, slot] = xc[tok_of]      # kept (expert, slot) pairs are unique
     disp = disp[:, :C]
-    gate = bmm(disp, lp["e_gate"].transpose(1, 2))                   # [E, C, MI]
-    up = bmm(disp, lp["e_up"].transpose(1, 2))
+    gate = _emm(disp, lp["e_gate"])                                  # [E, C, MI]
+    up = _emm(disp, lp["e_up"])
     act = (silu(gate) * up).to(xc.dtype)
-    down = bmm(act, lp["e_down"].transpose(1, 2))                    # [E, C, H]
+    down = _emm(act, lp["e_down"])                                   # [E, C, H]
     gathered = down[flat_e, slot.clamp(max=C - 1)]
     gathered = torch.where(keep[:, None], gathered, 0.0)
     out = (gathered.reshape(T, K, H) * top_w[..., None]).sum(dim=1)
@@ -124,10 +146,11 @@ def moe_dense(xc: torch.Tensor, lp, top_idx: torch.Tensor, top_w: torch.Tensor) 
     T = xc.shape[0]
     E, MI, H = lp["e_gate"].shape
     route_w = (torch.nn.functional.one_hot(top_idx, E).float() * top_w[..., None]).sum(dim=1)
-    gate = linear(xc, lp["e_gate"].reshape(E * MI, H)).reshape(T, E, MI)
-    up = linear(xc, lp["e_up"].reshape(E * MI, H)).reshape(T, E, MI)
+    x3 = xc[None]
+    gate = _emm(x3, reshape_out(lp["e_gate"], 1, E * MI)).reshape(T, E, MI)
+    up = _emm(x3, reshape_out(lp["e_up"], 1, E * MI)).reshape(T, E, MI)
     act = (silu(gate) * up).to(xc.dtype)
-    down = bmm(act.transpose(0, 1), lp["e_down"].transpose(1, 2))     # [E, T, H]
+    down = _emm(act.transpose(0, 1), lp["e_down"])                   # [E, T, H]
     return torch.einsum("te,eth->th", route_w, down)
 
 
@@ -135,7 +158,7 @@ def moe_ffn(x: torch.Tensor, lp, cfg: ModelConfig, valid=None,
             graph_safe: bool = False) -> torch.Tensor:
     """The MoE FFN of one layer: x [T, H] f32 -> [T, H] f32.  lp holds the
     layer's `router` [E, H] (f32) and `e_gate` / `e_up` [E, MI, H], `e_down`
-    [E, H, MI].  valid [T] bool marks the rows that may take expert
+    [E, H, MI] (plain, or QuantW: the activations then go in as bf16).  valid [T] bool marks the rows that may take expert
     capacity (None: all).  graph_safe: a graph step's forward, which reads
     nothing back and takes the dense path above GATHER_MAX_T rows (see the
     module notes); otherwise a dispatch that drops reads its count on the

@@ -23,8 +23,10 @@ leaf by leaf:
     tensors allocated beforehand: the JAX loader's host `np.stack` of the
     experts would be 58 GB at the 30B.
 `params_from_jax` turns the JAX loaders' pytrees (as numpy arrays) into
-the same dictionaries; `quantize_decoder` makes the int8 (--q8) decoder of
-a dense checkpoint.
+the same dictionaries; `quantize_decoder` makes the int8 (--q8) decoder,
+its expert stacks one layer row at a time.  `load_decoder(...,
+experts_on_host=True)` (--moe-offload) leaves the expert stacks out: they
+stay in the checkpoint, models/moe_offload.HostExpertStore.
 """
 
 from __future__ import annotations
@@ -158,11 +160,13 @@ def load_q25_encoder(reader, cfg: ModelConfig, param_dtype=torch.bfloat16,
 
 
 def load_decoder(reader, cfg: ModelConfig, param_dtype=torch.bfloat16,
-                 device=None) -> Dict[str, Any]:
+                 device=None, experts_on_host: bool = False) -> Dict[str, Any]:
     """Decoder weights on `device` (the card unless the caller names the
     CPU): Qwen3's (q/k norms, no QKV bias, tied or separate lm_head; dense,
     MoE or mixed) or Qwen2.5-Omni's (a QKV bias `bqkv`, no q/k norms, an
-    untied lm_head)."""
+    untied lm_head).  experts_on_host: an MoE decoder's `e_gate`, `e_up`
+    and `e_down` are None (the host-offload engine reads them from the
+    checkpoint); the router and every other leaf are loaded."""
     device = resolve_device(device)
     p = DEC_PREFIX
     L = cfg.dec_layers
@@ -196,7 +200,7 @@ def load_decoder(reader, cfg: ModelConfig, param_dtype=torch.bfloat16,
         layers["router"] = _cat(("mlp.gate",), f32, rows=moe_rows)
         for key, name in (("e_gate", "gate_proj"), ("e_up", "up_proj"),
                           ("e_down", "down_proj")):
-            layers[key] = _stack_experts(
+            layers[key] = None if experts_on_host else _stack_experts(
                 reader, p + ".layers.{i}.mlp.experts.{e}." + name + ".weight", moe_rows,
                 cfg.num_experts, param_dtype, device)
     if cfg.dec_qkv_bias:
@@ -220,19 +224,31 @@ def load_decoder(reader, cfg: ModelConfig, param_dtype=torch.bfloat16,
     return out
 
 
+def _quantize_by_row(w: torch.Tensor) -> QuantW:
+    """quantize_weight of a stack [L, ...], one leading row at a time into
+    tensors allocated first: the f32 transient is one row's (the 30B's
+    [16, 128, 768, 2048] expert stack whole would be 12.9 GB)."""
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    s = torch.empty(w.shape[:-1], dtype=torch.float32, device=w.device)
+    for j in range(w.shape[0]):
+        q[j], s[j] = quantize_weight(w[j])
+    return QuantW(q, s)
+
+
 def quantize_decoder(params: Dict[str, Any]) -> Dict[str, Any]:
-    """int8 quantization (--q8) of the dense decoder's matrices: wqkv, wo,
-    w_gate_up, w_down and embed / lm_head, which stay ONE QuantW when tied
-    (the embedding gather and the lm_head read the same int8 table).  Norms
-    stay f32; the KV cache is untouched.  See ops/quant.py for the numerics.
-    Int8 experts are not ported: an MoE decoder is refused."""
-    if params.get("moe_layers"):
-        raise ValueError("int8 weights of an MoE decoder (int8 experts) are not yet ported "
-                         "to smolvision_tpu_torch")
+    """int8 quantization (--q8) of the decoder's matrices: wqkv, wo,
+    w_gate_up, w_down, the MoE expert stacks e_gate / e_up / e_down (per
+    output row, as every other matrix; the JAX quantize_decoder's default
+    experts=True) and embed / lm_head (which stay ONE QuantW when tied: the
+    embedding gather and the lm_head read the same int8 table).  Norms and
+    the router stay f32, absent leaves (a dense decoder's experts, a
+    uniform MoE stack's dense FFN, the host-offload engine's experts) stay
+    absent; the KV cache is untouched.  See ops/quant.py for the numerics."""
     out = dict(params)
     layers = dict(params["layers"])
-    for k in ("wqkv", "wo", "w_gate_up", "w_down"):
-        layers[k] = quantize_weight(layers[k])
+    for k in ("wqkv", "wo", "w_gate_up", "w_down", "e_gate", "e_up", "e_down"):
+        if layers.get(k) is not None:
+            layers[k] = _quantize_by_row(layers[k])
     out["layers"] = layers
     out["embed"] = quantize_weight(params["embed"])
     tied = params["lm_head"] is params["embed"]
@@ -270,10 +286,18 @@ def _moe_rows_from_jax(dec_np: Mapping[str, Any]) -> Mapping[str, Any]:
     moe_rows = [i for i in range(n) if is_moe[i]]
     dense_rows = [i for i in range(n) if not is_moe[i]]
     out = {k: v for k, v in layers.items() if k != "moe_mask"}
+
+    def rows(val, idx):   # a stack's rows; both leaves of a QuantW pair
+        if val is None or not idx:
+            return None
+        if _is_quant_pair(val):
+            return type(val)(np.asarray(val.q)[idx], np.asarray(val.s)[idx])
+        return np.asarray(val)[idx]
+
     for k in ("router", "e_gate", "e_up", "e_down"):
-        out[k] = np.asarray(layers[k])[moe_rows]
+        out[k] = rows(layers[k], moe_rows)
     for k in ("w_gate_up", "w_down"):
-        out[k] = np.asarray(layers[k])[dense_rows] if dense_rows else None
+        out[k] = rows(layers[k], dense_rows)
     return dict(dec_np, layers=out, moe_layers=is_moe)
 
 

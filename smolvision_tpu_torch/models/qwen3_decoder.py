@@ -40,7 +40,10 @@ as the JAX package's serving does (Qwen2.5-Omni runs through the thinker).
     away from B5 as well).
     The single-stream cache stays bf16 / f32.
   * an MoE decoder (Qwen3-Omni-30B-A3B) runs models/moe.py's FFN in its
-    MoE layers; a mixed stack (decoder_sparse_step > 1) picks the FFN per
+    MoE layers (on int8 expert stacks under --q8 and in the --spec
+    draft; the host-offload forward, models/moe_offload.py, runs this
+    module's attention half and FFNs layer by layer with
+    `block_positions`); a mixed stack (decoder_sparse_step > 1) picks the FFN per
     layer with a plain Python branch (`layer_params`).  Rows that may take
     expert capacity are the JAX package's `row_valid`: below valid_len in a
     single block; at or above kv_min in a batched one and, with the
@@ -142,7 +145,9 @@ def layer_params(params):
     params["moe_layers"] (one bool per layer) says which layers are MoE:
     the expert stacks (MOE_KEYS) have one row per MoE layer, and a mixed
     stack's dense FFN (DENSE_FFN_KEYS) one per dense layer; a dense decoder
-    has no "moe_layers"."""
+    has no "moe_layers".  Any stack may be a QuantW (--q8, the --spec
+    draft); expert stacks left on the host (--moe-offload: None) are left
+    out of the layers' dictionaries."""
     layers = params["layers"]
     n = layers["wqkv"].shape[0]
     is_moe = params.get("moe_layers") or (False,) * n
@@ -153,7 +158,8 @@ def layer_params(params):
         j = rows[is_moe[i]]
         rows[is_moe[i]] += 1
         for k in MOE_KEYS if is_moe[i] else DENSE_FFN_KEYS:
-            lp[k] = take(layers[k], j)
+            if layers.get(k) is not None:
+                lp[k] = take(layers[k], j)
         out.append(lp)
     return out
 
@@ -181,30 +187,38 @@ def decoder_forward(params, cfg: ModelConfig, embeds: torch.Tensor, start_pos,
     Rows >= valid_len are junk; their cache rows are masked until overwritten,
     and they take no MoE expert capacity.
     """
+    graph_safe = isinstance(start_pos, torch.Tensor)
+    at = block_positions(cfg, embeds.shape[0], start_pos, valid_len, kv, embeds.device)
+    row_valid = (torch.arange(embeds.shape[0], device=embeds.device) < valid_len
+                 if params.get("moe_layers") else None)
+    h = embeds.float()
+    for i, lp in enumerate(layer_params(params)):
+        h = _attn_block(lp, h, kv, i, cfg, *at)
+        h = h + _ffn(rms_norm(h, lp["post_ln"], cfg.rms_norm_eps), lp, cfg, row_valid,
+                     graph_safe)
+    return h, kv
+
+
+def block_positions(cfg: ModelConfig, T: int, start_pos, valid_len, kv, device):
+    """What `_attn_block` needs of a block of T rows at start_pos (see
+    decoder_forward): (cos, sin, rows, start_pos, kv_valid) -- the RoPE
+    tables, the cache rows (int64 [T]), and the start and kv_valid as B2 /
+    B3 take them (a decode step's start as an int32 device tensor [1])."""
     if isinstance(kv, QuantKV):
         raise ValueError("the int8 KV cache (--kv8) is batched-path only (make_batched_kv)")
-    T = embeds.shape[0]
-    graph_safe = isinstance(start_pos, torch.Tensor)
-    row_valid = (torch.arange(T, device=embeds.device) < valid_len
-                 if params.get("moe_layers") else None)
     if T == 1 and not isinstance(start_pos, torch.Tensor):
-        start_pos = torch.full((1,), start_pos, dtype=torch.int64, device=embeds.device)
+        start_pos = torch.full((1,), start_pos, dtype=torch.int64, device=device)
     if isinstance(start_pos, torch.Tensor):
         start_pos = start_pos.reshape(1)
     elif start_pos < 0 or start_pos + T > kv.shape[2]:
         raise ValueError(f"cache rows {start_pos}..{start_pos + T} past its {kv.shape[2]}")
-    rows = start_pos + torch.arange(T, device=embeds.device)
+    rows = start_pos + torch.arange(T, device=device)
     cos, sin = rope_tables(rows, cfg.dec_head_dim, cfg.rope_theta)
     kv_valid = start_pos + valid_len if T > 1 else None
     if isinstance(start_pos, torch.Tensor):   # B2 / B3 read int32s from device memory
         start_pos = start_pos.to(torch.int32)
         kv_valid = None if kv_valid is None else kv_valid.to(torch.int32)
-    h = embeds.float()
-    for i, lp in enumerate(layer_params(params)):
-        h = _attn_block(lp, h, kv, i, cfg, cos, sin, rows, start_pos, kv_valid)
-        h = h + _ffn(rms_norm(h, lp["post_ln"], cfg.rms_norm_eps), lp, cfg, row_valid,
-                     graph_safe)
-    return h, kv
+    return cos, sin, rows, start_pos, kv_valid
 
 
 def logits_at(params, cfg: ModelConfig, hidden: torch.Tensor, row: int) -> torch.Tensor:

@@ -26,6 +26,12 @@ rows).  In the dense decoder every `proj` equation of the JAX package's
 int8 x int8 sets reduces to "collapsed rows >= 1024"; its lm_head of one
 row ("h,vh->v") and the --spec verify ("th,vh->tv") are outside those
 sets, and neither reaches 1024 rows, so one rule covers every site.
+  * MoE expert stacks (--q8 on an MoE checkpoint, the --spec draft): QuantW
+    blocks of 3-D [E, O, H] or 4-D [T, K, O, H] values.  `take` copies the
+    chosen experts of both leaves, and `qbmm` is their product, always
+    dequantized as the JAX package's `proj` and `_emm` compute it (the
+    int8 x int8 branch is for 2-D weights only): bf16(x) . bf16(q) in f32
+    accumulation, then the scales on the output axis.
 """
 
 from __future__ import annotations
@@ -72,10 +78,41 @@ def quantize_weight(w: torch.Tensor) -> QuantW:
 
 
 def take(w, i):
-    """Index the leading (layer) axis of a weight that may be quantized."""
+    """Index the leading axis of a weight that may be quantized: a layer (a
+    host int: views), or chosen experts (an int64 tensor of any shape, e.g.
+    the router's [T, K]: a copy of those blocks of both leaves, shaped
+    [*i.shape, ...], by index_select, which reads nothing back and so runs
+    inside a CUDA graph with device indices; the JAX package's `qtake`)."""
+    if isinstance(i, torch.Tensor):
+        def rows(t):
+            return t.index_select(0, i.reshape(-1)).reshape(*i.shape, *t.shape[1:])
+    else:
+        def rows(t):
+            return t[i]
     if isinstance(w, QuantW):
-        return QuantW(w.q[i], w.s[i])
-    return w[i]
+        return QuantW(rows(w.q), rows(w.s))
+    return rows(w)
+
+
+def reshape_out(w, *lead):
+    """A weight [..., O, H] (plain or QuantW) reshaped to [*lead, H]: the
+    output axes merged or split, the scales [...] to `lead` alike."""
+    if isinstance(w, QuantW):
+        return QuantW(w.q.reshape(*lead, w.q.shape[-1]), w.s.reshape(*lead))
+    return w.reshape(*lead, w.shape[-1])
+
+
+def qbmm(a: torch.Tensor, w: QuantW) -> torch.Tensor:
+    """a [N, M, H] @ w.q[N, O, H]^T * w.s[N, None, O] -> f32 [N, M, O]: the
+    widened product of an int8 block stack (q and a cast to bf16, exact
+    for q, accumulated in f32), the scale of each output row applied after."""
+    ab = a.to(torch.bfloat16)
+    wb = w.q.to(torch.bfloat16).transpose(1, 2)
+    if ab.is_cuda:
+        y = torch.bmm(ab, wb, out_dtype=torch.float32)
+    else:  # the CPU build has no bf16 -> f32 product; widening is exact
+        y = torch.bmm(ab.float(), wb.float())
+    return y * w.s[:, None, :]
 
 
 def proj(x: torch.Tensor, w: QuantW) -> torch.Tensor:

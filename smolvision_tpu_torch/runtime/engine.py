@@ -11,8 +11,9 @@ with KV reuse (`prefill_with_reuse`: kernel B2 at a start > 0), the
 thinker (`thinker_generate`: free-form generation, greedy or sampled) and
 the Qwen2.5-Omni family (its Conv1D audio tower, models/q25_encoder.py;
 its decoder's QKV bias and untied lm_head) and MoE decoders (Qwen3-Omni-
-30B-A3B, resident: models/moe.py), except under --q8 and --spec, which
-need int8 experts and are refused on an MoE checkpoint.
+30B-A3B: models/moe.py), resident (int8 experts under --q8 and in the
+--spec draft) or with the experts left on the host (--moe-offload:
+models/moe_offload.py, a per-token host loop with no CUDA graph).
 The engine owns:
   * the parameter dictionaries on its device (bf16 weights by default),
   * the KV cache (grow-by-copy to pow2 buckets, as in the JAX engine),
@@ -50,6 +51,7 @@ from smolvision_tpu_torch.config import (
 )
 from smolvision_tpu_torch.device import resolve_device
 from smolvision_tpu_torch.io.safetensors import MultiSafetensors
+from smolvision_tpu_torch.models import moe_offload as off_mod
 from smolvision_tpu_torch.models import params as params_mod
 from smolvision_tpu_torch.models import q25_encoder as q25e
 from smolvision_tpu_torch.models import qwen3_decoder as dec_mod
@@ -150,16 +152,13 @@ class Engine:
     def __init__(self, model_dir: str, param_dtype=torch.bfloat16, kv_dtype=torch.bfloat16,
                  enc_window_sec: Optional[float] = None, verbose: int = 0,
                  device: Optional[Union[str, torch.device]] = None,
-                 q8: bool = False, kv8: bool = False, spec: bool = False):
+                 q8: bool = False, kv8: bool = False, spec: bool = False,
+                 moe_offload: bool = False):
         self.device = resolve_device(device)
         self.model_dir = model_dir
         self.verbose = verbose
         self.reader = MultiSafetensors(model_dir)
         cfg = detect_config(model_dir, self.reader)
-        for on, what in ((q8, "--q8"), (spec, "--spec")):
-            if on and cfg.is_moe:
-                raise ValueError(f"{what} on an MoE checkpoint ({cfg.name}: int8 experts) is "
-                                 "not yet ported to smolvision_tpu_torch")
         if enc_window_sec is not None:
             frames = int(enc_window_sec * 100.0 + 0.5)
             frames = min(max(frames, 100), 800)
@@ -174,14 +173,20 @@ class Engine:
         load_encoder = (params_mod.load_q25_encoder if cfg.family == "q25"
                         else params_mod.load_qwen3_encoder)
         self.enc_params = load_encoder(self.reader, cfg, param_dtype, self.device)
-        self.dec_params = params_mod.load_decoder(self.reader, cfg, param_dtype, self.device)
+        # MoE host offload (--moe-offload): the experts stay in the
+        # checkpoint's memory map (self.reader, kept open) and go to the
+        # card per layer; every other weight is resident
+        self.moe_offload = bool(moe_offload) and cfg.is_moe
+        self.dec_params = params_mod.load_decoder(self.reader, cfg, param_dtype, self.device,
+                                                  experts_on_host=self.moe_offload)
         # int8 KV cache (--kv8): batched paths only; the single-stream cache
         # keeps kv_dtype, as in the JAX engine
         self.kv8 = bool(kv8)
         if self.kv8 and verbose >= 1:
             print("int8 KV cache active (--kv8) on batched paths: output "
                   "may differ from the bf16 parity path", file=sys.stderr, flush=True)
-        # int8 decoder weights (--q8); the encoder keeps param_dtype
+        # int8 decoder weights (--q8), the resident experts too; the encoder
+        # and host-offloaded experts keep their dtypes
         self.q8 = bool(q8)
         if self.q8:
             self.dec_params = params_mod.quantize_decoder(self.dec_params)
@@ -191,8 +196,9 @@ class Engine:
         # speculative int8-draft decoding (--spec): SPEC_DRAFT tokens drafted
         # with an int8 copy of the decoder, then verified in one forward of
         # the full-precision decoder, whose greedy choice decides every
-        # emitted token; meaningless under --q8, where it turns itself off
-        self.spec = bool(spec) and not self.q8
+        # emitted token; meaningless under --q8 and --moe-offload, where it
+        # turns itself off.  An MoE draft gathers int8 experts
+        self.spec = bool(spec) and not self.q8 and not self.moe_offload
         if spec and not self.spec:
             print("warning: --spec disabled (meaningless with --q8 / "
                   "--moe-offload); output follows the quantized/offload "
@@ -207,6 +213,12 @@ class Engine:
                       "on the card, up to near ties (the verify and the "
                       "one-token step round bf16 products differently)",
                       file=sys.stderr, flush=True)
+        self.expert_store = None
+        if self.moe_offload:
+            self.expert_store = off_mod.HostExpertStore(self.reader, cfg, self.device)
+            if verbose >= 1:
+                print("MoE host-offload active: experts stream from host "
+                      "mmap per layer", file=sys.stderr, flush=True)
 
         # ---- generation settings (defaults mirror qwen_asr.c:257-272) ----
         self.segment_sec = 0.0
@@ -228,8 +240,9 @@ class Engine:
         # sampled parity arm (CLI --sampler cref)
         self.sampler_mode = "np"
         self.max_tokens = 2048
-        # decode independent -S segments as one batch (runtime/batch_segments.py)
-        self.batch_segments = True
+        # decode independent -S segments as one batch (runtime/batch_segments.py);
+        # the offload engine has no batched forward
+        self.batch_segments = not self.moe_offload
 
         self.prompt_text: Optional[str] = None
         self.force_language: Optional[str] = None
@@ -431,10 +444,14 @@ class Engine:
         """Kernel B2 over `embeds` written into cache rows start_pos.. (the
         rows below start_pos are kept); the first token or logits.  A greedy
         prefill goes through the cache's PrefillGraph for its block rows
-        (captured on its second call), the logits path runs eagerly."""
+        (captured on its second call), the logits path runs eagerly, and so
+        does every prefill of the host-offload engine."""
         T = embeds.shape[0]
         kv = self._ensure_kv(start_pos + T + KV_HEADROOM)
-        if greedy:
+        if self.moe_offload:
+            out = self._offload(embeds, start_pos, valid_len, greedy)
+            self.perf.logits_prefills += int(not greedy)
+        elif greedy:
             graph = self._prefills.get(T)
             if graph is None:
                 p, cfg = self.dec_params, self.cfg
@@ -481,12 +498,27 @@ class Engine:
         delta = embeds[reused : reused + delta_cap]
         return self._prefill(delta, reused, total - reused, greedy), total
 
+    def _offload(self, embeds: torch.Tensor, start_pos: int, valid_len: int, greedy: bool):
+        """The host-offload forward (models/moe_offload.py) over `embeds` at
+        cache row start_pos, then the greedy head (K6 / K7) or the logits of
+        row valid_len - 1."""
+        p, cfg = self.dec_params, self.cfg
+        hidden = off_mod.offload_forward(p, self.expert_store, cfg, embeds, start_pos,
+                                             valid_len, self._kv)
+        if greedy:
+            return dec_mod.greedy_head(p, cfg, dec_mod.last_row(hidden, valid_len))[0]
+        return dec_mod.logits_at(p, cfg, hidden, valid_len - 1)
+
     @torch.inference_mode()
     def decode_step(self, token: int, pos: int, greedy: bool = True):
         """One decode step at cache row `pos` (grows the cache first if needed)."""
         kv = self._ensure_kv(pos + 1)
-        out, self._kv = dec_mod.decode_step(self.dec_params, self.cfg, token, pos, kv,
-                                            greedy=greedy)
+        if self.moe_offload:
+            tok = torch.tensor([int(token)], dtype=torch.int64, device=self.device)
+            out = self._offload(embed_rows(self.dec_params["embed"], tok), pos, 1, greedy)
+        else:
+            out, self._kv = dec_mod.decode_step(self.dec_params, self.cfg, token, pos, kv,
+                                                greedy=greedy)
         self.perf.decode_steps += 1
         self.perf.logits_steps += int(not greedy)
         return out
@@ -537,6 +569,8 @@ class Engine:
         if cur in EOS_TOKEN_IDS or not on_token(cur) or n >= max_tokens:
             return n
         pos = start_pos
+        if self.moe_offload:
+            return self._decode_greedy_offload(cur, pos, n, max_tokens, on_token)
         while True:
             steps = min(DECODE_CHUNK, max_tokens - n)
             loop = self._decode_loop(pos, steps)
@@ -557,6 +591,18 @@ class Engine:
                 return n
             cur = int(buf[0, -1])
             pos += count
+
+    def _decode_greedy_offload(self, cur: int, pos: int, n: int, max_tokens: int,
+                               on_token: Callable[[int], bool]) -> int:
+        """decode_greedy's loop on the host-offload engine: one step per
+        token on the host (each step's expert gathers need the router scores
+        there), with decode_greedy's callback, EOS and count."""
+        while True:
+            cur = int(self.decode_step(cur, pos))
+            pos += 1
+            n += 1
+            if cur in EOS_TOKEN_IDS or not on_token(cur) or n >= max_tokens:
+                return n
 
     # ------------------------------------------------------------------
     # segment transcription (the core ASR path)
@@ -707,10 +753,12 @@ class Engine:
 
         t0 = _now_ms()
         max_tokens = self.thinker_max_tokens
-        if use_sampling and self.sampler_mode == "cref":
+        if use_sampling and (self.sampler_mode == "cref" or self.moe_offload):
             # the parity arm: every logits vector comes to the host and
             # CRefSampler replays the C engine's sample_token arithmetic and
-            # drand48 stream
+            # drand48 stream; the host-offload engine takes the same
+            # per-token loop with the host Sampler (its steps cannot be a
+            # device chunk)
             token = sampler.sample(out)
             n = 0
             while n < max_tokens:

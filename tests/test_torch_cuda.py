@@ -10,6 +10,7 @@ Both sides compute in f32 from the same inputs and differ only in summation
 order: 1e-4 absolute at outputs of magnitude <~ 3, as chip_smoke.py.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -1238,3 +1239,117 @@ def test_cuda_moe_captured_forward_with_overflow_equals_eager():
     graph.replay()
     torch.cuda.synchronize()
     torch.testing.assert_close(out, eager, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_int8_moe_gather_graph_replay_equals_eager():
+    """The --spec draft's MoE step on int8 experts (QuantW stacks, 16 experts
+    top-8): the gather with device indices (index_select of q and s)
+    captured once as a CUDA graph and replayed on three inputs equals the
+    same forward run eagerly."""
+    import dataclasses
+
+    from smolvision_tpu_torch.config import QWEN3_OMNI_30B
+    from smolvision_tpu_torch.models import moe
+    from smolvision_tpu_torch.ops.quant import QuantW, quantize_weight
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels are built with nvcc for sm_90a)")
+    E, H, MI = 16, 512, 128
+    cfg = dataclasses.replace(QWEN3_OMNI_30B, num_experts=E, dec_hidden=H, moe_intermediate=MI)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    lp = {"router": torch.randn(E, H, device="cuda", generator=g) * 0.05}
+    for k, shape in (("e_gate", (E, MI, H)), ("e_up", (E, MI, H)), ("e_down", (E, H, MI))):
+        lp[k] = quantize_weight(torch.randn(*shape, device="cuda", generator=g) * 0.05)
+        assert isinstance(lp[k], QuantW) and lp[k].q.dtype == torch.int8
+    inputs = [torch.randn(1, H, device="cuda", generator=g) for _ in range(3)]
+    x = inputs[0].clone()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        moe.moe_ffn(x, lp, cfg, graph_safe=True)   # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = moe.moe_ffn(x, lp, cfg, graph_safe=True)
+    for inp in inputs:
+        x.copy_(inp)
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, moe.moe_ffn(inp, lp, cfg, graph_safe=True))
+
+
+def _offload_model(tmp_path, monkeypatch) -> str:
+    """tiny-moe's routing (4 experts top-2 in both layers) at the card
+    checkpoint's widths (head dims the kernels take), f32."""
+    from smolvision_tpu_torch.models import synthetic
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels are built with nvcc for sm_90a)")
+    monkeypatch.setitem(synthetic.PRESETS, "card-moe", dict(
+        CARD_PRESET, moe=dict(synthetic.PRESETS["tiny-moe"]["moe"])))
+    return synthetic.build("card-moe", str(tmp_path / "card-moe"), seed=1, dtype="f32",
+                           full_vocab=True)
+
+
+@pytest.mark.cuda
+def test_cuda_offload_forward_equals_resident(tmp_path, monkeypatch):
+    """--moe-offload on a tiny MoE in f32 on the card: prefill logits within
+    1e-4 of the resident engine's (sums in another order), and the same
+    greedy tokens; no expert stack on the device."""
+    from smolvision_tpu_torch.runtime.engine import Engine
+
+    model = _offload_model(tmp_path, monkeypatch)
+    res = Engine(model, param_dtype=torch.float32, kv_dtype=torch.float32, device="cuda")
+    off = Engine(model, param_dtype=torch.float32, kv_dtype=torch.float32, device="cuda",
+                 moe_offload=True)
+    assert off.dec_params["layers"]["e_gate"] is None
+    ids = list(range(1000, 1100))
+    out = []
+    for eng in (res, off):
+        eng.reset_kv()
+        logits, _ = eng.prefill_ids(ids, None, -1, 0, greedy=False)
+        eng.reset_kv()
+        first, pos = eng.prefill_ids(ids, None, -1, 0)
+        toks = []
+        eng.decode_greedy(first, pos, 24, lambda t: toks.append(t) or True)
+        out.append((logits, toks))
+    torch.testing.assert_close(out[1][0], out[0][0], rtol=1e-4, atol=1e-4)
+    assert out[1][1] == out[0][1] and len(out[0][1]) > 1
+    assert off.expert_store.stats["router_reads"] == 2 * off.perf.decode_steps
+
+
+@pytest.mark.cuda
+def test_cuda_offload_pinned_staging_copy(tmp_path, monkeypatch):
+    """The host store on the card: pinned staging sets, a gather's device
+    blocks and ids equal to the checkpoint's experts, a layer's streamed
+    stack equal to its experts, and one timed upload per staging round."""
+    from smolvision_tpu_torch.config import detect_config
+    from smolvision_tpu_torch.io.safetensors import MultiSafetensors
+    from smolvision_tpu_torch.models.moe_offload import HostExpertStore
+
+    model = _offload_model(tmp_path, monkeypatch)
+    with MultiSafetensors(model) as reader:
+        cfg = detect_config(model, reader)
+        store = HostExpertStore(reader, cfg, "cuda")
+        store.copy_events = []
+        name = "thinker.model.layers.1.mlp.experts.{e}.{m}.weight"
+        idx = np.array([[3, 1]])
+        g, u, d, ids = store.gather(1, idx)
+        assert all(b.is_pinned() for slot in store._slots for b in [*slot.bufs, slot.ids])
+        for i, e in enumerate(idx[0]):
+            assert torch.equal(g[0, i].cpu(), reader.get(name.format(e=e, m="gate_proj")))
+            assert torch.equal(d[0, i].cpu(), reader.get(name.format(e=e, m="down_proj")))
+        assert ids.tolist() == [3, 1]
+        full = store.layer_full(0)
+        for e in range(cfg.num_experts):
+            assert torch.equal(full[1][e].cpu(), reader.get(
+                f"thinker.model.layers.0.mlp.experts.{e}.up_proj.weight"))
+        torch.cuda.synchronize()
+        rounds = 1 + -(-cfg.num_experts // cfg.num_experts_per_tok)
+        assert len(store.copy_events) == rounds
+        assert [k for k, _, _ in store.copy_events] == ["gather"] + ["full"] * (rounds - 1)
+        assert all(a.elapsed_time(b) >= 0 for _, a, b in store.copy_events)
+        assert store.stats["gather_bytes"] == sum(t[0].numel() * t.element_size()
+                                                  for t in (g, u, d))

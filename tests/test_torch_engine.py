@@ -142,22 +142,31 @@ def test_cli_stdout_byte_equal(visible_model, silent):
         assert "Inference:" in err and "text tokens" in err and "realtime)" in err
 
 
-@pytest.mark.parametrize("extra,what", [
-    (["--moe-offload"], "--moe-offload"), (["--moe-preload"], "--moe-preload"),
-    ("moe checkpoint", "MoE"),
-])
-def test_cli_unported_modes_exit_1(visible_model, request, extra, what):
-    """An unported option, or --q8 on an MoE checkpoint (int8 experts,
-    refused when the engine reads the checkpoint's config): one
-    `smolvision: ...` line, exit 1, nothing on stdout."""
+@pytest.fixture(scope="module")
+def dense_run(visible_model):
+    """(argv, stdout) of a plain --f32 run on the dense checkpoint (the
+    port's CLI in this process)."""
+    from tests.test_torch_thinker import port_cli
+
     model, wav = visible_model
-    if extra == "moe checkpoint":
-        model, extra = request.getfixturevalue("tiny_moe_model_dir"), ["--q8"]
-    r = _cli("smolvision_tpu_torch.cli", ["-d", model, "-i", wav] + extra)
-    assert r.returncode == 1
-    err = r.stderr.decode().strip().splitlines()
-    assert len(err) == 1 and what in err[0] and "not yet ported" in err[0]
-    assert r.stdout == b""
+    args = ["-d", model, "-i", wav, "--f32", "--language", "English", "--max-tokens", "8"]
+    return args, port_cli(args)[1]
+
+
+@pytest.mark.parametrize("flag,note", [
+    ("--moe-offload", "--moe-offload: model is not MoE; ignored"),
+    ("--moe-preload", "--moe-preload: model is not MoE"),
+])
+def test_cli_moe_flags_on_a_dense_checkpoint(dense_run, flag, note):
+    """--moe-offload / --moe-preload on a dense checkpoint: the JAX CLI's
+    note on stderr, and the plain run's transcript."""
+    from tests.test_torch_thinker import port_cli
+
+    args, plain = dense_run
+    rc, out, err = port_cli(args + [flag])
+    assert rc == 0, err
+    assert note in err.splitlines()
+    assert out == plain and plain.strip()
 
 
 def test_cli_multistream_without_card_exits_1(visible_model):

@@ -19,7 +19,9 @@ on the CPU.
     where the eager forwards dispatch and the graph steps take the dense
     form, offline, -S at B 5 and --serve equal to the JAX engine's.
   * The CLI: --f32 stdout byte-equal to the JAX CLI's (the JAX cases in one
-    subprocess), and --q8 / --spec on an MoE checkpoint one line, exit 1.
+    subprocess), also under --q8, --spec, --moe-offload (with
+    --moe-preload, and the sampled thinker); several -i files under
+    --moe-offload one line, exit 1.
 """
 
 import dataclasses
@@ -364,6 +366,12 @@ CLI_CASES = {
     "offline": ["-i", "WAV", "--max-tokens", "12"],
     "segments": ["-i", "WAV", "-S", "1", "-W", "0.4", "--max-tokens", "8"],
     "thinker": ["--thinker", "--text", "hi", "--temperature", "0", "--max-tokens", "12"],
+    "q8": ["-i", "WAV", "--q8", "--max-tokens", "12"],
+    "spec": ["-i", "WAV", "--spec", "--max-tokens", "12"],
+    "moe_offload": ["-i", "WAV", "--moe-offload", "--max-tokens", "12"],
+    "moe_offload_preload": ["-i", "WAV", "-S", "1", "-W", "0.4", "--moe-offload",
+                            "--moe-preload", "--max-tokens", "8"],
+    "thinker_moe_offload": ["--thinker", "--text", "hi", "--moe-offload", "--max-tokens", "12"],
 }
 
 
@@ -392,10 +400,12 @@ def test_cli_stdout_byte_equal(cli_model, jax_cli, case):
     assert t_out == j_out and t_out.strip()
 
 
-@pytest.mark.parametrize("flag", ["--q8", "--spec"])
-def test_cli_int8_on_moe_exits_1(cli_model, flag):
+@pytest.mark.parametrize("extra", [[], ["--serve", "2"], ["--stream"]])
+def test_cli_several_files_under_moe_offload_exit_1(cli_model, extra):
+    """The batched paths (a static batch, --serve, multistream) read the
+    expert stacks, which --moe-offload leaves on the host: one line, exit 1."""
     path, wav, _ = cli_model
-    rc, out, err = port_cli(["-d", path, "-i", wav, flag])
+    rc, out, err = port_cli(["-d", path, "--silent", "--moe-offload", "-i", wav, wav] + extra)
     lines = err.strip().splitlines()
     assert rc == 1 and out == b"" and len(lines) == 1
-    assert flag in lines[0] and "MoE" in lines[0] and "not yet ported" in lines[0]
+    assert lines[0].startswith("smolvision: --moe-offload") and "several -i" in lines[0]
