@@ -173,6 +173,22 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
                 kernels timed at its shapes (also B2 at the --spec verify,
                 K6 at its R 5, K7 over the int8 head at R 1 and R 6), each
                 row's launches its run's.
+ 13. mesh     - the device mesh (parallel/mesh.py) on torch.distributed:
+                world size 1 over nccl, mesh (1, 1), bf16: -S 20's
+                segments and --serve 4's clips through shard_engine must
+                give the unsharded engine's token rows, graph captures,
+                launches per replay and launch counts; then world size 2
+                over gloo, two rank processes sharing the card
+                (tests/torch_mesh_worker.py, a wall-clock limit that kills
+                them), f32 weights: --serve 4 at (dp 2, tp 1), -S 20 and
+                --serve 4 at (1, 2) on the 0.6B and --serve 4 with expert
+                parallelism at (1, 2) on the small untied MoE; each rank's
+                token rows must equal one process's and its launches its
+                own bookkeeping at its share, a tp 2 step never captured;
+                then B4 and B5 at a tp 2 rank's heads (H 8, KH 4) and K6
+                returning keys over a [V / 2, H] vocabulary shard, checked
+                and timed.  Times of ranks sharing one card are printed as
+                such and are no mesh speed.
 Each path that decodes greedily (--spec and multistream's bf16 run
 included) runs twice, in turns: first with the decode loops' steps and
 the prefills run eagerly on every replay, then as CUDA graphs (the path as
@@ -579,11 +595,41 @@ def batched_causal_row(B: int, T: int, pads, heads=MAIN_HEADS):
             bound(nbytes, flops, "bfloat16"), bound(nbytes, flops, "float32"))
 
 
+def batched_cache_row(G: int, T: int, lens, heads=MAIN_HEADS):
+    """B5's timing inputs at a serving wave's group prefill (start 0: the
+    cache is not read) of G rows of T, prompt lengths `lens`, and `heads`
+    (H, KH, D): (source, replaces, kernel, plain, SDPA, bound, f32
+    CUDA-core bound).  The bound reads q, k, v and writes the output in f32
+    once and counts the causal products."""
+    import torch
+    import torch.nn.functional as F
+
+    from smolvision_tpu_torch.kernels import flash_attention as fa
+
+    q5, kn5, vn5 = batched_case(G, T, *heads)
+    kc5, vc5 = batched_cache(G, T, 0, [0] * G, KH=heads[1], D=heads[2])
+    km5 = torch.zeros(G, dtype=torch.int32, device=DEV)
+    pm5 = torch.tensor(lens, dtype=torch.int32, device=DEV)
+    attended = G * T * (T + 1) // 2
+    nbytes = 4 * (2 * q5.numel() + 2 * kn5.numel())
+    flops = 4 * q5.shape[2] * q5.shape[3] * attended
+    mask5 = (torch.arange(T, device=DEV)[None, :] <= torch.arange(T, device=DEV)[:, None])
+    q5h, k5h, v5h = (x.transpose(1, 2) for x in (q5, kn5, vn5))
+    args = (q5, kn5, vn5, kc5, vc5, 0, km5, pm5, 1 << 30)
+    return ("smolvision_tpu_torch/kernels/csrc/batched_cache_attention.cu",
+            "smolvision_tpu/kernels/flash_attention.py:412",
+            lambda: fa.batched_cache_flash_attention(*args),
+            lambda: fa.batched_cache_attention_plain(*args),
+            lambda: F.scaled_dot_product_attention(q5h, k5h, v5h, attn_mask=mask5,
+                                                   enable_gqa=True),
+            bound(nbytes, flops, "bfloat16"), bound(nbytes, flops, "float32"))
+
+
 def kernel_of(name: str) -> str:
     """The launch key of a timing row: its kernel's name without the suffix
     of the shape it was timed at."""
     for suffix in ("_long", "_wide", "_segments", "_delta128", "_delta256", "_verify", "_q25",
-                   "_thinker", "_omni_batched", "_omni"):
+                   "_thinker", "_omni_batched", "_omni", "_tp2"):
         name = name.removesuffix(suffix)
     return name.split("_mstream")[0]
 
@@ -947,23 +993,9 @@ def phase_kernels(shapes):
     # at --serve 4's wave and at --serve 64's (one wave of 64 clips)
     for name, (G, T, lens) in (("batched_cache_attention", (G5, T5, lens5)),
                                ("batched_cache_attention_wide", (GW, TW, lensw))):
-        q5, kn5, vn5 = batched_case(G, T)
-        kc5, vc5 = batched_cache(G, T, 0, [0] * G)
-        km5, pm5 = ints([0] * G), ints(lens)
-        attended = G * T * (T + 1) // 2
-        nbytes = 4 * (2 * q5.numel() + 2 * kn5.numel())
-        flops = 4 * q5.shape[2] * q5.shape[3] * attended
-        mask5 = (torch.arange(T, device=DEV)[None, :] <= torch.arange(T, device=DEV)[:, None])
-        q5h, k5h, v5h = (x.transpose(1, 2) for x in (q5, kn5, vn5))
-        args = (q5, kn5, vn5, kc5, vc5, 0, km5, pm5, 1 << 30)
-        rows.append((name, "smolvision_tpu_torch/kernels/csrc/batched_cache_attention.cu",
-                     "smolvision_tpu/kernels/flash_attention.py:412",
-                     lambda a=args: fa.batched_cache_flash_attention(*a),
-                     lambda a=args: fa.batched_cache_attention_plain(*a),
-                     lambda q=q5h, k=k5h, v=v5h, m=mask5:
-                         F.scaled_dot_product_attention(q, k, v, attn_mask=m, enable_gqa=True),
-                     bound(nbytes, flops, "bfloat16")))
-        f32_bounds[name] = bound(nbytes, flops, "float32")
+        row = batched_cache_row(G, T, lens)
+        rows.append((name, *row[:-1]))
+        f32_bounds[name] = row[-1]
 
     log(f"  B3 on its fixed grid with no live row (the fresh row alone: the launch, the "
         f"cluster barriers and the merge, the kernel's floor): "
@@ -4093,6 +4125,270 @@ def omni_kernel_table(shapes, run: dict, errs: dict) -> list:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the device mesh (parallel/mesh.py) on torch.distributed
+# ---------------------------------------------------------------------------
+
+MESH_TP_HEADS = (8, 4, 128)   # (H, KH, D) of a 0.6B rank at tp 2
+MESH_LIMIT_S = 300            # the two-rank spawn's wall clock; past it its ranks are killed
+MESH_RUNS = {}
+
+
+def mesh_worker():
+    """tests/torch_mesh_worker.py (a rank of the mesh runs, and their
+    launcher), loaded by its path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_mesh_worker", os.path.join(ROOT, "tests", "torch_mesh_worker.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def mesh_segments(samples):
+    """The -S 20 path's segments of `samples` (runtime/segment.transcribe_audio)."""
+    import numpy as np
+
+    from smolvision_tpu_torch.config import SAMPLE_RATE
+    from smolvision_tpu_torch.runtime.segment import split_points
+
+    splits = split_points(samples, SEGMENT_SEC, 3.0)
+    segs = [samples[a:b] for a, b in zip(splits, splits[1:])]
+    n = SAMPLE_RATE // 2
+    return [np.concatenate([s, np.zeros(n - len(s), np.float32)]) if len(s) < n else s
+            for s in segs]
+
+
+def mesh_recorded(eng, run):
+    """run() as the paths ship (graph mode), its launch counts and engine
+    counters reset first: (its result, the graphs' (kind, launches per
+    replay), the launches, the loop captures)."""
+    from smolvision_tpu_torch.kernels import ffi
+
+    eng.perf.reset()
+    ffi.reset_launch_counts()
+    with decode_mode("graph") as rec:
+        out = run()
+    return out, rec["graphs"], dict(ffi.launch_counts), eng.perf.graph_captures
+
+
+def phase_mesh_world1(model_dir: str, segs, serve_clips, work: str) -> dict:
+    """World size 1 over nccl, mesh (1, 1), the 0.6B in bf16: -S 20's
+    segments and --serve 4's clips through shard_engine give the unsharded
+    engine's token rows, graph captures, launches per replay and launch
+    counts, in the same call."""
+    import torch
+    import torch.distributed as dist
+
+    from smolvision_tpu_torch.parallel import mesh as mesh_mod
+    from smolvision_tpu_torch.runtime import batch_segments, serving
+    from smolvision_tpu_torch.runtime.engine import Engine
+
+    eng = Engine(model_dir, device=DEV)
+    eng.set_force_language("English")
+    runs = {}
+    for sharded in (False, True):
+        if sharded:
+            dist.init_process_group("nccl", init_method=f"file://{work}/rendezvous-world1",
+                                    rank=0, world_size=1)
+            mesh = mesh_mod.make_mesh(tp=1, device=torch.device(DEV, 0))
+            mesh_mod.shard_engine(eng, mesh)
+            if eng.serving_mesh is not mesh or mesh_mod.mesh_dp(mesh) != 1:
+                fail("phase 13: shard_engine did not put the engine on the (1, 1) mesh")
+        eng.max_tokens = MAX_TOKENS
+        seg = mesh_recorded(eng, lambda: batch_segments.decode_segments_batched(eng, segs))
+        eng.max_tokens = SERVE_MAX_TOKENS
+        serve = mesh_recorded(eng, lambda: serving.decode_continuous(eng, serve_clips,
+                                                                       SERVE_SLOTS))
+        runs[sharded] = {"-S 20": seg, "--serve 4": serve}
+    dist.destroy_process_group()
+    out = {}
+    for path in ("-S 20", "--serve 4"):
+        plain, meshed = runs[False][path], runs[True][path]
+        for i, what in enumerate(("token rows", "graphs and launches per replay",
+                                  "launch counts", "graph captures")):
+            if plain[i] != meshed[i]:
+                fail(f"phase 13, world size 1 {path}: the (1, 1) mesh's {what} differ from "
+                     f"the unsharded engine's: {meshed[i]} vs {plain[i]}")
+        if not plain[3] or not any(k == "decode" for k, _ in plain[1]):
+            fail(f"phase 13, world size 1 {path}: no decode graph was captured")
+        out[path] = {"rows": len(plain[0]), "tokens": sum(len(r) for r in plain[0]),
+                     "graph_captures": plain[3], "graphs": plain[1], "launches": plain[2]}
+    return out
+
+
+def phase_mesh_world2(model_dir: str, segs, serve_clips, work: str) -> dict:
+    """World size 2 over gloo, both ranks on cuda:0 (tests/torch_mesh_worker.py
+    ranks), f32 weights: --serve 4 at (dp 2, tp 1), -S 20 and --serve 4 at
+    (1, 2) on the 0.6B, and --serve 4 at (1, 2) on a small untied MoE (its
+    experts split over "model": expert parallelism); each rank's token rows
+    must equal one process's, and each rank's launches its own bookkeeping
+    at its share (its rows; its heads, KV heads and vocabulary rows)."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from smolvision_tpu_torch.config import detect_config
+    from smolvision_tpu_torch.runtime import batch_segments, serving
+    from smolvision_tpu_torch.runtime.engine import Engine
+    ranks_mod = mesh_worker()
+    start_ranks, finish_ranks = ranks_mod.start_ranks, ranks_mod.finish_ranks
+
+    moe_dir = untied_checkpoint(OMNI_TINY_PRESET, os.path.join(work, OMNI_TINY_PRESET), SEED)
+    ranks_dir = os.path.join(work, "mesh_ranks")
+    os.makedirs(ranks_dir, exist_ok=True)
+    np.savez(os.path.join(ranks_dir, "serve.npz"), **{str(i): c for i, c in enumerate(serve_clips)})
+    np.savez(os.path.join(ranks_dir, "segs.npz"), **{str(i): c for i, c in enumerate(segs)})
+    serve = {"kind": "serve", "audio": os.path.join(ranks_dir, "serve.npz"), "slots": SERVE_SLOTS,
+             "language": "English", "settings": {"max_tokens": SERVE_MAX_TOKENS}}
+    cases = [dict(serve, name="serve_dp", model=model_dir, mesh=[2, 1]),
+             {"name": "segments_tp", "kind": "segments", "model": model_dir, "mesh": [1, 2],
+              "audio": os.path.join(ranks_dir, "segs.npz"), "language": "English",
+              "settings": {"max_tokens": MAX_TOKENS}},
+             dict(serve, name="serve_tp", model=model_dir, mesh=[1, 2]),   # segments_tp's engine
+             dict(serve, name="serve_moe", model=moe_dir, mesh=[1, 2])]
+    t0 = time.monotonic()
+    procs = start_ranks({"cases": cases, "device": f"{DEV}:0", "threads": 2}, ranks_dir)
+    try:
+        want = {}
+        for path, name in ((model_dir, "0.6b"), (moe_dir, OMNI_TINY_PRESET)):
+            eng = Engine(path, param_dtype=torch.float32, kv_dtype=torch.float32, device=DEV)
+            eng.set_force_language("English")
+            eng.max_tokens = SERVE_MAX_TOKENS
+            want[(name, "serve", SERVE_MAX_TOKENS)] = serving.decode_continuous(
+                eng, serve_clips, SERVE_SLOTS)
+            if name == "0.6b":
+                eng.max_tokens = MAX_TOKENS
+                want[(name, "segments", MAX_TOKENS)] = batch_segments.decode_segments_batched(
+                    eng, segs)
+            del eng
+        ref_s = time.monotonic() - t0
+    except BaseException:
+        for p in procs:
+            p.kill()
+        raise
+    ranks = finish_ranks(procs, ranks_dir, MESH_LIMIT_S)
+    wall_s = time.monotonic() - t0
+    expect = {"serve_dp": ("0.6b", "serve", SERVE_MAX_TOKENS),
+              "segments_tp": ("0.6b", "segments", MAX_TOKENS),
+              "serve_tp": ("0.6b", "serve", SERVE_MAX_TOKENS),
+              "serve_moe": (OMNI_TINY_PRESET, "serve", SERVE_MAX_TOKENS)}
+    cfgs = {"0.6b": detect_config(model_dir), OMNI_TINY_PRESET: detect_config(moe_dir)}
+    f32_head = {"lm_head": torch.empty(0, dtype=torch.float32)}
+    out = {}
+    for name, (model, path, _) in expect.items():
+        rows = want[expect[name]]
+        S, _ = serving_widths(len(serve_clips), SERVE_SLOTS)
+        dp = 2 if name == "serve_dp" else 1
+        for r, rank in enumerate(ranks):
+            got = rank[name]
+            if got["rows"] != rows:
+                first = next(i for i, (a, b) in enumerate(zip(got["rows"], rows)) if a != b)
+                fail(f"phase 13, {name}: rank {r}'s token rows differ from one process's "
+                     f"(first at row {first}: {got['rows'][first][:16]} vs {rows[first][:16]})")
+            if any(k != "argmax_matvec" and "argmax" in k and n for k, n in
+                   got["launches"].items()):
+                fail(f"phase 13, {name}: an f32 head took another route: {got['launches']}")
+            fake = SimpleNamespace(perf=SimpleNamespace(**got["perf"]), dec_params=f32_head,
+                                   spec=False, kv8=False)
+            # a rank's head runs on its rows: S / dp slots, the wave's rows whole
+            check_launches(f"phase 13 {name} rank {r}", got["launches"], fake, cfgs[model],
+                           batch=len(segs) if path == "segments" else S // dp,
+                           wave=S if path == "serve" else 0)
+        perf = ranks[0][name]["perf"]
+        out[name] = {"tokens": sum(len(r) for r in rows),
+                     "decode_ms_per_step": perf["batch_decode_ms"]
+                     / max(perf["batch_decode_steps"], 1),
+                     "launches_rank0": {k: n for k, n in ranks[0][name]["launches"].items()
+                                        if n},
+                     "graph_captures": [rank[name]["perf"]["graph_captures"] for rank in ranks],
+                     "rank_s": [round(rank[name]["seconds"], 3) for rank in ranks]}
+        if name != "serve_dp" and any(rank[name]["perf"]["graph_captures"] for rank in ranks):
+            fail(f"phase 13, {name}: a tp 2 step was captured (it holds collectives)")
+    if not all(rank["serve_dp"]["perf"]["graph_captures"] for rank in ranks):
+        fail("phase 13, serve_dp: a dp 2 rank captured no decode graph")
+    log(f"  two ranks sharing one card over gloo -- not a mesh speed: wall {wall_s:.2f} s "
+        f"(one process's references {ref_s:.2f} s meanwhile); per case and rank: "
+        f"{json.dumps({k: v['rank_s'] for k, v in out.items()})}; decode ms per step "
+        f"(rank 0): {json.dumps({k: v['decode_ms_per_step'] for k, v in out.items()})}")
+    shutil.rmtree(moe_dir, ignore_errors=True)
+    return out
+
+
+def mesh_kernel_table(cfg, shapes, launches: dict) -> list:
+    """B4 and B5 at a 0.6B rank's tp 2 heads (H 8, KH 4) at the -S 20 and
+    --serve 4 shapes, and K6 over a tp 2 vocabulary shard [V / 2, H]
+    returning keys at the -S 20 batch's rows, each held against its plain
+    version (K6: indices of planted winners equal, values within
+    HEAD_RTOL) and timed beside SDPA / argmax(mm) and its bound; launches
+    from the world size 2 runs."""
+    import torch
+
+    from smolvision_tpu_torch.kernels import argmax_matvec as am
+
+    errs = {}
+    B4, T4, pads4 = shapes["seg_B"], shapes["seg_T"], shapes["seg_pads"]
+    G5, T5, lens5 = shapes["serve_G"], shapes["serve_T"], shapes["serve_lens"]
+    row4 = batched_causal_row(B4, T4, pads4, heads=MESH_TP_HEADS)
+    row5 = batched_cache_row(G5, T5, lens5, heads=MESH_TP_HEADS)
+    for name, row in (("batched_causal_attention_tp2", row4),
+                      ("batched_cache_attention_tp2", row5)):
+        errs[name] = check_close(f"{name} H={MESH_TP_HEADS[0]} KH={MESH_TP_HEADS[1]}",
+                                 row[2](), row[3]())
+    V, H, R = cfg.vocab_size // 2, cfg.dec_hidden, B4
+    h, w, _, winners = head_case(V, H, R, "float32", 300, planted=True)
+    offset = V
+    keys = am.argmax_matvec(h, w, offset=offset)
+    plain = am.argmax_matvec_plain(h, w, offset=offset)
+    if am.key_index(keys).tolist() != [v + offset for v in winners] or \
+            am.key_index(plain).tolist() != am.key_index(keys).tolist():
+        fail("phase 13: K6's keys at a vocabulary offset do not index the planted winners")
+    values = [((k >> 32).to(torch.int32)) for k in (keys, plain)]
+    values = [torch.where(v < 0, v ^ 0x7FFFFFFF, v).view(torch.float32) for v in values]
+    errs["argmax_matvec_tp2"] = float((values[0] - values[1]).abs().max())
+    if errs["argmax_matvec_tp2"] > HEAD_RTOL * float(values[1].abs().max()):
+        fail(f"phase 13: K6's key values differ from the plain packing by "
+             f"{errs['argmax_matvec_tp2']:.3g}")
+    nbytes = 4 * (w.numel() + h.numel()) + 8 * R
+    rows = [("batched_causal_attention_tp2", *row4[:-1]),
+            ("batched_cache_attention_tp2", *row5[:-1]),
+            ("argmax_matvec_tp2", "smolvision_tpu_torch/kernels/csrc/argmax_matvec.cu",
+             "tools/profile_decode3.py:145",
+             lambda: am.argmax_matvec(h, w, offset=offset),
+             lambda: am.argmax_matvec_plain(h, w, offset=offset),
+             lambda: torch.argmax(h @ w.t(), dim=-1),
+             bound(nbytes, 2.0 * R * V * H, "float32"))]
+    table = timed_table(rows, errs, {})
+    for t in table:
+        t["launches"] = launches[t["name"]]
+    return table
+
+
+def phase_mesh(model_dir: str, long_clip, serve_clips, work: str, shapes, cfg) -> list:
+    """Phase 13: the mesh at world size 1 (nccl) and 2 (gloo, one card), and
+    the kernels at a tp 2 rank's shapes.  Returns the kernels line's rows."""
+    t0 = time.monotonic()
+    segs = mesh_segments(long_clip)
+    if len(segs) != shapes["seg_B"]:
+        fail(f"phase 13: {len(segs)} segments, the -S 20 path has {shapes['seg_B']}")
+    MESH_RUNS["world size 1, nccl, (1, 1), bf16"] = phase_mesh_world1(model_dir, segs,
+                                                                      serve_clips, work)
+    two = phase_mesh_world2(model_dir, segs, serve_clips, work)
+    MESH_RUNS["world size 2, gloo on one card, f32"] = two
+    launches = {"batched_causal_attention_tp2":
+                    two["segments_tp"]["launches_rank0"].get("batched_causal_attention", 0),
+                "batched_cache_attention_tp2":
+                    two["serve_tp"]["launches_rank0"].get("batched_cache_attention", 0),
+                "argmax_matvec_tp2": two["segments_tp"]["launches_rank0"].get("argmax_matvec",
+                                                                              0)}
+    table = mesh_kernel_table(cfg, shapes, launches)
+    MESH_RUNS["seconds"] = time.monotonic() - t0
+    log(f"phase 13 (mesh): {MESH_RUNS['seconds']:.2f} s")
+    return table
+
+
 def main() -> int:
     import argparse
 
@@ -4293,6 +4589,12 @@ def main() -> int:
         table += omni_kernel_table(shapes, omni_run, omni_errs)
         table += omni_int8_kernel_table(shapes, omni_run["int8"])
         since("phase 12 (Qwen3-Omni-30B-A3B)")
+        shutil.rmtree(os.path.dirname(omni_dir), ignore_errors=True)
+
+        # phase 13: the device mesh at world size 1 (nccl) and 2 (gloo ranks
+        # sharing the card), and the kernels at a tp 2 rank's shapes
+        table += phase_mesh(model_dir, long_clip, serve_clips, work, shapes, cfg)
+        since("phase 13 (mesh)")
     finally:
         for child in (q25_build, omni_build):
             if child is not None:
@@ -4335,6 +4637,7 @@ def main() -> int:
     omni_int8["link"] = omni_run["offload"]["link"]
     omni_int8["host_memory_gb"] = omni_run["offload"]["host_memory_gb"]
     log(f"omni-30b --q8 / --spec / --moe-offload [{smi_line}]: {json.dumps(omni_int8)}")
+    log(f"mesh runs [{smi_line}]: {json.dumps(MESH_RUNS)}")
     log(f"decode loops, graph vs eager per path: {json.dumps(DECODE_RUNS)}")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in table]}))
     print(smi_line)

@@ -26,6 +26,15 @@ kernel's two routes, which `head_route` picks from R and the table's type:
     bf16 and int8 tables above HEAD_TC_ABOVE[dtype] rows; the table is read once
     per call for R up to 256.
 
+Under a vocabulary-sharded head (parallel/mesh.py: each rank holds rows
+[offset, offset + V) of the table) the wrapper returns, with `offset`, the
+kernel's 64-bit keys instead of indices: the order-preserving value bits
+above ~(offset + index), with bit 63 flipped so that torch's signed int64
+orders them as the kernel's unsigned keys (`pack_keys`, which the plain
+version uses).  Their maximum over the ranks is the largest value and,
+among equal values, the lowest global index -- the single-device argmax;
+`key_index` takes the index back out.
+
 Each launch adds one to `launch_counts[launch_key(route, dtype)]`:
 "argmax_matvec" / "argmax_matvec_tc" (bf16, f32) and "argmax_matvec_q8" /
 "argmax_matvec_q8_tc" (int8).  There is no fallback: a route the wrapper
@@ -83,17 +92,45 @@ def logits_plain(h: torch.Tensor, w: torch.Tensor, scale=None) -> torch.Tensor:
     return y if scale is None else y * scale
 
 
-def argmax_matvec_plain(h: torch.Tensor, w: torch.Tensor, scale=None) -> torch.Tensor:
-    return torch.argmax(logits_plain(h, w, scale), dim=-1).to(torch.int32)
+_LOW = 0xFFFFFFFF
+_HIGH = -(1 << 32)               # ~_LOW as int64: the value half of a key
+_BIT63 = -(1 << 63)              # flips unsigned key order into signed order
 
 
-def argmax_matvec(h: torch.Tensor, w: torch.Tensor, scale=None, route=None) -> torch.Tensor:
+def pack_keys(values: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """int64 keys, signed-ordered, of f32 values and int64 indices: the
+    kernel's packing (argmax_matvec.cu `pack`: -0 folded into +0, the
+    order-preserving value bits, then ~index) with bit 63 flipped."""
+    bits = torch.where(values == 0, torch.zeros_like(values), values).contiguous()
+    bits = bits.view(torch.int32)
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()
+    return ordered * (1 << 32) + ((~index.long()) & _LOW)
+
+
+def key_index(keys: torch.Tensor) -> torch.Tensor:
+    """The index packed into keys (pack_keys): int32."""
+    return ((~keys) & _LOW).to(torch.int32)
+
+
+def argmax_matvec_plain(h: torch.Tensor, w: torch.Tensor, scale=None,
+                        offset=None) -> torch.Tensor:
+    logits = logits_plain(h, w, scale)
+    idx = torch.argmax(logits, dim=-1)
+    if offset is None:
+        return idx.to(torch.int32)
+    return pack_keys(logits.gather(1, idx[:, None])[:, 0], idx + offset)
+
+
+def argmax_matvec(h: torch.Tensor, w: torch.Tensor, scale=None, route=None,
+                  offset=None) -> torch.Tensor:
     """Greedy head over h [R, H] f32 and w [V, H] (bf16 / f32, or int8 with
     scale [V] f32): int32 [R] (kernel K6 / K7 on CUDA).  `route` forces a
     route on the card (the crossover sweep times both); by default
-    `head_route` picks it."""
+    `head_route` picks it.  With `offset` (w's first row in the whole
+    vocabulary): the keys of the rows' maxima, int64 [R] (see the module
+    notes)."""
     if not h.is_cuda:
-        return argmax_matvec_plain(h, w, scale)
+        return argmax_matvec_plain(h, w, scale, offset)
     R, H = h.shape
     V = w.shape[0]
     q8 = w.dtype == torch.int8
@@ -129,4 +166,6 @@ def argmax_matvec(h: torch.Tensor, w: torch.Tensor, scale=None, route=None) -> t
         ffi.call("argmax_matvec", symbol, signature, h.data_ptr(), w.data_ptr(), scale_ptr,
                  *common)
     ffi.launch_counts[launch_key(route, w.dtype)] += 1
-    return out
+    if offset is None:
+        return out
+    return ((keys ^ _BIT63) & _HIGH) | ((~(out.long() + offset)) & _LOW)

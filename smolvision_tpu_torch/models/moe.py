@@ -33,6 +33,18 @@ captured or run eagerly, so a graph's tokens equal its eager run's.  At
 T <= GATHER_MAX_T both run the gather: a dense decode step would read all
 E experts (58 GB at the 30B, ~17 ms a token).
 
+Expert parallelism (parallel/mesh.py).  Under a "model" axis the expert
+stacks are split over its ranks, rank r holding experts [e0, e0 + E/tp),
+so the only form a rank can compute is the JAX package's `ep`
+owner-compute: it runs its own experts over every row, the routing weights
+of the others zeroed, and returns that partial sum, which the decoder sums
+over the axis.  The router is whole on every rank, so the routing is the
+same everywhere; the dispatch's drop count is its rank's, reduced with MAX
+so that every rank falls back to dense together, as one device does.  The
+JAX package's `ep` flag (owner-compute at tp 1 too) has no counterpart:
+owner-compute is what a "model" axis group means here, and without one the
+gather or the dispatch above is the same function at less cost.
+
 The expert stacks may be int8 (--q8, the --spec draft: ops/quant.QuantW
 with one scale per output row).  Every product of the three formulations
 goes through `_emm`, which widens them (ops/quant.qbmm) and puts the scales
@@ -48,6 +60,7 @@ import math
 import torch
 
 from smolvision_tpu_torch.config import ModelConfig
+from smolvision_tpu_torch.ops.collectives import group_rank, pmax
 from smolvision_tpu_torch.ops.common import bmm, silu
 from smolvision_tpu_torch.ops.quant import QuantW, qbmm, reshape_out, take
 
@@ -113,39 +126,49 @@ def capacity(T: int, K: int, E: int) -> int:
 
 
 def capacity_dispatch(xc: torch.Tensor, lp, top_idx: torch.Tensor, top_w: torch.Tensor,
-                      valid: torch.Tensor):
+                      valid: torch.Tensor, e0: int = 0, n_experts=None):
     """Scatter tokens into per-expert queues [E, C, H] and run each expert
     over its one block.  valid [T] bool: pad rows get no rank (they take no
-    capacity and receive nothing).  Returns (out [T, H] f32, n_dropped: a
-    0-dim int64 tensor, the valid (token, expert) pairs past capacity)."""
+    capacity and receive nothing).  The stacks may be a rank's experts
+    [e0, e0 + E) of n_experts (default E): queues and capacity are the whole
+    routing's, only the rank's experts run.  Returns (out [T, H] f32,
+    n_dropped: a 0-dim int64 tensor, the valid (token, expert) pairs of
+    these experts past capacity)."""
     T, K = top_idx.shape
     E, _, H = lp["e_gate"].shape
-    C = capacity(T, K, E)
+    n_experts = n_experts or E
+    C = capacity(T, K, n_experts)
     flat_e = top_idx.reshape(-1)                                     # [TK]
-    oh = torch.nn.functional.one_hot(flat_e, E) * valid.repeat_interleave(K)[:, None].long()
+    oh = torch.nn.functional.one_hot(flat_e, n_experts) * \
+        valid.repeat_interleave(K)[:, None].long()
     pos = (torch.cumsum(oh, dim=0) * oh).sum(dim=-1) - 1             # rank; -1 for pads
-    keep = (pos >= 0) & (pos < C)
-    n_dropped = (pos >= C).sum()
+    mine = (flat_e >= e0) & (flat_e < e0 + E)
+    keep = (pos >= 0) & (pos < C) & mine
+    n_dropped = ((pos >= C) & mine).sum()
     slot = torch.where(keep, pos, C)                                 # C: the drop slot
+    local_e = (flat_e - e0).clamp(0, E - 1)
     tok_of = torch.arange(T, device=xc.device).repeat_interleave(K)
     disp = xc.new_zeros((E, C + 1, H))
-    disp[flat_e, slot] = xc[tok_of]      # kept (expert, slot) pairs are unique
+    disp[local_e, slot] = xc[tok_of]     # kept (expert, slot) pairs are unique
     disp = disp[:, :C]
     gate = _emm(disp, lp["e_gate"])                                  # [E, C, MI]
     up = _emm(disp, lp["e_up"])
     act = (silu(gate) * up).to(xc.dtype)
     down = _emm(act, lp["e_down"])                                   # [E, C, H]
-    gathered = down[flat_e, slot.clamp(max=C - 1)]
+    gathered = down[local_e, slot.clamp(max=C - 1)]
     gathered = torch.where(keep[:, None], gathered, 0.0)
     out = (gathered.reshape(T, K, H) * top_w[..., None]).sum(dim=1)
     return out, n_dropped
 
 
-def moe_dense(xc: torch.Tensor, lp, top_idx: torch.Tensor, top_w: torch.Tensor) -> torch.Tensor:
-    """Exact one-hot routing: every expert over the whole block [T, H]."""
+def moe_dense(xc: torch.Tensor, lp, top_idx: torch.Tensor, top_w: torch.Tensor,
+              e0: int = 0, n_experts=None) -> torch.Tensor:
+    """Exact one-hot routing: every expert over the whole block [T, H] (a
+    rank's experts [e0, e0 + E) of n_experts: their share of the sum)."""
     T = xc.shape[0]
     E, MI, H = lp["e_gate"].shape
-    route_w = (torch.nn.functional.one_hot(top_idx, E).float() * top_w[..., None]).sum(dim=1)
+    route_w = (torch.nn.functional.one_hot(top_idx, n_experts or E).float()
+               * top_w[..., None]).sum(dim=1)[:, e0 : e0 + E]
     x3 = xc[None]
     gate = _emm(x3, reshape_out(lp["e_gate"], 1, E * MI)).reshape(T, E, MI)
     up = _emm(x3, reshape_out(lp["e_up"], 1, E * MI)).reshape(T, E, MI)
@@ -155,24 +178,29 @@ def moe_dense(xc: torch.Tensor, lp, top_idx: torch.Tensor, top_w: torch.Tensor) 
 
 
 def moe_ffn(x: torch.Tensor, lp, cfg: ModelConfig, valid=None,
-            graph_safe: bool = False) -> torch.Tensor:
+            graph_safe: bool = False, group=None) -> torch.Tensor:
     """The MoE FFN of one layer: x [T, H] f32 -> [T, H] f32.  lp holds the
     layer's `router` [E, H] (f32) and `e_gate` / `e_up` [E, MI, H], `e_down`
     [E, H, MI] (plain, or QuantW: the activations then go in as bf16).  valid [T] bool marks the rows that may take expert
     capacity (None: all).  graph_safe: a graph step's forward, which reads
     nothing back and takes the dense path above GATHER_MAX_T rows (see the
     module notes); otherwise a dispatch that drops reads its count on the
-    host and falls back to dense."""
+    host and falls back to dense.  group: a "model" axis (module notes):
+    the stacks are this rank's experts and the result its partial sum."""
     top_idx, top_w = route(x, lp["router"], cfg)
     xc = x.to(lp["e_gate"].dtype)
     T = x.shape[0]
-    if T <= GATHER_MAX_T:
+    if T <= GATHER_MAX_T and group is None:
         return _gathered(xc, lp, top_idx, top_w)
+    # this rank's experts [e0, e0 + E/tp) of the whole routing's
+    share = (group_rank(group) * lp["e_gate"].shape[0], cfg.num_experts)
     if graph_safe or cfg.num_experts < MOE_DISPATCH_MIN_EXPERTS:
-        return moe_dense(xc, lp, top_idx, top_w)
+        return moe_dense(xc, lp, top_idx, top_w, *share)
     if valid is None:
         valid = torch.ones(T, dtype=torch.bool, device=x.device)
-    out, n_dropped = capacity_dispatch(xc, lp, top_idx, top_w, valid)
+    out, n_dropped = capacity_dispatch(xc, lp, top_idx, top_w, valid, *share)
+    if group is not None:   # every rank falls back together
+        n_dropped = pmax(n_dropped.reshape(1), group)
     if int(n_dropped) > 0:   # the host read of an eager forward
-        return moe_dense(xc, lp, top_idx, top_w)
+        return moe_dense(xc, lp, top_idx, top_w, *share)
     return out

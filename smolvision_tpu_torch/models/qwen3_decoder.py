@@ -50,6 +50,15 @@ as the JAX package's serving does (Qwen2.5-Omni runs through the thinker).
     natural layout, outside [prompt_max, region_start).  A forward at a
     device start (a graph step's) takes the MoE formulation that reads
     nothing back (`moe.moe_ffn`'s graph_safe).
+  * tensor parallelism (parallel/mesh.py, batched forwards only): with a
+    "model" axis group a rank holds its part of every weight and of the
+    cache's KV heads, runs H/tp query and KH/tp KV heads (B4 / B5 at those
+    shapes) and sums its f32 partials after wo and after the FFN over the
+    axis; the embedding looks up its own vocabulary rows and sums; the
+    greedy head reduces K6 / K7's packed keys with MAX.  A rank's slice of
+    the interleaved fusion (parallel/mesh.interleave_decoder_for_tp) is
+    [q; k; v] and [gate; up] of its own heads and channels, so it splits as
+    the whole fusion does.
 """
 
 from __future__ import annotations
@@ -61,6 +70,8 @@ from smolvision_tpu_torch.device import resolve_device
 from smolvision_tpu_torch.kernels import argmax_matvec as am
 from smolvision_tpu_torch.kernels import flash_attention as fa
 from smolvision_tpu_torch.models import moe
+from smolvision_tpu_torch.ops.collectives import (all_gather_cat, group_rank, group_size, pmax,
+                                                  psum)
 from smolvision_tpu_torch.ops.common import apply_rope_neox, linear, rms_norm, rope_tables, silu
 from smolvision_tpu_torch.ops.quant import (QuantKV, QuantW, embed_rows, kv_read, kv_write,
                                             kv_zeros, take)
@@ -89,6 +100,15 @@ def build_embeds(params, ids: torch.Tensor, audio: torch.Tensor, audio_start: in
     return torch.where(in_audio[:, None], audio_rows, emb)
 
 
+def _split_qkv(qkv: torch.Tensor, H: int, KH: int, D: int):
+    """The [q; k; v] output fusion qkv [..., (H + 2 KH) D] -> q [..., H, D],
+    k / v [..., KH, D]."""
+    lead = qkv.shape[:-1]
+    return (qkv[..., : H * D].reshape(*lead, H, D),
+            qkv[..., H * D : (H + KH) * D].reshape(*lead, KH, D),
+            qkv[..., (H + KH) * D :].reshape(*lead, KH, D))
+
+
 def _split_gate_up(gate_up: torch.Tensor):
     """[..., 2I] -> (gate [..., I], up [..., I]) of the [gate; up] fusion."""
     I = gate_up.shape[-1] // 2
@@ -108,9 +128,7 @@ def _attn_block(lp, h, kv, layer: int, cfg: ModelConfig, cos, sin, rows, start_p
     eps = cfg.rms_norm_eps
     xn = rms_norm(h, lp["input_ln"], eps)
     qkv = linear(xn, lp["wqkv"], lp.get("bqkv"))
-    q = qkv[:, : H * D].reshape(T, H, D)
-    k = qkv[:, H * D : (H + KH) * D].reshape(T, KH, D)
-    v = qkv[:, (H + KH) * D :].reshape(T, KH, D)
+    q, k, v = _split_qkv(qkv, H, KH, D)
     if "q_norm" in lp:
         q = rms_norm(q, lp["q_norm"], eps)
         k = rms_norm(k, lp["k_norm"], eps)
@@ -130,7 +148,8 @@ def _attn_block(lp, h, kv, layer: int, cfg: ModelConfig, cos, sin, rows, start_p
 
 
 def _dense_ffn(xn, lp):
-    """Fused-SwiGLU dense FFN on [T, H] activations."""
+    """Fused-SwiGLU dense FFN on [T, H] activations (a rank's partial sum
+    under a "model" axis: its channels of gate / up, its columns of w_down)."""
     gate, up = _split_gate_up(linear(xn, lp["w_gate_up"]))
     return linear(silu(gate) * up, lp["w_down"])
 
@@ -164,10 +183,12 @@ def layer_params(params):
     return out
 
 
-def _ffn(xn, lp, cfg: ModelConfig, row_valid, graph_safe: bool):
-    """The layer's FFN on [T, H] activations: MoE where the layer has a router."""
+def _ffn(xn, lp, cfg: ModelConfig, row_valid, graph_safe: bool, group=None):
+    """The layer's FFN on [T, H] activations: MoE where the layer has a
+    router.  Under a "model" axis (`group`) each rank returns its partial
+    sum (its channels, or its experts' share), which the caller reduces."""
     if "router" in lp:
-        return moe.moe_ffn(xn, lp, cfg, row_valid, graph_safe)
+        return moe.moe_ffn(xn, lp, cfg, row_valid, graph_safe, group=group)
     return _dense_ffn(xn, lp)
 
 
@@ -227,19 +248,27 @@ def logits_at(params, cfg: ModelConfig, hidden: torch.Tensor, row: int) -> torch
     return linear(h[None], params["lm_head"])[0]
 
 
-def greedy_head(params, cfg: ModelConfig, hidden_rows: torch.Tensor) -> torch.Tensor:
+def greedy_head(params, cfg: ModelConfig, hidden_rows: torch.Tensor,
+                group=None) -> torch.Tensor:
     """The greedy token of each row of hidden_rows [R, H]: int32 [R].
 
     Final RMSNorm, then the fused lm_head matvec + argmax (kernel K6 for a
     bf16 / f32 lm_head, K7 for an int8 one): argmax(linear(...)) without the
     logits.  An int8 head computes the dequantized product bf16(h) .
     bf16(q) * s, the JAX package's `proj` below 1024 rows (a batch of 1024
-    rows or more would take its int8 x int8 branch instead)."""
+    rows or more would take its int8 x int8 branch instead).
+
+    Under a "model" axis `group` the table is this rank's vocabulary rows:
+    the kernel returns the packed keys of its rows' maxima, indices offset
+    to the whole vocabulary, and their MAX over the axis is the
+    single-device argmax, ties to the lowest index (kernels/argmax_matvec)."""
     h = rms_norm(hidden_rows, params["final_norm"], cfg.rms_norm_eps).contiguous()
     w = params["lm_head"]
-    if isinstance(w, QuantW):
-        return am.argmax_matvec(h, w.q, w.s)
-    return am.argmax_matvec(h, w)
+    w, scale = (w.q, w.s) if isinstance(w, QuantW) else (w, None)
+    if group is None:
+        return am.argmax_matvec(h, w, scale)
+    keys = am.argmax_matvec(h, w, scale, offset=group_rank(group) * w.shape[0])
+    return am.key_index(pmax(keys, group))
 
 
 def last_row(hidden: torch.Tensor, valid_len) -> torch.Tensor:
@@ -283,18 +312,35 @@ def decode_step(params, cfg: ModelConfig, token, pos, kv, greedy: bool = True):
 
 
 def make_batched_kv(cfg: ModelConfig, batch: int, kv_cap: int, dtype=torch.bfloat16,
-                    device=None):
+                    device=None, group=None):
     """Batched KV cache [L, 2, B, KH, K, D] (bf16 or f32); dtype int8 (--kv8)
-    gives a QuantKV: int8 values plus per-row f32 scales [L, 2, B, KH, K]."""
-    return kv_zeros((cfg.dec_layers, 2, batch, cfg.dec_kv_heads, kv_cap, cfg.dec_head_dim),
-                    dtype, device)
+    gives a QuantKV: int8 values plus per-row f32 scales [L, 2, B, KH, K].
+    Under a "model" axis `group` of n ranks a rank's cache holds KH / n heads."""
+    return kv_zeros((cfg.dec_layers, 2, batch, cfg.dec_kv_heads // group_size(group), kv_cap,
+                     cfg.dec_head_dim), dtype, device)
+
+
+def embed_tokens(emb, ids: torch.Tensor, group=None) -> torch.Tensor:
+    """Embedding rows of ids, f32 [..., H].  Under a "model" axis `group`
+    the table is this rank's vocabulary rows: it looks up the ids inside
+    them, zeros the others and sums over the axis (exact: one rank holds
+    each row)."""
+    if group is None:
+        return embed_rows(emb, ids)
+    V = emb.shape[0]
+    local = ids - group_rank(group) * V
+    inside = (local >= 0) & (local < V)
+    rows = embed_rows(emb, local.clamp(0, V - 1))
+    return psum(torch.where(inside[..., None], rows, 0.0).contiguous(), group)
 
 
 def build_embeds_batched(params, ids: torch.Tensor, audio: torch.Tensor,
-                         audio_start: torch.Tensor, audio_len: torch.Tensor) -> torch.Tensor:
+                         audio_start: torch.Tensor, audio_len: torch.Tensor,
+                         group=None) -> torch.Tensor:
     """`build_embeds` per row: ids [B, T], audio [B, A, H], audio_start /
-    audio_len [B] -> [B, T, H] f32."""
-    emb = embed_rows(params["embed"], ids)
+    audio_len [B] -> [B, T, H] f32 (`group`: a vocabulary-sharded table,
+    `embed_tokens`)."""
+    emb = embed_tokens(params["embed"], ids, group)
     rel = torch.arange(ids.shape[1], device=ids.device)[None, :] - audio_start[:, None]
     in_audio = (rel >= 0) & (rel < audio_len[:, None])
     rows = torch.arange(ids.shape[0], device=ids.device)[:, None]
@@ -318,7 +364,8 @@ def _batched_row_valid(start_pos, T: int, kv_min, prompt_max, region_start) -> t
 
 def batched_decoder_forward(params, cfg: ModelConfig, embeds: torch.Tensor, start_pos,
                             kv, rope_start: torch.Tensor, kv_min: torch.Tensor,
-                            fresh_prefill: bool = False, prompt_max=None, region_start=None):
+                            fresh_prefill: bool = False, prompt_max=None, region_start=None,
+                            group=None):
     """Run the layer stack over `embeds` [B, T, H] written into cache rows
     start_pos..start_pos+T-1 of every batch row.  start_pos is a host int,
     or, for the decode step, an int64 device tensor [1]: then the attention
@@ -336,13 +383,20 @@ def batched_decoder_forward(params, cfg: ModelConfig, embeds: torch.Tensor, star
     attention; on an int8 cache (QuantKV) both run the two-part attention
     on the widened rows.  There is no size crossover.  An MoE layer's FFN
     takes the B * T rows as one block (graph-safe at a device position).
+
+    Tensor parallelism: `group` is the "model" axis whose n ranks each hold
+    a 1/n part of the interleaved weights (parallel/mesh.shard_params) and
+    of the cache's KV heads.  A rank runs H/n query and KH/n KV heads
+    (RoPE, the q/k norms, B4 / B5 and the cache all local), and its partial
+    products after wo and after the FFN are summed over the axis in f32.
     Returns (hidden [B, T, H] f32, kv) -- kv updated in place.
     """
     if cfg.family == "q25":
         raise ValueError("continuous serving supports the qwen3 family only "
                          "(q25 checkpoints route through the thinker path)")
     B, T, _ = embeds.shape
-    H, KH, D = cfg.dec_heads, cfg.dec_kv_heads, cfg.dec_head_dim
+    n = group_size(group)
+    H, KH, D = cfg.dec_heads // n, cfg.dec_kv_heads // n, cfg.dec_head_dim
     eps = cfg.rms_norm_eps
     device_pos = isinstance(start_pos, torch.Tensor)
     if device_pos:  # its owner checks the rows against the cache on the host
@@ -357,10 +411,7 @@ def batched_decoder_forward(params, cfg: ModelConfig, embeds: torch.Tensor, star
     h = embeds.float()
     for i, lp in enumerate(layer_params(params)):
         xn = rms_norm(h, lp["input_ln"], eps)
-        qkv = linear(xn, lp["wqkv"])
-        q = qkv[..., : H * D].reshape(B, T, H, D)
-        k = qkv[..., H * D : (H + KH) * D].reshape(B, T, KH, D)
-        v = qkv[..., (H + KH) * D :].reshape(B, T, KH, D)
+        q, k, v = _split_qkv(linear(xn, lp["wqkv"]), H, KH, D)
         q = apply_rope_neox(rms_norm(q, lp["q_norm"], eps), cos, sin).contiguous()
         k = apply_rope_neox(rms_norm(k, lp["k_norm"], eps), cos, sin).contiguous()
         v = v.contiguous()
@@ -385,39 +436,46 @@ def batched_decoder_forward(params, cfg: ModelConfig, embeds: torch.Tensor, star
                 k_cache, v_cache = kv_read(k_cache, start_pos), kv_read(v_cache, start_pos)
             attn = fa.batched_cache_attention_plain(q, k, v, k_cache, v_cache, start_pos,
                                                     kv_min, prompt_max, region_start)
-        h = h + linear(attn.reshape(B, T, H * D), lp["wo"])
+        h = h + psum(linear(attn.reshape(B, T, H * D), lp["wo"]), group)
         xn = rms_norm(h, lp["post_ln"], eps).reshape(B * T, -1)
-        h = h + _ffn(xn, lp, cfg, row_valid, device_pos).reshape(B, T, -1)
+        ffn = _ffn(xn, lp, cfg, row_valid, device_pos, group)
+        h = h + psum(ffn, group).reshape(B, T, -1)
         kv_write(kv[i, 0], rows if device_pos else start_pos, k.transpose(1, 2))
         kv_write(kv[i, 1], rows if device_pos else start_pos, v.transpose(1, 2))
     return h, kv
 
 
-def batched_logits(params, cfg: ModelConfig, hidden_rows: torch.Tensor) -> torch.Tensor:
-    """Final RMSNorm + lm_head for one row per batch element [B, H] -> [B, V] f32."""
-    return linear(rms_norm(hidden_rows, params["final_norm"], cfg.rms_norm_eps),
-                  params["lm_head"])
+def batched_logits(params, cfg: ModelConfig, hidden_rows: torch.Tensor,
+                   group=None) -> torch.Tensor:
+    """Final RMSNorm + lm_head for one row per batch element [B, H] -> [B, V]
+    f32 (under a "model" axis `group`, the ranks' vocabulary shards
+    gathered)."""
+    logits = linear(rms_norm(hidden_rows, params["final_norm"], cfg.rms_norm_eps),
+                    params["lm_head"])
+    return all_gather_cat(logits, group, dim=-1)
 
 
-def _greedy_or_logits(params, cfg: ModelConfig, hidden_rows: torch.Tensor, greedy: bool):
+def _greedy_or_logits(params, cfg: ModelConfig, hidden_rows: torch.Tensor, greedy: bool,
+                      group=None):
     if greedy:
-        return greedy_head(params, cfg, hidden_rows)
-    return batched_logits(params, cfg, hidden_rows)
+        return greedy_head(params, cfg, hidden_rows, group)
+    return batched_logits(params, cfg, hidden_rows, group)
 
 
 def batched_prefill(params, cfg: ModelConfig, embeds, kv, rope_start, kv_min,
-                    greedy: bool = True):
+                    greedy: bool = True, group=None):
     """Fresh prefill at start_pos 0 (kernel B4): the left-padded layout puts
-    each row's last prompt token at T-1.  Returns (tokens | logits [B, ...], kv)."""
+    each row's last prompt token at T-1.  Returns (tokens | logits [B, ...], kv).
+    group: the "model" axis (batched_decoder_forward)."""
     T = embeds.shape[1]
     hidden, kv = batched_decoder_forward(params, cfg, embeds, 0, kv, rope_start, kv_min,
-                                         fresh_prefill=True)
-    return _greedy_or_logits(params, cfg, hidden[:, T - 1], greedy), kv
+                                         fresh_prefill=True, group=group)
+    return _greedy_or_logits(params, cfg, hidden[:, T - 1], greedy, group), kv
 
 
 def batched_prefill_delta(params, cfg: ModelConfig, embeds, start_pos: int, kv, rope_start,
                           kv_min, greedy: bool = True, last_rows=None, prompt_max=None,
-                          region_start=None):
+                          region_start=None, group=None):
     """Delta prefill (kernel B5; the two-part attention on an int8 cache):
     the block writes cache rows [start_pos, start_pos + T) of every row and
     attends each row's frozen context [kv_min[b], start_pos).  Row b's last
@@ -425,22 +483,26 @@ def batched_prefill_delta(params, cfg: ModelConfig, embeds, start_pos: int, kv, 
     layout).  Returns (tokens | logits, kv)."""
     T = embeds.shape[1]
     hidden, kv = batched_decoder_forward(params, cfg, embeds, start_pos, kv, rope_start, kv_min,
-                                         prompt_max=prompt_max, region_start=region_start)
+                                         prompt_max=prompt_max, region_start=region_start,
+                                         group=group)
     if last_rows is None:
         h_last = hidden[:, T - 1]
     else:
         h_last = hidden[torch.arange(hidden.shape[0], device=hidden.device), last_rows.long()]
-    return _greedy_or_logits(params, cfg, h_last, greedy), kv
+    return _greedy_or_logits(params, cfg, h_last, greedy, group), kv
 
 
 def batched_decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos: torch.Tensor, kv,
-                        rope_offset, kv_min, prompt_max=None, region_start=None) -> torch.Tensor:
+                        rope_offset, kv_min, prompt_max=None, region_start=None,
+                        group=None) -> torch.Tensor:
     """One greedy step of every row: tokens [B] int at the batch-uniform
     cache row pos (an int64 device tensor [1]); the rope position of row b
     is pos - rope_offset[b].  Returns the next tokens, int32 [B] (kernel K6
     or K7).  Nothing is read back to the host: the batched decode loop
-    (runtime/decode_graph.py) captures it as one CUDA graph."""
-    embeds = embed_rows(params["embed"], tokens.long())[:, None, :]
+    (runtime/decode_graph.py) captures it as one CUDA graph; under a "model"
+    axis `group` its collectives keep it eager."""
+    embeds = embed_tokens(params["embed"], tokens.long(), group)[:, None, :]
     hidden, _ = batched_decoder_forward(params, cfg, embeds, pos, kv, pos - rope_offset, kv_min,
-                                        prompt_max=prompt_max, region_start=region_start)
-    return greedy_head(params, cfg, hidden[:, 0])
+                                        prompt_max=prompt_max, region_start=region_start,
+                                        group=group)
+    return greedy_head(params, cfg, hidden[:, 0], group)

@@ -2,9 +2,10 @@
 
 Segments (-S mode) and independent clips are each an independent prompt
 with its own KV rows; the batch dimension is written into the decoder's
-products (models/qwen3_decoder.py batched_*).  The port runs on one card:
-there is no mesh, so the JAX package's tensor- and expert-parallel options
-(`tp`, `ep`) are not taken.
+products (models/qwen3_decoder.py batched_*).  The batch axis splits over
+the "data" axis of a mesh (parallel/mesh.py: each rank holds its rows), and
+`group` is the "model" axis, whose ranks each hold a part of the weights,
+of the experts and of the cache's KV heads (parallel/mesh.model_group).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ make_batched_kv = dec_mod.make_batched_kv
 
 
 def batched_prefill(params, cfg: ModelConfig, embeds, kv, rope_start=None, kv_min=None,
-                    greedy: bool = True):
+                    greedy: bool = True, group=None):
     """Fresh prefill at start_pos 0: embeds [B, Tcap, H] (left-padded: each
     row's last prompt token at Tcap-1), kv [L, 2, B, KH, K, D]; rope_start /
     kv_min [B] default to zeros (no left padding).
@@ -30,26 +31,31 @@ def batched_prefill(params, cfg: ModelConfig, embeds, kv, rope_start=None, kv_mi
     zeros = torch.zeros((B,), dtype=torch.int32, device=embeds.device)
     return dec_mod.batched_prefill(params, cfg, embeds, kv,
                                    zeros if rope_start is None else rope_start,
-                                   zeros if kv_min is None else kv_min, greedy=greedy)
+                                   zeros if kv_min is None else kv_min, greedy=greedy,
+                                   group=group)
 
 
 def batched_decode_loop(params, cfg: ModelConfig, kv, batch: int, perf=None,
-                        natural: bool = False) -> DecodeLoop:
+                        natural: bool = False, group=None, data_group=None) -> DecodeLoop:
     """The batched greedy decode loop on cache `kv` (runtime/decode_graph.py:
     one CUDA graph of the step on the card, replayed per token).  Its
     inputs per chunk: rope_offset / kv_min [B], and with `natural` (the
     natural layout of serving) prompt_max / region_start [B].  The loop
-    holds `kv`: make a new one when the cache is replaced."""
+    holds `kv`: make a new one when the cache is replaced.  On a mesh, B is
+    this data rank's rows and `data_group` makes each chunk's host read
+    global; a step with a "model" axis `group` (tp > 1) holds collectives
+    and runs eagerly, never captured."""
     names = ("rope_offset", "kv_min") + (("prompt_max", "region_start") if natural else ())
     zeros = torch.zeros((batch,), dtype=torch.int32)
-    return DecodeLoop(lambda tok, pos, **x: dec_mod.batched_decode_step(params, cfg, tok, pos,
-                                                                        kv, **x),
-                      batch, kv, kv.shape[4], kv.device, perf, {name: zeros for name in names})
+    return DecodeLoop(lambda tok, pos, **x: dec_mod.batched_decode_step(
+                          params, cfg, tok, pos, kv, group=group, **x),
+                      batch, kv, kv.shape[4], kv.device, perf, {name: zeros for name in names},
+                      data_group=data_group, eager=group is not None)
 
 
 def batched_decode_chunk(params, cfg: ModelConfig, tokens, pos: int, kv, n_steps_cap: int,
                          rope_offset=None, kv_min=None, n_steps=None, prompt_max=None,
-                         region_start=None, row_active=None):
+                         region_start=None, row_active=None, group=None):
     """Greedy-decode up to n_steps (<= n_steps_cap <= DECODE_CHUNK) tokens
     for every row, stopping once every active row has emitted an EOS, on a
     loop of its own (callers that decode many chunks keep a
@@ -68,7 +74,8 @@ def batched_decode_chunk(params, cfg: ModelConfig, tokens, pos: int, kv, n_steps
     steps = n_steps_cap if n_steps is None else min(int(n_steps), n_steps_cap)
     if steps <= 0:
         return out, 0, tokens.to(torch.int32), kv
-    loop = batched_decode_loop(params, cfg, kv, B, natural=prompt_max is not None)
+    loop = batched_decode_loop(params, cfg, kv, B, natural=prompt_max is not None,
+                               group=group)
     buf, count, _ = loop.run(tokens, pos, steps, row_active, **inputs)
     out[:, :count] = torch.from_numpy(buf)
     return out, count, loop.tok.clone(), kv

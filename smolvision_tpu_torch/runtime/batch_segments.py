@@ -16,7 +16,16 @@ sequential (runtime/segment.py).
     One kernel-B4 launch per layer per length group;
   * decode: chunks of up to BATCH_DECODE_CHUNK steps, stopping once every
     row has emitted an EOS; the cache grows in 64-row steps when a chunk
-    would overrun it.
+    would overrun it;
+  * on a mesh (engine.serving_mesh, parallel/mesh.py) a group's rows pad to
+    a multiple of dp (pad rows repeat the last segment and give no text
+    and no perf counts); each data rank prefills and decodes its own rows
+    and the first tokens and every chunk's tokens are all-gathered, so
+    every rank takes the same host decisions.  Under dp > 1 the group
+    encode splits its clips over "data" (the encoder's sequence
+    parallelism: every rank encodes its share at the group's token bucket,
+    then the audio rows are all-gathered; windows are hard, so no clip's
+    arithmetic depends on the split).
 
 The JAX package's device-mel front end (an option of its TPU backend) is
 not ported: the host mel is its behaviour on every other backend.
@@ -41,8 +50,10 @@ from smolvision_tpu_torch.config import (
 )
 from smolvision_tpu_torch.models import qwen3_decoder as dec_mod
 from smolvision_tpu_torch.models import qwen3_encoder as enc_mod
+from smolvision_tpu_torch.ops.collectives import all_gather_cat, gather_host
 from smolvision_tpu_torch.ops.mel import log_mel
 from smolvision_tpu_torch.parallel import batch as pbatch
+from smolvision_tpu_torch.parallel import mesh as mesh_mod
 from smolvision_tpu_torch.runtime import prompt as prompt_mod
 from smolvision_tpu_torch.runtime.buckets import bucket, bucket64, window_bucket
 
@@ -83,12 +94,31 @@ def _conv_partial_tails(engine, tails):
 @torch.inference_mode()
 def _encode_batch(engine, mels: Sequence[np.ndarray]):
     """Encode B [128, F] mel spectrograms.  Returns (audio_stack [B, cap, H],
-    n_tokens list)."""
-    cfg = engine.cfg
+    n_tokens list).  Under the encoder's sequence parallelism
+    (engine._enc_sp_mesh, dp > 1) each data rank encodes its share of the
+    clips and the rows are all-gathered."""
     if len(mels) == 1:
         a, n = engine.encode_mel(mels[0])
         return a[None], [n]
+    sp = getattr(engine, "_enc_sp_mesh", None)
+    if sp is None:
+        return _encode_group(engine, mels)
+    cfg = engine.cfg
+    n_tokens = [enc_mod.total_encoder_tokens(m.shape[1], cfg) for m in mels]
+    tcap = max(window_bucket(n, cfg.window_token_size()) for n in n_tokens)
+    dp = mesh_mod.mesh_dp(sp)
+    padded = list(mels) + [mels[-1]] * ((-len(mels)) % dp)
+    mine = padded[sp.rows(len(padded))]
+    out, _ = _encode_group(engine, mine, tcap)
+    out = all_gather_cat(out, sp.group(mesh_mod.DATA_AXIS))
+    return out[: len(mels)], n_tokens
 
+
+def _encode_group(engine, mels: Sequence[np.ndarray], tcap: Optional[int] = None):
+    """The batched encode of `mels` (one conv-stem call for the full chunks,
+    one per tail width, one windowed encoder call); `tcap` fixes the token
+    bucket (default: the largest clip's)."""
+    cfg = engine.cfg
     chunk = cfg.enc_chunk_size
     full_counts = [m.shape[1] // chunk for m in mels]
 
@@ -111,11 +141,11 @@ def _encode_batch(engine, mels: Sequence[np.ndarray]):
 
     full_starts = np.cumsum([0] + full_counts[:-1]).tolist()
     return _pool_and_encode(engine, len(mels), full_tok, n_full_sum, full_starts, full_counts,
-                            partial_rows, partial_blocks)
+                            partial_rows, partial_blocks, tcap)
 
 
 def _pool_and_encode(engine, B, full_tok, n_pool_blocks, full_starts, full_counts,
-                     partial_rows, partial_blocks):
+                     partial_rows, partial_blocks, tcap: Optional[int] = None):
     """Flatten the conv outputs into one row pool, gather each clip's rows
     into [B, tcap, d] (the gather index is built on the host) and run the
     windowed encoder over all clips at once."""
@@ -124,7 +154,7 @@ def _pool_and_encode(engine, B, full_tok, n_pool_blocks, full_starts, full_count
     wts = cfg.window_token_size()
     n_tokens = [full_counts[b] * tpc + (partial_rows[b][2] if b in partial_rows else 0)
                 for b in range(B)]
-    tcap = max(window_bucket(n, wts) for n in n_tokens)
+    tcap = tcap or max(window_bucket(n, wts) for n in n_tokens)
     d = cfg.enc_d_model
 
     pool_parts = []
@@ -241,7 +271,15 @@ def _decode_segment_group(engine, segments: Sequence[np.ndarray]) -> List[List[i
     cfg = engine.cfg
     dev = engine.device
     engine.prepare_prompt()
+    mesh = getattr(engine, "serving_mesh", None)
+    n_real = len(segments)
+    # the rows split over "data": pad to a multiple of dp with copies of the
+    # last segment (rows are independent; pad rows are dropped below)
+    segments = list(segments) + [segments[-1]] * ((-n_real) % mesh_mod.mesh_dp(mesh))
     B = len(segments)
+    mine = slice(0, B) if mesh is None else mesh.rows(B)
+    Bl = mine.stop - mine.start
+    model_axis = mesh_mod.model_group(engine)
     perf = engine.perf
 
     # --- encode all segments as one batch (mel on host threads for B > 2:
@@ -268,12 +306,13 @@ def _decode_segment_group(engine, segments: Sequence[np.ndarray]) -> List[List[i
     for b, ids in enumerate(id_rows):
         ids_arr[b, pads[b] :] = ids
     enc_cap = enc_stack.shape[1]
+    enc_stack = enc_stack[mine]
     audio_stack = (enc_stack[:, :acap] if acap <= enc_cap else
                    torch.cat([enc_stack, enc_stack.new_zeros(
-                       (B, acap - enc_cap, enc_stack.shape[2]))], dim=1))
+                       (Bl, acap - enc_cap, enc_stack.shape[2]))], dim=1))
 
     def i32(values):
-        return torch.tensor(values, dtype=torch.int32, device=dev)
+        return torch.tensor(values[mine], dtype=torch.int32, device=dev)
 
     astart = i32([starts[b] + pads[b] for b in range(B)])
     alen = i32(n_tokens_list)
@@ -283,16 +322,19 @@ def _decode_segment_group(engine, segments: Sequence[np.ndarray]) -> List[List[i
     # decode reads B x kcap KV rows per step: size to the decode horizon and
     # let the loop grow the cache past it
     kcap = bucket64(tcap + min(engine.max_tokens, 2 * BATCH_DECODE_CHUNK) + 1)
-    kv = pbatch.make_batched_kv(cfg, B, kcap, engine.batched_kv_dtype, dev)
+    kv = pbatch.make_batched_kv(cfg, Bl, kcap, engine.batched_kv_dtype, dev, group=model_axis)
     engine._sync()
     perf.encode_ms += _now_ms() - enc_t0
 
     dec_t0 = _now_ms()
-    embeds = dec_mod.build_embeds_batched(engine.dec_params, torch.from_numpy(ids_arr).to(dev),
-                                          audio_stack, astart, alen)
-    first, kv = pbatch.batched_prefill(engine.dec_params, cfg, embeds, kv, rope_start, kv_min)
+    embeds = dec_mod.build_embeds_batched(engine.dec_params,
+                                          torch.from_numpy(ids_arr[mine]).to(dev),
+                                          audio_stack, astart, alen, model_axis)
+    first, kv = pbatch.batched_prefill(engine.dec_params, cfg, embeds, kv, rope_start, kv_min,
+                                       group=model_axis)
     perf.fresh_prefills += 1
-    first_host = first.cpu().numpy()
+    first_host = gather_host(first.cpu().numpy(), mesh_mod.data_group(engine),
+                                      dev).reshape(-1)
     perf.prefill_ms += _now_ms() - dec_t0
 
     rows: List[List[int]] = [[int(t)] for t in first_host]
@@ -308,7 +350,9 @@ def _decode_segment_group(engine, segments: Sequence[np.ndarray]) -> List[List[i
             kv = pbatch.kv_grow_k(kv, kcap)
             loop = None
         if loop is None:
-            loop = pbatch.batched_decode_loop(engine.dec_params, cfg, kv, B, perf)
+            loop = pbatch.batched_decode_loop(engine.dec_params, cfg, kv, Bl, perf,
+                                              group=model_axis,
+                                              data_group=mesh_mod.data_group(engine))
         t0 = _now_ms()
         buf_host, count, replays = loop.run(tokens, pos, steps, rope_offset=kv_min,
                                             kv_min=kv_min)
@@ -329,4 +373,4 @@ def _decode_segment_group(engine, segments: Sequence[np.ndarray]) -> List[List[i
         pos += count
         produced += count
     perf.decode_ms += _now_ms() - dec_t0
-    return rows
+    return rows[:n_real]

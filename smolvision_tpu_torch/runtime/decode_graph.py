@@ -38,6 +38,11 @@ CUDA graph of one step, replayed:
     on every replay (`StepGraph`), so `ffi.launch_counts` stays the number
     of launches.
 
+On a mesh (parallel/mesh.py) a batched loop holds its data rank's rows and
+its chunk's host read is all-gathered over "data", so the count, the done
+rows and the tokens are every rank's; a step that holds collectives (tp >
+1) runs eagerly, never captured.
+
 On the CPU (the tests, SMOLVISION_PLATFORM=cpu) the same steps run eagerly
 and a loop reads its stop flag after every step.  A loop or prefill graph
 holds its cache tensor, which its graph writes into: its owner makes a new
@@ -54,6 +59,7 @@ import torch
 
 from smolvision_tpu_torch.config import EOS_TOKEN_IDS
 from smolvision_tpu_torch.kernels import ffi
+from smolvision_tpu_torch.ops.collectives import gather_host
 from smolvision_tpu_torch.runtime import sampling
 
 DECODE_CHUNK = 64   # steps per host read, as the JAX engine's
@@ -199,10 +205,22 @@ class DecodeLoop(_ChunkLoop):
     int32 [B].  `inputs` (name -> a tensor of its shape and type) are the
     step's other static tensors, which `run` refreshes before each chunk.
     `perf` (a PerfStats, or None) counts the captures and the wasted
-    steps."""
+    steps.
 
-    def __init__(self, forward, batch: int, kv, capacity: int, device, perf, inputs=None):
+    On a mesh (parallel/mesh.py) the B rows are this data rank's.  With
+    `data_group` the chunk's host read is global: every rank's counters,
+    last tokens and buffer in one all_gather, the count the largest (the
+    step at which the last live row of all ranks ended: a rank whose rows
+    ended sooner has replayed only steps that change nothing), so every
+    rank takes the same host decisions.  `eager` runs every step eagerly,
+    never captured: a step with collectives (tp > 1) is not captured."""
+
+    def __init__(self, forward, batch: int, kv, capacity: int, device, perf, inputs=None,
+                 data_group=None, eager: bool = False):
         super().__init__(kv, capacity, device, perf)
+        self.data_group = data_group
+        self.eager = eager
+        self.tokens_h = None   # the last tokens of every row after a chunk (numpy int32)
         dev = torch.device(device)
         self.forward = forward
         self.inputs = {k: torch.zeros_like(v, device=dev) for k, v in (inputs or {}).items()}
@@ -223,14 +241,23 @@ class DecodeLoop(_ChunkLoop):
         self.pos += live
         self.stop.copy_(self.done.all().reshape(1))
 
+    def _advance(self) -> None:
+        if not self.eager:
+            super()._advance()
+            return
+        with self._on_stream():
+            self._step()
+
     @torch.inference_mode()
     def run(self, tokens, pos: int, steps: int, row_active=None, **inputs):
         """Up to `steps` (<= DECODE_CHUNK) greedy steps of every row from
         `tokens` [B] at cache row `pos`, stopping once every row has emitted
         an EOS (rows that finish first decode on; the caller cuts them at
         their EOS).  row_active [B] bool marks rows done from the start.
-        Returns (buf, count, replays): the tokens [B, count] as numpy int32,
-        the steps the reference's loop would run, and the steps run."""
+        Returns (buf, count, replays): the tokens [B, count] as numpy int32
+        (every data rank's rows under a data group), the steps the
+        reference's loop would run, and the steps run here.  `tokens_h`
+        then holds the rows' last tokens."""
         self._check(pos, steps, steps)
         if isinstance(tokens, int):
             self.tok.fill_(tokens)
@@ -247,10 +274,16 @@ class DecodeLoop(_ChunkLoop):
         for name, value in inputs.items():
             self.inputs[name].copy_(torch.as_tensor(value))
         replays = self._replays(steps)
-        (count,), buf = self._read(self.buf, self.i)
+        (count,), host = self._read(torch.cat([self.tok[:, None], self.buf], dim=1), self.i)
         if self.perf is not None:
             self.perf.wasted_steps += replays - count
-        return buf[:, :count], count, replays
+        if self.data_group is not None:
+            parts = gather_host(np.concatenate([[count], host.reshape(-1)]).astype(np.int32),
+                                self.data_group, self.tok.device)
+            count = int(parts[:, 0].max())
+            host = parts[:, 1:].reshape(-1, host.shape[1])
+        self.tokens_h = host[:, 0].copy()
+        return host[:, 1 : 1 + count], count, replays
 
 
 class SpecLoop(_ChunkLoop):

@@ -58,6 +58,7 @@ from smolvision_tpu_torch.models import qwen3_decoder as dec_mod
 from smolvision_tpu_torch.models import qwen3_encoder as enc_mod
 from smolvision_tpu_torch.ops.mel import log_mel
 from smolvision_tpu_torch.ops.quant import embed_rows
+from smolvision_tpu_torch.parallel.mesh import mesh_tp
 from smolvision_tpu_torch.runtime import prompt as prompt_mod
 from smolvision_tpu_torch.runtime.buckets import bucket, window_bucket
 from smolvision_tpu_torch.runtime.decode_graph import (DECODE_CHUNK, DecodeLoop, PrefillGraph,
@@ -255,6 +256,11 @@ class Engine:
         self.monitor = False
         self.perf = PerfStats()
         self._tokenizer: Optional[Tokenizer] = None
+        # the device mesh of the batched paths (parallel/mesh.shard_engine)
+        # and the encoder's sequence parallelism of the batched group encode
+        # (dp > 1)
+        self.serving_mesh = None
+        self._enc_sp_mesh = None
 
         self._kv: Optional[torch.Tensor] = None
         self._kv_cap = 0
@@ -339,7 +345,9 @@ class Engine:
         self._prefills = {}   # a new dict: a session view (multistream) shares none
 
     def _ensure_kv(self, needed: int) -> torch.Tensor:
-        """Cache sized to a pow2 bucket; grows by copy when exceeded."""
+        """Cache sized to a pow2 bucket; grows by copy when exceeded.  Every
+        single-stream path starts here or at `_embeds`."""
+        self._require_solo()
         cap = bucket(needed, 256)
         if self._kv is None:
             self._kv = dec_mod.make_kv_cache(self.cfg, cap, self.kv_dtype, self.device)
@@ -428,10 +436,18 @@ class Engine:
     # decoder primitives
     # ------------------------------------------------------------------
 
+    def _require_solo(self) -> None:
+        """The single-stream paths are not tensor-parallel: a tp > 1 engine
+        (parallel/mesh.shard_engine) refuses them with one line."""
+        if mesh_tp(self.serving_mesh) > 1:
+            raise ValueError("the single-stream paths are not tensor-parallel: on a tp > 1 "
+                             "mesh use the batched paths (segments, serving, multistream)")
+
     def _embeds(self, ids: Sequence[int], tcap: int, audio: Optional[torch.Tensor],
                 audio_start: int, n_audio: int) -> torch.Tensor:
         """Embeddings [tcap, H] of `ids` (zero ids past them) with the audio
         rows spliced in at audio_start."""
+        self._require_solo()
         ids_arr = np.zeros(tcap, dtype=np.int64)
         ids_arr[:len(ids)] = np.asarray(ids, dtype=np.int64)
         if audio is None:

@@ -41,11 +41,20 @@ and streaming state).  Two modes:
     package's threaded mode is likewise bounded by one stream of
     dispatches.
 
+On a mesh (engine.serving_mesh, parallel/mesh.py) the batched coordinator
+splits its cache rows over "data" (the row bucket is at least dp, as the
+JAX package's `min_b = max(2, dp)`): each data rank prefills and decodes
+its own rows, the round's first tokens and every chunk's tokens are
+all-gathered, and a compaction that moves a row to another rank gathers
+the cache over "data" first, so every rank keeps the same rows and takes
+the same host decisions.  The "model" axis splits the weights and the KV
+heads (tp).  The threaded mode runs the single-stream path, which a tp > 1
+engine refuses.
+
 Left out of the port, as in the JAX package off its TPU backend or by
 choice (ROADMAP.md): the compile prewarm ladder (`_prewarm_batched`, a
 no-op off the TPU), the opt-in stratified reset-row prefill
-(SMOLVISION_MSTREAM_STRAT=1), the device mesh rows (`serving_mesh`) and
-the device-mel pre-encode.
+(SMOLVISION_MSTREAM_STRAT=1) and the device-mel pre-encode.
 
 Switches, as the JAX package reads them, each the degraded path a test
 compares the default against: SMOLVISION_MSTREAM_NO_REUSE=1 (full prefill
@@ -68,9 +77,11 @@ import torch
 
 from smolvision_tpu_torch.config import EOS_TOKEN_IDS
 from smolvision_tpu_torch.models import qwen3_decoder as dec_mod
+from smolvision_tpu_torch.ops.collectives import all_gather_rows, gather_host
 from smolvision_tpu_torch.ops.mel import log_mel
 from smolvision_tpu_torch.ops.quant import kv_rows_gather
 from smolvision_tpu_torch.parallel import batch as pbatch
+from smolvision_tpu_torch.parallel import mesh as mesh_mod
 from smolvision_tpu_torch.runtime import stream as stream_mod
 from smolvision_tpu_torch.runtime.batch_segments import BATCH_DECODE_CHUNK, _encode_batch, _now_ms
 from smolvision_tpu_torch.runtime.buckets import bucket, bucket128
@@ -196,8 +207,9 @@ class _BatchKV:
     record: caches allocated (first allocation, growths, compactions) and
     one entry per round (`rounds`)."""
 
-    def __init__(self, n_sessions: int):
-        self.B = max(MIN_ROWS, 1 << (max(1, n_sessions) - 1).bit_length())
+    def __init__(self, n_sessions: int, min_b: int = MIN_ROWS):
+        self.min_b = min_b
+        self.B = max(min_b, 1 << (max(1, n_sessions) - 1).bit_length())
         self.kv = None
         self.loop = None
         self.pcap = 0
@@ -243,14 +255,15 @@ def run_streams_batched(engine, sources: Sequence, on_token=None) -> List[Option
             st.nowait = True
             states.append(st)
 
-    cache = _BatchKV(len(states))
+    cache = _BatchKV(len(states), max(MIN_ROWS, mesh_mod.mesh_dp(
+        getattr(engine, "serving_mesh", None))))
     row_of = {id(st): r for r, st in enumerate(states)}
     solo_batched = os.environ.get("SMOLVISION_MSTREAM_SOLO_BATCHED", "1") != "0"
     solo_kv_valid = set()   # sessions whose own single-stream cache holds their prompt
     while True:
         t_round = _now_ms()
         act = [st for st in states if st.active()]
-        _compact_rows(cache, row_of, act)
+        _compact_rows(cache, row_of, act, engine)
         pre_encode_ms = _pre_encode_round(engine, act) if len(act) > 1 else 0.0
         works = []
         n_pending = 0
@@ -290,7 +303,7 @@ def run_streams_batched(engine, sources: Sequence, on_token=None) -> List[Option
     return [st.finalize() for st in states]
 
 
-def _compact_rows(cache: _BatchKV, row_of: dict, act_states) -> None:
+def _compact_rows(cache: _BatchKV, row_of: dict, act_states, engine) -> None:
     """Shrink the batch bucket when enough sessions have drained.
 
     Mixed-duration fleets otherwise keep paying the original B for every
@@ -298,17 +311,24 @@ def _compact_rows(cache: _BatchKV, row_of: dict, act_states) -> None:
     are copied into a fresh smaller cache (`kv_rows_gather`: a block copy
     per row, never a view of the old cache, which the held decode graph
     writes into) and renumbered 0..n-1; only when the power-of-two bucket
-    halves, so at most log2(B) compactions per run."""
+    halves, so at most log2(B) compactions per run.  On a mesh a data rank
+    holds its block of rows: the cache is first gathered over "data", and
+    each rank keeps the new rows of its block."""
     n = len(act_states)
     if n == 0 or cache.kv is None:
         return
-    new_b = max(MIN_ROWS, 1 << (n - 1).bit_length())
+    new_b = max(cache.min_b, 1 << (n - 1).bit_length())
     if new_b >= cache.B:
         return
     keep = [row_of[id(st)] for st in act_states]
     while len(keep) < new_b:          # pad rows: duplicate row 0 (garbage)
         keep.append(keep[0])
-    cache.kv = kv_rows_gather(cache.kv, keep)
+    mesh = getattr(engine, "serving_mesh", None)
+    local = keep
+    if mesh_mod.mesh_dp(mesh) > 1:
+        cache.kv = all_gather_rows(cache.kv, mesh.group(mesh_mod.DATA_AXIS))
+        local = keep[mesh.rows(new_b)]
+    cache.kv = kv_rows_gather(cache.kv, local)
     cache.loop = None
     cache.caches += 1
     cache.compactions += 1
@@ -415,6 +435,9 @@ def _run_batched_chunks(engine, works, cache: _BatchKV, row_of) -> None:
 
     max_new = max(st.max_new for st, _ in works)
     B = cache.B
+    mesh = getattr(engine, "serving_mesh", None)
+    mine = slice(0, B) if mesh is None else mesh.rows(B)
+    model_axis = mesh_mod.model_group(engine)
     max_len = max(len(w.ids) for _, w in works)
     pcap = max(cache.pcap, bucket128(max_len))
     kcap = pcap + max(BATCH_DECODE_CHUNK, bucket(max_new, 64))
@@ -432,7 +455,8 @@ def _run_batched_chunks(engine, works, cache: _BatchKV, row_of) -> None:
             reused_eff[r] = max(0, min(w.reused, cache.lens[r], n - 1))
 
     if cache.kv is None:
-        cache.kv = pbatch.make_batched_kv(cfg, B, kcap, engine.batched_kv_dtype, dev)
+        cache.kv = pbatch.make_batched_kv(cfg, mine.stop - mine.start, kcap,
+                                          engine.batched_kv_dtype, dev, group=model_axis)
         cache.loop = None
         cache.caches += 1
     elif kcap > cache.kcap:
@@ -480,15 +504,22 @@ def _run_batched_chunks(engine, works, cache: _BatchKV, row_of) -> None:
     if not (0 <= S and S + W <= pcap and S + W >= max_len):
         raise ValueError(f"delta block [{S}, {S + W}) outside the prompt cap {pcap} "
                          f"or short of the longest prompt ({max_len})")
-    embeds = dec_mod.build_embeds_batched(engine.dec_params, torch.from_numpy(ids_arr).to(dev),
-                                          torch.stack(audio_rows), i32(astart), i32(alen))
+    embeds = dec_mod.build_embeds_batched(engine.dec_params,
+                                          torch.from_numpy(ids_arr[mine]).to(dev),
+                                          torch.stack(audio_rows[mine]), i32(astart[mine]),
+                                          i32(alen[mine]), model_axis)
     embeds_blk = embeds[:, S : S + W]
-    last_rows = [max(0, lens_new[r] - 1 - S) if r in active else 0 for r in range(B)]
+    last_rows = np.asarray([max(0, lens_new[r] - 1 - S) if r in active else 0
+                            for r in range(B)], np.int32)
+    Bl = mine.stop - mine.start
     first, cache.kv = dec_mod.batched_prefill_delta(
-        engine.dec_params, cfg, embeds_blk, S, cache.kv, i32([S] * B), i32([0] * B),
-        last_rows=i32(last_rows), prompt_max=i32(prompt_max), region_start=pcap)
+        engine.dec_params, cfg, embeds_blk, S, cache.kv, i32([S] * Bl), i32([0] * Bl),
+        last_rows=i32(last_rows[mine]), prompt_max=i32(prompt_max[mine]), region_start=pcap,
+        group=model_axis)
     perf.delta_prefills += 1
-    first_h = first.cpu().numpy()          # the prefill's end on the card
+    # the prefill's end on the card; every data rank's rows
+    first_h = gather_host(first.cpu().numpy(), mesh_mod.data_group(engine),
+                                   dev).reshape(-1)
     B_real = len(works)
     prefill_ms = _now_ms() - t_pre0
     for r, (st, w) in active.items():
@@ -505,15 +536,17 @@ def _run_batched_chunks(engine, works, cache: _BatchKV, row_of) -> None:
               "region_start": np.full(B, pcap, np.int32)}
     # pad rows decode promptless garbage that rarely hits EOS: keep them out
     # of the all-rows-EOS exit
-    row_active = np.asarray([r in active for r in range(B)])
+    row_active = np.asarray([r in active for r in range(B)])[mine]
+    inputs = {k: v[mine] for k, v in inputs.items()}
     tokens = first
     pos = pcap
     produced = 1
     replays_total = 0
     while produced < max_new and not all(done):
         if cache.loop is None:
-            cache.loop = pbatch.batched_decode_loop(engine.dec_params, cfg, cache.kv, B, perf,
-                                                    natural=True)
+            cache.loop = pbatch.batched_decode_loop(engine.dec_params, cfg, cache.kv, Bl, perf,
+                                                    natural=True, group=model_axis,
+                                                    data_group=mesh_mod.data_group(engine))
         steps = min(BATCH_DECODE_CHUNK, max_new - produced)
         buf, count, replays = cache.loop.run(tokens, pos, steps, row_active=row_active,
                                              **inputs)

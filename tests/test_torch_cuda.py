@@ -10,6 +10,8 @@ Both sides compute in f32 from the same inputs and differ only in summation
 order: 1e-4 absolute at outputs of magnitude <~ 3, as chip_smoke.py.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1353,3 +1355,92 @@ def test_cuda_offload_pinned_staging_copy(tmp_path, monkeypatch):
         assert all(a.elapsed_time(b) >= 0 for _, a, b in store.copy_events)
         assert store.stats["gather_bytes"] == sum(t[0].numel() * t.element_size()
                                                   for t in (g, u, d))
+
+
+def _key_values(keys: torch.Tensor) -> torch.Tensor:
+    """The f32 values packed into head keys (argmax_matvec.pack_keys)."""
+    ordered = (keys >> 32).to(torch.int32)
+    bits = torch.where(ordered < 0, ordered ^ 0x7FFFFFFF, ordered)
+    return bits.view(torch.float32)
+
+
+@pytest.mark.cuda
+def test_cuda_head_keys_with_an_offset_match_the_plain_packing():
+    """A vocabulary-sharded head (parallel/mesh.py): K6 and K7 on both routes
+    return keys whose index is offset by the shard's first row and whose
+    value is the row's maximum; the MAX over two shards is the whole
+    table's argmax, a tie across the boundary to the lower index."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels are built with nvcc for sm_90a)")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    V, H = 2 * 37_984, 1024
+    before = dict(ffi.launch_counts)
+    calls = {name: 0 for name in before}
+    for R in (3, 16):
+        w32 = torch.randn(V, H, device="cuda", generator=g) * 0.05
+        h = torch.randn(R, H, device="cuda", generator=g)
+        want = [(977 * r + 3) % V for r in range(R)]
+        for r, v in enumerate(want):
+            w32[v] = torch.sign(h[r]) * 0.5
+        w32[V // 2] = w32[V // 2 - 1] = torch.sign(h[0]) * 0.6   # row 0: a boundary tie
+        want[0] = V // 2 - 1
+        qw = w32.abs().amax(-1) / 127.0
+        q8 = torch.round(w32 / qw[:, None]).clamp(-127, 127).to(torch.int8)
+        for w, scale in ((w32.to(torch.bfloat16), None), (q8, qw)):
+            for route in ("cuda_core", "tensor_core"):
+                parts = []
+                for s in range(2):
+                    rows = slice(s * V // 2, (s + 1) * V // 2)
+                    ws, ss = w[rows].contiguous(), None if scale is None else scale[rows]
+                    keys = tam.argmax_matvec(h, ws, ss, route=route, offset=rows.start)
+                    calls[tam.launch_key(route, w.dtype)] += 1
+                    plain = tam.argmax_matvec_plain(h, ws, ss, offset=rows.start)
+                    assert torch.equal(tam.key_index(keys), tam.key_index(plain))
+                    torch.testing.assert_close(_key_values(keys), _key_values(plain),
+                                               rtol=1e-5, atol=1e-5)
+                    parts.append(keys)
+                best = tam.key_index(torch.stack(parts).max(dim=0).values)
+                assert best.tolist() == want
+    torch.cuda.synchronize()
+    assert {k: ffi.launch_counts[k] - before[k] for k in before} == calls
+
+
+@pytest.mark.cuda
+def test_cuda_two_gloo_ranks_on_one_card_equal_one_process(tmp_path, monkeypatch):
+    """Two ranks sharing the card over gloo (tests/torch_mesh_worker.py):
+    serving at (dp 2, tp 1) and batched segments at (1, 2) give the token
+    rows of one process on the card, f32 weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels are built with nvcc for sm_90a)")
+    from smolvision_tpu_torch.models import synthetic
+    from smolvision_tpu_torch.runtime import batch_segments, serving
+    from smolvision_tpu_torch.runtime.engine import Engine
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(   # by path: a host may have another `tests`
+        "torch_mesh_worker", os.path.join(os.path.dirname(__file__), "torch_mesh_worker.py"))
+    ranks_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ranks_mod)
+
+    monkeypatch.setitem(synthetic.PRESETS, "card", CARD_PRESET)
+    model = synthetic.build("card", str(tmp_path / "model"), seed=3)
+    rng = np.random.default_rng(7)
+    clips = [(rng.standard_normal(16000 * (1 + i % 3)) * 0.2).astype(np.float32)
+             for i in range(6)]
+    np.savez(tmp_path / "clips.npz", **{str(i): c for i, c in enumerate(clips)})
+    common = {"model": model, "audio": str(tmp_path / "clips.npz"),
+              "settings": {"max_tokens": 12}}
+    cases = [dict(common, name="serve", kind="serve", mesh=[2, 1], slots=4),
+             dict(common, name="segments", kind="segments", mesh=[1, 2])]
+    from smolvision_tpu_torch.kernels import build
+
+    build.build_all()   # once, before the ranks load the libraries
+    procs = ranks_mod.start_ranks({"cases": cases, "device": "cuda:0"}, str(tmp_path))
+    eng = Engine(model, param_dtype=torch.float32, kv_dtype=torch.float32, device="cuda")
+    eng.max_tokens = 12
+    want_serve = serving.decode_continuous(eng, clips, slots=4)
+    want_segs = batch_segments.decode_segments_batched(eng, clips)
+    ranks = ranks_mod.finish_ranks(procs, str(tmp_path), 600)
+    for rank in ranks:
+        assert rank["serve"]["rows"] == want_serve
+        assert rank["segments"]["rows"] == want_segs

@@ -45,6 +45,7 @@ def test_port_imports_no_jax():
         "import smolvision_tpu_torch.runtime.sampling, smolvision_tpu_torch.models.q25_encoder\n"
         "import smolvision_tpu_torch.models.moe\n"
         "import smolvision_tpu_torch.models.moe_offload\n"
+        "import smolvision_tpu_torch.parallel.mesh, smolvision_tpu_torch.ops.collectives\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'smolvision_tpu')\n"
         "       or m.startswith(('jax.', 'jaxlib.', 'smolvision_tpu.'))]\n"
         "assert 'smolvision_tpu_torch.runtime.engine' in sys.modules\n"
@@ -56,6 +57,8 @@ def test_port_imports_no_jax():
         "assert 'smolvision_tpu_torch.models.q25_encoder' in sys.modules\n"
         "assert 'smolvision_tpu_torch.models.moe' in sys.modules\n"
         "assert 'smolvision_tpu_torch.models.moe_offload' in sys.modules\n"
+        "assert 'smolvision_tpu_torch.parallel.mesh' in sys.modules\n"
+        "assert 'smolvision_tpu_torch.ops.collectives' in sys.modules\n"
         "print('BAD', bad)\n")
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
