@@ -56,8 +56,12 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
                 rise by the expected amount; then the card's kernel path is
                 held against the card's plain path (encoder output, prefill
                 logits, greedy tokens);
-  5. segments - `-S 20` on a 120 s clip through the CLI: batched encode
-                (B1), batched fresh prefill (B4) and batched decode; then
+  5. segments - `-S 20` on a 120 s clip through the CLI: the device log-mel
+                front end (runtime/batch_segments.py `_use_device_mel`: a
+                bf16 batch of more than two clips on the card; also in
+                phases 6-8, 10 and 12-13 wherever their batches qualify),
+                batched encode (B1), batched fresh prefill (B4) and
+                batched decode; then
                 batched fresh- and delta-prefill logits, kernel path vs
                 plain path, in bf16 and f32;
   6. serving  - 8 clips of 4-24 s through `--serve 4`: admission waves
@@ -189,6 +193,19 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
                 returning keys over a [V / 2, H] vocabulary shard, checked
                 and timed.  Times of ranks sharing one card are printed as
                 such and are no mesh speed.
+ 14. front end - run after phase 10: the host runtime library's
+                build seconds (utils/native.py, gcc; built in phase 2,
+                before anything encodes a prompt); TF32 must be
+                off; the device log-mel of -S 20's six segments and of a
+                32-clip --serve 64 encode group against the host mel of
+                the same f16-rounded audio (FRONTEND_MEL_ATOL); -S 20 bf16
+                on the device front end and under SMOLVISION_DEVICE_MEL=0
+                (rows may part only at a near tie of the single-clip path,
+                phase 7's bf16 bound) with each run's mel ms; mel ms both
+                ways, in turns, at the --serve 64 group and over phase 10's
+                bf16 rounds (their recorded spans); --sampler cref on 16
+                tokens with expf through the library and through ctypes
+                (ms per token; equal tokens).
 Each path that decodes greedily (--spec and multistream's bf16 run
 included) runs twice, in turns: first with the decode loops' steps and
 the prefills run eagerly on every replay, then as CUDA graphs (the path as
@@ -337,6 +354,15 @@ MSTREAM_MIN_DEEP_SHARE = 0.05
 F32_LOGIT_DIFF = None
 # per multistream run (phase 10), printed as one line at the end
 MSTREAM_RUNS = {}
+# phase 14: the device log-mel (an f32 DFT as products with cos / sin tables)
+# against the host's f64 FFT of the same f16 audio, in normalized-mel units:
+# ~1e-4 on speech-like clips on the CPU, where the f16 rounding of the audio
+# itself moves quiet bins by up to ~0.08; a wrong frame, window or mask
+# moves them by O(1)
+FRONTEND_MEL_ATOL = 1e-3
+# the host runtime library's build in phase 2 (seconds; cached: it was built
+# already), reported by phase 14
+NATIVE_BUILD = None
 CARD_LINE = "not read"        # nvidia-smi's name and power limit, set in phase 1
 # phase 11: the thinker on the 0.6B checkpoint, then Qwen2.5-Omni-7B (the
 # q25-7b preset: full width and depth, seeded bf16, written by a child
@@ -2060,7 +2086,7 @@ def phase_serving_wide(model_dir: str, wavs, cfg, T: int) -> dict:
         log(f"  --serve {SERVE_WIDE_SLOTS} {' '.join(extra)}: decode "
             f"{perf.batch_decode_ms / max(perf.batch_decode_steps, 1):.2f} ms per step at B "
             f"{SERVE_WIDE_SLOTS} ({perf.batch_decode_steps} steps); the head on the tensor "
-            f"cores {heads} times")
+            f"cores {heads} times; mel {perf.mel_ms:.2f} ms (the device front end)")
         runs[extra[0] if extra else "bf16"] = launches
         del eng
     return runs
@@ -2812,11 +2838,25 @@ def phase_multistream(model_dir: str, wavs, cfg) -> dict:
     the CLI (16-bit samples)."""
     from smolvision_tpu_torch.io.wav import load_wav
 
+    from smolvision_tpu_torch.runtime import multistream
+
     clips = [load_wav(w) for w in wavs]
     base = ["-d", model_dir, "--stream", "--language", "English"]
     n = len(wavs)
     name = f"--stream x{n}"
-    eng, launches, lines, bf16_rec = run_mstream(base + ["-i", *wavs], name, cfg)
+    # each round's pre-encoded spans (the device front end's groups), both
+    # turns: phase 14 times the front end over the graph turn's rounds
+    calls = []
+    real = multistream._encode_batch_device_mel
+    with mock.patch.object(multistream, "_encode_batch_device_mel",
+                           lambda e, spans, *a: calls.append(list(spans)) or real(e, spans, *a)):
+        eng, launches, lines, bf16_rec = run_mstream(base + ["-i", *wavs], name, cfg)
+    mel_rounds = calls[len(calls) // 2:]
+    if not mel_rounds or [len(g) for g in calls[: len(calls) // 2]] != [len(g) for g in mel_rounds]:
+        fail(f"{name}: the device front end pre-encoded {[len(g) for g in calls]} spans per "
+             f"round over the eager and graph turns (expected the same rounds in both)")
+    MSTREAM_RUNS[name]["mel_ms"] = eng.perf.mel_ms
+    MSTREAM_RUNS[name]["device_mel_rounds"] = len(mel_rounds)
     if len(lines) != n or not any(line.strip() for line in lines):
         fail(f"{name}: {len(lines)} transcript lines for {n} clips, or all empty")
     record = eng.perf.multistream
@@ -2885,7 +2925,8 @@ def phase_multistream(model_dir: str, wavs, cfg) -> dict:
         f"near tie and so excused: {excused}) and the solo runs'; captures per session "
         f"{[v.perf.graph_captures for v in trec['views']]}")
     del eng
-    return {"launches": launches, "record": bf16_rec, "b5_runs": b5_runs}
+    return {"launches": launches, "record": bf16_rec, "b5_runs": b5_runs,
+            "mel_rounds": mel_rounds}
 
 
 def mstream_b5_table(b5_runs, L: int) -> list:
@@ -2962,6 +3003,181 @@ def mstream_b5_table(b5_runs, L: int) -> list:
         entry["launches"] = n
     return table
 
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the front end (device log-mel, the host runtime library); runs
+# after phase 10, whose multistream rounds it replays
+# ---------------------------------------------------------------------------
+
+def frontend_mel_error(eng, clips) -> dict:
+    """The device log-mel (`_upload_audio` + `log_mel_batch` on the card) of
+    `clips` as one group against the host mel of the same f16-rounded audio
+    (the f16 pack is the route's own rounding), max abs over each clip's
+    valid columns; also against the host mel of the f32 audio (reported)."""
+    import numpy as np
+    import torch
+
+    from smolvision_tpu_torch.ops.mel import log_mel, log_mel_batch
+    from smolvision_tpu_torch.runtime import batch_segments as bs
+
+    with torch.inference_mode():
+        up = bs._upload_audio(eng, clips)
+        mel = log_mel_batch(up.buf, torch.tensor(up.frames, device=eng.device),
+                            up.fcap).cpu().numpy()
+    err = err_f32 = 0.0
+    for b, (c, f) in enumerate(zip(clips, up.frames)):
+        host = log_mel(np.asarray(c, np.float32).astype(np.float16).astype(np.float32))
+        err = max(err, float(np.abs(mel[b, :, :f] - host).max()))
+        err_f32 = max(err_f32, float(np.abs(mel[b, :, :f] - log_mel(c)).max()))
+    return {"clips": len(clips), "frames_cap": up.fcap, "max_abs_err": err,
+            "max_abs_err_vs_f32_audio": err_f32}
+
+
+def frontend_ms(eng, groups) -> dict:
+    """Host ms of the front end over `groups` (lists of clips), each group
+    both ways in turns (host, device, device, host): the host mel one clip
+    after another, as serving's groups and multistream's rounds run it, and
+    the device route's pack, upload and log-mel, synchronised."""
+    import torch
+
+    from smolvision_tpu_torch.ops.mel import log_mel, log_mel_batch
+    from smolvision_tpu_torch.runtime import batch_segments as bs
+
+    def host(clips):
+        for c in clips:
+            log_mel(c)
+
+    def device(clips):
+        with torch.inference_mode():
+            up = bs._upload_audio(eng, clips)
+            log_mel_batch(up.buf, torch.tensor(up.frames, device=eng.device), up.fcap)
+        if DEV == "cuda":
+            torch.cuda.synchronize()
+
+    ms = {"host": [0.0, 0.0], "device": [0.0, 0.0]}
+    device(groups[0])   # the first call's one-time work (tables, allocator)
+    for turn, way in enumerate(("host", "device", "device", "host")):
+        fn = host if way == "host" else device
+        t0 = time.monotonic()
+        for g in groups:
+            fn(g)
+        ms[way][turn in (2, 3)] = (time.monotonic() - t0) * 1000.0
+    return {"groups": len(groups), "clips": sum(len(g) for g in groups),
+            "host_mel_ms": ms["host"], "device_mel_ms": ms["device"]}
+
+
+def segments_both_ways(eng, segs) -> dict:
+    """-S 20's segments through decode_segments_batched on the device
+    front end (the default) and under SMOLVISION_DEVICE_MEL=0: the rows'
+    agreement (a row may part from the host-mel row only at a near tie of
+    the single-clip path: its top-2 gap under phase 7's bf16 bound) and
+    each run's mel ms."""
+    from smolvision_tpu_torch.runtime import batch_segments as bs
+
+    if DEV == "cuda" and not bs._use_device_mel(eng.cfg, len(segs), eng.param_dtype, eng.device):
+        fail(f"phase 14: -S {SEGMENT_SEC}'s {len(segs)} bf16 segments on the card do not take "
+             f"the device front end")
+    out, rows = {}, {}
+    for way, env in (("device", None), ("host", "0")):
+        if env is not None:
+            os.environ["SMOLVISION_DEVICE_MEL"] = env
+        try:
+            eng.perf.reset()
+            rows[way] = bs.decode_segments_batched(eng, segs)
+        finally:
+            os.environ.pop("SMOLVISION_DEVICE_MEL", None)
+        out[f"{way}_mel_ms"] = eng.perf.mel_ms
+        out[f"{way}_encode_ms"] = eng.perf.encode_ms
+    partings = {}
+    for b, (got, want) in enumerate(zip(rows["device"], rows["host"])):
+        n = min(len(got), len(want))
+        part = next((i for i in range(n) if got[i] != want[i]),
+                    None if len(got) == len(want) else n)
+        if part is None:
+            continue
+        _, logits0, _, gaps = path_trace(eng, segs[b], part + 1, forced=want + [0])
+        tol = PATH_RTOL["bfloat16"] * float(logits0.abs().max())
+        partings[b] = {"token": part, "gap": gaps[part], "bound": tol}
+        log(f"  -S {SEGMENT_SEC} row {b}: the device-mel row parts from the host-mel row at "
+            f"token {part}: single-clip top-2 gap there {gaps[part]:.4g} (bound {tol:.4g})")
+        if not gaps[part] < tol:
+            fail(f"phase 14: -S {SEGMENT_SEC} row {b} parts from the host-mel row at token "
+                 f"{part}, where the top-2 gap {gaps[part]:.4g} >= {tol:.4g}")
+    out.update(rows=len(rows["host"]), tokens=sum(len(r) for r in rows["host"]),
+               rows_equal=[b for b in range(len(segs)) if b not in partings],
+               partings=partings)
+    return out
+
+
+def cref_both_ways(eng, samples) -> dict:
+    """--sampler cref on the clip for THINKER_CREF_TOKENS tokens with libm's
+    expf per element through the host runtime library (the default) and
+    through one ctypes call per element: ms per token each; the tokens must
+    be equal."""
+    from smolvision_tpu_torch.runtime import sampling
+
+    mode = eng.sampler_mode
+    eng.sampler_mode = "cref"
+    eng.thinker_max_tokens = THINKER_CREF_TOKENS
+    out, ids = {}, {}
+    real = eng.tokenizer.decode_piece
+    for way in ("native", "ctypes", "native again"):
+        seen = ids[way] = []
+        eng.tokenizer.decode_piece = lambda t: seen.append(int(t)) or real(t)
+        expf = sampling._libc_expf_ctypes if way == "ctypes" else sampling._libc_expf
+        try:
+            with mock.patch.object(sampling, "_libc_expf", expf):
+                eng.thinker_generate(samples, None)
+        finally:
+            del eng.tokenizer.decode_piece
+        ms = cli_ms(eng)
+        out[way] = {"ms_per_token": ms["decode_ms"] / max(eng.perf.decode_steps, 1),
+                    "tokens": len(seen), "decode_steps": eng.perf.decode_steps}
+    eng.sampler_mode = mode
+    if not (ids["native"] == ids["ctypes"] == ids["native again"]) or not ids["native"]:
+        fail(f"phase 14: --sampler cref tokens differ between the expf routes: native "
+             f"{ids['native']}, ctypes {ids['ctypes']}, native again {ids['native again']}")
+    return out
+
+
+def phase_frontend(model_dir: str, long_clip, wide_clips, clip, mstream_rounds) -> dict:
+    """Phase 14: the host runtime library's build (phase 2's); TF32 off; the
+    device log-mel against the host mel at -S 20's segments and a --serve 64
+    encode group; -S 20 bf16 on both front ends (rows and mel ms); mel ms
+    both ways at a --serve 64 group and over phase 10's multistream rounds;
+    --sampler cref on both expf routes."""
+    import torch
+
+    from smolvision_tpu_torch.runtime.engine import Engine
+    from smolvision_tpu_torch.runtime.serving import ENCODE_GROUP
+
+    t0 = time.monotonic()
+    out = {"native_build": NATIVE_BUILD}
+    eng = Engine(model_dir, device=DEV)
+    eng.set_force_language("English")
+    eng.max_tokens = MAX_TOKENS
+    tf32 = {"matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+            "float32_matmul_precision": torch.get_float32_matmul_precision()}
+    if tf32["matmul.allow_tf32"] or tf32["cudnn.allow_tf32"] or \
+            tf32["float32_matmul_precision"] != "highest":
+        fail(f"phase 14: TF32 is on after resolve_device: {tf32}")
+    segs = mesh_segments(long_clip)
+    group = sorted(wide_clips, key=len, reverse=True)[:ENCODE_GROUP]
+    for name, clips in ((f"-S {SEGMENT_SEC}", segs), ("--serve 64 group", group)):
+        err = out[f"mel error {name}"] = frontend_mel_error(eng, clips)
+        if not err["max_abs_err"] <= FRONTEND_MEL_ATOL:
+            fail(f"phase 14: device log-mel at {name} differs from the host mel of the same "
+                 f"f16 audio by {err['max_abs_err']:.4g} (tolerance {FRONTEND_MEL_ATOL:g})")
+    out[f"-S {SEGMENT_SEC}"] = segments_both_ways(eng, segs)
+    out["--serve 64 group"] = frontend_ms(eng, [group])
+    out["multistream rounds"] = frontend_ms(eng, mstream_rounds)
+    out["--sampler cref"] = cref_both_ways(eng, clip)
+    del eng
+    out["seconds"] = time.monotonic() - t0
+    log(f"phase 14 (front end) [{CARD_LINE}]: {json.dumps(out)}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3235,7 +3451,7 @@ def phase_thinker(model_dir: str, wav: str, cfg) -> dict:
     ms["ms_per_token"] = ms["decode_ms"] / max(eng.perf.decode_steps, 1)
     THINKER_RUNS["thinker --sampler cref"] = ms
     log(f"  thinker --sampler cref ({THINKER_CREF_TOKENS} tokens, libm expf per element "
-        f"through ctypes): {json.dumps(ms)}")
+        f"in the host runtime library): {json.dumps(ms)}")
     del eng
     gc.collect()
     return long
@@ -4415,7 +4631,7 @@ def main() -> int:
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     smi_line = smi.stdout.strip().splitlines()[0]
-    global CARD_LINE, F32_LOGIT_DIFF
+    global CARD_LINE, F32_LOGIT_DIFF, NATIVE_BUILD
     CARD_LINE = smi_line
     log(f"device: {kind} (count {count}); torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"nvidia-smi: {smi_line}")
@@ -4439,6 +4655,14 @@ def main() -> int:
         for line in entry.ptxas.splitlines():
             if "Used" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  [{entry.name}] {line.strip()}")
+    # the host runtime library (gcc), before anything encodes a prompt
+    from smolvision_tpu_torch.utils import native
+
+    t0 = time.monotonic()
+    NATIVE_BUILD = {"cached": native.lib_path().exists()}
+    native.build()
+    NATIVE_BUILD["seconds"] = time.monotonic() - t0
+    log(f"host runtime library (gcc): {json.dumps(NATIVE_BUILD)}")
     since("phase 2 (build)")
     for i in range(BUILD_CACHE_CHECKS):
         cache = build_cache_check()
@@ -4566,6 +4790,11 @@ def main() -> int:
         mstream_run = phase_multistream(model_dir, mstream_wavs, cfg)
         table += mstream_b5_table(mstream_run["b5_runs"], cfg.dec_layers)
         since("phase 10 (multistream)")
+
+        # phase 14: the front end: device log-mel against host mel, -S 20 on
+        # both, mel ms both ways, --sampler cref on both expf routes
+        phase_frontend(model_dir, long_clip, wide_clips, clip, mstream_run["mel_rounds"])
+        since("phase 14 (front end)")
 
         # phase 11: the thinker (0.6B: greedy, sampled, cref) and
         # Qwen2.5-Omni-7B (the ASR route, the greedy and the text thinker)

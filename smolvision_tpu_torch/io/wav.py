@@ -1,7 +1,8 @@
 """WAV ingest: RIFF parsing, stereo downmix, windowed-sinc resampling.
 
-Port of smolvision_tpu/io/wav.py with the numpy resampler only (the JAX
-package's optional native fast path is not carried over).
+Port of smolvision_tpu/io/wav.py.  Resampling goes through the host
+runtime library (utils/native.py `sv_resample_sinc`); the numpy resampler
+(`_resample_sinc_numpy`) stays as its plain version.
 
 Parity notes (vs qwen_asr_audio.c:40-230):
   * 16-bit PCM, any sample rate / channel count; stereo is mean-downmixed
@@ -22,6 +23,7 @@ import sys
 import numpy as np
 
 from smolvision_tpu_torch.config import SAMPLE_RATE
+from smolvision_tpu_torch.utils import native
 
 _SINC_HALF = 16
 _KAISER_BETA = 6.0
@@ -40,9 +42,18 @@ def _bessel_i0(x: np.ndarray) -> np.ndarray:
     return total
 
 
-def resample_sinc(samples: np.ndarray, in_rate: int, out_rate: int = SAMPLE_RATE,
-                  block: int = 1 << 16) -> np.ndarray:
-    """Windowed-sinc resample (Kaiser beta=6, 16 zero-crossings/side)."""
+def resample_sinc(samples: np.ndarray, in_rate: int, out_rate: int = SAMPLE_RATE) -> np.ndarray:
+    """Windowed-sinc resample (Kaiser beta=6, 16 zero-crossings/side), in the
+    host runtime library."""
+    if in_rate == out_rate:
+        return np.asarray(samples, dtype=np.float32)
+    return native.resample_sinc(samples, in_rate, out_rate)
+
+
+def _resample_sinc_numpy(samples: np.ndarray, in_rate: int, out_rate: int = SAMPLE_RATE,
+                         block: int = 1 << 16) -> np.ndarray:
+    """The numpy resampler, `resample_sinc`'s plain version (f64
+    coefficients, as the C code)."""
     if in_rate == out_rate:
         return np.asarray(samples, dtype=np.float32)
 

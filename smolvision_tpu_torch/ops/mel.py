@@ -5,9 +5,18 @@ Pipeline (MODEL.md:53-64, qwen_asr_audio.c:236-394):
   spectrum (drop last frame) -> Slaney 128-bin mel filterbank -> log10 clamp
   1e-10 -> dynamic-max minus 8.0 clamp -> (x+4)/4.  Output [128, frames].
 
-Port of smolvision_tpu/ops/mel.py: the host numpy `log_mel` only (the
-front end is ~1% of runtime; the device variants come with serving and
-streaming).
+Port of smolvision_tpu/ops/mel.py.  Three implementations:
+  * `log_mel` -- host numpy (f64 rFFT).  The single-clip paths, every
+    batch of one or two clips, f32 engines and `SMOLVISION_DEVICE_MEL=0`;
+  * `log_mel_batch` -- torch on the input's device, over a batch of f16
+    reflect-padded clips: the DFT as one product with the cos / sin tables
+    (`dft_tables`), the power, the filterbank product, log10 and a per-clip
+    max over its valid frames.  The front end of the batched paths on the
+    card (runtime/batch_segments.py `_use_device_mel`);
+  * `log_mel_torch` -- one clip's f32 padded audio through `torch.fft.rfft`
+    (the JAX package's `log_mel_jax`).
+The device versions run in full f32: `device.resolve_device` turns TF32
+off, which would shift quiet bins by far more than the f16 audio does.
 """
 
 from __future__ import annotations
@@ -15,6 +24,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 from smolvision_tpu_torch.config import HOP_LENGTH, N_FFT, NUM_MEL_BINS, SAMPLE_RATE
 
@@ -112,3 +122,78 @@ def log_mel(samples: np.ndarray) -> np.ndarray:
     log_spec = np.maximum(log_spec, log_spec.max() - 8.0)
     log_spec = (log_spec + 4.0) / 4.0
     return np.ascontiguousarray(log_spec.T)               # [128, frames]
+
+
+@functools.lru_cache(maxsize=1)
+def dft_tables():
+    """cos / sin DFT tables [N_FFT, N_FREQ] f32: the power spectrum as
+    products with precomputed tables (the reference's table DFT,
+    qwen_asr_audio.c:328-358); f32 products match the host's f64 FFT to
+    ~1e-6 in normalized-mel units."""
+    k = np.arange(N_FREQ, dtype=np.float64)
+    n = np.arange(N_FFT, dtype=np.float64)
+    ang = -2.0 * np.pi * np.outer(n, k) / N_FFT
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=4)
+def _device_tables(device: torch.device):
+    """The Hann window folded into the [cos | sin] table ([N_FFT, 2 *
+    N_FREQ]) and the filterbank transposed ([N_FREQ, 128]), f32 on
+    `device`."""
+    C, S = dft_tables()
+    cs = np.concatenate([C, S], axis=1) * hann_window()[:, None]
+    return (torch.from_numpy(cs).to(device),
+            torch.from_numpy(np.ascontiguousarray(mel_filters().T)).to(device))
+
+
+def _finish(mel: torch.Tensor, n_frames_valid: torch.Tensor) -> torch.Tensor:
+    """log10 clamp, the dynamic-max clamp per clip over its valid frames,
+    (x + 4) / 4.  mel [B, cap, 128] -> [B, 128, cap]."""
+    ls = torch.log10(torch.clamp(mel, min=1e-10))
+    cap = mel.shape[1]
+    valid = (torch.arange(cap, device=mel.device)[None, :]
+             < n_frames_valid.to(mel.device)[:, None])[..., None]
+    gmax = torch.where(valid, ls, float("-inf")).amax(dim=(1, 2), keepdim=True)
+    ls = torch.maximum(ls, gmax - 8.0)
+    return ((ls + 4.0) / 4.0).transpose(1, 2)
+
+
+def log_mel_batch(padded_f16: torch.Tensor, n_frames_valid: torch.Tensor,
+                  frames_cap: int) -> torch.Tensor:
+    """Batched log-mel from f16 reflect-padded audio, on its device (the JAX
+    package's `log_mel_batch_jax`).
+
+    padded_f16: [B, frames_cap * HOP + N_FFT] float16, host reflect-padded
+        and zero past each clip's data.
+    n_frames_valid: [B] int, each clip's real frame count (the dynamic-max
+        clamp is per clip over its valid frames only).
+    Returns [B, 128, frames_cap] f32; columns >= n_frames_valid[b] hold
+    finite garbage that the callers never select."""
+    if padded_f16.shape[1] != frames_cap * HOP_LENGTH + N_FFT:
+        raise ValueError(f"padded audio of {padded_f16.shape[1]} samples for a frame cap of "
+                         f"{frames_cap}")
+    cs, filt_t = _device_tables(padded_f16.device)
+    B = padded_f16.shape[0]
+    frames = padded_f16.float().unfold(1, N_FFT, HOP_LENGTH)[:, :frames_cap]  # [B, cap, 400]
+    spec = torch.matmul(frames.reshape(B * frames_cap, N_FFT), cs)             # [B*cap, 402]
+    power = spec[:, :N_FREQ].square() + spec[:, N_FREQ:].square()
+    mel = torch.matmul(power, filt_t).reshape(B, frames_cap, NUM_MEL_BINS)
+    return _finish(mel, n_frames_valid)
+
+
+def log_mel_torch(padded_audio: torch.Tensor, n_frames_valid: int,
+                  frames_cap: int) -> torch.Tensor:
+    """One clip's log-mel over a fixed-size buffer through `torch.fft.rfft`
+    (the JAX package's `log_mel_jax`).
+
+    padded_audio: f32 [frames_cap * HOP + N_FFT], reflect-padded on the host
+        and zero-padded to the cap.
+    Returns [128, frames_cap]; columns >= n_frames_valid are garbage."""
+    dev = padded_audio.device
+    window = torch.from_numpy(hann_window()).to(dev)
+    filt_t = torch.from_numpy(np.ascontiguousarray(mel_filters().T)).to(dev)
+    frames = padded_audio.float().unfold(0, N_FFT, HOP_LENGTH)[:frames_cap] * window
+    power = torch.fft.rfft(frames, dim=1).abs().square()                     # [cap, 201]
+    mel = (power @ filt_t)[None]
+    return _finish(mel, torch.tensor([n_frames_valid], device=dev))[0]

@@ -27,15 +27,25 @@ sequential (runtime/segment.py).
     then the audio rows are all-gathered; windows are hard, so no clip's
     arithmetic depends on the split).
 
-The JAX package's device-mel front end (an option of its TPU backend) is
-not ported: the host mel is its behaviour on every other backend.
+Front end (`_use_device_mel`, the JAX package's gate with the card in the
+place of its TPU): a qwen3 batch of more than two clips on bf16 weights on
+the card takes the device log-mel -- the clips reflect-padded and packed
+to f16 on the host, one upload from pinned memory (`_upload_audio`),
+`ops/mel.log_mel_batch` on the card, the conv stem over every clip's
+blocks and the tails sliced on the card (`_encode_batch_device_mel`).
+Otherwise, and always under SMOLVISION_DEVICE_MEL=0, the host numpy mel
+(on threads for B > 2); SMOLVISION_DEVICE_MEL=1 forces the device route
+on any device.  f16 audio keeps ~2^-11 relative precision: device-mel
+tokens can part from the single-clip path's at a near tie.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -44,6 +54,7 @@ import torch
 from smolvision_tpu_torch.config import (
     EOS_TOKEN_IDS,
     HOP_LENGTH,
+    N_FFT,
     NUM_MEL_BINS,
     TOKEN_ASR_TEXT,
     conv_out_width,
@@ -51,7 +62,7 @@ from smolvision_tpu_torch.config import (
 from smolvision_tpu_torch.models import qwen3_decoder as dec_mod
 from smolvision_tpu_torch.models import qwen3_encoder as enc_mod
 from smolvision_tpu_torch.ops.collectives import all_gather_cat, gather_host
-from smolvision_tpu_torch.ops.mel import log_mel
+from smolvision_tpu_torch.ops.mel import log_mel, log_mel_batch, num_frames, reflect_pad
 from smolvision_tpu_torch.parallel import batch as pbatch
 from smolvision_tpu_torch.parallel import mesh as mesh_mod
 from smolvision_tpu_torch.runtime import prompt as prompt_mod
@@ -69,26 +80,56 @@ def _conv_bucket(n: int) -> int:
     return bucket(n, 4) if n < 64 else -(-n // 64) * 64
 
 
-def _conv_partial_tails(engine, tails):
-    """Group the clips' tail chunks ([128, rem] arrays, None for no tail) by
-    width and run each width group through the conv stem once (a tail runs
-    at its true width).  Returns (partial_rows {b: (block, row_start,
-    n_rows)}, partial_blocks [flat [rows, d] tensors])."""
+def _conv_partial_tails(engine, rems, tails_of):
+    """Group the clips' tail chunks by width (rems[b] frames, 0 for no tail)
+    and run each width group through the conv stem once, at its true width.
+    `tails_of(width, idxs)` gives that group's [n, 128, width] mel tensor
+    (host tails uploaded, or tails sliced on the card).  Returns
+    (partial_rows {b: (block, row_start, n_rows)}, partial_blocks [flat
+    [rows, d] tensors])."""
     partial_rows = {}
     partial_blocks = []
     by_width = {}
-    for b, tail in enumerate(tails):
-        if tail is not None:
-            by_width.setdefault(tail.shape[1], []).append(b)
-    for idxs in by_width.values():
-        stack = torch.from_numpy(np.stack([tails[b] for b in idxs])).to(engine.device)
-        out = enc_mod.conv_stem(engine.enc_params, stack, engine.cfg)
+    for b, rem in enumerate(rems):
+        if rem:
+            by_width.setdefault(rem, []).append(b)
+    for w, idxs in by_width.items():
+        out = enc_mod.conv_stem(engine.enc_params, tails_of(w, idxs), engine.cfg)
         n, rows_w, d_ = out.shape
         blk = len(partial_blocks)
         partial_blocks.append(out.reshape(n * rows_w, d_))
         for j, b in enumerate(idxs):
             partial_rows[b] = (blk, j * rows_w, rows_w)
     return partial_rows, partial_blocks
+
+
+def _rank_share(engine, items: Sequence) -> list:
+    """This data rank's share of a group's clips under the encoder's sequence
+    parallelism (engine._enc_sp_mesh, dp > 1): the clips padded to a
+    multiple of dp with copies of the last, then the rank's block.  All of
+    them off a mesh."""
+    sp = getattr(engine, "_enc_sp_mesh", None)
+    if sp is None:
+        return list(items)
+    padded = list(items) + [items[-1]] * ((-len(items)) % mesh_mod.mesh_dp(sp))
+    return padded[sp.rows(len(padded))]
+
+
+def _encode_split(engine, frames: Sequence[int], mine, encode):
+    """The group encode under the encoder's sequence parallelism: `encode(mine,
+    tcap)` runs this rank's share (`_rank_share`) at the whole group's token
+    bucket and the rows are all-gathered over "data".  Off a mesh,
+    `encode(mine, None)` alone.  frames: every clip's mel frames.  Returns
+    (audio_stack [B, cap, H], n_tokens list)."""
+    sp = getattr(engine, "_enc_sp_mesh", None)
+    if sp is None:
+        return encode(mine, None)
+    cfg = engine.cfg
+    n_tokens = [enc_mod.total_encoder_tokens(f, cfg) for f in frames]
+    tcap = max(window_bucket(n, cfg.window_token_size()) for n in n_tokens)
+    out, _ = encode(mine, tcap)
+    out = all_gather_cat(out, sp.group(mesh_mod.DATA_AXIS))
+    return out[: len(frames)], n_tokens
 
 
 @torch.inference_mode()
@@ -100,18 +141,8 @@ def _encode_batch(engine, mels: Sequence[np.ndarray]):
     if len(mels) == 1:
         a, n = engine.encode_mel(mels[0])
         return a[None], [n]
-    sp = getattr(engine, "_enc_sp_mesh", None)
-    if sp is None:
-        return _encode_group(engine, mels)
-    cfg = engine.cfg
-    n_tokens = [enc_mod.total_encoder_tokens(m.shape[1], cfg) for m in mels]
-    tcap = max(window_bucket(n, cfg.window_token_size()) for n in n_tokens)
-    dp = mesh_mod.mesh_dp(sp)
-    padded = list(mels) + [mels[-1]] * ((-len(mels)) % dp)
-    mine = padded[sp.rows(len(padded))]
-    out, _ = _encode_group(engine, mine, tcap)
-    out = all_gather_cat(out, sp.group(mesh_mod.DATA_AXIS))
-    return out[: len(mels)], n_tokens
+    return _encode_split(engine, [m.shape[1] for m in mels], _rank_share(engine, mels),
+                         lambda mine, tcap: _encode_group(engine, mine, tcap))
 
 
 def _encode_group(engine, mels: Sequence[np.ndarray], tcap: Optional[int] = None):
@@ -136,12 +167,154 @@ def _encode_group(engine, mels: Sequence[np.ndarray], tcap: Optional[int] = None
                                      cfg)
 
     partial_rows, partial_blocks = _conv_partial_tails(
-        engine, [np.ascontiguousarray(m[:, n * chunk :], dtype=np.float32)
-                 if m.shape[1] % chunk else None for m, n in zip(mels, full_counts)])
+        engine, [m.shape[1] % chunk for m in mels],
+        lambda w, idxs: torch.from_numpy(np.stack(
+            [np.ascontiguousarray(mels[b][:, -w:], dtype=np.float32) for b in idxs])
+        ).to(engine.device))
 
     full_starts = np.cumsum([0] + full_counts[:-1]).tolist()
     return _pool_and_encode(engine, len(mels), full_tok, n_full_sum, full_starts, full_counts,
                             partial_rows, partial_blocks, tcap)
+
+
+# --- the device front end ---------------------------------------------------
+
+def _use_device_mel(cfg, B: int, param_dtype, device) -> bool:
+    """The gate of the device log-mel front end (the JAX package's, with the
+    card in the place of its TPU): on by default for qwen3 batches of more
+    than two clips on bf16 weights on the card.  SMOLVISION_DEVICE_MEL=0
+    forces the host mel everywhere (the single-clip path's arithmetic); =1
+    forces the device mel on any device (the CPU tests).  An f32 engine
+    (--f32, the reference's arithmetic family) takes the host mel unless
+    forced."""
+    dm_env = os.environ.get("SMOLVISION_DEVICE_MEL", "")
+    if dm_env == "0" or cfg.family == "q25" or B <= 2:
+        return False
+    if dm_env == "1":
+        return True
+    return param_dtype != torch.float32 and torch.device(device).type == "cuda"
+
+
+@dataclass
+class UploadedAudio:
+    """A group's padded f16 audio on the device (`_upload_audio`).  buf [B,
+    fcap * HOP + N_FFT] f16 and frames (each clip's mel frames) are this
+    data rank's share of the clips; fcap its frame cap.  host: the source
+    (pinned on the card), referenced until its copy has completed; host_ms:
+    the host's reflect-pad and pack.  copy: the copy's CUDA events (start,
+    end), None on the CPU; side: the copy ran on a side stream, which the
+    encode's stream must wait for."""
+
+    buf: torch.Tensor
+    frames: List[int]
+    fcap: int
+    host: Optional[torch.Tensor]
+    host_ms: float
+    copy: Optional[tuple] = None
+    side: bool = False
+
+    def take(self) -> None:
+        """Make the current stream wait for a side stream's copy and let the
+        buffer be used on it (`record_stream`)."""
+        if self.side:
+            stream = torch.cuda.current_stream(self.buf.device)
+            stream.wait_event(self.copy[1])
+            self.buf.record_stream(stream)
+
+    def release(self) -> None:
+        """Drop the source once its copy has completed."""
+        if self.copy is not None:
+            self.copy[1].synchronize()
+        self.host = None
+
+
+def _upload_audio(engine, segments: Sequence[np.ndarray], stream=None) -> UploadedAudio:
+    """The host stage of the device front end and its one upload: reflect-pad
+    each clip (ops/mel.reflect_pad), pack to f16 (numpy's round to nearest
+    even) into a pinned [B, fcap * HOP + N_FFT] buffer and copy it to the
+    device, on `stream` (a side stream: serving issues the next group's
+    upload while a decode chunk runs) or the current one.  fcap: the largest
+    clip's frames rounded up to two conv chunks.  Under the encoder's
+    sequence parallelism only this data rank's share is packed."""
+    t0 = _now_ms()
+    chunk = engine.cfg.enc_chunk_size
+    segs = _rank_share(engine, segments)
+    frames = [num_frames(len(s)) for s in segs]
+    fcap = -(-max(frames) // (2 * chunk)) * (2 * chunk)
+    pcap = fcap * HOP_LENGTH + N_FFT
+    dev = engine.device
+    cuda = dev.type == "cuda"
+    host = torch.zeros((len(segs), pcap), dtype=torch.float16, pin_memory=cuda)
+    view = host.numpy()
+    for b, s in enumerate(segs):
+        p = reflect_pad(np.asarray(s, dtype=np.float32))
+        # len(p) = n + N_FFT can pass pcap (frames % (2 * chunk) == 0 with n %
+        # HOP != 0); every frame reads below pcap - HOP, so the tail is unused
+        m = min(len(p), pcap)
+        view[b, :m] = p[:m].astype(np.float16)
+    host_ms = _now_ms() - t0
+    if not cuda:
+        return UploadedAudio(host.to(dev), frames, fcap, host, host_ms)
+    events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    with torch.cuda.stream(stream or torch.cuda.current_stream(dev)):
+        events[0].record()
+        buf = host.to(dev, non_blocking=True)
+        events[1].record()
+    return UploadedAudio(buf, frames, fcap, host, host_ms, copy=events, side=stream is not None)
+
+
+@torch.inference_mode()
+def _encode_batch_device_mel(engine, segments: Sequence[np.ndarray],
+                             uploaded: Optional[UploadedAudio] = None):
+    """The batched encode with the log-mel on the device: the f16 audio
+    (`uploaded`, or uploaded here), `log_mel_batch` over the group, the conv
+    stem over every clip's fcap // chunk blocks (blocks past a clip's frames
+    are computed and never gathered), the tails grouped by width and sliced
+    on the device, then `_pool_and_encode`.  Returns (audio_stack [B, cap,
+    H], n_tokens list); under the encoder's sequence parallelism each data
+    rank runs its share and the rows are all-gathered."""
+    up = uploaded if uploaded is not None else _upload_audio(engine, segments)
+    return _encode_split(engine, [num_frames(len(s)) for s in segments], up,
+                         lambda up, tcap: _device_mel_group(engine, up, tcap))
+
+
+def _device_mel_group(engine, up: UploadedAudio, tcap: Optional[int]):
+    """One rank's group of `_encode_batch_device_mel`, its mel ms counted
+    into engine.perf (the CUDA-event spans settled later)."""
+    cfg = engine.cfg
+    dev = engine.device
+    chunk = cfg.enc_chunk_size
+    B, fcap = len(up.frames), up.fcap
+    up.take()
+    t0 = _now_ms()
+    span = None
+    if dev.type == "cuda":
+        span = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        span[0].record()
+    mel_t = log_mel_batch(up.buf, torch.tensor(up.frames, device=dev), fcap)   # [B, 128, fcap]
+    if span is None:
+        engine.perf.mel_ms += up.host_ms + _now_ms() - t0
+    else:
+        span[1].record()
+        engine.perf.mel_ms += up.host_ms
+        engine.perf.mel_spans += [up.copy, span]
+    nc = fcap // chunk
+    blocks = mel_t.reshape(B, NUM_MEL_BINS, nc, chunk).transpose(1, 2).reshape(
+        B * nc, NUM_MEL_BINS, chunk)
+    ncap = _conv_bucket(B * nc)
+    if ncap > B * nc:
+        blocks = torch.cat([blocks, blocks.new_zeros((ncap - B * nc, NUM_MEL_BINS, chunk))])
+    full_tok = enc_mod.conv_stem(engine.enc_params, blocks, cfg)
+
+    full_counts = [f // chunk for f in up.frames]
+    partial_rows, partial_blocks = _conv_partial_tails(
+        engine, [f % chunk for f in up.frames],
+        lambda w, idxs: torch.stack([mel_t[b, :, full_counts[b] * chunk :
+                                           full_counts[b] * chunk + w] for b in idxs]))
+    out = _pool_and_encode(engine, B, full_tok, B * nc, [b * nc for b in range(B)],
+                           full_counts, partial_rows, partial_blocks, tcap)
+    up.release()
+    return out
 
 
 def _pool_and_encode(engine, B, full_tok, n_pool_blocks, full_starts, full_counts,
@@ -282,15 +455,24 @@ def _decode_segment_group(engine, segments: Sequence[np.ndarray]) -> List[List[i
     model_axis = mesh_mod.model_group(engine)
     perf = engine.perf
 
-    # --- encode all segments as one batch (mel on host threads for B > 2:
-    # numpy's FFT releases the GIL)
+    # --- encode all segments as one batch: the device front end, or the
+    # host mel (on threads for B > 2: numpy's FFT releases the GIL)
     enc_t0 = _now_ms()
-    if B > 2:
-        with ThreadPoolExecutor(max_workers=min(16, B)) as pool:
-            mels = list(pool.map(log_mel, segments))
+    if _use_device_mel(cfg, B, engine.param_dtype, dev):
+        if engine.verbose >= 1 and not getattr(engine, "_device_mel_noted", False):
+            engine._device_mel_noted = True
+            print("Batch mel: device f16 log-mel (tokens may part from the single-file host "
+                  "mel at a near tie; SMOLVISION_DEVICE_MEL=0 forces the host mel)",
+                  file=sys.stderr, flush=True)
+        enc_stack, n_tokens_list = _encode_batch_device_mel(engine, segments)
     else:
-        mels = [log_mel(seg) for seg in segments]
-    enc_stack, n_tokens_list = _encode_batch(engine, mels)
+        if B > 2:
+            with ThreadPoolExecutor(max_workers=min(16, B)) as pool:
+                mels = list(pool.map(log_mel, segments))
+        else:
+            mels = [log_mel(seg) for seg in segments]
+        perf.mel_ms += _now_ms() - enc_t0
+        enc_stack, n_tokens_list = _encode_batch(engine, mels)
     id_rows, starts = [], []
     for n_audio in n_tokens_list:
         ids, audio_start = prompt_mod.build_asr_prompt(
@@ -324,6 +506,7 @@ def _decode_segment_group(engine, segments: Sequence[np.ndarray]) -> List[List[i
     kcap = bucket64(tcap + min(engine.max_tokens, 2 * BATCH_DECODE_CHUNK) + 1)
     kv = pbatch.make_batched_kv(cfg, Bl, kcap, engine.batched_kv_dtype, dev, group=model_axis)
     engine._sync()
+    perf.settle_mel()
     perf.encode_ms += _now_ms() - enc_t0
 
     dec_t0 = _now_ms()

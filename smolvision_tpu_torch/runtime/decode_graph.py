@@ -167,24 +167,32 @@ class _ChunkLoop(_Captured):
             self._step()
             self._capture()
 
-    def _replays(self, steps: int) -> int:
-        """Up to `steps` steps, stopping at the stop flag; the steps run."""
+    def _replays(self, steps: int, shadow=None) -> int:
+        """Up to `steps` steps, stopping at the stop flag; the steps run.
+        `shadow()`, host work of the caller's, runs once while the card has
+        replays queued: before the host first waits on one (after all of
+        them on the CPU)."""
         n = 0
         if self.stream is None:
             while n < steps and not bool(self.stop):
                 self._advance()
                 n += 1
-            return n
-        self.flag.zero_()
-        while n < steps:
-            if n >= DONE_LAG:
-                self.events[n % DONE_LAG].synchronize()
-                if bool(self.flag[0]):
-                    break
-            self._advance()
-            self.flag.copy_(self.stop, non_blocking=True)
-            self.events[n % DONE_LAG].record()
-            n += 1
+        else:
+            self.flag.zero_()
+            while n < steps:
+                if n >= DONE_LAG:
+                    if shadow is not None:
+                        shadow()
+                        shadow = None
+                    self.events[n % DONE_LAG].synchronize()
+                    if bool(self.flag[0]):
+                        break
+                self._advance()
+                self.flag.copy_(self.stop, non_blocking=True)
+                self.events[n % DONE_LAG].record()
+                n += 1
+        if shadow is not None:
+            shadow()
         return n
 
     @staticmethod
@@ -249,11 +257,12 @@ class DecodeLoop(_ChunkLoop):
             self._step()
 
     @torch.inference_mode()
-    def run(self, tokens, pos: int, steps: int, row_active=None, **inputs):
+    def run(self, tokens, pos: int, steps: int, row_active=None, shadow=None, **inputs):
         """Up to `steps` (<= DECODE_CHUNK) greedy steps of every row from
         `tokens` [B] at cache row `pos`, stopping once every row has emitted
         an EOS (rows that finish first decode on; the caller cuts them at
-        their EOS).  row_active [B] bool marks rows done from the start.
+        their EOS).  row_active [B] bool marks rows done from the start;
+        `shadow` is host work run while the steps are queued (`_replays`).
         Returns (buf, count, replays): the tokens [B, count] as numpy int32
         (every data rank's rows under a data group), the steps the
         reference's loop would run, and the steps run here.  `tokens_h`
@@ -273,7 +282,7 @@ class DecodeLoop(_ChunkLoop):
         self.stop.copy_(done.all().reshape(1))
         for name, value in inputs.items():
             self.inputs[name].copy_(torch.as_tensor(value))
-        replays = self._replays(steps)
+        replays = self._replays(steps, shadow)
         (count,), host = self._read(torch.cat([self.tok[:, None], self.buf], dim=1), self.i)
         if self.perf is not None:
             self.perf.wasted_steps += replays - count

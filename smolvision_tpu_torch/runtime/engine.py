@@ -85,6 +85,9 @@ class PerfStats:
         self.encode_ms = 0.0   # mel + encoder (the reference's "encoding")
         self.decode_ms = 0.0   # prefill + decode loop (its "decoding")
         self.mel_ms = 0.0
+        # the device front end's CUDA event pairs (upload, log-mel) not yet
+        # added to mel_ms (`settle_mel`)
+        self.mel_spans = []
         self.prefill_ms = 0.0
         # streaming latency (runtime/stream.py): wall ms per chunk round and
         # session-start -> first committed token (the TTFT analog)
@@ -131,6 +134,14 @@ class PerfStats:
         # multistream's batched coordinator (runtime/multistream.py): its
         # caches, growths, compactions and one record per round, or None
         self.multistream = None
+
+    def settle_mel(self) -> None:
+        """Add the device ms of the front end's recorded spans to mel_ms
+        (each span's end event waited for)."""
+        for start, end in self.mel_spans:
+            end.synchronize()
+            self.mel_ms += start.elapsed_time(end)
+        self.mel_spans = []
 
     def stream_latency(self):
         """(first_commit_ms, p50, p99) over the recorded chunk rounds, or

@@ -12,9 +12,11 @@ and streaming state).  Two modes:
     recovery); the coordinator replaces only the model calls in the middle
     of each chunk.  Per round:
       - the sessions' new encoder windows and partial tails are encoded as
-        one batch (`_pre_encode_round`: host mel, one conv stem call and
-        one kernel-B1 launch per layer for all spans), handed to
-        begin_chunk through StreamState's `_pre_windows` / `_pre_tail`;
+        one batch (`_pre_encode_round`: the device log-mel of
+        runtime/batch_segments.py on the card, else the host mel; one conv
+        stem call and one kernel-B1 launch per layer for all spans), handed
+        to begin_chunk through StreamState's `_pre_windows` / `_pre_tail`;
+        a span the round did not predict takes the host mel in begin_chunk;
       - one batched delta prefill for all sessions (kernel B5 against the
         batched cache at start S > 0 once every row reuses 64 rows or
         more, per-row prompt_max, region_start = pcap; the two-part
@@ -27,9 +29,11 @@ and streaming state).  Two modes:
     Sessions keep a fixed row of the round-persistent cache (`_BatchKV`,
     natural layout), so kept prompt rows never move and only the block
     below the shallowest reuse point is prefilled again.  Per-session
-    tokens equal a solo run's: greedy argmax is deterministic and the
-    batched decoder gives the sequential one's tokens (held on the CPU by
-    tests/test_torch_multistream.py).  Rows of drained sessions are
+    tokens equal a solo run's in the host-mel regime (the CPU, f32
+    weights, SMOLVISION_DEVICE_MEL=0): greedy argmax is deterministic and
+    the batched decoder gives the sequential one's tokens (held on the CPU
+    by tests/test_torch_multistream.py); the f16 device front end can part
+    them at a near tie.  Rows of drained sessions are
     compacted away when the power-of-two row bucket halves.
   * THREADED (a single source, or SMOLVISION_BATCH_STREAMS=0): one host
     thread per session, each running the single-stream path on its view.
@@ -54,7 +58,7 @@ engine refuses.
 Left out of the port, as in the JAX package off its TPU backend or by
 choice (ROADMAP.md): the compile prewarm ladder (`_prewarm_batched`, a
 no-op off the TPU), the opt-in stratified reset-row prefill
-(SMOLVISION_MSTREAM_STRAT=1) and the device-mel pre-encode.
+(SMOLVISION_MSTREAM_STRAT=1).
 
 Switches, as the JAX package reads them, each the degraded path a test
 compares the default against: SMOLVISION_MSTREAM_NO_REUSE=1 (full prefill
@@ -83,7 +87,13 @@ from smolvision_tpu_torch.ops.quant import kv_rows_gather
 from smolvision_tpu_torch.parallel import batch as pbatch
 from smolvision_tpu_torch.parallel import mesh as mesh_mod
 from smolvision_tpu_torch.runtime import stream as stream_mod
-from smolvision_tpu_torch.runtime.batch_segments import BATCH_DECODE_CHUNK, _encode_batch, _now_ms
+from smolvision_tpu_torch.runtime.batch_segments import (
+    BATCH_DECODE_CHUNK,
+    _encode_batch,
+    _encode_batch_device_mel,
+    _now_ms,
+    _use_device_mel,
+)
 from smolvision_tpu_torch.runtime.buckets import bucket, bucket128
 from smolvision_tpu_torch.runtime.engine import PerfStats
 
@@ -348,11 +358,12 @@ def _pre_encode_round(engine, states) -> float:
     begin_chunk encodes each session's newly completed windows and its
     partial tail one call each.  For preloaded audio the spans each session
     will encode are known ahead (the cursor advance is arithmetic), so the
-    coordinator encodes ALL of them as one batch (host mel per span, then
-    runtime/batch_segments._encode_batch: one conv-stem call, one kernel-B1
-    launch per layer) and hands the results to begin_chunk through its
-    span-checked `_pre_windows` / `_pre_tail`; a span it did not predict is
-    encoded there as before.  Returns its ms (0 when it encoded nothing)."""
+    coordinator encodes ALL of them as one batch (the front end through
+    batch_segments' gate: the device log-mel, or the host mel per span;
+    then one conv-stem call, one kernel-B1 launch per layer) and hands the
+    results to begin_chunk through its span-checked `_pre_windows` /
+    `_pre_tail`; a span it did not predict is encoded there as before, on
+    the host mel.  Returns its ms (0 when it encoded nothing)."""
     reqs = []   # (state, key, samples)
     for st in states:
         if st.live is not None or not st.use_enc_cache:
@@ -375,7 +386,14 @@ def _pre_encode_round(engine, states) -> float:
     if len(reqs) < 2:
         return 0.0
     t0 = _now_ms()
-    stack, n_toks = _encode_batch(engine, [log_mel(s) for _, _, s in reqs])
+    perf = engine.perf
+    spans = [s for _, _, s in reqs]
+    if _use_device_mel(engine.cfg, len(spans), engine.param_dtype, engine.device):
+        stack, n_toks = _encode_batch_device_mel(engine, spans)
+    else:
+        mels = [log_mel(s) for s in spans]
+        perf.mel_ms += _now_ms() - t0
+        stack, n_toks = _encode_batch(engine, mels)
     for i, (st, key, _) in enumerate(reqs):
         if n_toks[i] <= 0:
             continue
@@ -386,8 +404,9 @@ def _pre_encode_round(engine, states) -> float:
         else:
             st._pre_tail = (key[1], stack[i], n_toks[i])
     engine._sync()
+    perf.settle_mel()
     ms = _now_ms() - t0
-    engine.perf.encode_ms += ms
+    perf.encode_ms += ms
     return ms
 
 

@@ -6,9 +6,9 @@ repetition penalty over a 64-token window (divide positive / multiply
 negative logits), temperature, top-k, softmax, multinomial draw, after
 sample_token (qwen_asr.c:2250-2313), seeded deterministically.
 `CRefSampler` replays the reference C engine's exact sampled stream
-(--sampler cref); its `_libc_expf` calls libm's expf once per element
-through ctypes (the JAX package's native vector route is not ported), which
-is exact and slow.
+(--sampler cref); its `_libc_expf` is libm's scalar expf per element,
+called from the host runtime library (utils/native.py `sv_expf_vec`);
+`_libc_expf_ctypes`, one ctypes call per element, is its plain version.
 
 `transform_logits` is the torch twin of `transform_logits_jnp`, the
 logits transform of the device-side sampled step, in the same order;
@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from smolvision_tpu_torch.utils import native
 
 REP_WINDOW = 64
 
@@ -175,8 +177,15 @@ def _libc_expf(x: np.ndarray) -> np.ndarray:
     """Elementwise f32 exp through libm's expf, the symbol the reference
     binary calls (qwen_softmax's per-element expf): glibc's expf is ~1 ULP
     off the correctly rounded f64-exp detour on ~0.05% of inputs, the drift
-    a knife-edge multinomial draw could turn into another token.  One
-    ctypes call per element (about 152k per token at full vocab)."""
+    a knife-edge multinomial draw could turn into another token.  One call
+    into the host runtime library, whose loop calls expf per element (built
+    without -ffast-math, so never a vector exp)."""
+    return native.expf_vec(x)
+
+
+def _libc_expf_ctypes(x: np.ndarray) -> np.ndarray:
+    """`_libc_expf`'s plain version: one ctypes call of libm's expf per
+    element (about 152k per token at full vocab)."""
     import ctypes
     import ctypes.util
 

@@ -14,8 +14,9 @@ qwen_asr.c's segmented mode:
 Pure numpy/host Python.  With conditioning off, the segments are
 independent and decode as one batch (runtime/batch_segments.py: kernel B4
 prefill); with it on, they run one by one through Engine.transcribe_segment
-(kernels B2 and B3).  The JAX package's optional native keep-mask fast path
-is not copied: the numpy mask is its exact twin.
+(kernels B2 and B3).  The silence keep mask runs in the host runtime
+library (utils/native.py `sv_silence_mask`); the numpy mask
+(`_silence_keep_mask_numpy`) is its exact twin and plain version.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import sys
 import numpy as np
 
 from smolvision_tpu_torch.config import SAMPLE_RATE
+from smolvision_tpu_torch.utils import native
 
 ENERGY_WINDOW_MS = 100
 MAX_SEGMENTS = 128
@@ -49,7 +51,7 @@ def compact_silence(samples: np.ndarray) -> np.ndarray:
     if n <= 0:
         return samples
     win = 160  # 10 ms
-    keep = _silence_keep_mask_numpy(samples)
+    keep = native.silence_keep_mask(samples)
     mask = np.repeat(keep, win)[:n]
     out = samples[mask]
     if len(out) == 0:

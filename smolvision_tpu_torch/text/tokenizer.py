@@ -1,7 +1,10 @@
 """GPT-2 style byte-level BPE tokenizer (encode + decode), parity-exact.
 
-Port of smolvision_tpu/text/tokenizer.py: the pure-Python heap merge
-only (the JAX package's optional native encode gives the same ids).
+Port of smolvision_tpu/text/tokenizer.py.  Encoding runs in the host
+runtime library (utils/native.py `sv_bpe_encode`) over a merge table
+flattened to id space; the pure-Python heap merge (`_encode_python`) is
+its plain version, and the route of a vocabulary that lacks a byte of the
+byte-level alphabet, as in the JAX package.
 
 Behavioral contract (vs qwen_asr_tokenizer.c):
   * decode: vocab.json token string -> reverse byte map -> raw bytes.  Token
@@ -27,6 +30,10 @@ import heapq
 import json
 import os
 from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from smolvision_tpu_torch.utils import native
 
 
 def bytes_to_unicode() -> Dict[int, str]:
@@ -78,6 +85,36 @@ class Tokenizer:
                     self.merge_ranks[(parts[0], parts[1])] = rank
                     rank += 1
 
+        self._native_table = None
+        self._byte_ids = None
+        self._build_native_table()
+
+    def _build_native_table(self):
+        """Flatten the merge table to id space for the library's encode: all
+        merge operands and results are vocab entries, so BPE runs entirely
+        on int32 token ids (utils/csrc/smolvision_host.c `sv_bpe_encode`)."""
+        byte_ids = []
+        for b in range(256):
+            tid = self.vocab.get(_BYTE_ENCODER[b])
+            if tid is None:
+                return  # incomplete byte alphabet: the Python merge only
+            byte_ids.append(tid)
+        entries = []
+        for (s1, s2), rank in self.merge_ranks.items():
+            a = self.vocab.get(s1)
+            b = self.vocab.get(s2)
+            res = self.vocab.get(s1 + s2)
+            if a is None or b is None or res is None:
+                continue
+            entries.append(((a << 32) | b, rank, res))
+        entries.sort()
+        if entries:
+            keys = np.asarray([e[0] for e in entries], dtype=np.int64)
+            ranks = np.asarray([e[1] for e in entries], dtype=np.int32)
+            results = np.asarray([e[2] for e in entries], dtype=np.int32)
+            self._native_table = (keys, ranks, results)
+        self._byte_ids = np.asarray(byte_ids, dtype=np.int32)
+
     # -- decode ------------------------------------------------------------
 
     def decode_piece(self, token_id: int) -> bytes:
@@ -96,7 +133,14 @@ class Tokenizer:
         if not text:
             return []
         raw = text.encode("utf-8")
+        if self._native_table is not None:
+            initial = self._byte_ids[np.frombuffer(raw, dtype=np.uint8)]
+            return native.bpe_encode(initial, *self._native_table).tolist()
+        return self._encode_python(raw)
 
+    def _encode_python(self, raw: bytes) -> List[int]:
+        """The pure-Python encode of UTF-8 bytes (the heap merge): the
+        library encode's plain version."""
         mapped = [_BYTE_ENCODER[b] for b in raw]
         symbols = self._merge(mapped)
         ids = []

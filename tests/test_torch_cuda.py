@@ -1444,3 +1444,34 @@ def test_cuda_two_gloo_ranks_on_one_card_equal_one_process(tmp_path, monkeypatch
     for rank in ranks:
         assert rank["serve"]["rows"] == want_serve
         assert rank["segments"]["rows"] == want_segs
+
+
+@pytest.mark.cuda
+def test_cuda_device_log_mel_matches_host_mel():
+    """The device front end on the card: TF32 off after resolve_device, the
+    f16 upload on a side stream (the encode's stream waits on its event) and
+    log_mel_batch against the host mel of the same f16-rounded audio."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from types import SimpleNamespace
+
+    from smolvision_tpu_torch.device import resolve_device
+    from smolvision_tpu_torch.ops import mel
+    from smolvision_tpu_torch.runtime import batch_segments
+
+    dev = resolve_device("cuda")
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    rng = np.random.default_rng(0)
+    clips = [(rng.standard_normal(n) * 0.2).astype(np.float32) for n in (48077, 9000, 64050)]
+    eng = SimpleNamespace(cfg=SimpleNamespace(enc_chunk_size=100), device=dev)
+    for stream in (None, torch.cuda.Stream(dev)):
+        up = batch_segments._upload_audio(eng, clips, stream)
+        up.take()
+        assert up.side == (stream is not None)
+        got = mel.log_mel_batch(up.buf, torch.tensor(up.frames, device=dev), up.fcap)
+        assert torch.equal(up.buf.cpu(), up.host)
+        up.release()
+        got = got.cpu().numpy()
+        for b, (c, f) in enumerate(zip(clips, up.frames)):
+            host = mel.log_mel(c.astype(np.float16).astype(np.float32))
+            assert np.abs(got[b, :, :f] - host).max() < ATOL

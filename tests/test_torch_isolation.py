@@ -46,6 +46,7 @@ def test_port_imports_no_jax():
         "import smolvision_tpu_torch.models.moe\n"
         "import smolvision_tpu_torch.models.moe_offload\n"
         "import smolvision_tpu_torch.parallel.mesh, smolvision_tpu_torch.ops.collectives\n"
+        "import smolvision_tpu_torch.utils.native\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'smolvision_tpu')\n"
         "       or m.startswith(('jax.', 'jaxlib.', 'smolvision_tpu.'))]\n"
         "assert 'smolvision_tpu_torch.runtime.engine' in sys.modules\n"
@@ -59,6 +60,7 @@ def test_port_imports_no_jax():
         "assert 'smolvision_tpu_torch.models.moe_offload' in sys.modules\n"
         "assert 'smolvision_tpu_torch.parallel.mesh' in sys.modules\n"
         "assert 'smolvision_tpu_torch.ops.collectives' in sys.modules\n"
+        "assert 'smolvision_tpu_torch.utils.native' in sys.modules\n"
         "print('BAD', bad)\n")
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
@@ -78,6 +80,26 @@ def _imports(path: Path):
 def test_sources_name_no_jax_import(path):
     bad = [m for m in _imports(REPO / path) if _is_jax_package(m)]
     assert not bad, f"{path} imports {bad}"
+
+
+def test_port_never_loads_the_jax_packages_native_library(tiny_model_dir):
+    """The four callers of the host runtime library map the port's own build
+    (build/smolvision_tpu_torch/, from utils/csrc/) and never
+    native/libsmolvision_host.so, which the JAX package loads."""
+    r = _run("import numpy as np\n"
+             "from smolvision_tpu_torch.io.wav import resample_sinc\n"
+             "from smolvision_tpu_torch.runtime.sampling import _libc_expf\n"
+             "from smolvision_tpu_torch.runtime.segment import compact_silence\n"
+             "from smolvision_tpu_torch.text.tokenizer import load_tokenizer\n"
+             "from smolvision_tpu_torch.utils import native\n"
+             "x = np.random.default_rng(0).standard_normal(8000).astype(np.float32)\n"
+             "resample_sinc(x, 8000, 16000); compact_silence(x); _libc_expf(x)\n"
+             f"load_tokenizer({tiny_model_dir!r}).encode('language English')\n"
+             "maps = open('/proc/self/maps').read()\n"
+             "print('PORT', str(native.lib_path()) in maps)\n"
+             "print('JAX', 'libsmolvision_host.so' in maps)\n")
+    assert r.returncode == 0, r.stderr
+    assert "PORT True" in r.stdout and "JAX False" in r.stdout, r.stdout
 
 
 def test_engine_without_card_raises(tiny_model_dir):

@@ -132,6 +132,8 @@ def runs(moe_visible_model_dir, tmp_path_factory):
              slots=4),
         dict(moe, name="segments", kind="segments", mesh=[2, 1], audio=seg_audio),
         dict(moe, name="encode", kind="encode", mesh=[2, 1], audio=seg_audio),
+        dict(moe, name="encode_device_mel", kind="encode", mesh=[2, 1], audio=seg_audio,
+             device_mel=True),
         dict(ms_case, name="mstream"),
         dict(ms_case, name="mstream_kv8", kv8=True),
         {"name": "loop_eos", "kind": "loop_eos", "mesh": [2, 1], "pos": 40, "steps": 12,
@@ -157,6 +159,7 @@ def runs(moe_visible_model_dir, tmp_path_factory):
                 refs["jax"]["encode"] = np.asarray(jbs._encode_batch(
                     j, [jlog_mel(s) for s in segs])[0])
                 refs["port"]["encode"] = tbs._encode_batch(t, [log_mel(s) for s in segs])
+                refs["port"]["encode_device_mel"] = tbs._encode_batch_device_mel(t, segs)
         for kv8 in (False, True):
             j, t = _engines(stream_model, STREAM, kv8=kv8)
             key = "mstream_kv8" if kv8 else "mstream"
@@ -219,6 +222,18 @@ def test_sp_group_encode_audio_rows(runs):
         np.testing.assert_allclose(got, refs["port"]["encode"][0].numpy(), rtol=0, atol=1e-6)
         np.testing.assert_allclose(got, refs["jax"]["encode"], rtol=0, atol=1e-6)
         assert rank["encode"]["n_tokens"] == refs["port"]["encode"][1]
+
+
+def test_sp_group_encode_device_mel(runs):
+    """The device front end under the encoder's SP: each data rank packs
+    and log-mels its share of the three clips (one pad clip), the rows
+    all-gathered equal one process's within the encoder parity tolerance."""
+    ranks, refs = runs
+    want, n_tokens = refs["port"]["encode_device_mel"]
+    for rank in ranks:
+        got = rank["encode_device_mel"]
+        assert got["stack"].shape == tuple(want.shape) and got["n_tokens"] == n_tokens
+        np.testing.assert_allclose(got["stack"], want.numpy(), rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("name", ["mstream", "mstream_kv8"])

@@ -160,10 +160,16 @@ def run_multistream(case, device, mesh):
 
 
 def run_encode(case, device, mesh):
+    """The group encode under the encoder's SP: the host mel, or with
+    "device_mel" the device front end (each rank packs its share)."""
     from smolvision_tpu_torch.ops.mel import log_mel
 
     eng = engine(case, device, mesh)
-    stack, n_tokens = bs._encode_batch(eng, [log_mel(a) for a in audio(case)])
+    clips = audio(case)
+    if case.get("device_mel"):
+        stack, n_tokens = bs._encode_batch_device_mel(eng, clips)
+    else:
+        stack, n_tokens = bs._encode_batch(eng, [log_mel(a) for a in clips])
     return {"stack": stack.cpu().numpy(), "n_tokens": n_tokens}
 
 
