@@ -30,7 +30,11 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
                 T 5 at start 300 as the --spec verify -- and on an f32
                 cache, each with start and kv_valid host ints and device
                 tensors, and one CUDA graph of B2 replayed at four starts
-                (T 5, 128 and the main prefill's); the greedy heads K6 / K7 on both routes, the
+                (T 5, 128 and the main prefill's); B5 with its start a host
+                int and an int32 / int64 device tensor (the round prefill
+                graph's form), kernel and plain version, at starts 0, 64,
+                192, 256, 640 and G 2 / 7 / 3, and one CUDA graph of B5
+                replayed at four starts; the greedy heads K6 / K7 on both routes, the
                 CUDA-core matvec and the tensor-core tile product, at R 1
                 to 130, an exact tie across blocks, V not a multiple of any
                 block or tile), then the sweep of R that sets the heads'
@@ -42,7 +46,10 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
                 wave, B2 also on an f32 cache beside SDPA and at the
                 stream's delta shapes: start 300, T 128 and 256, checked
                 at T 64-512, and at the --spec verify's T 5, start 300, each
-                at a device start, against host ints in turns); K8 (read_all) over
+                at a device start, against host ints in turns; B5 at
+                multistream's round shapes at a device start against host
+                ints in turns; K6 and K7 beside cuBLAS + argmax, K7's int8
+                table widened to bf16 in the call); K8 (read_all) over
                 the lm_head gives the card's read bandwidth, against which
                 each head kernel's time is set; then the kernels at phase
                 11's Qwen2.5-Omni-7B shapes: B3 at G 7 (H 28, KH 4) at its
@@ -98,31 +105,48 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
                 prefill graphs (a (cache, block rows) key's first prefill
                 eager, its second captured, later ones replayed) at most
                 its keys;
- 10. multistream - `--stream -i` eight clips of 12-60 s (276 s): one
+ 10. multistream - `--stream -i` eight clips of 12-48 s (234 s): one
                 round per 2 s chunk for all live sessions, B 8 rows
                 compacted to 4, then 2, as sessions end; per round one
                 batched encode of the sessions' new spans (B1), one batched
                 delta prefill (B5, at start S > 0 with per-row prompt_max
                 once every row reuses 64 rows or more; each round's block
-                must be the one the reuse rule gives) and one batched
-                decode (the head at R = B); against the same clips
+                must be the one the reuse rule gives; B5 reads S from
+                device memory, a (cache, B, W) key's first two calls
+                eager, its third captured as a CUDA graph, later ones
+                replayed (the run's first graph warms its capture stream
+                with one eager run): each key's calls in that order,
+                captures at most the keys,
+                every B5 call at a device start, B5's launches measured
+                per key) and one batched decode (the head at R = B); the
+                round prefill ms split into host preparation, the
+                embeddings build, the dispatch, the first tokens' read and
+                the device span (CUDA events), eager turn against graph
+                turn; against the same clips
                 streamed solo one after another (realtime factors);
                 `--q8 --kv8` (K7, the int8 batched cache through the
                 two-part attention, no B5; compaction gathers a QuantKV);
                 `--f32` on three clips against each clip's solo run (a
                 parting must be at a near tie of the single-stream path:
                 its top-2 gap under twice the largest f32 logit difference
-                phase 4 measured between the kernel and plain paths); the
+                phase 4 measured between the kernel and plain paths), then
+                on the same engine and clips, in process, the stratified
+                reset-row prefill (SMOLVISION_MSTREAM_STRAT=1, row 0 forced
+                to reuse 0, the JAX package's test settings) against the
+                default: equal chunks, stratified rounds > 0; the
                 threaded mode (SMOLVISION_BATCH_STREAMS=0) on two, whose
                 texts must equal the batched and the solo runs'.  Decode
                 graph captures at most the caches (allocation, growths,
                 compactions) in every run; at least MSTREAM_MIN_DEEP_SHARE
                 of the bf16 run's rounds at S > 0.  Then B5 at each round
                 at S > 0 of the bf16 and --f32 runs (its B, S, W, pcap,
-                kcap and per-row prompt_max, on the run's cache type)
-                against its plain version, and timed once per distinct
-                shape, each timing row's launches the run's B5 calls at
-                that shape.
+                kcap and per-row prompt_max, on the run's cache type, the
+                start a host int and a device tensor) against its plain
+                version, and timed at a device start once per distinct
+                shape, each timing row's launches the run's measured
+                launches at that shape (wrapper calls plus replays times
+                the graph's launches per replay), which must be one per
+                layer per round there.
  11. thinker  - on the 0.6B checkpoint: `--thinker --text` greedy (the
                 decode loop's graph, K6) and `--thinker -i` the 20 s clip
                 sampled at the defaults (temperature 0.7, top-k 40, penalty
@@ -336,7 +360,7 @@ B2_VERIFY_ROW = ("causal_cache_attention_verify", 5, 300, 305)
 # per stream run (phase 9), printed as one line at the end
 STREAM_RUNS = {}
 # phase 10: multistream, one session per clip (seconds), B 8 compacted to 4, then 2
-MSTREAM_CLIP_SEC = (12, 16, 20, 24, 36, 48, 60, 60)
+MSTREAM_CLIP_SEC = (12, 16, 20, 24, 30, 36, 48, 48)
 MSTREAM_F32_CLIPS = 3         # --stream --f32 on the first three clips, against solo
 MSTREAM_THREADED_CLIPS = 2    # SMOLVISION_BATCH_STREAMS=0 on the first two
 # B5's phase-3 check at a synthetic multistream round: (B, W, S, pcap, kcap,
@@ -344,8 +368,12 @@ MSTREAM_THREADED_CLIPS = 2    # SMOLVISION_BATCH_STREAMS=0 on the first two
 # checks and timings at the rounds the path runs follow phase 10
 # (`mstream_b5_table`)
 MSTREAM_B5 = (8, 128, 256, 768, 832, [600 + 14 * b for b in range(8)])
+# B5 timed at a device start against host ints (phase 3): the synthetic
+# round above and round shapes (B, W, S, pcap, kcap) phase 10's bf16 run
+# reaches at S > 0, bf16 cache
+MSTREAM_B5_FORMS = ((8, 128, 256, 768, 832), (4, 512, 128, 640, 704), (2, 512, 64, 768, 832))
 # the least share of the bf16 multistream run's rounds at S > 0 (B5's cache
-# half); 3 of 30 rounds on the eight clips (PERF.md)
+# half); 3-6 of 30 rounds in the runs PERF.md records
 MSTREAM_MIN_DEEP_SHARE = 0.05
 # the largest logit difference between the card's kernel and plain paths on
 # f32 weights (phase 4: offline, fresh, served and delta prefill), set there;
@@ -957,19 +985,57 @@ def phase_kernels(shapes):
     Bm, Wm, Sm, pcap_m, kcap_m, pm_m = MSTREAM_B5
     for S, W, dtype in ((Sm, Wm, "bfloat16"), (Sm, Wm, "float32"), (0, pcap_m, "bfloat16")):
         cases.append((Bm, W, kcap_m, S, [0] * Bm, pm_m, pcap_m, dtype, MAIN_HEADS))
-    for B, T, K, start, kv_min, pm, rs, dtype, (H, KH, D) in cases:
+    # the round prefill's device starts 64, 192 and 640 at G 2 / 7 / 3, per-row
+    # prompt_max / region_start, a row whose first rows attend nothing
+    for start, heads in ((64, MAIN_HEADS), (192, GROUP_HEADS[0]), (640, GROUP_HEADS[1]),
+                         (640, MAIN_HEADS)):
+        cases.append((3, 64, 768, start, [0, 9, start + 5], [start, start // 2, start - 30],
+                      [768, start // 2 + 16, 100], "bfloat16", heads))
+    # each with start a host int, then an int32 / int64 device tensor (the
+    # round prefill graph's form), through the kernel and the plain version
+    for i, (B, T, K, start, kv_min, pm, rs, dtype, (H, KH, D)) in enumerate(cases):
         q, kn, vn = batched_case(B, T, H, KH, D)
         kc, vc = batched_cache(B, K, start, kv_min, pm, rs, KH, D, dtype=dtype)
         args = (q, kn, vn, kc, vc, start, ints(kv_min), None if pm is None else ints(pm),
                 rs if rs is None or isinstance(rs, int) else ints(rs))
-        got = fa.batched_cache_flash_attention(*args)
-        err = check_close(f"B5 B={B} T={T} K={K} start={start} {dtype} H={H} KH={KH} D={D}",
-                          got, fa.batched_cache_attention_plain(*args))
-        for b, lo in enumerate(kv_min):
-            if lo > start and float(got[b, :lo - start].abs().max()) != 0.0:
-                fail(f"B5 B={B} T={T} start={start} H={H}: rows of row {b} with no key are "
-                     f"not exactly 0")
-        errs["batched_cache_attention"] = max(errs["batched_cache_attention"], err)
+        at = torch.tensor([start], dtype=(torch.int32, torch.int64)[i % 2], device=DEV)
+        dargs = args[:5] + (at,) + args[6:]
+        want = fa.batched_cache_attention_plain(*args)
+        for form, got in (("host start", fa.batched_cache_flash_attention(*args)),
+                          ("device start", fa.batched_cache_flash_attention(*dargs)),
+                          ("plain at a device start", fa.batched_cache_attention_plain(*dargs))):
+            name = f"B5 B={B} T={T} K={K} start={start} {dtype} H={H} KH={KH} D={D} {form}"
+            err = check_close(name, got, want)
+            for b, lo in enumerate(kv_min):
+                if lo > start and float(got[b, :lo - start].abs().max()) != 0.0:
+                    fail(f"{name}: rows of row {b} with no key are not exactly 0")
+            errs["batched_cache_attention"] = max(errs["batched_cache_attention"], err)
+    # one CUDA graph of B5 at a device start, captured at S 256 of the
+    # synthetic round and replayed at other starts by changing its start
+    # tensor alone; each replay's cache holds +-999 outside its window
+    if DEV == "cuda":
+        q, kn, vn = batched_case(Bm, Wm)
+        kc, vc = batched_cache(Bm, kcap_m, Sm, [0] * Bm, pm_m, pcap_m)
+        at = torch.tensor([Sm], dtype=torch.int64, device=DEV)
+        rest = (ints([0] * Bm), ints(pm_m), ints([pcap_m] * Bm))
+        fa.batched_cache_flash_attention(q, kn, vn, kc, vc, at, *rest)   # warm-up
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fa.batched_cache_flash_attention(q, kn, vn, kc, vc, at, *rest)
+        for start in (Sm, 0, 64, pcap_m - Wm):
+            k2, v2 = batched_cache(Bm, kcap_m, start, [0] * Bm, pm_m, pcap_m)
+            kc.copy_(k2)
+            vc.copy_(v2)
+            at.fill_(start)
+            out.fill_(float("nan"))
+            graph.replay()
+            torch.cuda.synchronize()
+            want = fa.batched_cache_attention_plain(q, kn, vn, kc, vc, start, *rest)
+            errs["batched_cache_attention"] = max(
+                errs["batched_cache_attention"],
+                check_close(f"B5 graph W={Wm} replayed at start {start}", out, want))
+        del graph
     log(f"kernels vs plain: max_abs_err {json.dumps(errs)} (tolerance {KERNEL_ATOL:g})")
 
     rows = []
@@ -1032,8 +1098,36 @@ def phase_kernels(shapes):
     log(f"  B2 on an f32 cache: {b2_f32_timings(shapes)}")
     log(f"  B2 with start / kv_valid device tensors against host ints (ms, in turns "
         f"device, host, host, device): {json.dumps(b2_forms)}")
+    log(f"  B5 at multistream's round shapes, start a device tensor against a host int "
+        f"(ms, in turns device, host, host, device): {json.dumps(b5_device_start_timings())}")
 
     return timed_table(rows, errs, f32_bounds)
+
+
+def b5_device_start_timings() -> dict:
+    """B5 at each MSTREAM_B5_FORMS round shape (B, W, S, pcap, kcap: a bf16
+    cache, per-row prompt_max, region_start = pcap) with its start a device
+    tensor (the round prefill graph's form) and a host int, timed in turns
+    device, host, host, device; {shape: {form: [ms, ms]}}."""
+    import torch
+
+    from smolvision_tpu_torch.kernels import flash_attention as fa
+
+    out = {}
+    for B, W, S, pcap, kcap in MSTREAM_B5_FORMS:
+        pm = [pcap - 100 + 9 * b for b in range(B)]
+        q, kn, vn = batched_case(B, W)
+        kc, vc = batched_cache(B, kcap, S, [0] * B, pm, pcap)
+        rest = tuple(torch.tensor(x, dtype=torch.int32, device=DEV)
+                     for x in ([0] * B, pm, [pcap] * B))
+        at = torch.tensor([S], dtype=torch.int64, device=DEV)
+        kern = {h: (lambda s=(S if h else at): fa.batched_cache_flash_attention(
+                    q, kn, vn, kc, vc, s, *rest)) for h in (False, True)}
+        turns = [(h, time_ms(kern[h])) for h in (False, True, True, False)]
+        out[f"B {B} W {W} S {S} pcap {pcap}"] = {
+            form: [ms for h, ms in turns if h == host]
+            for form, host in (("device", False), ("host", True))}
+    return out
 
 
 def timed_table(rows, errs: dict, f32_bounds: dict) -> list:
@@ -1086,6 +1180,20 @@ def head_case(V: int, H: int, R: int, kind: str, seed: int, planted: bool = Fals
     else:
         w = w.to(getattr(torch, kind))
     return h, w, scale, winners
+
+
+def head_library(h, w, scale=None):
+    """The one PyTorch call that computes the greedy head on the same
+    inputs: argmax(mm(h, w^T)) with bf16 operands and an f32 result over a
+    bf16 table (K6); over an int8 table (K7) the table widened to bf16
+    inside the call and the row scales applied to the product."""
+    import torch
+
+    hb = h.to(torch.bfloat16)
+    if scale is None:
+        return lambda: torch.argmax(torch.mm(hb, w.t(), out_dtype=torch.float32), dim=-1)
+    return lambda: torch.argmax(torch.mm(hb, w.to(torch.bfloat16).t(),
+                                         out_dtype=torch.float32) * scale, dim=-1)
 
 
 def check_head(name: str, h, w, scale=None, winners=None, route=None) -> float:
@@ -1147,7 +1255,8 @@ def phase_heads(cfg, seg_B: int) -> list:
     1, exact ties across blocks and V not a multiple of any tile on both
     routes; then the crossover sweep; then timings: K6 at the single-stream
     head (R 1) and at the -S run's batch (R seg_B), K7 at R 1, K6 and K7 at
-    R 64 (the serving width, tensor cores) beside cuBLAS + argmax, and K8
+    R 64 (the serving width, tensor cores), each beside cuBLAS + argmax
+    (`head_library`: for K7 the int8 table widened in the call), and K8
     over the lm_head, which sets the read bandwidth each head kernel is held
     against."""
     import torch
@@ -1199,11 +1308,7 @@ def phase_heads(cfg, seg_B: int) -> list:
         key = am.launch_key(route, w.dtype)
         # one table read, plus h, the scales and the result
         nbytes = w.numel() * w.element_size() + (0 if scale is None else 4 * V) + 4 * R * (H + 1)
-        lib = None
-        if kind == "bfloat16":
-            hb = h.to(torch.bfloat16)
-            lib = (lambda hb=hb, w=w: torch.argmax(torch.mm(hb, w.t(), out_dtype=torch.float32),
-                                                    dim=-1))
+        lib = head_library(h, w, scale)
         rows.append({"name": name, "source": "smolvision_tpu_torch/kernels/csrc/argmax_matvec.cu",
                      "replaces": replaces, "err": max(errs[key], err), "R": R,
                      "design": route.replace("_", " ") + "s",
@@ -1237,7 +1342,7 @@ def phase_heads(cfg, seg_B: int) -> list:
     table = []
     for r in rows:
         p1, k1, k2, p2 = (time_ms(f) for f in (r["plain"], r["kern"], r["kern"], r["plain"]))
-        lib_ms = time_ms(r["lib"]) if r["lib"] is not None else None
+        lib_ms = time_ms(r["lib"])
         bound_ms, bound_by = r["bound"]
         table.append({"name": r["name"], "route": "cuda", "source": r["source"],
                       "replaces": r["replaces"], "max_abs_err": r["err"], "ms": min(k1, k2),
@@ -1245,8 +1350,7 @@ def phase_heads(cfg, seg_B: int) -> list:
                       "bound_by": bound_by, "nbytes": r["nbytes"], "design": r["design"],
                       "R": r.get("R")})
         log(f"  {r['name']}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, library "
-            + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none (no one PyTorch call)")
-            + f", bound {bound_ms:.4f} ms ({bound_by}); {r['design']}")
+            f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); {r['design']}")
     read = next(t for t in table if t["name"] == "read_all")
     # the roofline's own read of the lm_head, counted as its path's launches
     from smolvision_tpu_torch.kernels import ffi
@@ -1499,16 +1603,17 @@ def decode_mode(mode: str):
     and prefill running the step eagerly ("eager": decode_graph.capture
     returns the step itself).  Yields a record of every loop chunk's tokens
     and count, the chunks' host reads, the prefill graphs made (one per
-    key), the kind ("decode", "spec", "sample", "prefill") and launches per
-    replay of every captured graph (not the graph: it holds its owner's
-    cache and weights), the single-stream caches allocated (the first and
-    each growth) and the deepest cache row a single-stream loop step
-    wrote."""
+    key; multistream's round prefill graphs, one per (cache, B, W), apart),
+    the kind ("decode", "spec", "sample", "prefill", "delta_prefill") and
+    launches per replay of every captured graph (not the graph: it holds
+    its owner's cache and weights), the single-stream caches allocated (the
+    first and each growth) and the deepest cache row a single-stream loop
+    step wrote."""
     from smolvision_tpu_torch.models import qwen3_decoder as dec_mod
     from smolvision_tpu_torch.runtime import decode_graph
 
-    rec = {"chunks": [], "graphs": [], "reads": 0, "prefill_keys": 0, "caches": 0,
-           "last_row": -1}
+    rec = {"chunks": [], "graphs": [], "reads": 0, "prefill_keys": 0, "delta_prefill_keys": 0,
+           "caches": 0, "last_row": -1}
 
     def recording(run):
         def recording_run(self, tokens, pos, *args, **kwargs):
@@ -1531,11 +1636,12 @@ def decode_mode(mode: str):
         rec["reads"] += 1
         return read(*args)
 
-    init = decode_graph.PrefillGraph.__init__
+    inits = {cls: cls.__init__ for cls in (decode_graph.PrefillGraph,
+                                           decode_graph.BatchedPrefillGraph)}
 
     def counting_init(self, *args, **kwargs):
-        rec["prefill_keys"] += 1
-        init(self, *args, **kwargs)
+        rec["delta_prefill_keys" if self.kind == "delta_prefill" else "prefill_keys"] += 1
+        inits[type(self)](self, *args, **kwargs)
 
     class RecordingGraph(decode_graph.StepGraph):
         def __init__(self, *args, **kwargs):
@@ -1548,8 +1654,8 @@ def decode_mode(mode: str):
         stack.enter_context(mock.patch.object(dec_mod, "make_kv_cache", counting_make_kv))
         stack.enter_context(mock.patch.object(decode_graph._ChunkLoop, "_read",
                                               staticmethod(counting_read)))
-        stack.enter_context(mock.patch.object(decode_graph.PrefillGraph, "__init__",
-                                              counting_init))
+        for cls in inits:
+            stack.enter_context(mock.patch.object(cls, "__init__", counting_init))
         stack.enter_context(mock.patch.object(decode_graph, "StepGraph", RecordingGraph))
         if mode == "eager":
             stack.enter_context(mock.patch.object(decode_graph, "capture",
@@ -2558,11 +2664,21 @@ def mstream_record(prompts: bool = False):
     per view its chunks (index, reused rows, the tokens and count
     finish_chunk gets, and with `prompts` the chunk's prompt ids and audio
     rows); each session's prefill and reused rows at its end; every B5 call
-    as (B, T, start, K).  The wrappers only record."""
+    the wrapper sees as (B, T, S, K, device start?, inside a round
+    prefill?), S the round prefill's where the start is a device tensor
+    (its eager calls, a graph's warm run and its capture; a replay makes
+    no wrapper call); per round prefill (`multistream._round_prefill`) its
+    key (B, S, W, K) and, where it replayed a graph, the B5 launches per
+    replay that graph recorded at its capture (`b5_replayed`); on the card
+    a pair of CUDA events around every round prefill.  The wrappers only
+    record."""
+    import torch
+
     from smolvision_tpu_torch.kernels import flash_attention as fa
     from smolvision_tpu_torch.runtime import multistream, stream
 
-    rec = {"views": [], "chunks": {}, "prefill": {}, "b5": []}
+    rec = {"views": [], "chunks": {}, "prefill": {}, "b5": [], "prefill_events": [],
+           "b5_replayed": [], "round": None}
     clone = multistream.clone_session
     finish, final = stream.StreamState.finish_chunk, stream.StreamState.finalize
     b5 = fa.batched_cache_flash_attention
@@ -2586,14 +2702,41 @@ def mstream_record(prompts: bool = False):
         return final(self)
 
     def rec_b5(q, k_new, v_new, k_cache, v_cache, start_pos, *args, **kwargs):
-        rec["b5"].append((q.shape[0], q.shape[1], start_pos, k_cache.shape[2]))
+        device = isinstance(start_pos, torch.Tensor)
+        S = rec["round"][1] if device and rec["round"] else start_pos
+        rec["b5"].append((q.shape[0], q.shape[1], S, k_cache.shape[2], device,
+                          rec["round"] is not None))
         return b5(q, k_new, v_new, k_cache, v_cache, start_pos, *args, **kwargs)
+
+    round_prefill = multistream._round_prefill
+
+    def rec_round(engine, cache, embeds_blk, S, *args):
+        kv = cache.kv
+        key = (embeds_blk.shape[0], S, embeds_blk.shape[1],
+               kv.shape[4] if isinstance(kv, torch.Tensor) else None)
+        rec["round"] = key
+        pair = None
+        if DEV == "cuda":
+            pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            pair[0].record()
+        try:
+            first, how = round_prefill(engine, cache, embeds_blk, S, *args)
+        finally:
+            rec["round"] = None
+        if pair is not None:
+            pair[1].record()
+            rec["prefill_events"].append(pair)
+        if how == "replay":
+            graph = cache.prefills[key[2]].graph
+            rec["b5_replayed"].append((key, graph.launches.get("batched_cache_attention", 0)))
+        return first, how
 
     with contextlib.ExitStack() as stack:
         for obj, attr, fn in ((multistream, "clone_session", rec_clone),
                               (stream.StreamState, "finish_chunk", rec_finish),
                               (stream.StreamState, "finalize", rec_final),
-                              (fa, "batched_cache_flash_attention", rec_b5)):
+                              (fa, "batched_cache_flash_attention", rec_b5),
+                              (multistream, "_round_prefill", rec_round)):
             stack.enter_context(mock.patch.object(obj, attr, fn))
         yield rec
 
@@ -2604,12 +2747,28 @@ def session_chunks(rec) -> list:
             for v in rec["views"]]
 
 
+def b5_round_launches(rec) -> dict:
+    """B5's launches in a multistream run's round prefills, measured by
+    round key (B, S, W, K): the wrapper's calls inside round prefills at
+    that key (eager calls, a graph's warm run, its capture) plus, per
+    replay at that key, the B5 launches its graph recorded per replay."""
+    out = {}
+    for B, T, S, K, _, in_round in rec["b5"]:
+        if in_round:
+            out[(B, S, T, K)] = out.get((B, S, T, K), 0) + 1
+    for key, n in rec["b5_replayed"]:
+        out[key] = out.get(key, 0) + n
+    return out
+
+
 def check_mstream_launches(name: str, launches: dict, eng, rec, cfg) -> None:
     """Every kernel's launches equal the multistream run's bookkeeping: B1
     once per layer per encoder call (the batched pre-encodes on the engine,
     the sessions' own encodes on their views), B5 once per layer per
     batched round (none on an int8 cache), the greedy head once per round's
-    prefill and once per decode step of the round at R = the round's B;
+    prefill and once per decode step of the round at R = the round's B
+    (and, where a round ran the stratified prefill, B5 per layer and the
+    head once more at R = its Gcap);
     the single-stream path of the views (the threaded mode, the solo
     fallback): B2 per prefill, B3 per step, the head at R 1."""
     import torch
@@ -2636,6 +2795,9 @@ def check_mstream_launches(name: str, launches: dict, eng, rec, cfg) -> None:
     heads(prefills + steps, 1)
     for r in (perf.multistream or {}).get("rounds", []):
         heads(1 + r["steps"], r["B"])
+        if r["strat_rows"]:   # the stratified prefill: B5 and the head at R Gcap
+            expected["batched_cache_attention"] += 0 if eng.kv8 else L
+            heads(1, 1 << (len(r["strat_rows"]) - 1).bit_length())
     log(f"{name}: launches {json.dumps(launches)}, expected {json.dumps(expected)}")
     if launches != expected:
         fail(f"{name}: launch counts {launches} != expected {expected}")
@@ -2647,14 +2809,45 @@ def percentiles(values) -> list:
     return [float(np.percentile(values, 50)), float(np.percentile(values, 99))] if values else None
 
 
+def prefill_split(rounds, rec) -> dict:
+    """A multistream run's round prefill ms (p50, p99), by how it ran
+    ([rounds, p50 ms] for its eager calls, a graph's warm run, its capture,
+    its replays: each round's `prefill_call`), and the p50 of its parts:
+    host preparation, the embeddings build and slice, the prefill's
+    dispatch, the first tokens' read (host ms, each round's
+    `prefill_split_ms`), and on the card the prefill's device span between
+    CUDA events around the round prefill (eagerly, the span of its
+    launches; replayed, the graph's device time)."""
+    import torch
+
+    parts = list(zip(*[r["prefill_split_ms"] for r in rounds]))
+    out = {"round_prefill_ms_p50_p99": percentiles([r["prefill_ms"] for r in rounds])}
+    by = {}
+    for r in rounds:
+        by.setdefault(r["prefill_call"], []).append(r["prefill_ms"])
+    out["round_prefill_ms_p50_by_call"] = {k: [len(v), percentiles(v)[0]]
+                                          for k, v in sorted(by.items())}
+    for part, values in zip(("prep", "embeds", "dispatch", "first_token_read"), parts):
+        out[f"round_prefill_{part}_ms_p50"] = percentiles(values)[0]
+    if rec["prefill_events"]:
+        torch.cuda.synchronize()
+        out["round_prefill_device_ms_p50_p99"] = percentiles(
+            [a.elapsed_time(b) for a, b in rec["prefill_events"]])
+    return out
+
+
 def mstream_summary(name: str, eng, rec, cfg) -> dict:
     """What a batched multistream run shows: its aggregate realtime factor,
-    round ms, the sessions' chunk latency and first commits, the reused
-    share of prefill rows, B5's launches at start > 0 by block W and the
-    (S, W, pcap) range, compactions, captures against caches, decode ms per
-    step at each B.  Fails if it captured more decode graphs than it had
-    caches, if a round's block is not the one the reuse rule gives, or if
-    B5's launches at start > 0 are not one per layer per such round."""
+    round ms, the round prefill and its parts (`prefill_split`), the
+    sessions' chunk latency and first commits, the reused share of prefill
+    rows, B5's launches at start > 0 by block W and the (S, W, pcap)
+    range, compactions, decode and round prefill graphs captured against
+    caches, decode ms per step at each B.  Fails if it captured more decode
+    graphs than it had caches, if a round's block is not the one the reuse
+    rule gives (S following the rows above 64 where a round stratified), if
+    a B5 call of the round prefill took its start from the host, or if
+    B5's measured launches at start > 0 (`b5_round_launches`) are not one
+    per layer per such round (none on an int8 cache)."""
     from smolvision_tpu_torch.runtime.buckets import bucket
     from smolvision_tpu_torch.runtime.multistream import quantize_block
 
@@ -2667,16 +2860,21 @@ def mstream_summary(name: str, eng, rec, cfg) -> dict:
         fail(f"{name}: {perf.graph_captures} decode graphs captured over {record['caches']} "
              f"caches (at most one per cache)")
     for i, r in enumerate(rounds):
-        S = min(r["reused"]) // 64 * 64
+        S = min(x for x in r["reused"] if x >= 64 or not r["strat_rows"]) // 64 * 64
         want = quantize_block(S, min(bucket(max(r["lens"]) - S, 64), r["pcap"] - S), r["pcap"])
         if (r["S"], r["W"]) != want:
             fail(f"{name}: round {i} prefilled [{r['S']}, {r['S'] + r['W']}), the reuse rule "
                  f"gives {want} (reused {r['reused']})")
     L = cfg.dec_layers
     deep = [r for r in rounds if r["S"] > 0]
-    b5_deep = [b for b in rec["b5"] if b[2] > 0]
-    if not eng.kv8 and len(b5_deep) != L * len(deep):
-        fail(f"{name}: {len(b5_deep)} B5 calls at start > 0 over {len(deep)} rounds at S > 0")
+    host = [b for b in rec["b5"] if b[5] and not b[4]]
+    if host:
+        fail(f"{name}: {len(host)} B5 calls of the round prefill at a host start: {host[:4]}")
+    b5_deep = {k: n for k, n in b5_round_launches(rec).items() if k[1] > 0}
+    want = 0 if eng.kv8 else L * len(deep)
+    if sum(b5_deep.values()) != want:
+        fail(f"{name}: {sum(b5_deep.values())} B5 launches at start > 0 measured over "
+             f"{len(deep)} rounds at S > 0 (expected {want})")
     chunk_ms = [ms for v in views for ms in v.perf.stream_chunk_ms]
     totals = [rec["prefill"].get(id(v), (0, 0)) for v in views]
     by_b = {}
@@ -2687,21 +2885,24 @@ def mstream_summary(name: str, eng, rec, cfg) -> dict:
         "card": CARD_LINE, "sessions": len(views), "audio_s": perf.audio_ms / 1000.0,
         "total_ms": perf.total_ms, "realtime_factor": perf.audio_ms / perf.total_ms,
         "rounds": len(rounds), "round_ms_p50_p99": percentiles([r["wall_ms"] for r in rounds]),
-        "round_prefill_ms_p50_p99": percentiles([r["prefill_ms"] for r in rounds]),
+        **prefill_split(rounds, rec),
         "round_pre_encode_ms_p50_p99": percentiles([r["pre_encode_ms"] for r in rounds]),
         "chunk_ms_p50_p99": percentiles(chunk_ms),
         "first_commit_ms": [v.perf.stream_first_commit_ms for v in views],
         "prefill_rows": sum(t for t, _ in totals), "reused_rows": sum(u for _, u in totals),
         "reused_share": sum(u for _, u in totals) / max(sum(t for t, _ in totals), 1),
         "rounds_at_S_gt_0": len(deep), "share_rounds_at_S_gt_0": len(deep) / len(rounds),
-        "b5_launches_start_gt_0": len(b5_deep),
-        "b5_start_gt_0_by_W": {W: sum(1 for b in b5_deep if b[1] == W)
-                               for W in sorted({b[1] for b in b5_deep})},
+        "b5_launches_start_gt_0": sum(b5_deep.values()),
+        "b5_start_gt_0_by_W": {W: sum(n for k, n in b5_deep.items() if k[2] == W)
+                               for W in sorted({k[2] for k in b5_deep})},
         "S_W_pcap_range": ([[min(r[k] for r in deep), max(r[k] for r in deep)]
                             for k in ("S", "W", "pcap")] if deep else None),
         "compactions": record["compactions"], "grows": record["grows"],
         "caches": record["caches"], "graph_captures": perf.graph_captures,
         "graph_capture_ms": perf.graph_capture_ms,
+        "round_prefill_captures": perf.prefill_captures,
+        "round_prefill_capture_ms": perf.prefill_capture_ms,
+        "round_prefill_replays": perf.prefill_replays,
         "decode_ms_per_step_by_B": {B: ms / max(st, 1) for B, (ms, st, _) in sorted(by_b.items())},
         "rounds_by_B": {B: n for B, (_, _, n) in sorted(by_b.items())},
         "decode_steps": perf.batch_decode_steps, "wasted_steps": perf.wasted_steps,
@@ -2715,23 +2916,31 @@ def mstream_summary(name: str, eng, rec, cfg) -> dict:
 
 def run_mstream(argv, name: str, cfg, turns=("eager", "graph"), prompts: bool = False):
     """One multistream run through the CLI per turn: the decode loops' steps
-    run eagerly, then as CUDA graphs (`decode_mode`).  Each turn's launches
-    must equal its bookkeeping; the turns' per-session chunk tokens and
-    counts, and their decode chunks, must be equal.  Returns the last
-    turn's (engine, launches, stdout lines, record)."""
+    and the round prefills run eagerly, then as CUDA graphs (`decode_mode`).
+    Each turn's launches must equal its bookkeeping; in a graph turn the
+    round prefill graphs captured must be at most their (cache, B, W) keys,
+    each launching B5 once per layer (none on an int8 cache) and the head
+    once per replay; the turns' per-session chunk tokens and counts, and
+    their decode chunks, must be equal, and their round prefill ms and its
+    parts are printed side by side.  Returns the last turn's (engine,
+    launches, stdout lines, record)."""
     import gc
 
-    out = {}
+    out, splits = {}, {}
     for mode in turns:
         with decode_mode(mode) as drec, mstream_record(prompts) as rec:
             eng, launches, lines, _ = run_cli(argv, f"{name} ({mode})")
         check_mstream_launches(f"{name} ({mode})", launches, eng, rec, cfg)
+        if mode == "graph" and DEV == "cuda":
+            check_prefill_graphs(f"{name} ({mode})", eng, drec, cfg)
         out[mode] = (eng, launches, lines, rec, drec)
+        splits[mode] = prefill_split(eng.perf.multistream["rounds"], rec)
         if mode != turns[-1]:
             r = eng.perf.multistream["rounds"]
             log(f"  {name} ({mode}): decode ms per step "
                 f"{sum(x['decode_ms'] for x in r) / max(sum(x['steps'] for x in r), 1):.2f}, "
-                f"realtime factor {eng.perf.audio_ms / eng.perf.total_ms:.2f}x")
+                f"realtime factor {eng.perf.audio_ms / eng.perf.total_ms:.2f}x, "
+                f"round prefill {json.dumps(splits[mode])}")
             del eng
             out[mode] = out[mode][1:]
             gc.collect()
@@ -2744,10 +2953,56 @@ def run_mstream(argv, name: str, cfg, turns=("eager", "graph"), prompts: bool = 
             fail(f"{name}: the decode chunks differ between the eager and graph turns")
         log(f"  {name}: eager and graph turns equal over "
             f"{sum(len(c) for c in session_chunks(rec))} session chunks and "
-            f"{len(drec['chunks'])} decode chunks")
+            f"{len(drec['chunks'])} decode chunks; round prefill by turn [{CARD_LINE}]: "
+            f"{json.dumps(splits)}")
     if eng.perf.multistream:
         mstream_summary(name, eng, rec, cfg)
+        MSTREAM_RUNS[name]["round_prefill_by_turn"] = splits
     return eng, launches, lines, rec
+
+
+def check_prefill_graphs(name: str, eng, drec, cfg) -> None:
+    """A graph turn's round prefill graphs: each (cache, B, W) key's calls
+    in order (a cache is one (B, kcap): growth raises kcap, compaction
+    halves B) run as `multistream._round_prefill` says -- eager before its
+    PREFILL_GRAPH_CALL-th call (the one before it a warm run on the capture
+    stream for the run's first graph alone), captured at that call, then
+    replayed --, captured at most once per key, the captures and replays
+    those PerfStats counts, each replay launching B5 once per layer (none
+    on an int8 cache) and one greedy head."""
+    from smolvision_tpu_torch.runtime.multistream import PREFILL_GRAPH_CALL
+
+    perf, keys = eng.perf, drec["delta_prefill_keys"]
+    rounds = perf.multistream["rounds"]
+    if not perf.prefill_captures <= keys:
+        fail(f"{name}: {perf.prefill_captures} round prefill graphs captured over {keys} "
+             f"(cache, B, W) keys")
+    calls = {}
+    for r in rounds:
+        calls.setdefault((r["B"], r["kcap"], r["W"]), []).append(r["prefill_call"])
+    warmed = [key for key, seq in calls.items() if "warm" in seq]
+    if len(warmed) > 1:
+        fail(f"{name}: round prefill keys {warmed} each warmed the capture stream")
+    for key, seq in calls.items():
+        w = int(key in warmed)
+        want = ["eager"] * (PREFILL_GRAPH_CALL - 1 - w) + ["warm"] * w + ["capture"]
+        want = (want + ["replay"] * len(seq))[: len(seq)]
+        if seq != want:
+            fail(f"{name}: round prefill key (B, kcap, W) {key} ran {seq}, expected {want}")
+    # PerfStats counts a capture's own replay as a replay
+    kinds = [r["prefill_call"] for r in rounds]
+    captured, replayed = kinds.count("capture"), kinds.count("replay")
+    if (captured, captured + replayed) != (perf.prefill_captures, perf.prefill_replays):
+        fail(f"{name}: rounds {captured} captured, {replayed} replayed; PerfStats "
+             f"{perf.prefill_captures} captures / {perf.prefill_replays} replays")
+    b5 = "batched_cache_attention"
+    for kind, launches in drec["graphs"]:
+        if kind != "delta_prefill":
+            continue
+        heads = {k: n for k, n in launches.items() if k != b5}
+        if launches.get(b5, 0) != (0 if eng.kv8 else cfg.dec_layers) or \
+                list(heads.values()) != [1] or not next(iter(heads)).startswith("argmax"):
+            fail(f"{name}: a round prefill graph launches {launches} per replay")
 
 
 def solo_streams(eng, clips) -> tuple:
@@ -2831,7 +3086,9 @@ def phase_multistream(model_dir: str, wavs, cfg) -> dict:
     graph turns) against the same clips streamed solo one after another;
     `--q8 --kv8` (graph turn: K7 at R = B, the int8 batched cache through
     the two-part attention, kv_rows_gather on a QuantKV); `--f32` on the
-    first MSTREAM_F32_CLIPS clips against their solo runs; the threaded
+    first MSTREAM_F32_CLIPS clips against their solo runs, then on them the
+    forced stratified reset-row prefill against the default
+    (`strat_against_default`); the threaded
     mode (SMOLVISION_BATCH_STREAMS=0) on the first MSTREAM_THREADED_CLIPS,
     whose texts must equal the batched run's.  Returns the bf16 graph
     turn's launches and record.  The solo runs read the same WAV files as
@@ -2851,6 +3108,8 @@ def phase_multistream(model_dir: str, wavs, cfg) -> dict:
     with mock.patch.object(multistream, "_encode_batch_device_mel",
                            lambda e, spans, *a: calls.append(list(spans)) or real(e, spans, *a)):
         eng, launches, lines, bf16_rec = run_mstream(base + ["-i", *wavs], name, cfg)
+    if DEV == "cuda" and not eng.perf.prefill_replays:
+        fail(f"{name}: no round prefill replayed a graph")
     mel_rounds = calls[len(calls) // 2:]
     if not mel_rounds or [len(g) for g in calls[: len(calls) // 2]] != [len(g) for g in mel_rounds]:
         fail(f"{name}: the device front end pre-encoded {[len(g) for g in calls]} spans per "
@@ -2866,7 +3125,7 @@ def phase_multistream(model_dir: str, wavs, cfg) -> dict:
              f"rounds prefilled at start > 0 ({share:.3f}, under {MSTREAM_MIN_DEEP_SHARE}: "
              f"B5's cache half ran too little)")
     b5_runs = [("bf16", str(eng.batched_kv_dtype).replace("torch.", ""), record["rounds"],
-                bf16_rec["b5"])]
+                b5_round_launches(bf16_rec))]
     if [r["B"] for r in record["rounds"]][:1] != [8] or record["compactions"] < 2:
         fail(f"{name}: rows {sorted({r['B'] for r in record['rounds']})}, "
              f"{record['compactions']} compactions (expected B 8 compacted to 4, then 2)")
@@ -2904,7 +3163,8 @@ def phase_multistream(model_dir: str, wavs, cfg) -> dict:
     log(f"  --stream x{k} --f32 against each clip's solo --stream --f32 run (near-tie bound "
         f"{2.0 * F32_LOGIT_DIFF:.4g}): {json.dumps(partings)}")
     b5_runs.append(("f32", str(eng.batched_kv_dtype).replace("torch.", ""),
-                    eng.perf.multistream["rounds"], rec["b5"]))
+                    eng.perf.multistream["rounds"], b5_round_launches(rec)))
+    MSTREAM_RUNS["forced stratified --f32"] = strat_against_default(eng, clips[:k], cfg)
     del eng
 
     m = MSTREAM_THREADED_CLIPS
@@ -2929,15 +3189,64 @@ def phase_multistream(model_dir: str, wavs, cfg) -> dict:
             "mel_rounds": mel_rounds}
 
 
+def strat_against_default(eng, clips, cfg) -> dict:
+    """The stratified reset-row prefill (SMOLVISION_MSTREAM_STRAT=1) on the
+    warm engine, in process, as the JAX package's test sets it: prompts
+    append-only (no past-text conditioning), the recovery resets off,
+    MSTRAT_MIN_S 64, MSTRAT_MIN_ACTIVE 2.  A default run, then one with row
+    0 forced to reuse 0 (MSTRAT_TEST_FORCE_RESET {0}) and the stratified
+    prefill on: equal session chunks, `_strat_round_count` > 0, each run's
+    launches its bookkeeping (the stratified rounds' B5 and head at R
+    Gcap included)."""
+    from smolvision_tpu_torch.kernels import ffi
+    from smolvision_tpu_torch.runtime import multistream, stream
+
+    t0 = time.monotonic()
+    runs = {}
+    with contextlib.ExitStack() as stack:
+        for attr in ("DEGEN_MIN_REPEATS", "STALE_CHUNKS", "MAX_REPEAT_TOKEN_RUN"):
+            stack.enter_context(mock.patch.object(stream, attr, 1 << 30))
+        stack.enter_context(mock.patch.object(multistream, "MSTRAT_MIN_S", 64))
+        stack.enter_context(mock.patch.object(multistream, "MSTRAT_MIN_ACTIVE", 2))
+        stack.enter_context(mock.patch.object(eng, "past_text_conditioning", False))
+        for arm, force, env in (("default", frozenset(), {}),
+                                ("forced strat", frozenset({0}),
+                                 {"SMOLVISION_MSTREAM_STRAT": "1"})):
+            eng.perf.reset()
+            eng._strat_round_count = 0
+            with mock.patch.object(multistream, "MSTRAT_TEST_FORCE_RESET", force), \
+                    mock.patch.dict(os.environ, env), mstream_record() as rec:
+                ffi.reset_launch_counts()
+                multistream.run_streams_batched(eng, clips)
+                launches = dict(ffi.launch_counts)
+            check_mstream_launches(f"multistream {arm}", launches, eng, rec, cfg)
+            rounds = eng.perf.multistream["rounds"]
+            runs[arm] = {"chunks": session_chunks(rec), "strat_rounds": eng._strat_round_count,
+                         "rounds": len(rounds),
+                         "S": [r["S"] for r in rounds],
+                         "strat_rows": [r["strat_rows"] for r in rounds if r["strat_rows"]]}
+    out = {"card": CARD_LINE, "clips": len(clips), "seconds": time.monotonic() - t0,
+           **{arm: {k: v for k, v in r.items() if k != "chunks"} for arm, r in runs.items()}}
+    log(f"  forced stratified run against the default on {len(clips)} clips: {json.dumps(out)}")
+    if runs["forced strat"]["strat_rounds"] <= 0:
+        fail("the forced stratified run never stratified a round")
+    if runs["forced strat"]["chunks"] != runs["default"]["chunks"]:
+        fail("the forced stratified run's session chunks differ from the default run's")
+    return out
+
+
 def mstream_b5_table(b5_runs, L: int) -> list:
     """B5 at the rounds at start > 0 of phase 10's runs (label, cache type,
-    rounds, the run's B5 calls as (B, T, start, K)).  Each such round's
-    shape -- B, S, W, pcap, kcap and its per-row prompt_max, region_start
-    = pcap, kv_min 0 -- is checked against the plain version (KERNEL_ATOL)
-    on the run's cache type; then one timing row per distinct (run, B, S,
-    W, pcap, kcap) at its first round's prompt_max, its launches the run's
-    B5 calls at that shape (one per layer per round, else it fails).  SDPA
-    gets the same rows as one key sequence per row (the cache's [0, S)
+    rounds, the run's measured B5 launches by round key (B, S, W, K):
+    `b5_round_launches`).  Each such round's shape -- B, S, W, pcap, kcap
+    and its per-row prompt_max, region_start = pcap, kv_min 0 -- is checked
+    against the plain version (KERNEL_ATOL) on the run's cache type, with S
+    a host int and a device tensor (the round prefill's form); then one
+    timing row per distinct (run, B, S, W, pcap, kcap) at its first round's
+    prompt_max, at a device start, its launches the run's measured B5
+    launches at (B, S, W, kcap), which must be one per layer per round at
+    that shape (pcap apart: rounds that share a cache share a kcap).
+    SDPA gets the same rows as one key sequence per row (the cache's [0, S)
     under prompt_max, then the block, causal, in the cache's type); the
     bound reads q, the fresh K/V and each row's live cache rows once and
     writes the output, and counts the products the masks keep."""
@@ -2950,6 +3259,7 @@ def mstream_b5_table(b5_runs, L: int) -> list:
         return torch.tensor(values, dtype=torch.int32, device=DEV)
 
     shapes = {}   # (label, B, S, W, pcap, kcap) -> (cache type, [prompt_max per round])
+    measured = {label: counts for label, _, _, counts in b5_runs}
     for label, dtype, rounds, _ in b5_runs:
         for r in rounds:
             if r["S"] > 0:
@@ -2961,21 +3271,27 @@ def mstream_b5_table(b5_runs, L: int) -> list:
     for (label, B, S, W, pcap, kcap), (dtype, pms) in shapes.items():
         name = f"batched_cache_attention_mstream_{label}_B{B}_S{S}_W{W}_pcap{pcap}"
         q, kn, vn = batched_case(B, W)
+        at = torch.tensor([S], dtype=torch.int64, device=DEV)
         for pm in pms:
             kc, vc = batched_cache(B, kcap, S, [0] * B, pm, pcap, dtype=dtype)
-            args = (q, kn, vn, kc, vc, S, ints([0] * B), ints(pm), pcap)
-            err = check_close(f"B5 at a multistream round ({label}): B={B} W={W} S={S} "
-                              f"pcap={pcap} kcap={kcap} prompt_max={pm}",
-                              fa.batched_cache_flash_attention(*args),
-                              fa.batched_cache_attention_plain(*args))
-            errs[name] = max(errs.get(name, 0.0), err)
-        calls = sum(1 for b in next(run[3] for run in b5_runs if run[0] == label)
-                    if b == (B, W, S, kcap))
-        if calls != L * len(pms):
-            fail(f"{name}: {calls} B5 calls at this shape over {len(pms)} rounds")
+            rest = (ints([0] * B), ints(pm), pcap)
+            want = fa.batched_cache_attention_plain(q, kn, vn, kc, vc, S, *rest)
+            for start in (S, at):
+                err = check_close(f"B5 at a multistream round ({label}): B={B} W={W} S={S} "
+                                  f"pcap={pcap} kcap={kcap} prompt_max={pm} "
+                                  f"{type(start).__name__} start",
+                                  fa.batched_cache_flash_attention(q, kn, vn, kc, vc, start,
+                                                                   *rest), want)
+                errs[name] = max(errs.get(name, 0.0), err)
+        rounds_at = sum(len(p) for (lb, b, s, w, _, kc), (_, p) in shapes.items()
+                        if (lb, b, s, w, kc) == (label, B, S, W, kcap))
+        calls = measured[label].get((B, S, W, kcap), 0)
+        if calls != L * rounds_at:
+            fail(f"{name}: {calls} B5 launches measured at (B, S, W, kcap) over {rounds_at} "
+                 f"rounds at that shape (expected {L * rounds_at})")
         pm = pms[0]
         kc, vc = batched_cache(B, kcap, S, [0] * B, pm, pcap, dtype=dtype)
-        args = (q, kn, vn, kc, vc, S, ints([0] * B), ints(pm), pcap)
+        args = (q, kn, vn, kc, vc, at, ints([0] * B), ints(pm), ints([pcap] * B))
         H, D = q.shape[2:]
         KH = kn.shape[2]
         live = [min(S, p) for p in pm]
@@ -4150,11 +4466,7 @@ def omni_int8_kernel_table(shapes, runs: dict) -> list:
         kern = lambda h=h, w=w, s=scale: am.argmax_matvec(h, w, s)   # noqa: E731
         plain = lambda h=h, w=w, s=scale: am.argmax_matvec_plain(h, w, s)   # noqa: E731
         p1, k1, k2, p2 = (time_ms(f) for f in (plain, kern, kern, plain))
-        lib_ms = None
-        if kind == "bfloat16":
-            hb = h.to(torch.bfloat16)
-            lib_ms = time_ms(lambda hb=hb, w=w: torch.argmax(
-                torch.mm(hb, w.t(), out_dtype=torch.float32), dim=-1))
+        lib_ms = time_ms(head_library(h, w, scale))
         nbytes = w.numel() * w.element_size() + (0 if scale is None else 4 * V) + 4 * R * (Hd + 1)
         bound_ms, bound_by = bound(nbytes, 2.0 * R * V * Hd, kind)
         route = am.head_route(R, w.dtype)
@@ -4167,8 +4479,8 @@ def omni_int8_kernel_table(shapes, runs: dict) -> list:
                       "design": route.replace("_", " ") + "s",
                       "launches": run[am.launch_key(route, w.dtype)]})
         log(f"  {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, library "
-            + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none (no one PyTorch call)")
-            + f", bound {bound_ms:.4f} ms ({bound_by}); launches {table[-1]['launches']}")
+            f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); launches "
+            f"{table[-1]['launches']}")
         del h, w
     return table
 

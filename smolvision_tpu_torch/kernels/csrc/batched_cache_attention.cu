@@ -10,6 +10,12 @@
 // cache yet.  One online softmax in f32 runs over both; a row that attends
 // no key returns 0.  At start == 0 the cache is not read at all.
 //
+// `start` is read from device memory, as the Pallas kernel takes it as a
+// scalar-prefetch operand: multistream's round prefill keeps its start on
+// the device, and one CUDA graph of it per block width replays at every
+// start (runtime/decode_graph.py).  The grid depends on T alone; the walk
+// over the cache's columns is bounded by `start` inside the block.
+//
 // Bound on the card: bytes at the serving shapes (the cache and the block
 // are each read once per KV head; the products take the tensor cores a
 // fraction of the bytes' time, where in f32 on the CUDA cores they took the
@@ -32,8 +38,8 @@
 // cache_h, cache_row) elements, 16-byte aligned rows: the views kv[l, 0] /
 // kv[l, 1] of the [L, 2, B, KH, K, D] batched cache.  kv_min [B],
 // prompt_max [B] (or null), region_start [B] (or null, then the scalar
-// region_start_all) are int32 on the device.  Grid ceil(T / floor(64 / G))
-// * B * KH blocks of 256 threads.
+// region_start_all) and start (one int) are int32 on the device.  Grid
+// ceil(T / floor(64 / G)) * B * KH blocks of 128 threads (one warp group).
 
 #include "mma_attention.cuh"
 
@@ -52,9 +58,10 @@ batched_cache_kernel(const float* __restrict__ q, const float* __restrict__ k_ne
                      const KV* __restrict__ v_cache, const int* __restrict__ kv_min,
                      const int* __restrict__ prompt_max, const int* __restrict__ region_start,
                      int region_start_all, float* __restrict__ out, int B, int T, int H, int KH,
-                     long long cache_b, long long cache_h, long long cache_row, int start,
-                     float scale) {
+                     long long cache_b, long long cache_h, long long cache_row,
+                     const int* __restrict__ start_ptr, float scale) {
     extern __shared__ __align__(16) unsigned char smem[];
+    const int start = __ldg(start_ptr);
     const int G = H / KH, P = sv::kMmaRows / G;
     const int n_qtiles = (T + P - 1) / P;
     const int qtile = n_qtiles - 1 - static_cast<int>(blockIdx.x) / (B * KH);  // heaviest first
@@ -91,7 +98,7 @@ template <int D, typename KV>
 int launch(const float* q, const float* k_new, const float* v_new, const void* k_cache,
            const void* v_cache, const int* kv_min, const int* prompt_max,
            const int* region_start, int region_start_all, float* out, int B, int T, int H,
-           int KH, long long cache_b, long long cache_h, long long cache_row, int start,
+           int KH, long long cache_b, long long cache_h, long long cache_row, const int* start,
            float scale, cudaStream_t stream) {
     const size_t smem = sv::mma_smem_bytes(D, kGroups);
     cudaError_t e = cudaFuncSetAttribute(batched_cache_kernel<D, KV>,
@@ -109,8 +116,8 @@ template <typename KV>
 int dispatch(const float* q, const float* k_new, const float* v_new, const void* k_cache,
              const void* v_cache, const int* kv_min, const int* prompt_max,
              const int* region_start, int region_start_all, float* out, int B, int T, int H,
-             int KH, int D, long long cache_b, long long cache_h, long long cache_row, int start,
-             float scale, cudaStream_t st) {
+             int KH, int D, long long cache_b, long long cache_h, long long cache_row,
+             const int* start, float scale, cudaStream_t st) {
     switch (D) {
         case 64:
             return launch<64, KV>(q, k_new, v_new, k_cache, v_cache, kv_min, prompt_max,
@@ -133,7 +140,7 @@ extern "C" int sv_batched_cache_attention(const float* q, const float* k_new, co
                                           const int* region_start, int region_start_all,
                                           float* out, int B, int T, int H, int KH, int D,
                                           long long cache_b, long long cache_h,
-                                          long long cache_row, int start, int kv_bf16,
+                                          long long cache_row, const int* start, int kv_bf16,
                                           float scale, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (B <= 0 || T <= 0) return 0;

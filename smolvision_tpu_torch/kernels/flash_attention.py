@@ -53,7 +53,7 @@ _SIGNATURES = {
     "sv_causal_cache_attention": ("causal_cache_attention", "ppppiiiilppiifp"),
     "sv_decode_attention": ("decode_attention", "ppppppiiilppiifp"),
     "sv_batched_causal_attention": ("batched_causal_attention", "pppppiiiiifp"),
-    "sv_batched_cache_attention": ("batched_cache_attention", "ppppppppipiiiiillliifp"),
+    "sv_batched_cache_attention": ("batched_cache_attention", "ppppppppipiiiiilllpifp"),
 }
 
 
@@ -380,37 +380,45 @@ def batched_causal_flash_attention(q, k, v, kv_min):
 # B5: batched delta prefill (block vs cache + itself)
 # ---------------------------------------------------------------------------
 
-def batched_cache_attention_plain(q, k_new, v_new, k_cache, v_cache, start_pos: int,
-                                  kv_min, prompt_max=None, region_start=None):
+def batched_cache_attention_plain(q, k_new, v_new, k_cache, v_cache, start_pos, kv_min,
+                                  prompt_max=None, region_start=None):
     """q: [B, T, H, D] at cache rows start_pos + t; k_new/v_new: [B, T, KH, D]
     (not yet in the cache); k/v_cache: [B, KH, K, D].  Row b attends the cache
     columns [kv_min[b], start_pos) ∩ ([0, prompt_max[b]) ∪ [region_start[b],
     K)) (every column of [kv_min[b], start_pos) without prompt_max) and the
     fresh columns c <= t with start_pos + c >= kv_min[b].  Cache columns
     outside the window are zeroed before any product.  A row with no key
-    gives 0.  Returns [B, T, H, D] f32."""
+    gives 0.  Returns [B, T, H, D] f32.
+
+    With a host int start_pos it reads the columns [0, start_pos) only.
+    With a device start (a one-element int tensor, as multistream's round
+    prefill graph keeps it) it is the fixed-shape form: every one of the K
+    columns under a mask built from the tensor, with no host read."""
     B, T, H, D = q.shape
-    KH = k_new.shape[2]
     dev = q.device
     km = kv_min.to(device=dev, dtype=torch.int64)
-    cols = torch.arange(start_pos, device=dev)
-    live = (cols[None, :] >= km[:, None])                                  # [B, start]
+    if isinstance(start_pos, torch.Tensor):
+        n, start = k_cache.shape[2], start_pos.reshape(1).to(device=dev, dtype=torch.int64)
+    else:
+        n = start = start_pos
+    cols = torch.arange(n, device=dev)
+    live = (cols[None, :] >= km[:, None]) & (cols[None, :] < start)        # [B, n]
     if prompt_max is not None:
         pm = _rows_i32(prompt_max, B, dev).long()
         rs = _rows_i32(region_start, B, dev).long()
         live = live & ((cols[None, :] < pm[:, None]) | (cols[None, :] >= rs[:, None]))
     keep = live[:, None, :, None]
-    kc = torch.where(keep, k_cache[:, :, :start_pos].float(), 0.0)        # [B, KH, S, D]
-    vc = torch.where(keep, v_cache[:, :, :start_pos].float(), 0.0)
+    kc = torch.where(keep, k_cache[:, :, :n].float(), 0.0)                 # [B, KH, n, D]
+    vc = torch.where(keep, v_cache[:, :, :n].float(), 0.0)
     s = torch.cat([_grouped_scores(q, kc.transpose(1, 2)),
-                   _grouped_scores(q, k_new)], dim=-1)                    # [B, KH, G, T, S+T]
+                   _grouped_scores(q, k_new)], dim=-1)                    # [B, KH, G, T, n+T]
     ar = torch.arange(T, device=dev)
     fresh = ((ar[None, :] <= ar[:, None])[None]
-             & (start_pos + ar[None, None, :] >= km[:, None, None]))      # [B, T, T]
-    mask = torch.cat([live[:, None, :].expand(B, T, start_pos), fresh], dim=-1)
+             & (start + ar[None, None, :] >= km[:, None, None]))          # [B, T, T]
+    mask = torch.cat([live[:, None, :].expand(B, T, n), fresh], dim=-1)
     p = _masked_probs(s, mask[:, None, None])
-    out = (torch.einsum("bkgts,bksd->btkgd", p[..., :start_pos], vc)
-           + torch.einsum("bkgts,bskd->btkgd", p[..., start_pos:], v_new.float()))
+    out = (torch.einsum("bkgts,bksd->btkgd", p[..., :n], vc)
+           + torch.einsum("bkgts,bskd->btkgd", p[..., n:], v_new.float()))
     return out.reshape(B, T, H, D)
 
 
@@ -452,14 +460,17 @@ def batched_decode_attention(q, k_new, v_new, k_cache, v_cache, pos, kv_min,
     return out.reshape(B, T, H, D)
 
 
-def batched_cache_flash_attention(q, k_new, v_new, k_cache, v_cache, start_pos: int,
+def batched_cache_flash_attention(q, k_new, v_new, k_cache, v_cache, start_pos,
                                   kv_min, prompt_max=None, region_start=None):
     """Batched GQA attention of a fresh query block against the cache plus
     its own K/V, causal within the block (kernel B5 on CUDA, on the tensor
     cores: two mma.sync per product on a bf16 cache, three on the f32 cache
-    and the fresh K/V).  start_pos is a host int shared by the batch;
-    kv_min / prompt_max are [B]; region_start is an int or [B] (used only
-    with prompt_max)."""
+    and the fresh K/V).  The kernel reads start_pos, shared by the batch,
+    from device memory: pass a one-element int32 / int64 device tensor (the
+    round prefill's start, which a CUDA graph holds; checked by its owner)
+    or a host int (filled in on the device here, and checked against the
+    cache).  kv_min / prompt_max are [B]; region_start is an int or [B]
+    (used only with prompt_max)."""
     if not q.is_cuda:
         return batched_cache_attention_plain(q, k_new, v_new, k_cache, v_cache, start_pos,
                                              kv_min, prompt_max, region_start)
@@ -477,7 +488,10 @@ def batched_cache_flash_attention(q, k_new, v_new, k_cache, v_cache, start_pos: 
     ffi.require(k_cache.data_ptr() % 16 == 0 and v_cache.data_ptr() % 16 == 0
                 and all(x * k_cache.element_size() % 16 == 0 for x in k_cache.stride()[:3]),
                 "cache rows must be 16-byte aligned")
-    ffi.require(0 <= start_pos <= K, "positions out of the cache")
+    if not isinstance(start_pos, torch.Tensor):
+        ffi.require(0 <= start_pos <= K, "positions out of the cache")
+    start = _position_i32(start_pos, q.device)
+    ffi.check_cuda(q, start)
     pm_ptr = rs_ptr = None
     rs_all = 0
     if prompt_max is not None:
@@ -493,7 +507,7 @@ def batched_cache_flash_attention(q, k_new, v_new, k_cache, v_cache, start_pos: 
     _call("sv_batched_cache_attention", q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
           k_cache.data_ptr(), v_cache.data_ptr(), km.data_ptr(), pm_ptr, rs_ptr, rs_all,
           out.data_ptr(), B, T, H, KH, D, k_cache.stride(0), k_cache.stride(1),
-          k_cache.stride(2), start_pos, int(k_cache.dtype == torch.bfloat16),
+          k_cache.stride(2), start.data_ptr(), int(k_cache.dtype == torch.bfloat16),
           1.0 / math.sqrt(D), ffi.stream())
     ffi.launch_counts["batched_cache_attention"] += 1
     return out

@@ -368,21 +368,23 @@ def batched_decoder_forward(params, cfg: ModelConfig, embeds: torch.Tensor, star
                             group=None):
     """Run the layer stack over `embeds` [B, T, H] written into cache rows
     start_pos..start_pos+T-1 of every batch row.  start_pos is a host int,
-    or, for the decode step, an int64 device tensor [1]: then the attention
-    reads the whole cache under a mask built from it
-    (`fa.batched_decode_attention`, the JAX package's full-Kcap two-part
-    form; an int8 cache widened whole) and the rows are written with
-    index_copy_, so nothing depends on the position's value on the host.
+    or an int64 device tensor [1] (the decode step's position, multistream's
+    round prefill graph's start): then the rows are written with
+    index_copy_ and the attention reads its start from the device, so
+    nothing depends on the position's value on the host.
 
     rope_start [B]: logical position of block row 0 per row (negative for
     left-pad rows).  kv_min [B]: cache rows below it are left-pad garbage.
     fresh_prefill: start_pos == 0 and the whole context is this block ->
     kernel B4.  Otherwise, on a bf16 / f32 cache, a block of T > 1 runs
     kernel B5 against the cache (with the natural-layout mask prompt_max /
-    region_start when given), and a decode step (T == 1) the plain two-part
-    attention; on an int8 cache (QuantKV) both run the two-part attention
-    on the widened rows.  There is no size crossover.  An MoE layer's FFN
-    takes the B * T rows as one block (graph-safe at a device position).
+    region_start when given; at a device start B5 reads it from device
+    memory).  A decode step (T == 1), and any block on an int8 cache
+    (QuantKV), runs the plain two-part attention: at a device position the
+    JAX package's full-Kcap form (`fa.batched_decode_attention`, an int8
+    cache widened whole), at a host int on the rows below it.  There is no
+    size crossover.  An MoE layer's FFN takes the B * T rows as one block
+    (graph-safe at a device position).
 
     Tensor parallelism: `group` is the "model" axis whose n ranks each hold
     a 1/n part of the interleaved weights (parallel/mesh.shard_params) and
@@ -418,14 +420,14 @@ def batched_decoder_forward(params, cfg: ModelConfig, embeds: torch.Tensor, star
         k_cache, v_cache = kv[i, 0], kv[i, 1]                  # [B, KH, K, D]
         if fresh_prefill:
             attn = fa.batched_causal_flash_attention(q, k, v, kv_min)
+        elif T > 1 and not kv8:
+            attn = fa.batched_cache_flash_attention(q, k, v, k_cache, v_cache, start_pos, kv_min,
+                                                    prompt_max, region_start)
         elif device_pos:
             if kv8:
                 k_cache, v_cache = kv_read(k_cache), kv_read(v_cache)
             attn = fa.batched_decode_attention(q, k, v, k_cache, v_cache, start_pos, kv_min,
                                                prompt_max, region_start)
-        elif T > 1 and not kv8:
-            attn = fa.batched_cache_flash_attention(q, k, v, k_cache, v_cache, start_pos, kv_min,
-                                                    prompt_max, region_start)
         else:
             # a block at a host position on an int8 cache (or a one-row
             # block): the JAX package's two-part attention, which it
@@ -473,12 +475,14 @@ def batched_prefill(params, cfg: ModelConfig, embeds, kv, rope_start, kv_min,
     return _greedy_or_logits(params, cfg, hidden[:, T - 1], greedy, group), kv
 
 
-def batched_prefill_delta(params, cfg: ModelConfig, embeds, start_pos: int, kv, rope_start,
+def batched_prefill_delta(params, cfg: ModelConfig, embeds, start_pos, kv, rope_start,
                           kv_min, greedy: bool = True, last_rows=None, prompt_max=None,
                           region_start=None, group=None):
     """Delta prefill (kernel B5; the two-part attention on an int8 cache):
     the block writes cache rows [start_pos, start_pos + T) of every row and
-    attends each row's frozen context [kv_min[b], start_pos).  Row b's last
+    attends each row's frozen context [kv_min[b], start_pos).  start_pos is
+    a host int or an int64 device tensor [1] (multistream's round prefill
+    graph; its owner checks the rows against the cache).  Row b's last
     prompt token is at T - 1 (left-padded) or at last_rows[b] (natural
     layout).  Returns (tokens | logits, kv)."""
     T = embeds.shape[1]

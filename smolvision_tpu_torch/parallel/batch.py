@@ -15,7 +15,7 @@ import torch
 from smolvision_tpu_torch.config import EOS_TOKEN_IDS, ModelConfig
 from smolvision_tpu_torch.models import qwen3_decoder as dec_mod
 from smolvision_tpu_torch.ops.quant import QuantKV, kv_grow_k  # noqa: F401
-from smolvision_tpu_torch.runtime.decode_graph import DecodeLoop
+from smolvision_tpu_torch.runtime.decode_graph import BatchedPrefillGraph, DecodeLoop
 
 # KV cache layout [L, 2, B, KH, K, D] -- see models/qwen3_decoder.py
 make_batched_kv = dec_mod.make_batched_kv
@@ -51,6 +51,24 @@ def batched_decode_loop(params, cfg: ModelConfig, kv, batch: int, perf=None,
                           params, cfg, tok, pos, kv, group=group, **x),
                       batch, kv, kv.shape[4], kv.device, perf, {name: zeros for name in names},
                       data_group=data_group, eager=group is not None)
+
+
+def batched_prefill_graph(params, cfg: ModelConfig, kv, embeds: torch.Tensor,
+                          perf=None, stream=None, warm: bool = True) -> BatchedPrefillGraph:
+    """Multistream's round prefill on cache `kv` at a device start
+    (runtime/decode_graph.py: its first call eager -- unless `warm` is
+    False, then captured --, its second captured as a CUDA graph, later
+    ones replayed, on capture stream `stream` if given):
+    `run(embeds, start, rope_start=, kv_min=, last_rows=, prompt_max=,
+    region_start=)`, each input [B] int32, gives the greedy first tokens of
+    `batched_prefill_delta`, int32 [B].  One graph per block shape: embeds
+    [B, W, H] fixes B and W.  The graph holds `kv`: make a new one when the
+    cache is replaced."""
+    names = ("rope_start", "kv_min", "last_rows", "prompt_max", "region_start")
+    zeros = torch.zeros((embeds.shape[0],), dtype=torch.int32)
+    return BatchedPrefillGraph(lambda e, at, **x: dec_mod.batched_prefill_delta(
+                                   params, cfg, e, at, kv, **x)[0],
+                               embeds, {name: zeros for name in names}, perf, stream, warm)
 
 
 def batched_decode_chunk(params, cfg: ModelConfig, tokens, pos: int, kv, n_steps_cap: int,

@@ -6,18 +6,21 @@ Port of the JAX package's compiled device programs: `Engine._decode_chunk`
 DECODE_CHUNK greedy steps), `batched_decode_chunk`
 (smolvision_tpu/models/qwen3_decoder.py, the same for a batch),
 `Engine._get_spec_chunk` (--spec: a jitted `while_loop` of draft, verify and
-accept), `sample_chunk` (the thinker's sampled `while_loop`) and
-`_prefill_greedy` (prefill jit-compiled once per bucket).
+accept), `sample_chunk` (the thinker's sampled `while_loop`),
+`_prefill_greedy` (prefill jit-compiled once per bucket) and multistream's
+`prefill_delta_j` (the round's batched delta prefill, compiled once per
+block width with its start traced).
 PyTorch runs eagerly; the nearest form of a compiled device program is a
 CUDA graph of one step, replayed:
 
   * the state lives in static device tensors: for a loop the current
     tokens, the cache row `pos`, the step index, the chunk's token buffer
     and the rows' EOS flags; for a prefill its embeddings, start and valid
-    length.  One step -- a decoder forward, the greedy head and the
-    bookkeeping in `_step` -- reads and writes only those and the cache,
-    never the host, so it is captured once per (parameters, cache tensor,
-    shape) and replayed;
+    length (a batched round prefill: its rows' rope starts, left pads,
+    last rows and natural-layout masks).  One step -- a decoder forward,
+    the greedy head and the bookkeeping in `_step` -- reads and writes only
+    those and the cache, never the host, so it is captured once per
+    (parameters, cache tensor, shape) and replayed;
   * a loop step taken after every row is done changes nothing the host
     reads: the index, the position, the tokens and the buffer advance only
     while some row is live (the while_loop's condition), so a chunk's count
@@ -80,7 +83,7 @@ def capture(step, stream):
 class StepGraph:
     """One step captured for replay, with the kernel launches one replay
     makes (`launches`, by `ffi.launch_counts` key) and the kind of its
-    owner ("decode", "spec", "sample" or "prefill")."""
+    owner ("decode", "spec", "sample", "prefill" or "delta_prefill")."""
 
     def __init__(self, step, stream, kind: str = "decode"):
         self.kind = kind
@@ -98,15 +101,18 @@ class StepGraph:
 
 class _Captured:
     """A step (`_step`) on static device tensors, captured as a StepGraph on
-    a capture stream of its own (the card) and replayed."""
+    a capture stream (the card; its own unless `stream` is given: owners
+    whose graphs run one at a time may share one) and replayed."""
 
     kind = "decode"
 
-    def __init__(self, device, perf):
+    def __init__(self, device, perf, stream=None):
         self.perf = perf
         self.graph = None
         dev = torch.device(device)
-        self.stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        self.stream = stream
+        if stream is None and dev.type == "cuda":
+            self.stream = torch.cuda.Stream(dev)
 
     def _step(self) -> None:
         raise NotImplementedError
@@ -462,47 +468,41 @@ class SampleLoop(_ChunkLoop):
         return buf[None, :count], count, replays
 
 
-class PrefillGraph(_Captured):
-    """A greedy prefill of a block of T rows on one cache, at a device start
-    (the JAX engine's `_prefill_greedy`, compiled once per bucket).
-
-    `forward(embeds, start, valid)` is the prefill: embeds [T, H] written at
-    cache rows start.. (int64 [1]), valid (int64 [1]) of them real -> the
-    greedy token of row valid - 1, int32 [1].  The first call runs eagerly
-    on the capture stream, the second is captured and replayed, later ones
-    replay: a one-shot cache (offline, a sequential segment) never pays a
-    capture, a stream's recurring delta buckets replay."""
+class _Prefill(_Captured):
+    """What the prefill graphs share: the embeddings block and the start in
+    static device tensors, the greedy tokens of `rows` rows out, and the
+    calls: the first runs eagerly on the capture stream, the second is
+    captured and replayed, later ones replay -- a one-shot cache (offline,
+    a sequential segment) never pays a capture, recurring blocks replay.
+    With `warm` False (a shared capture stream that an earlier graph's
+    first run warmed, its owner having run the block eagerly) the first
+    call is captured."""
 
     kind = "prefill"
 
-    def __init__(self, forward, embeds: torch.Tensor, perf):
-        super().__init__(embeds.device, perf)
+    def __init__(self, forward, embeds: torch.Tensor, rows: int, perf, stream=None,
+                 warm: bool = True):
+        super().__init__(embeds.device, perf, stream)
+        self.warm = warm
         dev = embeds.device
         self.forward = forward
         self.embeds = torch.zeros_like(embeds)
         self.start = torch.zeros(1, dtype=torch.int64, device=dev)
-        self.valid = torch.zeros(1, dtype=torch.int64, device=dev)
-        self.tok = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.tok = torch.zeros(rows, dtype=torch.int32, device=dev)
         self.calls = 0
-
-    def _step(self) -> None:
-        self.tok.copy_(self.forward(self.embeds, self.start, self.valid).reshape(1))
 
     def _note_capture(self, ms: float) -> None:
         self.perf.prefill_captures += 1
         self.perf.prefill_capture_ms += ms
 
-    @torch.inference_mode()
-    def run(self, embeds: torch.Tensor, start: int, valid: int) -> torch.Tensor:
-        """The greedy token (int32, 0-dim) of prefilling `embeds` at cache
-        row `start` with `valid` real rows; the caller has checked the rows
-        against the cache."""
+    def _call(self, embeds: torch.Tensor, start: int) -> None:
+        """One prefill of `embeds` at cache row `start`, the other inputs
+        already in their static tensors; the tokens are left in `tok`."""
         self.embeds.copy_(embeds)
         self.start.fill_(int(start))
-        self.valid.fill_(int(valid))
         if self.graph is None:
             with self._on_stream():
-                if self.calls:
+                if self.calls or not self.warm:
                     self._capture()
                 else:
                     self._step()
@@ -511,4 +511,60 @@ class PrefillGraph(_Captured):
             if self.perf is not None:
                 self.perf.prefill_replays += 1
         self.calls += 1
+
+
+class PrefillGraph(_Prefill):
+    """A greedy prefill of a block of T rows on one cache, at a device start
+    (the JAX engine's `_prefill_greedy`, compiled once per bucket).
+
+    `forward(embeds, start, valid)` is the prefill: embeds [T, H] written at
+    cache rows start.. (int64 [1]), valid (int64 [1]) of them real -> the
+    greedy token of row valid - 1, int32 [1]."""
+
+    def __init__(self, forward, embeds: torch.Tensor, perf):
+        super().__init__(forward, embeds, 1, perf)
+        self.valid = torch.zeros(1, dtype=torch.int64, device=embeds.device)
+
+    def _step(self) -> None:
+        self.tok.copy_(self.forward(self.embeds, self.start, self.valid).reshape(1))
+
+    @torch.inference_mode()
+    def run(self, embeds: torch.Tensor, start: int, valid: int) -> torch.Tensor:
+        """The greedy token (int32, 0-dim) of prefilling `embeds` at cache
+        row `start` with `valid` real rows; the caller has checked the rows
+        against the cache."""
+        self.valid.fill_(int(valid))
+        self._call(embeds, start)
         return self.tok[0].clone()
+
+
+class BatchedPrefillGraph(_Prefill):
+    """Multistream's round prefill: a delta block of W rows of each of B
+    cache rows at a batch-uniform device start (the JAX package's
+    `prefill_delta_j`, compiled once per block width with the start
+    traced), one graph per (cache, B, W).
+
+    `forward(embeds, start, **inputs)` is the greedy delta prefill: embeds
+    [B, W, H] written at cache rows start.. (int64 [1]) -> the round's first
+    tokens, int32 [B].  `inputs` (name -> a tensor of its shape and type)
+    are its other static tensors, which `run` refreshes before each call."""
+
+    kind = "delta_prefill"
+
+    def __init__(self, forward, embeds: torch.Tensor, inputs, perf, stream=None,
+                 warm: bool = True):
+        super().__init__(forward, embeds, embeds.shape[0], perf, stream, warm)
+        self.inputs = {k: torch.zeros_like(v, device=embeds.device) for k, v in inputs.items()}
+
+    def _step(self) -> None:
+        self.tok.copy_(self.forward(self.embeds, self.start, **self.inputs))
+
+    @torch.inference_mode()
+    def run(self, embeds: torch.Tensor, start: int, **inputs) -> torch.Tensor:
+        """The first tokens (int32 [B], on the device) of prefilling
+        `embeds` at cache row `start`; the caller has checked the rows
+        against the cache."""
+        for name, value in inputs.items():
+            self.inputs[name].copy_(torch.as_tensor(value))
+        self._call(embeds, start)
+        return self.tok.clone()

@@ -20,7 +20,14 @@ and streaming state).  Two modes:
       - one batched delta prefill for all sessions (kernel B5 against the
         batched cache at start S > 0 once every row reuses 64 rows or
         more, per-row prompt_max, region_start = pcap; the two-part
-        attention on an int8 cache under --kv8);
+        attention on an int8 cache under --kv8) at a device start S: eager
+        until its (cache tensor, block width W) key has recurred twice,
+        then the key's CUDA graph, captured once and replayed
+        (runtime/decode_graph.BatchedPrefillGraph: the JAX package's
+        `prefill_delta_j`, compiled once per width with S traced;
+        `_round_prefill`, PREFILL_GRAPH_CALL); the embeddings and the
+        [S, S + W) slice are built eagerly ahead of its copy into the
+        graph's static block;
       - one batched greedy decode of up to stream_max_new_tokens steps in
         the shared decode region, replaying the CUDA graph of the batched
         step (runtime/decode_graph.py).  The graph holds the cache: one
@@ -52,18 +59,19 @@ its own rows, the round's first tokens and every chunk's tokens are
 all-gathered, and a compaction that moves a row to another rank gathers
 the cache over "data" first, so every rank keeps the same rows and takes
 the same host decisions.  The "model" axis splits the weights and the KV
-heads (tp).  The threaded mode runs the single-stream path, which a tp > 1
-engine refuses.
+heads (tp); a round under it prefills eagerly at a host start, as its
+batched step decodes eagerly (its all_reduces are host-staged).  The
+threaded mode runs the single-stream path, which a tp > 1 engine refuses.
 
-Left out of the port, as in the JAX package off its TPU backend or by
-choice (ROADMAP.md): the compile prewarm ladder (`_prewarm_batched`, a
-no-op off the TPU), the opt-in stratified reset-row prefill
-(SMOLVISION_MSTREAM_STRAT=1).
+Left out of the port, as in the JAX package off its TPU backend (ROADMAP.md):
+the compile prewarm ladder (`_prewarm_batched`, a no-op off the TPU).
 
 Switches, as the JAX package reads them, each the degraded path a test
 compares the default against: SMOLVISION_MSTREAM_NO_REUSE=1 (full prefill
-every round) and SMOLVISION_MSTREAM_SOLO_BATCHED=0 (a round with one
-session runs the single-stream path).  The delta block is always
+every round, S 0, through the same graphs), SMOLVISION_MSTREAM_SOLO_BATCHED=0
+(a round with one session runs the single-stream path) and the opt-in
+SMOLVISION_MSTREAM_STRAT=1, the stratified reset-row prefill (the MSTRAT_*
+constants below).  The delta block is always
 quantized (`quantize_block`) and the round's spans always pre-encoded as
 one batch.
 """
@@ -98,6 +106,33 @@ from smolvision_tpu_torch.runtime.buckets import bucket, bucket128
 from smolvision_tpu_torch.runtime.engine import PerfStats
 
 MIN_ROWS = 2   # the batched cache's smallest row bucket
+
+# The call of a round prefill key (cache, B, W) that captures its CUDA
+# graph: the calls before it run eagerly, later ones replay.  The run's
+# graphs share one capture stream, which the first graph warms with one
+# eager run on it (that key's call before the capture).  Every pcap growth
+# and compaction replaces the cache, so a key lives a few rounds, while a
+# capture costs about two eager calls and a replay saves about half of one
+# (PERF.md, Findings): a key seen once or twice never pays for a capture.
+PREFILL_GRAPH_CALL = 3
+
+# The stratified reset-row prefill (opt-in: SMOLVISION_MSTREAM_STRAT=1), as
+# the JAX package's.  A row whose reuse fell under 64 (a reset, an eviction)
+# has nothing in the batched cache worth keeping: up to MSTRAT_MAX_ROWS such
+# rows take a small full prefill of their own into a fresh cache, admitted
+# back row by row (`pbatch.admit_rows`), while the batch-uniform delta start
+# S follows the other rows.  Exact: the reset rows get the computation at S
+# 0 they would get in one batch, the others a deeper S, which the reuse
+# contract covers.  The JAX package measured it dead on its conditioned
+# workload (it fired on 0 of ~180 rounds: rows that committed text collapse
+# to the 9-token prompt header, too many for the cap), so it stays opt-in;
+# it fires rarely and runs eagerly.
+MSTRAT_MIN_S = 128        # stratify only when the majority's delta start is this deep
+MSTRAT_MAX_ROWS = 4       # reset rows' small batch cap (Gcap <= 4)
+MSTRAT_MIN_ACTIVE = 4     # below this, one batch is always cheaper
+# test hook: rows forced to reuse 0 (narrowing reuse is always exact: rows
+# recompute kept tokens into identical values by greedy determinism)
+MSTRAT_TEST_FORCE_RESET: frozenset = frozenset()
 
 
 def clone_session(engine):
@@ -212,16 +247,24 @@ class _BatchKV:
     (cleared when the session runs solo, or skips a round -- the shared
     block write clobbers its rows -- or has not taken part yet).
 
-    `loop` is the batched decode loop of `kv` (its CUDA graph writes into
-    that tensor): dropped whenever `kv` is replaced.  The rest is the run's
-    record: caches allocated (first allocation, growths, compactions) and
-    one entry per round (`rounds`)."""
+    `loop` is the batched decode loop of `kv`, `prefills` its round
+    prefill graphs by block width W (their CUDA graphs write into that
+    tensor) and `prefill_calls` its round prefills by W: all dropped
+    whenever `kv` is replaced (`replace`).  The prefill graphs of the run
+    share one capture stream (`stream`), which the first one's eager run
+    warms (`stream_warm`): a later graph captures at its first call.  The rest is
+    the run's record: caches allocated (first allocation, growths,
+    compactions) and one entry per round (`rounds`)."""
 
     def __init__(self, n_sessions: int, min_b: int = MIN_ROWS):
         self.min_b = min_b
         self.B = max(min_b, 1 << (max(1, n_sessions) - 1).bit_length())
         self.kv = None
         self.loop = None
+        self.prefills = {}
+        self.prefill_calls = {}
+        self.stream = None
+        self.stream_warm = False
         self.pcap = 0
         self.kcap = 0
         self.lens = [0] * self.B
@@ -230,6 +273,14 @@ class _BatchKV:
         self.grows = 0
         self.compactions = 0
         self.rounds: List[dict] = []
+
+    def replace(self, kv) -> None:
+        """A new cache tensor: the graphs that write into the old one go."""
+        self.kv = kv
+        self.loop = None
+        self.prefills = {}
+        self.prefill_calls = {}
+        self.caches += 1
 
     def record(self) -> dict:
         return {"caches": self.caches, "grows": self.grows, "compactions": self.compactions,
@@ -335,12 +386,11 @@ def _compact_rows(cache: _BatchKV, row_of: dict, act_states, engine) -> None:
         keep.append(keep[0])
     mesh = getattr(engine, "serving_mesh", None)
     local = keep
+    kv = cache.kv
     if mesh_mod.mesh_dp(mesh) > 1:
-        cache.kv = all_gather_rows(cache.kv, mesh.group(mesh_mod.DATA_AXIS))
+        kv = all_gather_rows(kv, mesh.group(mesh_mod.DATA_AXIS))
         local = keep[mesh.rows(new_b)]
-    cache.kv = kv_rows_gather(cache.kv, local)
-    cache.loop = None
-    cache.caches += 1
+    cache.replace(kv_rows_gather(kv, local))
     cache.compactions += 1
     cache.lens = [cache.lens[r] for r in keep]
     cache.valid = [cache.valid[r] for r in keep]
@@ -426,6 +476,86 @@ def quantize_block(S: int, W: int, pcap: int):
     return min(S, pcap - Wq), Wq
 
 
+def _strat_rows(reused_eff: List[int], active, mesh) -> tuple:
+    """The stratified reset-row prefill's rows and the round's delta start:
+    ([], S over every active row) unless SMOLVISION_MSTREAM_STRAT=1 and a
+    few reset rows (reuse < 64; at most MSTRAT_MAX_ROWS and half the active
+    rows) would otherwise hold S under MSTRAT_MIN_S, with at least
+    MSTRAT_MIN_ACTIVE rows active; then (those rows, S over the others).
+    Skipped on a mesh, as the JAX package skips it under its sharded
+    cache."""
+    S = (min(reused_eff[r] for r in active) // 64) * 64
+    if (os.environ.get("SMOLVISION_MSTREAM_STRAT") != "1" or mesh is not None
+            or len(active) < MSTRAT_MIN_ACTIVE):
+        return [], S
+    lo = sorted(r for r in active if reused_eff[r] < 64)
+    hi = [r for r in active if reused_eff[r] >= 64]
+    if lo and hi and len(lo) <= min(MSTRAT_MAX_ROWS, len(active) // 2):
+        s_hi = (min(reused_eff[r] for r in hi) // 64) * 64
+        if s_hi >= MSTRAT_MIN_S:
+            return lo, s_hi
+    return [], S
+
+
+def _round_prefill(engine, cache: _BatchKV, embeds_blk: torch.Tensor, S: int, inputs,
+                   model_axis) -> tuple:
+    """The round's delta prefill of `embeds_blk` [B, W, H] at cache row S
+    with its [B] `inputs`: (first tokens, int32 [B] on the device, how it
+    ran).  Under a "model" axis it runs eagerly at a host start ("eager").
+    Otherwise S is read from device memory: the (cache, B, W) key's calls
+    before its PREFILL_GRAPH_CALL-th run eagerly ("eager"; the run's first
+    graph is made one call earlier, its first run eager on the shared
+    capture stream: "warm"), that call captures its graph ("capture"),
+    later ones replay it ("replay")."""
+    cfg, W = engine.cfg, embeds_blk.shape[1]
+    if model_axis is not None:
+        first, cache.kv = dec_mod.batched_prefill_delta(
+            engine.dec_params, cfg, embeds_blk, S, cache.kv, group=model_axis, **inputs)
+        return first, "eager"
+    calls = cache.prefill_calls[W] = cache.prefill_calls.get(W, 0) + 1
+    graph = cache.prefills.get(W)
+    warm = not cache.stream_warm   # the run's first graph warms the stream
+    if graph is None and calls < PREFILL_GRAPH_CALL - warm:
+        at = torch.full((1,), S, dtype=torch.int64, device=embeds_blk.device)
+        first, cache.kv = dec_mod.batched_prefill_delta(engine.dec_params, cfg, embeds_blk, at,
+                                                        cache.kv, **inputs)
+        return first, "eager"
+    if graph is None:
+        if cache.stream is None and embeds_blk.device.type == "cuda":
+            cache.stream = torch.cuda.Stream(embeds_blk.device)
+        graph = cache.prefills[W] = pbatch.batched_prefill_graph(
+            engine.dec_params, cfg, cache.kv, embeds_blk, engine.perf, cache.stream, warm)
+        cache.stream_warm = True
+    how = ("replay" if graph.graph is not None
+           else "capture" if graph.calls or not graph.warm else "warm")
+    return graph.run(embeds_blk, S, **inputs), how
+
+
+def _strat_prefill(engine, cache: _BatchKV, embeds, rows: List[int], lens: List[int],
+                   first: torch.Tensor) -> torch.Tensor:
+    """The stratified reset-row prefill (SMOLVISION_MSTREAM_STRAT=1): the
+    reset rows' embeddings [B, pcap, H] (`rows`, padded to a power of two
+    Gcap by repeating the last) full-prefilled at start 0 into a fresh
+    Gcap-row cache of pcap columns (prompt_max = their lengths, region_start
+    past the cache), each row admitted back into the batched cache's
+    [0, pcap) (`pbatch.admit_rows`, which overwrites what the round's block
+    wrote there), their first tokens merged into `first`.  Eager: it fires
+    rarely.  Counts `engine._strat_round_count`."""
+    cfg, dev = engine.cfg, engine.device
+    Gcap = 1 << (len(rows) - 1).bit_length()
+    rows_pad = rows + [rows[-1]] * (Gcap - len(rows))
+    idx = torch.as_tensor(rows_pad, device=dev)
+    n = torch.as_tensor([lens[r] for r in rows_pad], dtype=torch.int32, device=dev)
+    zeros = torch.zeros(Gcap, dtype=torch.int32, device=dev)
+    small = pbatch.make_batched_kv(cfg, Gcap, embeds.shape[1], engine.batched_kv_dtype, dev)
+    tokens, small = dec_mod.batched_prefill_delta(
+        engine.dec_params, cfg, embeds.index_select(0, idx), 0, small, zeros, zeros,
+        last_rows=n - 1, prompt_max=n, region_start=1 << 30)
+    pbatch.admit_rows(cache.kv, small, rows_pad, Gcap)
+    engine._strat_round_count = getattr(engine, "_strat_round_count", 0) + 1
+    return first.index_copy(0, idx, tokens.to(first.dtype))
+
+
 def _run_batched_chunks(engine, works, cache: _BatchKV, row_of) -> None:
     """One shared-clock round: every active session's delta prefill and
     bounded greedy decode as one batch in the NATURAL cache layout, then
@@ -474,14 +604,10 @@ def _run_batched_chunks(engine, works, cache: _BatchKV, row_of) -> None:
             reused_eff[r] = max(0, min(w.reused, cache.lens[r], n - 1))
 
     if cache.kv is None:
-        cache.kv = pbatch.make_batched_kv(cfg, mine.stop - mine.start, kcap,
-                                          engine.batched_kv_dtype, dev, group=model_axis)
-        cache.loop = None
-        cache.caches += 1
+        cache.replace(pbatch.make_batched_kv(cfg, mine.stop - mine.start, kcap,
+                                             engine.batched_kv_dtype, dev, group=model_axis))
     elif kcap > cache.kcap:
-        cache.kv = pbatch.kv_grow_k(cache.kv, kcap)
-        cache.loop = None
-        cache.caches += 1
+        cache.replace(pbatch.kv_grow_k(cache.kv, kcap))
         cache.grows += 1
 
     # ---- the round's inputs (natural layout: no left pad) ---------------
@@ -514,8 +640,12 @@ def _run_batched_chunks(engine, works, cache: _BatchKV, row_of) -> None:
             cache.valid[r] = False
 
     # the batch-uniform delta block [S, S+W): down to the shallowest reuse
-    # point among the active rows, floored to a multiple of 64, W bucketed
-    S = (min(reused_eff[r] for r in active) // 64) * 64
+    # point among the active rows (or the rows above the stratified
+    # prefill's reset rows), floored to a multiple of 64, W bucketed
+    for r in MSTRAT_TEST_FORCE_RESET:
+        if r in active:
+            reused_eff[r] = 0
+    strat_rows, S = _strat_rows(reused_eff, active, mesh)
     S, W = quantize_block(S, min(bucket(max_len - S, 64), pcap - S), pcap)
     # a torch slice past the end would shorten the block (the JAX package's
     # dynamic_slice clamps): the embeddings span pcap columns and the block
@@ -523,24 +653,29 @@ def _run_batched_chunks(engine, works, cache: _BatchKV, row_of) -> None:
     if not (0 <= S and S + W <= pcap and S + W >= max_len):
         raise ValueError(f"delta block [{S}, {S + W}) outside the prompt cap {pcap} "
                          f"or short of the longest prompt ({max_len})")
+    last_rows = np.asarray([max(0, lens_new[r] - 1 - S) if r in active else 0
+                            for r in range(B)], np.int32)
+    t_embeds = _now_ms()
     embeds = dec_mod.build_embeds_batched(engine.dec_params,
                                           torch.from_numpy(ids_arr[mine]).to(dev),
                                           torch.stack(audio_rows[mine]), i32(astart[mine]),
                                           i32(alen[mine]), model_axis)
     embeds_blk = embeds[:, S : S + W]
-    last_rows = np.asarray([max(0, lens_new[r] - 1 - S) if r in active else 0
-                            for r in range(B)], np.int32)
-    Bl = mine.stop - mine.start
-    first, cache.kv = dec_mod.batched_prefill_delta(
-        engine.dec_params, cfg, embeds_blk, S, cache.kv, i32([S] * Bl), i32([0] * Bl),
-        last_rows=i32(last_rows[mine]), prompt_max=i32(prompt_max[mine]), region_start=pcap,
-        group=model_axis)
+    t_call = _now_ms()
+    blk_inputs = {"rope_start": i32(np.full(B, S)[mine]), "kv_min": i32(np.zeros(B)[mine]),
+                  "last_rows": i32(last_rows[mine]), "prompt_max": i32(prompt_max[mine]),
+                  "region_start": i32(np.full(B, pcap)[mine])}
+    first, prefill_call = _round_prefill(engine, cache, embeds_blk, S, blk_inputs, model_axis)
     perf.delta_prefills += 1
+    if strat_rows:
+        first = _strat_prefill(engine, cache, embeds, strat_rows, lens_new, first)
     # the prefill's end on the card; every data rank's rows
+    t_read = _now_ms()
     first_h = gather_host(first.cpu().numpy(), mesh_mod.data_group(engine),
                                    dev).reshape(-1)
     B_real = len(works)
-    prefill_ms = _now_ms() - t_pre0
+    t_end = _now_ms()
+    prefill_ms = t_end - t_pre0
     for r, (st, w) in active.items():
         w.reused = reused_eff[r]   # the reuse this round had, for the stats line
         st.note_prefill(w, len(w.ids), prefill_ms / B_real)
@@ -563,7 +698,8 @@ def _run_batched_chunks(engine, works, cache: _BatchKV, row_of) -> None:
     replays_total = 0
     while produced < max_new and not all(done):
         if cache.loop is None:
-            cache.loop = pbatch.batched_decode_loop(engine.dec_params, cfg, cache.kv, Bl, perf,
+            cache.loop = pbatch.batched_decode_loop(engine.dec_params, cfg, cache.kv,
+                                                    mine.stop - mine.start, perf,
                                                     natural=True, group=model_axis,
                                                     data_group=mesh_mod.data_group(engine))
         steps = min(BATCH_DECODE_CHUNK, max_new - produced)
@@ -596,6 +732,12 @@ def _run_batched_chunks(engine, works, cache: _BatchKV, row_of) -> None:
         cache.valid[r] = True
     cache.rounds.append({"B": B, "active": B_real, "S": S, "W": W, "pcap": pcap, "kcap": kcap,
                          "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+                         # the prefill's host ms: preparation, the embeddings
+                         # build and slice, the prefill's dispatch, the read
+                         # of the first tokens (which waits for the card)
+                         "prefill_split_ms": [t_embeds - t_pre0, t_call - t_embeds,
+                                              t_read - t_call, t_end - t_read],
+                         "prefill_call": prefill_call, "strat_rows": strat_rows,
                          "steps": replays_total,
                          "reused": [reused_eff[r] for r in sorted(active)],
                          "lens": [lens_new[r] for r in sorted(active)],

@@ -135,6 +135,97 @@ def test_batched_prefill_delta_after_cache_per_row_region(engines):
     np.testing.assert_allclose(tkv.numpy(), np.asarray(jkv), rtol=1e-5, atol=1e-5)
 
 
+_DELTA = {"B": 3, "T0": 64, "T": 64, "K": 192, "pads": [0, 7, 30], "prompt_max": [64, 50, 33],
+          "region_start": [40, 64, 60]}
+
+
+def _delta_at(teng, kind, start):
+    """`batched_prefill_delta` of a 64-row block at `start` (a host int or
+    a device tensor) on a `kind` cache that a fresh prefill filled to row
+    64 (multistream's shape: per-row kv_min, prompt_max, region_start):
+    (logits, cache)."""
+    cfg, d = teng.cfg, _DELTA
+    e0, e1 = _embeds(cfg, d["B"], d["T0"], 10), _embeds(cfg, d["B"], d["T"], 11)
+    pads = _i32(d["pads"])
+    kv = tdec.make_batched_kv(cfg, d["B"], d["K"], getattr(torch, kind), "cpu")
+    _, kv = tdec.batched_prefill(teng.dec_params, cfg, torch.from_numpy(e0), kv,
+                                 torch.from_numpy(-pads), torch.from_numpy(pads))
+    return tdec.batched_prefill_delta(
+        teng.dec_params, cfg, torch.from_numpy(e1), start, kv,
+        torch.from_numpy(d["T0"] - pads), torch.from_numpy(pads), greedy=False,
+        prompt_max=torch.from_numpy(_i32(d["prompt_max"])),
+        region_start=torch.from_numpy(_i32(d["region_start"])))
+
+
+def _jax_delta_at(jeng, kind):
+    """The JAX package's `batched_prefill_delta` on the same inputs as
+    `_delta_at`, at the traced start jnp.int32(64) (its `prefill_delta_j`'s
+    form): (logits, cache)."""
+    cfg, d = jeng.cfg, _DELTA
+    e0, e1 = _embeds(cfg, d["B"], d["T0"], 10), _embeds(cfg, d["B"], d["T"], 11)
+    pads = _i32(d["pads"])
+    kv = jdec.make_batched_kv(cfg, d["B"], d["K"], getattr(jnp, kind))
+    _, kv = jdec.batched_prefill(jeng.dec_params, cfg, jnp.asarray(e0), kv,
+                                 jnp.asarray(-pads), jnp.asarray(pads))
+    return jdec.batched_prefill_delta(
+        jeng.dec_params, cfg, jnp.asarray(e1), jnp.int32(d["T0"]), kv,
+        jnp.asarray(d["T0"] - pads), jnp.asarray(pads), greedy=False,
+        prompt_max=jnp.asarray(_i32(d["prompt_max"])),
+        region_start=jnp.asarray(_i32(d["region_start"])))
+
+
+def _leaves(kv):
+    """A cache as f32 arrays: its values, and an int8 cache's scales."""
+    if hasattr(kv, "q"):
+        return [np.asarray(kv.q, np.float32), np.asarray(kv.s, np.float32)]
+    return [np.asarray(kv.float() if isinstance(kv, torch.Tensor) else kv, np.float32)]
+
+
+# (logits, cache) tolerance, relative to the largest magnitude.  Device
+# start against the host int (the port alone): on f32 none (the masked-out
+# columns the device form adds reduce as exact zeros at these shapes); a
+# bf16 cache may round a written row one bf16 step (2^-8) the other way, an
+# int8 cache (the two-part attention on the widened rows) one quantization
+# step.  The port against the JAX package: the logits within LOGIT_RTOL
+# as the rest of this file (f32 weights on both sides), an f32 cache
+# within 1e-5, a bf16 or int8 cache within the steps above.
+DEVICE_START_RTOL = {"float32": (0.0, 0.0), "bfloat16": (1e-3, 2 ** -7),
+                     "int8": (1e-3, 1e-2)}
+JAX_RTOL = {"float32": (LOGIT_RTOL, 1e-5), "bfloat16": (LOGIT_RTOL, 2 ** -7),
+            "int8": (LOGIT_RTOL, 1e-2)}
+
+
+def _within(got, want, rtol):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert np.abs(got - want).max() <= rtol * np.abs(want).max(), \
+        (float(np.abs(got - want).max()), float(np.abs(want).max()), rtol)
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+def test_batched_prefill_delta_device_start_matches_host_int(engines, kind):
+    """The delta prefill at a device start (multistream's round prefill:
+    B5 reading its start from device memory, the rows written with
+    index_copy_; on an int8 cache the full-cache two-part attention) against
+    the JAX package's at the traced start jnp.int32(64) on the same inputs
+    (JAX_RTOL), and against the port's own block at the host int
+    (DEVICE_START_RTOL, max abs 0 on f32): the same greedy first tokens,
+    logits and cache rows."""
+    jeng, teng = engines
+    dev_l, dev_kv = _delta_at(teng, kind, torch.tensor([64]))
+    jax_l, jax_kv = _jax_delta_at(jeng, kind)
+    np.testing.assert_array_equal(dev_l.argmax(-1).numpy(), np.asarray(jax_l).argmax(-1))
+    rtol_logits, rtol_cache = JAX_RTOL[kind]
+    _within(dev_l.numpy(), jax_l, rtol_logits)
+    for got, want in zip(_leaves(dev_kv), _leaves(jax_kv)):
+        _within(got, want, rtol_cache)
+    host_l, host_kv = _delta_at(teng, kind, 64)
+    np.testing.assert_array_equal(dev_l.argmax(-1).numpy(), host_l.argmax(-1).numpy())
+    rtol_logits, rtol_cache = DEVICE_START_RTOL[kind]
+    _within(dev_l.numpy(), host_l.numpy(), rtol_logits)
+    for got, want in zip(_leaves(dev_kv), _leaves(host_kv)):
+        _within(got, want, rtol_cache)
+
+
 @pytest.mark.parametrize("active", [(True, True, True), (True, False, True)])
 def test_batched_decode_chunk_matches_jax(engines, active):
     """Decode chunk after a left-padded prefill: buffer, count and last

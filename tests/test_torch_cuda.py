@@ -691,6 +691,59 @@ def test_cuda_batched_cache_attention_at_multistream_rounds():
 
 
 @pytest.mark.cuda
+def test_cuda_batched_cache_attention_device_start():
+    """B5 with its start an int32 / int64 device tensor (multistream's round
+    prefill graph's form) at starts 0, 64, 192 and 640 against the plain
+    version at the host int, G 2 and G 7; then one CUDA graph of it,
+    captured at start 256 and replayed at each start by changing the start
+    tensor alone.  +-999 in every cache column outside each row's window,
+    the columns at and past the start included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels are built with nvcc for sm_90a)")
+    g = torch.Generator(device="cuda").manual_seed(18)
+    B, W, pcap, kcap = 3, 64, 704, 768
+    pm = torch.tensor([700, 350, 600], dtype=torch.int32, device="cuda")
+    km = torch.tensor([0, 9, 0], dtype=torch.int32, device="cuda")
+    rs = torch.full((B,), pcap, dtype=torch.int32, device="cuda")
+    cols = torch.arange(kcap, device="cuda")
+
+    def case(H, KH, start):
+        q = torch.randn(B, W, H, 128, device="cuda", generator=g)
+        kn, vn = (torch.randn(B, W, KH, 128, device="cuda", generator=g) for _ in range(2))
+        kv = torch.randn(2, B, KH, kcap, 128, device="cuda", generator=g).to(torch.bfloat16)
+        dead = ~((cols[None, :] >= km[:, None]) & (cols[None, :] < start)
+                 & ((cols[None, :] < pm[:, None]) | (cols[None, :] >= pcap)))
+        kv[0][dead[:, None, :].expand(B, KH, kcap)] = 999.0
+        kv[1][dead[:, None, :].expand(B, KH, kcap)] = -999.0
+        return q, kn, vn, kv
+
+    for H, KH in ((16, 8), (28, 4)):
+        for i, start in enumerate((0, 64, 192, 640)):
+            q, kn, vn, kv = case(H, KH, start)
+            at = torch.tensor([start], dtype=(torch.int32, torch.int64)[i % 2], device="cuda")
+            torch.testing.assert_close(
+                tfa.batched_cache_flash_attention(q, kn, vn, kv[0], kv[1], at, km, pm, rs),
+                tfa.batched_cache_attention_plain(q, kn, vn, kv[0], kv[1], start, km, pm, rs),
+                rtol=0, atol=ATOL)
+    q, kn, vn, kv = case(16, 8, 256)
+    at = torch.tensor([256], dtype=torch.int64, device="cuda")
+    tfa.batched_cache_flash_attention(q, kn, vn, kv[0], kv[1], at, km, pm, rs)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tfa.batched_cache_flash_attention(q, kn, vn, kv[0], kv[1], at, km, pm, rs)
+    for start in (256, 0, 64, 640):
+        kv.copy_(case(16, 8, start)[3])
+        at.fill_(start)
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            out, tfa.batched_cache_attention_plain(q, kn, vn, kv[0], kv[1], start, km, pm, rs),
+            rtol=0, atol=ATOL)
+
+
+@pytest.mark.cuda
 def test_cuda_multistream_captures_one_graph_per_cache(card_stream_engine, monkeypatch):
     """Two sessions (12 and 8 s) through the batched coordinator on the
     card: one delta prefill (B5 per layer) and one batched decode per

@@ -240,6 +240,41 @@ def test_batched_cache_plain_random_shape_sweep():
                                            f"KH={KH} D={D} start={start}")
 
 
+@pytest.mark.parametrize("start", [0, 64, 192])
+@pytest.mark.parametrize("G", [1, 2, 7])
+def test_batched_cache_plain_device_start(start, G):
+    """B5's plain version at a device start (an int32 or int64 tensor: the
+    fixed-shape form over every cache column, as multistream's round
+    prefill graph calls it) against the host-int form and the Pallas B5,
+    per-row kv_min (one row whose cache window is empty), prompt_max and
+    region_start, and +-999 junk in every cache column outside each row's
+    window -- columns at or past the start included, which the host form
+    never reads.  Tolerance 1e-5 (f32, summation order only)."""
+    rng = np.random.default_rng(41 + start + G)
+    B, T, K, KH, D = 3, 64, 320, 2, 64
+    q, kn, vn, kc, vc = _cache_case(rng, B, T, K, G * KH, KH, D)
+    kv_min = np.asarray([0, 3, start + 6], np.int32)
+    if start:
+        pm = np.asarray([start, start // 2 + 5, start], np.int32)
+        rs = np.asarray([K, start // 2 + 20, 40], np.int32)
+    else:   # serving's group prefill: per-row lengths, region_start past the cache
+        pm, rs = np.asarray([64, 17, 40], np.int32), np.full(B, 1 << 30, np.int32)
+    cols = np.arange(K)
+    for b in range(B):
+        live = (cols >= kv_min[b]) & (cols < start) & ((cols < pm[b]) | (cols >= rs[b]))
+        kc[b, :, ~live] = 999.0
+        vc[b, :, ~live] = -999.0
+    host, want = _both_batched_cache(q, kn, vn, kc, vc, start, kv_min, pm, rs, G)
+    at = torch.tensor([start], dtype=(torch.int32, torch.int64)[G % 2])
+    got = tfa.batched_cache_flash_attention(
+        *map(torch.from_numpy, (q, kn, vn, kc, vc)), at,
+        *map(torch.from_numpy, (kv_min, pm, rs))).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, host, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert not got[2, : max(kv_min[2] - start, 0)].any(), "rows with no key must give 0"
+
+
 def test_batched_cache_plain_ignores_junk_outside_the_window():
     """+-999 in every cache column outside the window (end pad, stale decode
     rows, rows at or past start_pos), and a row whose cache window is empty

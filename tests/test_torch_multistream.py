@@ -10,8 +10,10 @@ pieces must equal the port's own solo stream of the same clip.  Cases: 3
 and 8 sessions, reuse off, encoder-window eviction (1 s windows), deep
 compaction (8 sessions draining to 1), --q8 weights, live sources polled
 on the coordinator (trickled against fully buffered), a one-session round
-through the batched path against the single-stream fallback, and the
-batched mode against the threaded one.  Then `quantize_block` and
+through the batched path against the single-stream fallback, the batched
+mode against the threaded one, and the stratified reset-row prefill
+(SMOLVISION_MSTREAM_STRAT=1) in the JAX package's three arms.  The port's
+round prefill runs at a device start here too (the graph's eager form).  Then `quantize_block` and
 `kv_rows_gather` against the JAX ones, and the CLI's stdout.
 """
 
@@ -63,6 +65,12 @@ def _engines(model_dir, **kwargs):
 @pytest.fixture(scope="module")
 def engines(model_dir):
     return _engines(model_dir)
+
+
+@pytest.fixture(scope="module")
+def engines_2s(model_dir):
+    """2 s encoder windows (26 rows): reuse passes 64 rows by the third."""
+    return _engines(model_dir, enc_window_sec=2.0)
 
 
 def clips(seconds, seed=0):
@@ -123,10 +131,11 @@ def tokens_and_pieces(per):
     return [[(c[0], c[2], c[3]) for c in chunks] for chunks in per]
 
 
-def check_against_jax_and_solo(monkeypatch, engs, sources, run=batched):
+def check_against_jax_and_solo(monkeypatch, engs, sources, run=batched, solo=None):
     """The port's coordinator against the JAX package's (every field) and
-    against the port's solo streams (tokens and pieces); returns the
-    port's (texts, per-session chunks)."""
+    against the port's solo streams (tokens and pieces; `solo`: their
+    (texts, per-session chunks) if already run); returns the port's
+    (texts, per-session chunks)."""
     rec = Recorder(monkeypatch)
     want = rec.run(lambda: run("jax", engs["jax"], sources))
     got = rec.run(lambda: run("torch", engs["torch"], sources))
@@ -134,7 +143,7 @@ def check_against_jax_and_solo(monkeypatch, engs, sources, run=batched):
     for i, (g, w) in enumerate(zip(got[1], want[1])):
         assert g == w, f"session {i}: port {g} vs JAX {w}"
     assert got[0] == want[0]
-    solo_texts, solo = solo_runs(rec, engs["torch"], sources)
+    solo_texts, solo = solo if solo is not None else solo_runs(rec, engs["torch"], sources)
     assert tokens_and_pieces(got[1]) == tokens_and_pieces(solo)
     assert got[0] == solo_texts
     return got
@@ -190,13 +199,13 @@ def test_eviction_matches_jax_and_solo(model_dir, monkeypatch):
     nonvacuous(per, texts)
 
 
-def test_cache_half_of_b5_matches_jax_and_solo(model_dir, monkeypatch):
+def test_cache_half_of_b5_matches_jax_and_solo(engines_2s, monkeypatch):
     """2 s encoder windows (26 rows) on 9 and 11 s: once three windows are
     cached every row reuses 87 rows or more, so the round's delta block
     starts at S 64 (the cache half of B5's contract: per-row prompt_max,
     region_start = pcap); the prompt cap grows 128 -> 256 mid-run (the
     cache grown in place of a new one) and an eviction resets one row."""
-    engs = _engines(model_dir, enc_window_sec=2.0)
+    engs = engines_2s
     texts, per = check_against_jax_and_solo(monkeypatch, engs, clips((9, 11), seed=60))
     nonvacuous(per, texts)
     record = engs["torch"].perf.multistream
@@ -358,6 +367,64 @@ def test_batched_matches_threaded(engines, monkeypatch):
     live = rec.run(lambda: tms.run_streams(engines["torch"], lives))
     assert tokens_and_pieces(live[1]) == tokens_and_pieces(threaded[1])
     assert live[0] == threaded[0]
+
+
+def test_stratified_reset_prefill_matches_jax_and_default(engines_2s, monkeypatch):
+    """SMOLVISION_MSTREAM_STRAT=1, the JAX package's three arms
+    (tests/test_multistream.py): the default, row 0 forced to reuse 0 with
+    the stratified reset-row prefill on (its small full prefill, admitted
+    back, while S follows the other rows), and row 0 forced with it off.
+    The default and strat arms' chunks equal the JAX package's run of the
+    same arm (every field), and every arm's equal the port's solo streams
+    (tokens and pieces), so the arms equal one another; the strat arm ran
+    the stratified prefill on both sides.  The thresholds are patched low (MSTRAT_MIN_S 64,
+    MSTRAT_MIN_ACTIVE 2) and the recovery resets disabled, as in the JAX
+    test, so that reuse grows past 64 rows on tiny prompts (2 s encoder
+    windows, 9 and 10 s clips)."""
+    engines = engines_2s
+    rng = np.random.default_rng(77)
+    sources = []
+    for n in (9, 10):
+        t = np.arange(n * SR) / SR
+        sources.append((0.3 * np.sin(2 * np.pi * (140 + 25 * n) * t)
+                        + 0.02 * rng.standard_normal(len(t))).astype(np.float32))
+    for ms_mod, st_mod in PKGS.values():
+        for name in ("DEGEN_MIN_REPEATS", "STALE_CHUNKS", "MAX_REPEAT_TOKEN_RUN"):
+            monkeypatch.setattr(st_mod, name, 1 << 30)
+        monkeypatch.setattr(ms_mod, "MSTRAT_MIN_S", 64)
+        monkeypatch.setattr(ms_mod, "MSTRAT_MIN_ACTIVE", 2)
+    for eng in engines.values():
+        monkeypatch.setattr(eng, "past_text_conditioning", False)   # append-only prompts
+    solo = solo_runs(Recorder(monkeypatch), engines["torch"], sources)
+    for arm in ("default", "forced-strat", "forced-nostrat"):
+        force = frozenset() if arm == "default" else frozenset({0})
+        for ms_mod, _ in PKGS.values():
+            monkeypatch.setattr(ms_mod, "MSTRAT_TEST_FORCE_RESET", force)
+        if arm == "forced-strat":
+            monkeypatch.setenv("SMOLVISION_MSTREAM_STRAT", "1")
+        else:
+            monkeypatch.delenv("SMOLVISION_MSTREAM_STRAT", raising=False)
+        for eng in engines.values():
+            monkeypatch.setattr(eng, "_strat_round_count", 0, raising=False)
+        if arm == "forced-nostrat":
+            # the port alone, against its solo streams: the JAX package's
+            # run of this arm is its default path, held in the default arm
+            texts, per = Recorder(monkeypatch).run(
+                lambda: batched("torch", engines["torch"], sources))
+            assert tokens_and_pieces(per) == tokens_and_pieces(solo[1])
+            assert texts == solo[0]
+        else:
+            texts, per = check_against_jax_and_solo(monkeypatch, engines, sources, solo=solo)
+        nonvacuous(per, texts)
+        counts = [eng._strat_round_count for eng in engines.values()]
+        if arm == "forced-strat":
+            assert counts[0] == counts[1] > 0, counts
+            rounds = engines["torch"].perf.multistream["rounds"]
+            assert any(r["strat_rows"] == [0] and r["S"] >= 64 for r in rounds), rounds
+        else:
+            assert counts == [0, 0], (arm, counts)
+        if arm != "default":
+            assert any(c[1] == 0 for c in per[0][1:]), "row 0 was not forced to reuse 0"
 
 
 def test_session_views_are_isolated(engines):
