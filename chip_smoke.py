@@ -43,7 +43,9 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
                 version and one PyTorch library call (B1 at the windows of
                 the offline, -S 20 and --serve 64 encode calls, B3 also at
                 a 4096-row context, B5 also at --serve 64's admission
-                wave, B2 also on an f32 cache beside SDPA and at the
+                wave, and at the --serve 4 / 16 / 64 waves with start 0
+                read from device memory (the wave graph's form, held
+                against the plain version and the host int), B2 also on an f32 cache beside SDPA and at the
                 stream's delta shapes: start 300, T 128 and 256, checked
                 at T 64-512, and at the --spec verify's T 5, start 300, each
                 at a device start, against host ints in turns; B5 at
@@ -72,7 +74,10 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
                 batched fresh- and delta-prefill logits, kernel path vs
                 plain path, in bf16 and f32;
   6. serving  - 8 clips of 4-24 s through `--serve 4`: admission waves
-                prefilled by kernel B5, slot reuse, TTFT percentiles;
+                prefilled by kernel B5 (two waves of one shape, fewer than
+                serving.WAVE_GRAPH_MIN_WAVES: eager, the second dispatched
+                in the first decode chunk's shadow), slot reuse, TTFT
+                percentiles;
   7. int8     - `--q8` (int8 decoder weights: head K7) and `--spec`
                 (a CUDA graph of one speculative iteration per cache:
                 SPEC_DRAFT int8 draft steps, B3 and K7 each, one verify
@@ -87,6 +92,14 @@ kernels are built for sm_90a).  Phases, each fatal on failure:
   8. wide     - `--serve 64` and `--serve 64 --q8` on 64 clips of 2-6 s:
                 every greedy head is 64 rows wide and must take the
                 tensor-core route (the CUDA-core head launches 0 times);
+                then `--serve 16` on the same clips, eager and graph turns:
+                four admission waves at one (Gcap, acap) key -- the first
+                eager, the second captured, the last two replayed, each
+                after the first dispatched in a decode chunk's shadow --
+                with equal tokens, exactly one capture, B5's 28 launches
+                per wave through the replays, and per wave its dispatch
+                host ms, the gap between a chunk's read and the next
+                chunk's first replay, the capture ms and the run's rates;
   9. stream   - `--stream` on a 60 s clip (30 chunks of 2 s, 8 s encoder
                 windows, evicted past 4; each chunk re-encodes its partial
                 tail through B1, prefills its delta through B2 at start =
@@ -344,6 +357,8 @@ HEAD_SWEEP_ROWS = (1, 2, 4, 5, 6, 8, 12, 16, 24, 32)  # R of the crossover sweep
 SERVE_WIDE_SLOTS = 64         # the --serve width the JAX package documents
 SERVE_WIDE_CLIPS = 64         # seeded clips of 2-6 s
 SERVE_WIDE_MAX_TOKENS = 16
+SERVE_WAVE_SLOTS = 16         # --serve 16 on the wide clips: 4 waves at one wave graph key
+SERVE_WAVE_RUN = {}           # phase 8's --serve 16 record
 STREAM_CLIP_SEC = 60.0        # phase 9: --stream, bf16 and --q8 (30 chunks)
 STREAM_WINDOW_CLIP_SEC = 20.0  # --stream --enc-window-sec 2; --stdin --stream
 STREAM_ON_OFF_CLIP_SEC = 16.0  # --stream --f32, encoder cache ON / OFF (no eviction)
@@ -649,12 +664,13 @@ def batched_causal_row(B: int, T: int, pads, heads=MAIN_HEADS):
             bound(nbytes, flops, "bfloat16"), bound(nbytes, flops, "float32"))
 
 
-def batched_cache_row(G: int, T: int, lens, heads=MAIN_HEADS):
+def batched_cache_row(G: int, T: int, lens, heads=MAIN_HEADS, device_start: bool = False):
     """B5's timing inputs at a serving wave's group prefill (start 0: the
     cache is not read) of G rows of T, prompt lengths `lens`, and `heads`
     (H, KH, D): (source, replaces, kernel, plain, SDPA, bound, f32
     CUDA-core bound).  The bound reads q, k, v and writes the output in f32
-    once and counts the causal products."""
+    once and counts the causal products.  `device_start`: the wave graph's
+    form, start 0 an int64 device tensor and region_start a [G] row."""
     import torch
     import torch.nn.functional as F
 
@@ -670,6 +686,9 @@ def batched_cache_row(G: int, T: int, lens, heads=MAIN_HEADS):
     mask5 = (torch.arange(T, device=DEV)[None, :] <= torch.arange(T, device=DEV)[:, None])
     q5h, k5h, v5h = (x.transpose(1, 2) for x in (q5, kn5, vn5))
     args = (q5, kn5, vn5, kc5, vc5, 0, km5, pm5, 1 << 30)
+    if device_start:
+        args = args[:5] + (torch.zeros(1, dtype=torch.int64, device=DEV), km5, pm5,
+                           torch.full_like(km5, 1 << 30))
     return ("smolvision_tpu_torch/kernels/csrc/batched_cache_attention.cu",
             "smolvision_tpu/kernels/flash_attention.py:412",
             lambda: fa.batched_cache_flash_attention(*args),
@@ -683,7 +702,7 @@ def kernel_of(name: str) -> str:
     """The launch key of a timing row: its kernel's name without the suffix
     of the shape it was timed at."""
     for suffix in ("_long", "_wide", "_segments", "_delta128", "_delta256", "_verify", "_q25",
-                   "_thinker", "_omni_batched", "_omni", "_tp2"):
+                   "_thinker", "_omni_batched", "_omni", "_tp2", "_wave16", "_wave"):
         name = name.removesuffix(suffix)
     return name.split("_mstream")[0]
 
@@ -1088,6 +1107,26 @@ def phase_kernels(shapes):
         row = batched_cache_row(G, T, lens)
         rows.append((name, *row[:-1]))
         f32_bounds[name] = row[-1]
+    # --- B5 at the waves of --serve 4, 16 and 64 as the wave graph runs them
+    # (start 0 read from device memory, region_start per row; phases 6 and
+    # 8 run the --serve 4 and 64 queues' waves eagerly, too few of one shape
+    # to pay a capture back, so those two rows are the graph's form at
+    # their shapes and count the eager waves' launches), held against
+    # the plain version on the same inputs and against the host-int form;
+    # the row's max_abs_err is the larger of the two
+    for name, key in (("batched_cache_attention_wave", "serve"),
+                      ("batched_cache_attention_wave16", "wave16"),
+                      ("batched_cache_attention_wave_wide", "wide")):
+        G, T, lens = shapes[f"{key}_G"], shapes[f"{key}_T"], shapes[f"{key}_lens"]
+        row = batched_cache_row(G, T, lens, device_start=True)
+        got = row[2]()
+        errs[name] = max(
+            check_close(f"B5 G={G} T={T} at a device start 0 against the plain version",
+                        got, row[3]()),
+            check_close(f"B5 G={G} T={T} at a device start 0 against the host int",
+                        got, batched_cache_row(G, T, lens)[2]()))
+        rows.append((name, *row[:-1]))
+        f32_bounds[name] = row[-1]
 
     log(f"  B3 on its fixed grid with no live row (the fresh row alone: the launch, the "
         f"cluster barriers and the merge, the kernel's floor): "
@@ -1479,7 +1518,7 @@ def main_path_shapes(model_dir: str, samples):
 def batched_path_shapes(model_dir: str, long_clip, serve_clips, wide_clips):
     """The B4 shape of the -S run (all segments as one group: B, T, left
     pads), the B5 shapes of serving's first wave (Gcap, pcap, prompt
-    lengths) under --serve 4 and under --serve 64, and B1's windows of the
+    lengths) under --serve 4, --serve 16 and --serve 64, and B1's windows of the
     -S run's one encode call and of --serve 64's first encode group (the
     serving.ENCODE_GROUP longest clips), from host arithmetic only."""
     from smolvision_tpu_torch.config import SAMPLE_RATE, TOKEN_ASR_TEXT, detect_config
@@ -1524,6 +1563,7 @@ def batched_path_shapes(model_dir: str, long_clip, serve_clips, wide_clips):
     return {"seg_B": len(seg), "seg_T": T, "seg_pads": [T - n for n in seg],
             "seg_window_lens": windows(seg_samples), "wide_window_lens": windows(wide_group),
             **first_wave(serve_clips, SERVE_SLOTS, "serve"),
+            **first_wave(wide_clips, SERVE_WAVE_SLOTS, "wave16"),
             **first_wave(wide_clips, SERVE_WIDE_SLOTS, "wide")}
 
 
@@ -1606,14 +1646,15 @@ def decode_mode(mode: str):
     key; multistream's round prefill graphs, one per (cache, B, W), apart),
     the kind ("decode", "spec", "sample", "prefill", "delta_prefill") and
     launches per replay of every captured graph (not the graph: it holds
-    its owner's cache and weights), the single-stream caches allocated (the
+    its owner's cache and weights; serving's wave graphs, one per wave shape,
+    apart too), the single-stream caches allocated (the
     first and each growth) and the deepest cache row a single-stream loop
     step wrote."""
     from smolvision_tpu_torch.models import qwen3_decoder as dec_mod
     from smolvision_tpu_torch.runtime import decode_graph
 
     rec = {"chunks": [], "graphs": [], "reads": 0, "prefill_keys": 0, "delta_prefill_keys": 0,
-           "caches": 0, "last_row": -1}
+           "wave_keys": 0, "caches": 0, "last_row": -1}
 
     def recording(run):
         def recording_run(self, tokens, pos, *args, **kwargs):
@@ -1637,10 +1678,12 @@ def decode_mode(mode: str):
         return read(*args)
 
     inits = {cls: cls.__init__ for cls in (decode_graph.PrefillGraph,
-                                           decode_graph.BatchedPrefillGraph)}
+                                           decode_graph.BatchedPrefillGraph,
+                                           decode_graph.WaveGraph)}
 
     def counting_init(self, *args, **kwargs):
-        rec["delta_prefill_keys" if self.kind == "delta_prefill" else "prefill_keys"] += 1
+        rec[{"delta_prefill": "delta_prefill_keys", "wave": "wave_keys"}.get(
+            self.kind, "prefill_keys")] += 1
         inits[type(self)](self, *args, **kwargs)
 
     class RecordingGraph(decode_graph.StepGraph):
@@ -1742,13 +1785,15 @@ def profile_decode(eng, samples) -> dict:
             ("eager", "graph", "graph", "eager"))
 
 
-def replay_launches(eng, cfg, batch: int) -> dict:
+def replay_launches(eng, cfg, batch: int, wave: int = 0) -> dict:
     """The launches one replay makes, by graph kind: a single-stream decode
     step (batch 0) B3 once per layer and the head once; a --spec iteration
     SPEC_DRAFT int8 steps (B3 per layer, K7 at R 1 each), the verify (B2
     per layer) and its head at R SPEC_DRAFT + 1; a prefill B2 per layer and
     the head at R 1; a batched step the head once at R B (its attention is
-    plain torch); a sampled thinker step B3 once per layer and no head."""
+    plain torch); a serving wave of `wave` rows B5 per layer (none on an
+    int8 cache) and the head at R `wave`; a sampled thinker step B3 once
+    per layer and no head."""
     import torch
 
     from smolvision_tpu_torch.kernels import argmax_matvec as am
@@ -1765,6 +1810,8 @@ def replay_launches(eng, cfg, batch: int) -> dict:
     out = {"prefill": {"causal_cache_attention": L, key(1): 1}}
     if batch:
         out["decode"] = {key(batch): 1}
+        if wave:
+            out["wave"] = {key(wave): 1, **({} if eng.kv8 else {"batched_cache_attention": L})}
     else:
         out["decode"] = {"decode_attention": L, key(1): 1}
         out["sample"] = {"decode_attention": L}   # the logits and the draw are plain torch
@@ -1806,9 +1853,10 @@ def run_path(argv, name: str, cfg, batch: int = 0, wave: int = 0, loop_kind: str
         perf = eng.perf
         if rec["reads"] != len(rec["chunks"]):
             fail(f"{name} ({mode}): {rec['reads']} host reads over {len(rec['chunks'])} chunks")
-        if perf.prefill_captures > rec["prefill_keys"]:
+        if perf.prefill_captures > rec["prefill_keys"] + rec["wave_keys"]:
             fail(f"{name} ({mode}): {perf.prefill_captures} prefill graphs captured over "
-                 f"{rec['prefill_keys']} (cache, block rows) keys")
+                 f"{rec['prefill_keys']} (cache, block rows) keys and {rec['wave_keys']} "
+                 f"wave shapes")
         if rec["caches"] and perf.graph_captures > rec["caches"]:
             fail(f"{name} ({mode}): {perf.graph_captures} loop graphs captured over "
                  f"{rec['caches']} caches")
@@ -1847,7 +1895,7 @@ def run_path(argv, name: str, cfg, batch: int = 0, wave: int = 0, loop_kind: str
                                                        eager["rec"]["chunks"])) if a != b), None)
         fail(f"{name}: the graph run's decoded chunks differ from the eager run's (first at "
              f"chunk {first} of {len(graph['rec']['chunks'])} / {len(eager['rec']['chunks'])})")
-    want = replay_launches(eng, cfg, batch)
+    want = replay_launches(eng, cfg, batch, wave)
     graphs = graph["rec"]["graphs"]
     loop_kind = loop_kind or ("spec" if eng.spec and not batch else "decode")
     if DEV == "cuda" and (not any(k == loop_kind for k, _ in graphs)
@@ -1857,8 +1905,9 @@ def run_path(argv, name: str, cfg, batch: int = 0, wave: int = 0, loop_kind: str
         fail(f"{name}: an eager step was captured as a graph")
     summary = {"tokens_equal_chunks": len(graph["rec"]["chunks"]) if "eager" in runs else None,
                "launches_per_replay": want[loop_kind],
-               "graphs": sum(1 for k, _ in graphs if k != "prefill"),
-               "prefill_graphs": sum(1 for k, _ in graphs if k == "prefill")}
+               "graphs": sum(1 for k, _ in graphs if k not in ("prefill", "wave")),
+               "prefill_graphs": sum(1 for k, _ in graphs if k == "prefill"),
+               "wave_graphs": sum(1 for k, _ in graphs if k == "wave")}
     for key in ("decode_ms_per_step", "steps", "wasted_steps", "captures", "capture_ms",
                 "wall_s", "host_reads", "prefills", "prefill_ms", "prefill_ms_per_call",
                 "prefill_keys", "prefill_captures", "prefill_capture_ms", "prefill_replays",
@@ -2196,6 +2245,106 @@ def phase_serving_wide(model_dir: str, wavs, cfg, T: int) -> dict:
         runs[extra[0] if extra else "bf16"] = launches
         del eng
     return runs
+
+
+@contextlib.contextmanager
+def serving_wave_record():
+    """Yields a list with one record per serving run (`decode_continuous`:
+    one per turn of run_path): its admission waves (`PerfStats.
+    serving_waves`), latency percentiles, speech seconds and wall seconds,
+    and the host gaps between one decode chunk's read and the next chunk's
+    first replay (ms)."""
+    from smolvision_tpu_torch.runtime import decode_graph, serving
+
+    runs = []
+    decode, run, replays = (serving.decode_continuous, decode_graph.DecodeLoop.run,
+                            decode_graph._ChunkLoop._replays)
+
+    def recording_decode(engine, clips, *args, **kwargs):
+        runs.append({"gaps_ms": [], "read_at": None})
+        t0 = time.monotonic()
+        rows = decode(engine, clips, *args, **kwargs)
+        runs[-1].update(wall_s=time.monotonic() - t0,
+                        speech_s=sum(len(c) for c in clips) / 16000,
+                        waves=[dict(w) for w in engine.perf.serving_waves],
+                        latency=dict(engine.perf.serving_latency),
+                        capture_ms=engine.perf.prefill_capture_ms,
+                        captures=engine.perf.prefill_captures,
+                        replays=engine.perf.prefill_replays)
+        return rows
+
+    def timed_replays(self, steps, shadow=None):
+        if runs and runs[-1]["read_at"] is not None:
+            runs[-1]["gaps_ms"].append((time.monotonic() - runs[-1]["read_at"]) * 1000.0)
+        return replays(self, steps, shadow)
+
+    def timed_run(self, *args, **kwargs):
+        out = run(self, *args, **kwargs)
+        if runs:
+            runs[-1]["read_at"] = time.monotonic()
+        return out
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(serving, "decode_continuous", recording_decode))
+        stack.enter_context(mock.patch.object(decode_graph._ChunkLoop, "_replays",
+                                              timed_replays))
+        stack.enter_context(mock.patch.object(decode_graph.DecodeLoop, "run", timed_run))
+        yield runs
+
+
+def phase_serving_waves(model_dir: str, wavs, cfg) -> dict:
+    """--serve 16 on the 64 wide clips, eager and graph turns: four
+    admission waves of 16 at one (Gcap, acap) key, through the wave graph
+    (decode_graph.WaveGraph): the first eager on its capture stream, the
+    second captured, the last two replayed, each after the first
+    dispatched in a decode chunk's shadow.  The turns' tokens must be
+    equal (run_path), the graph turn must capture exactly once and replay
+    at least twice, and B5 must count 28 launches per wave through the
+    replays (check_launches).  Logs per wave its dispatch host ms, the
+    chunk gaps and the capture ms, and the run's rates.  Returns the graph
+    run's launches."""
+    argv = ["-d", model_dir, "-i", *wavs, "--serve", str(SERVE_WAVE_SLOTS), "--silent",
+            "--language", "English", "--max-tokens", str(SERVE_WIDE_MAX_TOKENS)]
+    name = f"--serve {SERVE_WAVE_SLOTS} run"
+    batch, wave = serving_widths(len(wavs), SERVE_WAVE_SLOTS)
+    with serving_wave_record() as runs:
+        eng, launches, lines, _ = run_path(argv, name, cfg, batch=batch, wave=wave)
+    if len(runs) != 2 or len(lines) != len(wavs):
+        fail(f"{name}: {len(runs)} serving runs, {len(lines)} transcript lines for "
+             f"{len(wavs)} clips")
+    want = [(wave, how, i > 0) for i, how in enumerate(("first", "capture", "replay",
+                                                         "replay"))]
+    for turn, run in zip(("eager", "graph"), runs):
+        got = [(w["rows"], w["how"], w["shadow"]) for w in run["waves"]]
+        if got != want:
+            fail(f"{name} ({turn}): waves (rows, how, in a chunk's shadow) {got}, expected "
+                 f"{want}")
+    graph = runs[1]
+    replayed = sum(w["how"] == "replay" for w in graph["waves"])
+    if graph["captures"] != 1 or replayed < 2:
+        fail(f"{name}: {graph['captures']} wave captures (expected 1) and {replayed} replayed "
+             f"waves (expected >= 2)")
+    L = cfg.dec_layers
+    if launches["batched_cache_attention"] != L * len(graph["waves"]):
+        fail(f"{name}: B5 launched {launches['batched_cache_attention']} times over "
+             f"{len(graph['waves'])} waves (expected {L} per wave)")
+    out = {"card": CARD_LINE}
+    for turn, run in zip(("eager", "graph"), runs):
+        lat = run["latency"]
+        out[turn] = {
+            "waves": [{k: (round(v, 3) if isinstance(v, float) else v) for k, v in w.items()}
+                      for w in run["waves"]],
+            "chunk_gaps_ms": [round(g, 3) for g in run["gaps_ms"]],
+            "wall_s": round(run["wall_s"], 3),
+            "speech_s_per_s": round(run["speech_s"] / run["wall_s"], 2),
+            "admit_ttft_p50_ms": lat["admit_ttft_p50_ms"],
+            "admit_ttft_p99_ms": lat["admit_ttft_p99_ms"],
+            "done_p50_ms": lat["done_p50_ms"], "done_p99_ms": lat["done_p99_ms"],
+            "wave_captures": run["captures"], "wave_capture_ms": round(run["capture_ms"], 3),
+            "wave_replays": run["replays"]}
+    SERVE_WAVE_RUN.update(out)
+    log(f"  {name} [{CARD_LINE}]: {json.dumps(out)}")
+    return launches
 
 
 def greedy_run(eng, samples, max_tokens: int, spec: bool) -> list:
@@ -5089,9 +5238,11 @@ def main() -> int:
 
         since("phase 7 (int8)")
 
-        # phase 8: --serve 64 and --serve 64 --q8 (the heads on the tensor cores)
+        # phase 8: --serve 64 and --serve 64 --q8 (the heads on the tensor
+        # cores), then --serve 16 (four waves at one wave graph key)
         wide_runs = phase_serving_wide(model_dir, wide_wavs, cfg, shapes["wide_T"])
-        since("phase 8 (--serve 64)")
+        wave_launches = phase_serving_waves(model_dir, wide_wavs, cfg)
+        since("phase 8 (--serve 64, --serve 16)")
 
         # phase 9: --stream, --stdin --stream, --enc-window-sec, --profile
         stream_run = phase_stream(model_dir, stream_wavs, cfg)
@@ -5155,6 +5306,10 @@ def main() -> int:
                     batched_causal_attention=seg_launches["batched_causal_attention"],
                     batched_cache_attention=serve_launches["batched_cache_attention"],
                     batched_cache_attention_wide=wide_runs["bf16"]["batched_cache_attention"],
+                    batched_cache_attention_wave=serve_launches["batched_cache_attention"],
+                    batched_cache_attention_wave16=wave_launches["batched_cache_attention"],
+                    batched_cache_attention_wave_wide=wide_runs["bf16"][
+                        "batched_cache_attention"],
                     argmax_matvec_batched=seg_launches[seg_head],
                     argmax_matvec_q8=int8_runs["--q8"]["argmax_matvec_q8"],
                     argmax_matvec_tc=wide_runs["bf16"]["argmax_matvec_tc"],
@@ -5179,6 +5334,7 @@ def main() -> int:
     omni_int8["host_memory_gb"] = omni_run["offload"]["host_memory_gb"]
     log(f"omni-30b --q8 / --spec / --moe-offload [{smi_line}]: {json.dumps(omni_int8)}")
     log(f"mesh runs [{smi_line}]: {json.dumps(MESH_RUNS)}")
+    log(f"--serve {SERVE_WAVE_SLOTS} waves [{smi_line}]: {json.dumps(SERVE_WAVE_RUN)}")
     log(f"decode loops, graph vs eager per path: {json.dumps(DECODE_RUNS)}")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in table]}))
     print(smi_line)

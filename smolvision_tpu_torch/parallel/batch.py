@@ -15,7 +15,7 @@ import torch
 from smolvision_tpu_torch.config import EOS_TOKEN_IDS, ModelConfig
 from smolvision_tpu_torch.models import qwen3_decoder as dec_mod
 from smolvision_tpu_torch.ops.quant import QuantKV, kv_grow_k  # noqa: F401
-from smolvision_tpu_torch.runtime.decode_graph import BatchedPrefillGraph, DecodeLoop
+from smolvision_tpu_torch.runtime.decode_graph import BatchedPrefillGraph, DecodeLoop, WaveGraph
 
 # KV cache layout [L, 2, B, KH, K, D] -- see models/qwen3_decoder.py
 make_batched_kv = dec_mod.make_batched_kv
@@ -69,6 +69,30 @@ def batched_prefill_graph(params, cfg: ModelConfig, kv, embeds: torch.Tensor,
     return BatchedPrefillGraph(lambda e, at, **x: dec_mod.batched_prefill_delta(
                                    params, cfg, e, at, kv, **x)[0],
                                embeds, {name: zeros for name in names}, perf, stream, warm)
+
+
+def serving_wave_graph(params, cfg: ModelConfig, kv, audio: torch.Tensor, pcap: int,
+                       perf=None) -> WaveGraph:
+    """Serving's admission wave on the small cache `kv` [L, 2, Gcap, KH,
+    pcap, D] (runtime/decode_graph.py: its first call eager, its second
+    captured as a CUDA graph, later ones replayed): `run(audio, ints)`
+    builds the embeddings (`build_embeds_batched`) and prefills them at a
+    device start of 0 (`batched_prefill_delta`, each row's prompt length
+    its prompt_max, region_start past the cache), giving the greedy first
+    tokens, int32 [Gcap].  One graph per wave shape: audio [Gcap, acap, H]
+    fixes Gcap and acap.  The graph holds `kv`, which every wave of its
+    shape overwrites."""
+    def forward(audio, at, ids, audio_start, audio_len, last_rows, prompt_max):
+        embeds = dec_mod.build_embeds_batched(params, ids, audio, audio_start, audio_len)
+        zeros = torch.zeros_like(audio_start)
+        # region_start as [Gcap] rows: the int8 cache's attention at a device
+        # start takes a tensor
+        past = torch.full_like(audio_start, 1 << 30)
+        return dec_mod.batched_prefill_delta(params, cfg, embeds, at, kv, zeros, zeros,
+                                             last_rows=last_rows, prompt_max=prompt_max,
+                                             region_start=past)[0]
+
+    return WaveGraph(forward, audio, pcap, perf)
 
 
 def batched_decode_chunk(params, cfg: ModelConfig, tokens, pos: int, kv, n_steps_cap: int,

@@ -7,9 +7,10 @@ DECODE_CHUNK greedy steps), `batched_decode_chunk`
 (smolvision_tpu/models/qwen3_decoder.py, the same for a batch),
 `Engine._get_spec_chunk` (--spec: a jitted `while_loop` of draft, verify and
 accept), `sample_chunk` (the thinker's sampled `while_loop`),
-`_prefill_greedy` (prefill jit-compiled once per bucket) and multistream's
+`_prefill_greedy` (prefill jit-compiled once per bucket), multistream's
 `prefill_delta_j` (the round's batched delta prefill, compiled once per
-block width with its start traced).
+block width with its start traced) and serving's admission wave
+(`serving_build_embeds` + `serving_group_prefill`, once per wave shape).
 PyTorch runs eagerly; the nearest form of a compiled device program is a
 CUDA graph of one step, replayed:
 
@@ -83,7 +84,8 @@ def capture(step, stream):
 class StepGraph:
     """One step captured for replay, with the kernel launches one replay
     makes (`launches`, by `ffi.launch_counts` key) and the kind of its
-    owner ("decode", "spec", "sample", "prefill" or "delta_prefill")."""
+    owner ("decode", "spec", "sample", "prefill", "delta_prefill" or
+    "wave")."""
 
     def __init__(self, step, stream, kind: str = "decode"):
         self.kind = kind
@@ -567,4 +569,43 @@ class BatchedPrefillGraph(_Prefill):
         for name, value in inputs.items():
             self.inputs[name].copy_(torch.as_tensor(value))
         self._call(embeds, start)
+        return self.tok.clone()
+
+
+class WaveGraph(_Prefill):
+    """Serving's admission wave: the JAX package's `serving_build_embeds`
+    and `serving_group_prefill` (compiled once per shape, the small cache
+    donated) as one step, one graph per (Gcap, acap) on a small cache
+    that its owner pools.
+
+    `forward(audio, start, ids, audio_start, audio_len, last_rows,
+    prompt_max)` builds the wave's embeddings from the token ids [Gcap,
+    pcap] (int64) and the encoded audio [Gcap, acap, H] and delta-prefills
+    them at the device start -> the greedy first tokens, int32 [Gcap]; the
+    four row inputs are int32 [Gcap].  The audio is the block that `run`
+    copies into its static tensor, and the integers travel in one copy
+    from pinned memory that never waits for the card, so a wave dispatched
+    while a decode chunk runs stays behind it."""
+
+    kind = "wave"
+
+    def __init__(self, forward, audio: torch.Tensor, pcap: int, perf):
+        super().__init__(forward, audio, audio.shape[0], perf)
+        self.ints = torch.zeros((audio.shape[0], pcap + 4), dtype=torch.int64,
+                                device=audio.device)
+
+    def _step(self) -> None:
+        pcap = self.ints.shape[1] - 4
+        rows = self.ints[:, pcap:].t().to(torch.int32).contiguous()
+        self.tok.copy_(self.forward(self.embeds, self.start, self.ints[:, :pcap], *rows))
+
+    @torch.inference_mode()
+    def run(self, audio: torch.Tensor, ints: np.ndarray) -> torch.Tensor:
+        """Dispatch the wave of `audio` [Gcap, acap, H] at start 0; `ints`
+        [Gcap, pcap + 4] int64 holds each row's token ids, then its audio
+        start, audio length, last prompt row and prompt length.  Returns the
+        first tokens (int32 [Gcap], on the device), not read."""
+        host = torch.from_numpy(np.ascontiguousarray(ints, dtype=np.int64))
+        self.ints.copy_(host.pin_memory() if self.ints.is_cuda else host, non_blocking=True)
+        self._call(audio, 0)
         return self.tok.clone()

@@ -122,7 +122,9 @@ class PerfStats:
         self.fresh_prefills = 0   # batched fresh prefills (B4): one per length group
         self.delta_prefills = 0   # batched delta prefills (B5): one per admission wave
         self.batch_decode_steps = 0   # batched decode steps run (plain attention)
-        self.batch_decode_ms = 0.0    # wall ms of the batched decode chunks
+        # wall ms of the batched decode chunks; serving leaves out the host ms
+        # of a wave dispatched in a chunk's shadow, which prefill_ms counts
+        self.batch_decode_ms = 0.0
         # speculative decoding (--spec): verify forwards (one kernel-B2 launch
         # per layer each) and the tokens they produced (tokens / iteration is
         # the measured acceptance, at most SPEC_DRAFT + 1)
@@ -131,6 +133,11 @@ class PerfStats:
         # continuous-serving per-clip latency (runtime/serving.py): ttft /
         # completion p50/p99 dict over the last queue, or None
         self.serving_latency = None
+        # one record per serving admission wave: its rows, how it ran
+        # ("eager", or a wave graph's "first" / "capture" / "replay"),
+        # whether it was dispatched in a decode chunk's shadow, and the host
+        # ms of its dispatch and of its first tokens' read at admission
+        self.serving_waves = []
         # multistream's batched coordinator (runtime/multistream.py): its
         # caches, growths, compactions and one record per round, or None
         self.multistream = None

@@ -18,8 +18,32 @@ clips into slots as rows hit EOS:
     admit_b), so rope_offset[b] = admit_b - len_b;
   * retirement: EOS rows leave the active mask; their slots are reusable.
     When every slot is free the shared clock rewinds to pcap;
-  * the next wave's group prefill is prepared behind each decode chunk
-    (standby prefill), and encoding runs ahead of admission.
+  * the next wave's build and group prefill are dispatched in a decode
+    chunk's shadow (standby prefill: `DecodeLoop.run(shadow=...)`, while
+    the chunk's replays are queued) once its clips are encoded, else right
+    after the chunk; its first tokens are read only at its admission, and
+    encoding runs ahead of admission.  The first wave is synchronous.
+
+A wave is the JAX package's two jits, compiled once per shape with the
+small cache donated (`serving_build_embeds`, `serving_group_prefill`): on
+a dense decoder without a "model" axis, in a queue whose first wave shape
+recurs at least WAVE_GRAPH_MIN_WAVES times (`waves_at_shape`: n and the
+wave rows are known at the start), it is one `decode_graph.WaveGraph` per
+(Gcap, acap) on a small cache pooled per shape for the run
+(`wave_graphs`).  Its first call runs eagerly, its second is captured as
+a CUDA graph and later waves replay it: pcap is fixed for the run, Gcap
+is a power of two up to S, and the encode groups run longest first, so
+one shape recurs for every wave after the first and a replay is one
+launch in place of the eager forward's ~1000 (on the CPU the step runs
+eagerly, through the same static tensors).  The embeddings are built
+from the token ids on the device and B5 reads its start (0) from device
+memory.  Eager, at the host start 0, each on a fresh small cache: the
+waves of a shorter queue (a capture costs more than the eager waves it
+would save), a wave under a "model" axis (tp > 1; its collectives, as
+the batched decode step's) and a wave of an MoE decoder (a graph's
+forward takes `moe_dense`, every expert over all Gcap x pcap rows -- at a
+`--serve 4` wave of the 30B, 1536 rows against the eager dispatch's
+per-expert queues of 192, ~8x the expert products).
 
 Clips are admitted longest first, so the first group sets the prompt
 region cap and later admissions fit; results return in input order.
@@ -76,6 +100,28 @@ def _prompt_len(engine, n_samples: int) -> int:
     return len(ids)
 
 
+# A wave graph pays its capture back from the third wave of its shape.  On
+# the H100 (chip_smoke.py phase 8, `--serve 16` of the 0.6B) a capture's
+# host dispatch, its device sync included, took 55-68 ms, an eager wave's
+# 51-52 ms and a replay's 1.2-1.5 ms: first + capture costs more than two
+# eager waves, first + capture + replay less than three.
+WAVE_GRAPH_MIN_WAVES = 3
+
+
+def wave_graphs(engine, model_axis) -> bool:
+    """Whether the admission waves may run as `decode_graph.WaveGraph`s: on
+    a dense decoder without a "model" axis (module docstring)."""
+    return model_axis is None and not engine.dec_params.get("moe_layers")
+
+
+def waves_at_shape(n: int, W: int) -> int:
+    """Of a queue of n clips admitted in waves of W, the waves at the first
+    wave's shape: each wave holds W clips but the last, which holds the
+    rest and shares the shape when its power-of-two bucket is W's."""
+    full, rest = divmod(n, W)
+    return full + int(rest > 0 and (rest - 1).bit_length() == (W - 1).bit_length())
+
+
 def _percentiles(ms: np.ndarray) -> dict:
     s = np.sort(ms)
     return {"min": round(float(s[0]), 1), "p50": round(float(s[len(s) // 2]), 1),
@@ -127,8 +173,8 @@ def decode_continuous(engine, clips: Sequence[np.ndarray], slots: int = 32,
         up_ready.append((group, segs, up))
 
     def upload_more():
-        # the shadow hook: stage the next group's audio on the device while
-        # the decode chunk (or the wave's prefill) runs
+        # stage the next group's audio on the device while the decode chunk
+        # (or the wave's prefill) runs
         if next_up < n and next_up - admitted < 2 * S:
             _upload_group()
 
@@ -182,9 +228,17 @@ def decode_continuous(engine, clips: Sequence[np.ndarray], slots: int = 32,
 
     standby = None   # the next wave, prefilled before any slot frees
 
-    def _prepare_wave(G):
-        """Build + group-prefill clips order[admitted : admitted + G] into a
-        fresh small cache (kernel B5 at start 0): no slot, no big-cache write."""
+    # n and the wave rows are known now: graph the waves only where their
+    # shape recurs often enough to pay the capture back
+    graphed = (wave_graphs(engine, model_axis) and waves_at_shape(
+        n, min(S, admit_cap) if admit_cap > 0 else S) >= WAVE_GRAPH_MIN_WAVES)
+    pool = {}        # (Gcap, acap) -> (small cache, WaveGraph) of the graph route
+
+    def _prepare_wave(G, shadow=False):
+        """Dispatch the build + group prefill of clips order[admitted :
+        admitted + G] into a small cache (kernel B5 at start 0): no slot, no
+        big-cache write and no host read (`_first_tokens` reads at
+        admission).  `shadow`: dispatched while a decode chunk runs."""
         while len(enc_ready) < G and next_enc < n:
             encode_more()
         t0 = bs_mod._now_ms()
@@ -213,28 +267,69 @@ def decode_continuous(engine, clips: Sequence[np.ndarray], slots: int = 32,
             alen[g] = alen[G - 1]
             lens.append(lens[G - 1])
             blocks.append(blocks[G - 1])
-        small_kv = pbatch.make_batched_kv(cfg, Gcap, pcap, engine.batched_kv_dtype, dev,
-                                          group=model_axis)
-        embeds = dec_mod.build_embeds_batched(engine.dec_params,
-                                              torch.from_numpy(id_rows).to(dev),
-                                              torch.stack(blocks), i32(astart), i32(alen),
-                                              model_axis)
-        zeros = torch.zeros((Gcap,), dtype=torch.int32, device=dev)
-        first, small_kv = dec_mod.batched_prefill_delta(
-            engine.dec_params, cfg, embeds, 0, small_kv, zeros, zeros,
-            last_rows=i32(np.asarray(lens) - 1), prompt_max=i32(lens), region_start=1 << 30,
-            group=model_axis)
+        audio = torch.stack(blocks)
+        if graphed:
+            key = (Gcap, acap_all)
+            if key not in pool:
+                small = pbatch.make_batched_kv(cfg, Gcap, pcap, engine.batched_kv_dtype, dev)
+                pool[key] = (small, pbatch.serving_wave_graph(engine.dec_params, cfg, small,
+                                                              audio, pcap, perf))
+            small_kv, graph = pool[key]
+            how = ("replay" if graph.graph is not None else "capture" if graph.calls
+                   else "first")
+            lens_h = np.asarray(lens, np.int64)
+            first = graph.run(audio, np.concatenate(
+                [id_rows, np.stack([astart, alen, lens_h - 1, lens_h], axis=1)], axis=1))
+        else:
+            small_kv = pbatch.make_batched_kv(cfg, Gcap, pcap, engine.batched_kv_dtype, dev,
+                                              group=model_axis)
+            embeds = dec_mod.build_embeds_batched(engine.dec_params,
+                                                  torch.from_numpy(id_rows).to(dev), audio,
+                                                  i32(astart), i32(alen), model_axis)
+            zeros = torch.zeros((Gcap,), dtype=torch.int32, device=dev)
+            first, small_kv = dec_mod.batched_prefill_delta(
+                engine.dec_params, cfg, embeds, 0, small_kv, zeros, zeros,
+                last_rows=i32(np.asarray(lens) - 1), prompt_max=i32(lens),
+                region_start=1 << 30, group=model_axis)
+            how = "eager"
         perf.delta_prefills += 1
-        # every data rank computed the whole wave: its host read is
-        # all-gathered and must agree, so no rank's admissions drift
-        every = gather_host(first.cpu().numpy(), mesh_mod.data_group(engine), dev)
+        ms = bs_mod._now_ms() - t0
+        perf.prefill_ms += ms
+        record = {"rows": Gcap, "how": how, "shadow": shadow, "dispatch_ms": ms}
+        perf.serving_waves.append(record)
+        return {"group_idx": group_idx, "lens": lens, "first": first, "first_h": None,
+                "small_kv": small_kv, "consumed": 0, "G": G, "record": record}
+
+    def _first_tokens(wave) -> None:
+        """The wave's one host read, at its admission.  Every data rank
+        computed the whole wave: the read is all-gathered and must agree, so
+        no rank's admissions drift."""
+        t0 = bs_mod._now_ms()
+        every = gather_host(wave["first"].cpu().numpy(), mesh_mod.data_group(engine), dev)
         if (every != every[:1]).any():
             raise RuntimeError("the data ranks' group prefills disagree")
-        first_h = every[0]
-        perf.prefill_ms += bs_mod._now_ms() - t0
-        return {"group_idx": group_idx, "lens": lens, "first_h": first_h,
-                "small_kv": small_kv, "consumed": 0, "G": G}
+        wave["first_h"] = every[0]
+        ms = bs_mod._now_ms() - t0
+        perf.prefill_ms += ms
+        wave["record"]["read_ms"] = ms
 
+    def _next_wave_rows() -> int:
+        G = min(S, n - admitted)
+        return min(G, admit_cap) if admit_cap > 0 else G
+
+    def shadow():
+        """Host work while a decode chunk's replays run: stage the next
+        encode group's audio, then dispatch the standby wave if its clips
+        are encoded (the JAX package dispatches the next wave's build and
+        group prefill behind the chunk in flight, before the chunk's
+        fetch).  Nothing here waits for the card."""
+        nonlocal standby, shadow_ms
+        upload_more()
+        if standby is None and admitted < n and next_enc >= admitted + _next_wave_rows():
+            standby = _prepare_wave(_next_wave_rows(), shadow=True)
+            shadow_ms += standby["record"]["dispatch_ms"]
+
+    shadow_ms = 0.0  # host ms of the waves dispatched in the current chunk's shadow
     t0 = time.monotonic()
     while emitted < n:
         # ---- admit into free slots ------------------------------------
@@ -249,10 +344,14 @@ def decode_continuous(engine, clips: Sequence[np.ndarray], slots: int = 32,
                 wave = min(wave, admit_cap)
             t_wave = time.monotonic()
             if standby is None:
+                # the first wave (or one no chunk's shadow dispatched): with
+                # its prefill queued, encode ahead before its read
                 standby = _prepare_wave(wave)
                 if next_enc < n and next_enc - admitted < 2 * S:
                     upload_more()
                     encode_more()
+            if standby["first_h"] is None:
+                _first_tokens(standby)
             take = min(wave, standby["G"] - standby["consumed"])
             src0 = standby["consumed"]
             now = time.monotonic()
@@ -260,6 +359,11 @@ def decode_continuous(engine, clips: Sequence[np.ndarray], slots: int = 32,
             # this rank's slots of the wave (all of them off a mesh)
             own = [(s - mine.start, src0 + k) for k, s in enumerate(taken_slots)
                    if mine.start <= s < mine.stop]
+            # the copies queue on the current stream; the next wave of this
+            # shape, which overwrites the pooled small cache, is dispatched
+            # only once this one is consumed (standby None), so its replay
+            # (or its eager run, on a capture stream that first waits on the
+            # current one) is ordered after them
             pbatch.admit_rows(kv, standby["small_kv"], [r for r, _ in own], len(own),
                               src=[g for _, g in own])
             is_first_wave = admitted == 0
@@ -306,22 +410,22 @@ def decode_continuous(engine, clips: Sequence[np.ndarray], slots: int = 32,
                                               perf, natural=True, group=model_axis,
                                               data_group=mesh_mod.data_group(engine))
         t_dec = bs_mod._now_ms()
+        shadow_ms = 0.0
         buf_h, count, replays = loop.run(
             tokens_dev, clock, steps, row_active=np.asarray([not d for d in slot_done])[mine],
             rope_offset=rope_off[mine], kv_min=kv_min, prompt_max=prompt_max[mine],
-            region_start=region_min[mine], shadow=upload_more)
+            region_start=region_min[mine], shadow=shadow)
         tokens_dev = loop.tok
-        perf.batch_decode_ms += bs_mod._now_ms() - t_dec
+        # a wave dispatched in the shadow counts in prefill ms, not here
+        perf.batch_decode_ms += bs_mod._now_ms() - t_dec - shadow_ms
         perf.batch_decode_steps += replays
         # behind the chunk: keep the encode queue ahead of admission and
-        # prefill the next wave before any slot frees
+        # dispatch the next wave before any slot frees, where the chunk's
+        # shadow found its clips not yet encoded
         if next_enc < n and next_enc - admitted < 2 * S:
             encode_more()
         if standby is None and admitted < n:
-            g_next = min(S, n - admitted)
-            if admit_cap > 0:
-                g_next = min(g_next, admit_cap)
-            standby = _prepare_wave(g_next)
+            standby = _prepare_wave(_next_wave_rows())
         tokens_h = loop.tokens_h.copy()    # every rank's, from the chunk's one read
         now = time.monotonic()
         if count == 0:

@@ -1528,3 +1528,44 @@ def test_cuda_device_log_mel_matches_host_mel():
         for b, (c, f) in enumerate(zip(clips, up.frames)):
             host = mel.log_mel(c.astype(np.float16).astype(np.float32))
             assert np.abs(got[b, :, :f] - host).max() < ATOL
+
+
+@pytest.mark.cuda
+def test_cuda_serving_wave_graph_replay_equals_eager(card_stream_engine, monkeypatch):
+    """Seven clips through two serving slots: waves of 2, 2, 2 and 1.  The
+    (Gcap 2, acap) wave graph's first wave runs eagerly, its second is
+    captured in a decode chunk's shadow, its third replays; the token rows
+    equal those of the same run with every wave step eager (no CUDA graph)
+    and of the eager waves at a host start on fresh caches.  B5 counts one
+    launch per layer per wave, replays included."""
+    from smolvision_tpu_torch.runtime import decode_graph, serving
+
+    eng = card_stream_engine
+    eng.max_tokens = 12
+    eng.set_force_language("English")
+    rng = np.random.default_rng(9)
+    clips = [(0.2 * np.sin(2 * np.pi * (150 + 30 * i) * np.arange(n) / 16000)
+              + 0.02 * rng.standard_normal(n)).astype(np.float32)
+             for i, n in enumerate((30000, 17000, 24000, 12800, 20000, 16000, 27000))]
+
+    def run():
+        eng.perf.reset()
+        before = ffi.launch_counts["batched_cache_attention"]
+        rows = serving.decode_continuous(eng, clips, slots=2)
+        torch.cuda.synchronize()
+        return rows, ffi.launch_counts["batched_cache_attention"] - before
+
+    graph, b5 = run()
+    waves = eng.perf.serving_waves
+    assert [(w["rows"], w["how"], w["shadow"]) for w in waves] == [
+        (2, "first", False), (2, "capture", True), (2, "replay", True), (1, "first", True)]
+    assert eng.perf.prefill_captures == 1 and eng.perf.prefill_replays == 2
+    assert b5 == eng.cfg.dec_layers * len(waves)
+    with monkeypatch.context() as m:
+        m.setattr(decode_graph, "capture", _eager_capture)
+        eager, _ = run()
+    with monkeypatch.context() as m:
+        m.setattr(serving, "wave_graphs", lambda engine, axis: False)
+        host_start, _ = run()
+        assert [w["how"] for w in eng.perf.serving_waves] == ["eager"] * 4
+    assert graph == eager == host_start
