@@ -1695,8 +1695,7 @@ def decode_mode(mode: str):
         for cls in (decode_graph.DecodeLoop, decode_graph.SpecLoop, decode_graph.SampleLoop):
             stack.enter_context(mock.patch.object(cls, "run", recording(cls.run)))
         stack.enter_context(mock.patch.object(dec_mod, "make_kv_cache", counting_make_kv))
-        stack.enter_context(mock.patch.object(decode_graph._ChunkLoop, "_read",
-                                              staticmethod(counting_read)))
+        stack.enter_context(mock.patch.object(decode_graph._ChunkLoop, "_read", counting_read))
         for cls in inits:
             stack.enter_context(mock.patch.object(cls, "__init__", counting_init))
         stack.enter_context(mock.patch.object(decode_graph, "StepGraph", RecordingGraph))

@@ -312,20 +312,25 @@ def run(argv=None) -> Tuple[int, Optional["Engine"]]:
 def _profiled(trace_dir: Optional[str], device):
     """Under --profile DIR: a torch.profiler trace of the block (host, and
     the card's kernels when the engine runs there) written to
-    DIR/trace.json.  Writing it is best-effort, as in the JAX CLI."""
+    DIR/trace.json, with the program's spans as `smolvision.*` ranges
+    (runtime/perf.py).  Writing it is best-effort, as in the JAX CLI."""
     if not trace_dir:
         yield
         return
     import torch
+
+    from smolvision_tpu_torch.runtime.perf import profile_ranges
 
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(activities=activities)
     prof.start()
+    ranges = profile_ranges(True)
     try:
         yield
     finally:
+        profile_ranges(ranges)
         try:
             prof.stop()
             os.makedirs(trace_dir, exist_ok=True)

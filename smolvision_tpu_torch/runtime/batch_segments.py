@@ -280,24 +280,19 @@ def _encode_batch_device_mel(engine, segments: Sequence[np.ndarray],
 
 def _device_mel_group(engine, up: UploadedAudio, tcap: Optional[int]):
     """One rank's group of `_encode_batch_device_mel`, its mel ms counted
-    into engine.perf (the CUDA-event spans settled later)."""
+    into engine.perf (the upload copy's and the log-mel's device spans
+    settled later)."""
     cfg = engine.cfg
     dev = engine.device
     chunk = cfg.enc_chunk_size
     B, fcap = len(up.frames), up.fcap
+    perf = engine.perf
     up.take()
-    t0 = _now_ms()
-    span = None
-    if dev.type == "cuda":
-        span = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-        span[0].record()
-    mel_t = log_mel_batch(up.buf, torch.tensor(up.frames, device=dev), fcap)   # [B, 128, fcap]
-    if span is None:
-        engine.perf.mel_ms += up.host_ms + _now_ms() - t0
-    else:
-        span[1].record()
-        engine.perf.mel_ms += up.host_ms
-        engine.perf.mel_spans += [up.copy, span]
+    perf.mel_ms += up.host_ms
+    if up.copy is not None:
+        perf.device_pair("front.upload", *up.copy, into="mel_ms")
+    with perf.span("front.mel", device=True, into="mel_ms"):
+        mel_t = log_mel_batch(up.buf, torch.tensor(up.frames, device=dev), fcap)  # [B, 128, fcap]
     nc = fcap // chunk
     blocks = mel_t.reshape(B, NUM_MEL_BINS, nc, chunk).transpose(1, 2).reshape(
         B * nc, NUM_MEL_BINS, chunk)
@@ -313,7 +308,8 @@ def _device_mel_group(engine, up: UploadedAudio, tcap: Optional[int]):
                                            full_counts[b] * chunk + w] for b in idxs]))
     out = _pool_and_encode(engine, B, full_tok, B * nc, [b * nc for b in range(B)],
                            full_counts, partial_rows, partial_blocks, tcap)
-    up.release()
+    with perf.span("front.wait_upload"):
+        up.release()
     return out
 
 

@@ -56,7 +56,6 @@ one when it replaces the cache.  A failed capture or replay raises.
 from __future__ import annotations
 
 import contextlib
-import time
 
 import numpy as np
 import torch
@@ -65,6 +64,7 @@ from smolvision_tpu_torch.config import EOS_TOKEN_IDS
 from smolvision_tpu_torch.kernels import ffi
 from smolvision_tpu_torch.ops.collectives import gather_host
 from smolvision_tpu_torch.runtime import sampling
+from smolvision_tpu_torch.runtime.perf import NO_SPAN
 
 DECODE_CHUNK = 64   # steps per host read, as the JAX engine's
 DONE_LAG = 3        # replays in flight past the one whose flag the host reads
@@ -130,12 +130,17 @@ class _Captured:
             yield
         torch.cuda.current_stream().wait_stream(self.stream)
 
+    def _span(self, name: str):
+        """A span of the owner's PerfStats (none without one)."""
+        return NO_SPAN if self.perf is None else self.perf.span(name)
+
     def _capture(self) -> None:
-        """Capture `_step` (on the capture stream, after a real step on it)."""
-        t0 = time.monotonic()
-        self.graph = StepGraph(self._step, self.stream, self.kind)
+        """Capture `_step` (on the capture stream, after a real step on it):
+        the one place every graph is captured, counted on the card."""
+        with self._span("graph.capture") as span:
+            self.graph = StepGraph(self._step, self.stream, self.kind)
         if self.stream is not None and self.perf is not None:
-            self._note_capture((time.monotonic() - t0) * 1000.0)
+            self._note_capture(span.ms)
 
     def _note_capture(self, ms: float) -> None:
         self.perf.graph_captures += 1
@@ -192,7 +197,8 @@ class _ChunkLoop(_Captured):
                     if shadow is not None:
                         shadow()
                         shadow = None
-                    self.events[n % DONE_LAG].synchronize()
+                    with self._span("decode.wait_replay"):
+                        self.events[n % DONE_LAG].synchronize()
                     if bool(self.flag[0]):
                         break
                 self._advance()
@@ -203,12 +209,12 @@ class _ChunkLoop(_Captured):
             shadow()
         return n
 
-    @staticmethod
-    def _read(buf: torch.Tensor, *counters: torch.Tensor):
+    def _read(self, buf: torch.Tensor, *counters: torch.Tensor):
         """The chunk's host read, in one copy: the counters as ints and the
         whole buffer as numpy int32."""
-        host = torch.cat([c.reshape(-1).long() for c in counters]
-                         + [buf.reshape(-1).long()]).cpu().numpy()
+        flat = torch.cat([c.reshape(-1).long() for c in counters] + [buf.reshape(-1).long()])
+        with self._span("decode.wait_read"):
+            host = flat.cpu().numpy()
         n = len(counters)
         return [int(x) for x in host[:n]], host[n:].astype(np.int32).reshape(buf.shape)
 

@@ -63,6 +63,7 @@ from smolvision_tpu_torch.runtime import prompt as prompt_mod
 from smolvision_tpu_torch.runtime.buckets import bucket, window_bucket
 from smolvision_tpu_torch.runtime.decode_graph import (DECODE_CHUNK, DecodeLoop, PrefillGraph,
                                                        SampleLoop, SpecLoop)
+from smolvision_tpu_torch.runtime.perf import PerfStats
 from smolvision_tpu_torch.runtime.sampling import REP_WINDOW, CRefSampler, Sampler
 from smolvision_tpu_torch.text.tokenizer import Tokenizer, load_tokenizer
 
@@ -72,93 +73,6 @@ KV_HEADROOM = 256
 SPEC_DRAFT = max(1, int(os.environ.get("SMOLVISION_SPEC_DRAFT", "4")))
 
 TokenCallback = Callable[[bytes], None]
-
-
-class PerfStats:
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self.total_ms = 0.0
-        self.text_tokens = 0
-        self.audio_ms = 0.0
-        self.encode_ms = 0.0   # mel + encoder (the reference's "encoding")
-        self.decode_ms = 0.0   # prefill + decode loop (its "decoding")
-        self.mel_ms = 0.0
-        # the device front end's CUDA event pairs (upload, log-mel) not yet
-        # added to mel_ms (`settle_mel`)
-        self.mel_spans = []
-        self.prefill_ms = 0.0
-        # streaming latency (runtime/stream.py): wall ms per chunk round and
-        # session-start -> first committed token (the TTFT analog)
-        self.stream_chunk_ms = []
-        self.stream_first_commit_ms = None
-        # single-stream decode steps run (one kernel-B3 launch per layer
-        # each): graph replays and eager steps, those past the end of a
-        # chunk and the --spec draft steps included
-        self.decode_steps = 0
-        # decode steps (single and batched) run after their chunk's end
-        # (runtime/decode_graph.py: the host learns of the end DONE_LAG
-        # replays late); their outputs are never read
-        self.wasted_steps = 0
-        # CUDA graphs of a decode step (or --spec iteration) captured, and
-        # the host ms they took
-        self.graph_captures = 0
-        self.graph_capture_ms = 0.0
-        # CUDA graphs of a greedy prefill captured (one per cache and block
-        # bucket, on its second call), their host ms, and the prefills
-        # replayed from them
-        self.prefill_captures = 0
-        self.prefill_capture_ms = 0.0
-        self.prefill_replays = 0
-        # launches of the other kernels follow these counts, one per layer each:
-        self.encodes = 0          # encoder stack calls (B1), single clips or batches
-        self.prefills = 0         # single-stream prefills (B2)
-        # of the prefills and decode steps, those whose output is the logits
-        # (the sampled thinker's): no greedy head
-        self.logits_prefills = 0
-        self.logits_steps = 0
-        self.reuse_prefills = 0   # of which at a cache row > 0 (streaming's KV reuse)
-        self.fresh_prefills = 0   # batched fresh prefills (B4): one per length group
-        self.delta_prefills = 0   # batched delta prefills (B5): one per admission wave
-        self.batch_decode_steps = 0   # batched decode steps run (plain attention)
-        # wall ms of the batched decode chunks; serving leaves out the host ms
-        # of a wave dispatched in a chunk's shadow, which prefill_ms counts
-        self.batch_decode_ms = 0.0
-        # speculative decoding (--spec): verify forwards (one kernel-B2 launch
-        # per layer each) and the tokens they produced (tokens / iteration is
-        # the measured acceptance, at most SPEC_DRAFT + 1)
-        self.spec_iters = 0
-        self.spec_tokens = 0
-        # continuous-serving per-clip latency (runtime/serving.py): ttft /
-        # completion p50/p99 dict over the last queue, or None
-        self.serving_latency = None
-        # one record per serving admission wave: its rows, how it ran
-        # ("eager", or a wave graph's "first" / "capture" / "replay"),
-        # whether it was dispatched in a decode chunk's shadow, and the host
-        # ms of its dispatch and of its first tokens' read at admission
-        self.serving_waves = []
-        # multistream's batched coordinator (runtime/multistream.py): its
-        # caches, growths, compactions and one record per round, or None
-        self.multistream = None
-
-    def settle_mel(self) -> None:
-        """Add the device ms of the front end's recorded spans to mel_ms
-        (each span's end event waited for)."""
-        for start, end in self.mel_spans:
-            end.synchronize()
-            self.mel_ms += start.elapsed_time(end)
-        self.mel_spans = []
-
-    def stream_latency(self):
-        """(first_commit_ms, p50, p99) over the recorded chunk rounds, or
-        None when no streaming ran."""
-        if not self.stream_chunk_ms:
-            return None
-        arr = np.asarray(self.stream_chunk_ms)
-        return (self.stream_first_commit_ms,
-                float(np.percentile(arr, 50)),
-                float(np.percentile(arr, 99)))
 
 
 def _now_ms() -> float:
@@ -272,7 +186,7 @@ class Engine:
         self.token_cb: Optional[TokenCallback] = None
         # --monitor: streaming heartbeat symbols on stderr (runtime/stream.py)
         self.monitor = False
-        self.perf = PerfStats()
+        self.perf = PerfStats(self.device)
         self._tokenizer: Optional[Tokenizer] = None
         # the device mesh of the batched paths (parallel/mesh.shard_engine)
         # and the encoder's sequence parallelism of the batched group encode
@@ -602,29 +516,30 @@ class Engine:
         n = 1
         if cur in EOS_TOKEN_IDS or not on_token(cur) or n >= max_tokens:
             return n
-        pos = start_pos
-        if self.moe_offload:
-            return self._decode_greedy_offload(cur, pos, n, max_tokens, on_token)
-        while True:
-            steps = min(DECODE_CHUNK, max_tokens - n)
-            loop = self._decode_loop(pos, steps)
-            buf, count, replays = loop.run(cur, pos, steps)
-            if isinstance(loop, SpecLoop):
-                # only live iterations count; replays past the chunk's end
-                # are wasted_steps
-                self.perf.spec_iters += loop.iterations
-                self.perf.spec_tokens += count
-                self.perf.decode_steps += loop.n_draft * loop.iterations
-            else:
-                self.perf.decode_steps += replays
-            for t in buf[0].tolist():
-                n += 1
-                if t in EOS_TOKEN_IDS or not on_token(t) or n >= max_tokens:
+        with self.perf.span("decode.loop", device=self.perf.decode_device):
+            if self.moe_offload:
+                return self._decode_greedy_offload(cur, start_pos, n, max_tokens, on_token)
+            pos = start_pos
+            while True:
+                steps = min(DECODE_CHUNK, max_tokens - n)
+                loop = self._decode_loop(pos, steps)
+                buf, count, replays = loop.run(cur, pos, steps)
+                if isinstance(loop, SpecLoop):
+                    # only live iterations count; replays past the chunk's end
+                    # are wasted_steps
+                    self.perf.spec_iters += loop.iterations
+                    self.perf.spec_tokens += count
+                    self.perf.decode_steps += loop.n_draft * loop.iterations
+                else:
+                    self.perf.decode_steps += replays
+                for t in buf[0].tolist():
+                    n += 1
+                    if t in EOS_TOKEN_IDS or not on_token(t) or n >= max_tokens:
+                        return n
+                if count == 0:
                     return n
-            if count == 0:
-                return n
-            cur = int(buf[0, -1])
-            pos += count
+                cur = int(buf[0, -1])
+                pos += count
 
     def _decode_greedy_offload(self, cur: int, pos: int, n: int, max_tokens: int,
                                on_token: Callable[[int], bool]) -> int:

@@ -142,7 +142,7 @@ def clone_session(engine):
     _ = engine.tokenizer          # load once; views share it
     engine.prepare_prompt()
     s = copy.copy(engine)
-    s.perf = PerfStats()
+    s.perf = PerfStats(engine.device)
     s.token_cb = None
     s.reset_kv()
     return s
@@ -182,7 +182,9 @@ class StreamSession:
                         stream_mod.run_solo_chunk(state, w)
                 if w is stream_mod.NOT_READY:
                     time.sleep(0.005)   # the live buffer is filling
-            self.text = state.finalize()
+            # the settle waits on events: not while another session captures
+            with self.turn:
+                self.text = state.finalize()
         except BaseException as e:  # re-raised by run_streams in the caller's thread
             self.error = e
 

@@ -133,6 +133,14 @@ def decode_continuous(engine, clips: Sequence[np.ndarray], slots: int = 32,
                       admit_cap: int = 0) -> List[List[int]]:
     """The raw greedy token rows of `clips` through a rolling batch of
     `slots` rows, in input order (see `serve_continuous`)."""
+    with engine.perf.span("serve.call", arg=lambda: {"clips": len(clips)}):
+        return _decode_continuous(engine, clips, slots, admit_cap)
+
+
+def _decode_continuous(engine, clips, slots, admit_cap):
+    """decode_continuous inside its serve.call span; per-clip times count
+    from here."""
+    t_call = time.perf_counter()
     cfg = engine.cfg
     dev = engine.device
     perf = engine.perf
@@ -168,8 +176,9 @@ def decode_continuous(engine, clips: Sequence[np.ndarray], slots: int = 32,
         group = order[next_up : next_up + ENCODE_GROUP]
         next_up += len(group)
         segs = [clips[i] for i in group]
-        up = (bs_mod._upload_audio(engine, segs, side)
-              if bs_mod._use_device_mel(cfg, len(segs), engine.param_dtype, dev) else None)
+        with perf.span("serve.upload", arg=lambda: {"clips": group}):
+            up = (bs_mod._upload_audio(engine, segs, side)
+                  if bs_mod._use_device_mel(cfg, len(segs), engine.param_dtype, dev) else None)
         up_ready.append((group, segs, up))
 
     def upload_more():
@@ -186,17 +195,19 @@ def decode_continuous(engine, clips: Sequence[np.ndarray], slots: int = 32,
             _upload_group()
         group, segs, up = up_ready.pop(0)
         next_enc += len(group)
-        t0 = bs_mod._now_ms()
-        if up is not None:
-            stack, n_toks = bs_mod._encode_batch_device_mel(engine, segs, up)
-        else:
-            mels = [log_mel(c) for c in segs]
-            perf.mel_ms += bs_mod._now_ms() - t0
-            stack, n_toks = bs_mod._encode_batch(engine, mels)
-        acap_all = max(acap_all, stack.shape[1])
-        for j, i in enumerate(group):
-            enc_ready[i] = (stack[j], n_toks[j])
-        perf.encode_ms += bs_mod._now_ms() - t0
+        # host ms, no synchronise: the encode's dispatch (its device ms:
+        # encode_device_ms)
+        with perf.span("serve.encode", device=True, arg=lambda: {"clips": group}) as span:
+            if up is not None:
+                stack, n_toks = bs_mod._encode_batch_device_mel(engine, segs, up)
+            else:
+                with perf.span("front.mel", into="mel_ms"):
+                    mels = [log_mel(c) for c in segs]
+                stack, n_toks = bs_mod._encode_batch(engine, mels)
+            acap_all = max(acap_all, stack.shape[1])
+            for j, i in enumerate(group):
+                enc_ready[i] = (stack[j], n_toks[j])
+        perf.encode_ms += span.ms
 
     # ---- slot state ----------------------------------------------------
     kcap = pcap + bucket(min(engine.max_tokens, 2 * chunk) + 1, 64)
@@ -218,13 +229,14 @@ def decode_continuous(engine, clips: Sequence[np.ndarray], slots: int = 32,
     admitted = 0                         # clips admitted so far
     tokens_dev = torch.zeros_like(kv_min)
 
-    # per-clip latency (all clips arrive at t0): first token when its wave's
-    # prefill returns; completion when the row hits EOS or its cap; and
-    # admission -> first token per clip, the continuous-serving TTFT
-    t_first = np.zeros(n)
+    # per-clip latency, in s since the call's start (all clips arrive
+    # then): first token (the wave records' admit_wait_ms); completion when
+    # the row hits EOS or its cap; and admission -> first token per clip,
+    # the continuous-serving TTFT
     t_done = np.zeros(n)
     t_admit_first = np.zeros(n)
     first_wave_ids: list = []   # their admit -> first pays the cold prefill
+    waves: List[dict] = []      # this call's wave records
 
     standby = None   # the next wave, prefilled before any slot frees
 
@@ -241,10 +253,28 @@ def decode_continuous(engine, clips: Sequence[np.ndarray], slots: int = 32,
         admission).  `shadow`: dispatched while a decode chunk runs."""
         while len(enc_ready) < G and next_enc < n:
             encode_more()
-        t0 = bs_mod._now_ms()
         group_idx = [order[admitted + g] for g in range(G)]
         # pow2-bucket the group; pad rows repeat the last clip
         Gcap = 1 << (G - 1).bit_length() if G > 1 else 1
+        record = {"rows": Gcap, "how": None, "shadow": shadow, "dispatch_ms": 0.0,
+                  "device_ms": None, "clips": group_idx, "admit_wait_ms": []}
+        no = len(waves)
+        with perf.span("serve.wave", device=True, record=record,
+                       arg=lambda: {"wave": no, "clips": group_idx}) as span:
+            first, small_kv, lens, record["how"] = _dispatch_wave(group_idx, Gcap)
+        perf.delta_prefills += 1
+        perf.prefill_ms += span.ms
+        record["dispatch_ms"] = span.ms
+        waves.append(record)
+        perf.serving_waves.append(record)
+        return {"no": no, "group_idx": group_idx, "lens": lens, "first": first,
+                "first_h": None, "small_kv": small_kv, "consumed": 0, "G": G,
+                "record": record}
+
+    def _dispatch_wave(group_idx, Gcap):
+        """The wave's build and group prefill: (its first tokens on the
+        device, its small cache, its rows' prompt lengths, how it ran)."""
+        G = len(group_idx)
         lens = []
         id_rows = np.zeros((Gcap, pcap), np.int64)
         astart = np.zeros(Gcap, np.int32)
@@ -292,26 +322,19 @@ def decode_continuous(engine, clips: Sequence[np.ndarray], slots: int = 32,
                 last_rows=i32(np.asarray(lens) - 1), prompt_max=i32(lens),
                 region_start=1 << 30, group=model_axis)
             how = "eager"
-        perf.delta_prefills += 1
-        ms = bs_mod._now_ms() - t0
-        perf.prefill_ms += ms
-        record = {"rows": Gcap, "how": how, "shadow": shadow, "dispatch_ms": ms}
-        perf.serving_waves.append(record)
-        return {"group_idx": group_idx, "lens": lens, "first": first, "first_h": None,
-                "small_kv": small_kv, "consumed": 0, "G": G, "record": record}
+        return first, small_kv, lens, how
 
     def _first_tokens(wave) -> None:
         """The wave's one host read, at its admission.  Every data rank
         computed the whole wave: the read is all-gathered and must agree, so
         no rank's admissions drift."""
-        t0 = bs_mod._now_ms()
-        every = gather_host(wave["first"].cpu().numpy(), mesh_mod.data_group(engine), dev)
-        if (every != every[:1]).any():
-            raise RuntimeError("the data ranks' group prefills disagree")
-        wave["first_h"] = every[0]
-        ms = bs_mod._now_ms() - t0
-        perf.prefill_ms += ms
-        wave["record"]["read_ms"] = ms
+        with perf.span("serve.wait_first", arg=lambda: {"wave": wave["no"]}) as span:
+            every = gather_host(wave["first"].cpu().numpy(), mesh_mod.data_group(engine), dev)
+            if (every != every[:1]).any():
+                raise RuntimeError("the data ranks' group prefills disagree")
+            wave["first_h"] = every[0]
+        perf.prefill_ms += span.ms
+        wave["record"]["read_ms"] = span.ms
 
     def _next_wave_rows() -> int:
         G = min(S, n - admitted)
@@ -330,7 +353,7 @@ def decode_continuous(engine, clips: Sequence[np.ndarray], slots: int = 32,
             shadow_ms += standby["record"]["dispatch_ms"]
 
     shadow_ms = 0.0  # host ms of the waves dispatched in the current chunk's shadow
-    t0 = time.monotonic()
+    t_loop = time.perf_counter()
     while emitted < n:
         # ---- admit into free slots ------------------------------------
         free = [s for s in range(S) if slot_done[s]]
@@ -342,7 +365,7 @@ def decode_continuous(engine, clips: Sequence[np.ndarray], slots: int = 32,
             wave = min(len(free), n - admitted)
             if admit_cap > 0:
                 wave = min(wave, admit_cap)
-            t_wave = time.monotonic()
+            t_wave = time.perf_counter()
             if standby is None:
                 # the first wave (or one no chunk's shadow dispatched): with
                 # its prefill queued, encode ahead before its read
@@ -352,48 +375,50 @@ def decode_continuous(engine, clips: Sequence[np.ndarray], slots: int = 32,
                     encode_more()
             if standby["first_h"] is None:
                 _first_tokens(standby)
-            take = min(wave, standby["G"] - standby["consumed"])
-            src0 = standby["consumed"]
-            now = time.monotonic()
-            taken_slots = free[:take]
-            # this rank's slots of the wave (all of them off a mesh)
-            own = [(s - mine.start, src0 + k) for k, s in enumerate(taken_slots)
-                   if mine.start <= s < mine.stop]
-            # the copies queue on the current stream; the next wave of this
-            # shape, which overwrites the pooled small cache, is dispatched
-            # only once this one is consumed (standby None), so its replay
-            # (or its eager run, on a capture stream that first waits on the
-            # current one) is ordered after them
-            pbatch.admit_rows(kv, standby["small_kv"], [r for r, _ in own], len(own),
-                              src=[g for _, g in own])
-            is_first_wave = admitted == 0
-            for k in range(take):
-                g = src0 + k
-                i = standby["group_idx"][g]
-                ln = standby["lens"][g]
-                ft = int(standby["first_h"][g])
-                s = taken_slots[k]
-                if is_first_wave:
-                    first_wave_ids.append(i)
-                slot_clip[s] = i
-                slot_done[s] = False
-                rows[i] = [ft]
-                tokens_h[s] = ft
-                rope_off[s] = clock - ln
-                prompt_max[s] = ln
-                region_min[s] = clock
-                produced[s] = 1
-                t_first[i] = now - t0
-                t_admit_first[i] = now - t_wave
-                if ft in EOS_TOKEN_IDS or engine.max_tokens <= 1:
-                    slot_done[s] = True
-                    emitted += 1
-                    t_done[i] = now - t0
-            admitted += take
-            standby["consumed"] += take
+            with perf.span("serve.admit", arg=lambda: {"wave": standby["no"],
+                                                      "clips": standby["group_idx"]}):
+                take = min(wave, standby["G"] - standby["consumed"])
+                src0 = standby["consumed"]
+                now = time.perf_counter()
+                taken_slots = free[:take]
+                # this rank's slots of the wave (all of them off a mesh)
+                own = [(s - mine.start, src0 + k) for k, s in enumerate(taken_slots)
+                       if mine.start <= s < mine.stop]
+                # the copies queue on the current stream; the next wave of this
+                # shape, which overwrites the pooled small cache, is dispatched
+                # only once this one is consumed (standby None), so its replay
+                # (or its eager run, on a capture stream that first waits on the
+                # current one) is ordered after them
+                pbatch.admit_rows(kv, standby["small_kv"], [r for r, _ in own], len(own),
+                                  src=[g for _, g in own])
+                is_first_wave = admitted == 0
+                for k in range(take):
+                    g = src0 + k
+                    i = standby["group_idx"][g]
+                    ln = standby["lens"][g]
+                    ft = int(standby["first_h"][g])
+                    s = taken_slots[k]
+                    if is_first_wave:
+                        first_wave_ids.append(i)
+                    slot_clip[s] = i
+                    slot_done[s] = False
+                    rows[i] = [ft]
+                    tokens_h[s] = ft
+                    rope_off[s] = clock - ln
+                    prompt_max[s] = ln
+                    region_min[s] = clock
+                    produced[s] = 1
+                    standby["record"]["admit_wait_ms"].append((now - t_call) * 1000.0)
+                    t_admit_first[i] = now - t_wave
+                    if ft in EOS_TOKEN_IDS or engine.max_tokens <= 1:
+                        slot_done[s] = True
+                        emitted += 1
+                        t_done[i] = now - t_call
+                admitted += take
+                standby["consumed"] += take
+                tokens_dev = i32(tokens_h[mine])
             if standby["consumed"] >= standby["G"]:
                 standby = None
-            tokens_dev = i32(tokens_h[mine])
 
         if all(slot_done):
             continue
@@ -409,15 +434,17 @@ def decode_continuous(engine, clips: Sequence[np.ndarray], slots: int = 32,
             loop = pbatch.batched_decode_loop(engine.dec_params, cfg, kv, mine.stop - mine.start,
                                               perf, natural=True, group=model_axis,
                                               data_group=mesh_mod.data_group(engine))
-        t_dec = bs_mod._now_ms()
         shadow_ms = 0.0
-        buf_h, count, replays = loop.run(
-            tokens_dev, clock, steps, row_active=np.asarray([not d for d in slot_done])[mine],
-            rope_offset=rope_off[mine], kv_min=kv_min, prompt_max=prompt_max[mine],
-            region_start=region_min[mine], shadow=shadow)
+        with perf.span("serve.decode", device=True,
+                       arg=lambda: {"clock": clock, "clips": [slot_clip[s] for s in range(S)
+                                                              if not slot_done[s]]}) as span:
+            buf_h, count, replays = loop.run(
+                tokens_dev, clock, steps, row_active=np.asarray([not d for d in slot_done])[mine],
+                rope_offset=rope_off[mine], kv_min=kv_min, prompt_max=prompt_max[mine],
+                region_start=region_min[mine], shadow=shadow)
         tokens_dev = loop.tok
         # a wave dispatched in the shadow counts in prefill ms, not here
-        perf.batch_decode_ms += bs_mod._now_ms() - t_dec - shadow_ms
+        perf.batch_decode_ms += span.ms - shadow_ms
         perf.batch_decode_steps += replays
         # behind the chunk: keep the encode queue ahead of admission and
         # dispatch the next wave before any slot frees, where the chunk's
@@ -427,14 +454,14 @@ def decode_continuous(engine, clips: Sequence[np.ndarray], slots: int = 32,
         if standby is None and admitted < n:
             standby = _prepare_wave(_next_wave_rows())
         tokens_h = loop.tokens_h.copy()    # every rank's, from the chunk's one read
-        now = time.monotonic()
+        now = time.perf_counter()
         if count == 0:
             # every active row's current token was already EOS
             for s in range(S):
                 if not slot_done[s]:
                     slot_done[s] = True
                     emitted += 1
-                    t_done[slot_clip[s]] = now - t0
+                    t_done[slot_clip[s]] = now - t_call
             continue
         for s in range(S):
             if slot_done[s]:
@@ -452,11 +479,15 @@ def decode_continuous(engine, clips: Sequence[np.ndarray], slots: int = 32,
             if last in EOS_TOKEN_IDS or produced[s] >= engine.max_tokens:
                 slot_done[s] = True
                 emitted += 1
-                t_done[i] = now - t0
+                t_done[i] = now - t_call
         clock += count
 
-    perf.decode_ms += (time.monotonic() - t0) * 1000.0
+    perf.decode_ms += (time.perf_counter() - t_loop) * 1000.0
     perf.settle_mel()
+    t_first = np.zeros(n)
+    for record in waves:
+        t_first[record["clips"][:len(record["admit_wait_ms"])]] = \
+            np.asarray(record["admit_wait_ms"]) / 1000.0
     # steady-state admit -> first drops the first wave's cold-prefill clips
     # (all clips when everything fit in one wave)
     steady = (np.delete(t_admit_first, first_wave_ids)

@@ -186,6 +186,7 @@ class StreamState:
         self.max_new = engine.stream_max_new_tokens or 32
 
         engine.perf.reset()
+        engine.perf.decode_device = True    # finalize settles the decode loop's events
         engine.prepare_prompt()
         self.tok = engine.tokenizer
         self.forced = bool(engine._force_tokens)
@@ -289,6 +290,10 @@ class StreamState:
         when the chunk is skipped (encoder starvation / empty audio) — the
         chunk index has already advanced in that case — and NOT_READY when
         a `nowait` live session's audio has not arrived (nothing advanced)."""
+        with self.engine.perf.span("stream.begin", arg=self.chunk_idx):
+            return self._begin_chunk()
+
+    def _begin_chunk(self) -> Optional[ChunkWork]:
         engine = self.engine
         if self.live is not None and not self._ingest_live():
             return NOT_READY
@@ -301,59 +306,62 @@ class StreamState:
                       and self.audio_cursor >= self.total_samples)
 
         # ---- encoder: cached windows + partial tail -------------------
-        t0 = time.monotonic() * 1000.0
-        ews = self.enc_window_samples
-        w.full_end = (self.audio_cursor // ews) * ews
-        segs = []       # list of (arr, seq, sig_tag)
-        if not self.use_enc_cache:
-            arr, seq = _encode_span(
-                engine, self.local[: self.audio_cursor - self.local_base])
-            if seq <= 0:
-                self.chunk_idx += 1
-                return None
-            self.partial_uid += 1
-            segs = [(arr, seq, self.partial_uid)]
-            enc_seq_len = seq
-        else:
-            pre_windows, pre_tail = self._pre_windows or {}, self._pre_tail
-            # pre-encodes are single-round: cleared on every exit path
-            self._pre_windows = self._pre_tail = None
-            while self.enc_cache.next_window_start < w.full_end:
-                ws = self.enc_cache.next_window_start
-                lo = ws - self.local_base
-                if lo < 0 or lo + ews > len(self.local):
-                    self.chunk_idx += 1
-                    return None
-                pw = pre_windows.pop(ws, None)
-                arr, seq = pw if pw is not None else _encode_span(engine, self.local[lo : lo + ews])
+        # no synchronise: the prompt is built while the encoder runs; the
+        # span's device ms goes into encode_ms when the call settles
+        arg = self.chunk_idx
+        with engine.perf.span("stream.encode", device=True, arg=arg) as span:
+            ews = self.enc_window_samples
+            w.full_end = (self.audio_cursor // ews) * ews
+            segs = []       # list of (arr, seq, sig_tag)
+            if not self.use_enc_cache:
+                arr, seq = _encode_span(
+                    engine, self.local[: self.audio_cursor - self.local_base])
                 if seq <= 0:
                     self.chunk_idx += 1
                     return None
-                self.enc_cache.append(ws, arr, seq)
-                self.enc_cache.next_window_start += ews
-            if self.enc_cache.evict_to(MAX_ENC_WINDOWS):
-                _monitor(engine, "⟳")
-
-            partial_arr, partial_seq = (None, 0)
-            if w.full_end < self.audio_cursor:
-                if pre_tail is not None and pre_tail[0] == (w.full_end, self.audio_cursor):
-                    partial_arr, partial_seq = pre_tail[1], pre_tail[2]
-                else:
-                    lo = w.full_end - self.local_base
-                    partial_arr, partial_seq = _encode_span(
-                        engine, self.local[lo : self.audio_cursor - self.local_base])
-
-            segs = [(arr, seq, uid)
-                    for (_, arr, seq, uid) in self.enc_cache.windows]
-            if partial_seq > 0:
                 self.partial_uid += 1
-                segs.append((partial_arr, partial_seq, self.partial_uid))
-            enc_seq_len = sum(s[1] for s in segs)
-            if enc_seq_len <= 0:
-                self.chunk_idx += 1
-                return None
-        engine._sync()
-        engine.perf.encode_ms += time.monotonic() * 1000.0 - t0
+                segs = [(arr, seq, self.partial_uid)]
+                enc_seq_len = seq
+            else:
+                pre_windows, pre_tail = self._pre_windows or {}, self._pre_tail
+                # pre-encodes are single-round: cleared on every exit path
+                self._pre_windows = self._pre_tail = None
+                while self.enc_cache.next_window_start < w.full_end:
+                    ws = self.enc_cache.next_window_start
+                    lo = ws - self.local_base
+                    if lo < 0 or lo + ews > len(self.local):
+                        self.chunk_idx += 1
+                        return None
+                    pw = pre_windows.pop(ws, None)
+                    arr, seq = (pw if pw is not None
+                                else _encode_span(engine, self.local[lo : lo + ews]))
+                    if seq <= 0:
+                        self.chunk_idx += 1
+                        return None
+                    self.enc_cache.append(ws, arr, seq)
+                    self.enc_cache.next_window_start += ews
+                if self.enc_cache.evict_to(MAX_ENC_WINDOWS):
+                    _monitor(engine, "⟳")
+
+                partial_arr, partial_seq = (None, 0)
+                if w.full_end < self.audio_cursor:
+                    if pre_tail is not None and pre_tail[0] == (w.full_end, self.audio_cursor):
+                        partial_arr, partial_seq = pre_tail[1], pre_tail[2]
+                    else:
+                        lo = w.full_end - self.local_base
+                        partial_arr, partial_seq = _encode_span(
+                            engine, self.local[lo : self.audio_cursor - self.local_base])
+
+                segs = [(arr, seq, uid)
+                        for (_, arr, seq, uid) in self.enc_cache.windows]
+                if partial_seq > 0:
+                    self.partial_uid += 1
+                    segs.append((partial_arr, partial_seq, self.partial_uid))
+                enc_seq_len = sum(s[1] for s in segs)
+                if enc_seq_len <= 0:
+                    self.chunk_idx += 1
+                    return None
+            span.into = "encode_ms"
         _monitor(engine, "▶")
 
         # assemble the audio embedding block on the device, padded to a
@@ -366,37 +374,38 @@ class StreamState:
         w.enc_seq_len = enc_seq_len
 
         # ---- prompt + prefix rollback ---------------------------------
-        n_prefix_full = 0
-        n_prefix = 0
-        prefix_offset = 0
-        if (engine.past_text_conditioning and self.chunk_idx >= self.unfixed_chunks
-                and self.raw_tokens):
-            n_prefix_full = max(len(self.raw_tokens) - self.rollback, 0)
-            n_prefix = n_prefix_full
-            if n_prefix > MAX_PREFIX_TOKENS:
-                n_prefix = MAX_PREFIX_TOKENS
-                prefix_offset = n_prefix_full - n_prefix
-        prefix_tokens = self.raw_tokens[prefix_offset : prefix_offset + n_prefix]
-        w.n_prefix = n_prefix
-        w.n_prefix_full = n_prefix_full
+        with engine.perf.span("stream.prompt", arg=arg):
+            n_prefix_full = 0
+            n_prefix = 0
+            prefix_offset = 0
+            if (engine.past_text_conditioning and self.chunk_idx >= self.unfixed_chunks
+                    and self.raw_tokens):
+                n_prefix_full = max(len(self.raw_tokens) - self.rollback, 0)
+                n_prefix = n_prefix_full
+                if n_prefix > MAX_PREFIX_TOKENS:
+                    n_prefix = MAX_PREFIX_TOKENS
+                    prefix_offset = n_prefix_full - n_prefix
+            prefix_tokens = self.raw_tokens[prefix_offset : prefix_offset + n_prefix]
+            w.n_prefix = n_prefix
+            w.n_prefix_full = n_prefix_full
 
-        w.ids, w.audio_start = prompt_mod.build_stream_prompt(
-            self.cfg, enc_seq_len, engine._prompt_tokens, engine._force_tokens,
-            prefix_tokens)
+            w.ids, w.audio_start = prompt_mod.build_stream_prompt(
+                self.cfg, enc_seq_len, engine._prompt_tokens, engine._force_tokens,
+                prefix_tokens)
 
-        # prompt signature for KV reuse (token ids + audio row identities)
-        signature: List = [("t", t) for t in w.ids[: w.audio_start]]
-        for (_, seq, uid) in segs:
-            signature += [("a", uid, i) for i in range(seq)]
-        signature += [("t", t) for t in w.ids[w.audio_start + enc_seq_len :]]
+            # prompt signature for KV reuse (token ids + audio row identities)
+            signature: List = [("t", t) for t in w.ids[: w.audio_start]]
+            for (_, seq, uid) in segs:
+                signature += [("a", uid, i) for i in range(seq)]
+            signature += [("t", t) for t in w.ids[w.audio_start + enc_seq_len :]]
 
-        reused = 0
-        if self.prev_signature is not None:
-            m = min(len(self.prev_signature), len(signature))
-            while reused < m and self.prev_signature[reused] == signature[reused]:
-                reused += 1
-        w.reused = reused
-        self.prev_signature = signature
+            reused = 0
+            if self.prev_signature is not None:
+                m = min(len(self.prev_signature), len(signature))
+                while reused < m and self.prev_signature[reused] == signature[reused]:
+                    reused += 1
+            w.reused = reused
+            self.prev_signature = signature
         return w
 
     def note_prefill(self, w: ChunkWork, total_len: int, prefill_ms: float):
@@ -415,6 +424,11 @@ class StreamState:
                      n_generated: int, decode_ms: float):
         """History update, text parse, commit frontier, recovery / periodic
         resets, live buffer trim, perf accounting."""
+        with self.engine.perf.span("stream.commit", arg=self.chunk_idx):
+            self._finish_chunk(w, chunk_tokens, n_generated, decode_ms)
+
+    def _finish_chunk(self, w: ChunkWork, chunk_tokens: List[int],
+                      n_generated: int, decode_ms: float):
         engine = self.engine
         engine.perf.decode_ms += decode_ms
         # mirrors qwen_asr.c:2011 exactly: max-length detection looks only at
@@ -548,6 +562,8 @@ class StreamState:
 
     def finalize(self) -> str:
         engine = self.engine
+        engine.perf.settle_mel()    # the chunks' device spans: encode_ms
+        engine.perf.decode_device = False
         if engine.verbose >= 2 and self.prefill_total > 0:
             pct = 100.0 * self.prefill_reused / self.prefill_total
             print(f"  Prefill reuse: {self.prefill_reused}/{self.prefill_total} "
@@ -569,19 +585,22 @@ def run_solo_chunk(state: StreamState, w: ChunkWork):
     B2 at start_pos = reused), then the greedy decode loop of at most
     max_new tokens on the same cache."""
     engine = state.engine
-    t0 = time.monotonic() * 1000.0
-    first, total_len = engine.prefill_with_reuse(
-        w.ids, w.audio_block, w.audio_start, w.enc_seq_len, w.reused)
-    first = int(first)
-    state.note_prefill(w, total_len, time.monotonic() * 1000.0 - t0)
+    perf = engine.perf
+    arg = state.chunk_idx
+    with perf.span("stream.chunk", arg=arg):
+        with perf.span("stream.prefill", device=True, arg=arg) as span:
+            first, total_len = engine.prefill_with_reuse(
+                w.ids, w.audio_block, w.audio_start, w.enc_seq_len, w.reused)
+            with perf.span("stream.wait_first", arg=arg):
+                first = int(first)
+        state.note_prefill(w, total_len, span.ms)
 
-    t0 = time.monotonic() * 1000.0
-    chunk_tokens: List[int] = []
-    n_generated = engine.decode_greedy(
-        first, total_len, state.max_new,
-        lambda t: (chunk_tokens.append(t) or True))
-    decode_ms = time.monotonic() * 1000.0 - t0
-    state.finish_chunk(w, chunk_tokens, n_generated, decode_ms)
+        chunk_tokens: List[int] = []
+        with perf.span("stream.decode", arg=arg) as span:
+            n_generated = engine.decode_greedy(
+                first, total_len, state.max_new,
+                lambda t: (chunk_tokens.append(t) or True))
+        state.finish_chunk(w, chunk_tokens, n_generated, span.ms)
 
 
 def _stream_impl(engine, samples: Optional[np.ndarray], live) -> Optional[str]:
@@ -596,10 +615,11 @@ def _stream_impl(engine, samples: Optional[np.ndarray], live) -> Optional[str]:
         text, _ = engine.transcribe_segment(samples)
         return text
 
-    state = StreamState(engine, samples, live)
-    while state.active():
-        w = state.begin_chunk()
-        if w is None:
-            continue
-        run_solo_chunk(state, w)
-    return state.finalize()
+    with engine.perf.span("stream.session"):
+        state = StreamState(engine, samples, live)
+        while state.active():
+            w = state.begin_chunk()
+            if w is None:
+                continue
+            run_solo_chunk(state, w)
+        return state.finalize()

@@ -272,3 +272,6 @@ def test_cli_profile_writes_trace(visible_model, tmp_path):
     assert f"profile trace written to {tmp_path / 'prof'}" in r.stderr.decode()
     trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
     assert trace["traceEvents"]
+    # the program's spans ride along as ranges (runtime/perf.py)
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert {"smolvision.decode.loop", "smolvision.decode.wait_read"} <= names

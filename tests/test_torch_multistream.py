@@ -353,12 +353,29 @@ def test_batched_matches_threaded(engines, monkeypatch):
     """SMOLVISION_BATCH_STREAMS=0: one thread per session on the
     single-stream path; the same tokens and texts as the batched mode,
     every field of the solo streams (the same computation), and the same
-    again from live sources."""
+    again from live sources.  A session settles its device spans holding
+    the turn (the settle waits on events, which another session's graph
+    capture refuses)."""
     sources = clips((3, 4, 5), seed=1)
     rec = Recorder(monkeypatch)
     both = rec.run(lambda: tms.run_streams(engines["torch"], sources))
     monkeypatch.setenv("SMOLVISION_BATCH_STREAMS", "0")
+    turns, held = [], []
+    init, finalize = tms.StreamSession.__init__, tstream.StreamState.finalize
+
+    def session_init(self, *a, **k):
+        init(self, *a, **k)
+        turns.append(self.turn)
+
+    def session_finalize(self):
+        if turns:
+            held.append(turns[-1].locked())
+        return finalize(self)
+
+    monkeypatch.setattr(tms.StreamSession, "__init__", session_init)
+    monkeypatch.setattr(tstream.StreamState, "finalize", session_finalize)
     threaded = rec.run(lambda: tms.run_streams(engines["torch"], sources))
+    assert held == [True] * len(sources)
     assert tokens_and_pieces(threaded[1]) == tokens_and_pieces(both[1])
     assert threaded[0] == both[0]
     assert threaded[1] == solo_runs(rec, engines["torch"], sources)[1]

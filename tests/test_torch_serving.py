@@ -200,6 +200,17 @@ def test_wave_graphs_pool_capture_replay_and_shadow(engines, monkeypatch):
     assert [(w["rows"], w["how"], w["shadow"]) for w in waves] == [
         (2, "first", False), (2, "capture", True), (2, "replay", True), (1, "first", True)]
     assert all("read_ms" in w for w in waves)
+    # each record: no device ms on the CPU, one admission time per clip (pad
+    # rows none), the serving latency's first-token times the same numbers
+    assert [(w["device_ms"], len(w["clips"]), len(w["admit_wait_ms"])) for w in waves] == [
+        (None, 2, 2), (None, 2, 2), (None, 2, 2), (None, 1, 1)]
+    admit = sorted(ms for w in waves for ms in w["admit_wait_ms"])
+    assert teng.perf.serving_latency["ttft_min_ms"] == round(admit[0], 1)
+    spans = teng.perf.spans
+    assert spans["serve.call"].count == 1 and spans["serve.wave"].count == 4
+    assert spans["serve.wait_first"].count == spans["serve.admit"].count == 4
+    assert teng.perf.prefill_ms == pytest.approx(spans["serve.wave"].host_ms
+                                                 + spans["serve.wait_first"].host_ms)
     assert ffi.launch_counts["batched_cache_attention"] - before == 4 * L
     assert teng.perf.delta_prefills == 4 and teng.perf.prefill_replays == 2
     assert [type(fn.__self__) for fn in captured].count(decode_graph.WaveGraph) == 1

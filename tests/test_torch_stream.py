@@ -18,7 +18,6 @@ conditioning and KV reuse run on every chunk.
 
 import json
 import os
-from types import SimpleNamespace
 from typing import List
 
 import numpy as np
@@ -35,7 +34,7 @@ from smolvision_tpu.runtime.engine import Engine as JEngine
 from smolvision_tpu_torch.config import QWEN3_ASR_06B as T_06B
 from smolvision_tpu_torch.runtime import prompt as tprompt
 from smolvision_tpu_torch.runtime import stream as tstream
-from smolvision_tpu_torch.runtime.engine import Engine
+from smolvision_tpu_torch.runtime.engine import Engine, PerfStats
 
 SR = 16000
 
@@ -166,10 +165,7 @@ class FakeEngine:
         self.monitor = False
         self.max_tokens = 2048
         self.token_cb = None
-        self.perf = SimpleNamespace(
-            reset=lambda: None, encode_ms=0.0, decode_ms=0.0, prefill_ms=0.0, total_ms=0.0,
-            text_tokens=0, audio_ms=0.0, stream_chunk_ms=[],
-            stream_first_commit_ms=None, stream_latency=lambda: None)
+        self.perf = PerfStats()
         self._prompt_tokens: List[int] = []
         self._force_tokens: List[int] = []
         self.tokenizer = _Tok()
@@ -329,17 +325,38 @@ def _check_stream_equal(jeng, eng, audio):
     return got
 
 
-def test_stream_per_chunk_matches_jax(engines):
+def test_stream_per_chunk_matches_jax(engines, monkeypatch):
     """6 chunks over 11 s: one 8 s window cached from the 4th chunk, the
     prefix conditioning from the 3rd; every chunk after the first reuses
-    cached rows (B2 at start > 0)."""
+    cached rows (B2 at start > 0).  The chunks' tokens are the JAX
+    package's with no synchronise of the engine anywhere in the stream
+    (the encode's device ms is settled at the end); each chunk records its
+    spans once."""
     jeng, eng = engines
+    syncs, device_spans = [], []
+    monkeypatch.setattr(eng, "_sync", lambda: syncs.append(1))
+    greedy = eng.decode_greedy
+
+    def decode_greedy(*a):
+        device_spans.append(eng.perf.decode_device)
+        return greedy(*a)
+
+    monkeypatch.setattr(eng, "decode_greedy", decode_greedy)
     chunks, text = _check_stream_equal(jeng, eng, speech(11.0, seed=1))
-    assert len(chunks) == 6 and text
+    assert len(chunks) == 6 and text and not syncs
+    # the decode loop's device span is on only inside the stream, which
+    # settles it
+    assert device_spans and all(device_spans) and not eng.perf.decode_device
     assert all(c[1] > 0 for c in chunks[1:])
     assert eng.perf.reuse_prefills == 5
     first, p50, p99 = eng.perf.stream_latency()
     assert first is not None and 0 < p50 <= p99
+    spans = eng.perf.spans
+    assert all(spans[f"stream.{n}"].count == 6 for n in
+               ("begin", "encode", "prompt", "chunk", "prefill", "wait_first", "decode", "commit"))
+    assert spans["decode.loop"].count <= 6 and spans["decode.wait_read"].count >= 1
+    assert eng.perf.encode_ms == pytest.approx(spans["stream.encode"].host_ms)
+    assert eng.perf.prefill_ms == pytest.approx(spans["stream.prefill"].host_ms)
 
 
 def test_stream_per_chunk_matches_jax_1s_windows(windowed_engines, capfd):
